@@ -1,0 +1,95 @@
+# The plain PyTorch version of the segmented-reduction kernels: the same
+# contract as kernel.py's CUDA kernel and as the JAX package's
+# kernels/segreduce (masked rows contribute the op's identity, empty segments
+# hold it, int32 sums wrap, sub-f32 floats accumulate in f32 and are cast
+# back, N == 0 returns identities).  The wrappers in ops.py run it for
+# tensors on the CPU; chip_smoke.py holds the kernel against it on the card.
+from __future__ import annotations
+
+from typing import Optional, Sequence, Tuple
+
+import torch
+
+# Ops the segmented-aggregation kernels evaluate (the engine's '+' is mapped
+# to 'sum' by backends/torch_vec).  COUNT and AVG lower to these at the
+# frontend: COUNT is a sum of ones, AVG a sum/count pair.
+OPS = ("sum", "max", "min")
+
+_REDUCE = {"max": "amax", "min": "amin"}
+
+
+def op_identity(op: str, dtype: torch.dtype):
+    """Identity element of ``op`` for ``dtype`` as a Python scalar: what
+    masked and padded rows contribute.  Integer MIN/MAX use the iinfo
+    extremes (a float -inf sentinel is wrong for integer accumulators),
+    float MIN/MAX use ±inf."""
+    if op == "sum":
+        return 0
+    if op not in ("max", "min"):
+        raise ValueError(f"unknown segreduce op {op!r}")
+    if dtype.is_floating_point:
+        return float("-inf") if op == "max" else float("inf")
+    info = torch.iinfo(dtype)
+    return info.min if op == "max" else info.max
+
+
+def acc_dtype(dtype: torch.dtype) -> torch.dtype:
+    """Accumulator dtype for a value column: preserved, except sub-f32
+    floats (bf16/f16), which accumulate in f32 and are cast back."""
+    if dtype.is_floating_point and dtype.itemsize < 4:
+        return torch.float32
+    return dtype
+
+
+def _reduce_into(keys: torch.Tensor, values: torch.Tensor, num_keys: int, op: str) -> torch.Tensor:
+    dt = acc_dtype(values.dtype)
+    out = torch.full((num_keys,), op_identity(op, dt), dtype=dt, device=values.device)
+    idx = keys.long()
+    if op == "sum":
+        return out.index_add_(0, idx, values.to(dt))
+    return out.scatter_reduce_(0, idx, values.to(dt), reduce=_REDUCE[op], include_self=True)
+
+
+def segreduce_ref(
+    keys: torch.Tensor, values: torch.Tensor, num_keys: int, op: str = "sum"
+) -> torch.Tensor:
+    """Group-by aggregation: out[k] = op over values[i] where keys[i] == k.
+    Input dtype preserved; empty segments hold the op's identity."""
+    if op not in OPS:
+        raise ValueError(f"unknown segreduce op {op!r}")
+    return _reduce_into(keys, values, num_keys, op).to(values.dtype)
+
+
+def fused_segreduce_ref(
+    keys: torch.Tensor,
+    values: Sequence[torch.Tensor],
+    ops: Sequence[str],
+    num_keys: int,
+    mask: Optional[torch.Tensor] = None,
+    with_presence: bool = True,
+) -> Tuple[Tuple[torch.Tensor, ...], Optional[torch.Tensor]]:
+    """``values[i]`` aggregated under ``ops[i]``; rows with ``mask == False``
+    are funnelled to key 0 carrying each op's identity.  Returns ``(accs,
+    presence)``, where ``presence[k]`` counts the unmasked rows of segment k
+    (None when ``with_presence=False``)."""
+    if len(values) != len(ops):
+        raise ValueError(f"{len(values)} value columns but {len(ops)} ops")
+    for op in ops:
+        if op not in OPS:
+            raise ValueError(f"unknown segreduce op {op!r}")
+    keys = keys.to(torch.int32)
+    if mask is not None:
+        mask = mask.to(torch.bool)
+        keys = torch.where(mask, keys, 0)
+    accs = []
+    for op, v in zip(ops, values):
+        if mask is not None:
+            v = torch.where(mask, v, torch.tensor(op_identity(op, v.dtype), dtype=v.dtype, device=v.device))
+        accs.append(_reduce_into(keys, v, num_keys, op).to(v.dtype))
+    pres = None
+    if with_presence:
+        ones = torch.ones(keys.shape, dtype=torch.int32, device=keys.device)
+        if mask is not None:
+            ones = torch.where(mask, ones, 0)
+        pres = _reduce_into(keys, ones, num_keys, "sum")
+    return tuple(accs), pres

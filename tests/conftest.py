@@ -13,3 +13,9 @@ os.environ.setdefault("REPRO_VERIFY_IR", "1")
 @pytest.fixture(scope="session")
 def rng():
     return np.random.default_rng(0)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "requires_cuda: needs a CUDA card; skips where torch sees none"
+    )

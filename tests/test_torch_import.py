@@ -1,0 +1,52 @@
+# The PyTorch port stands alone: importing it and its main modules loads
+# neither jax nor any module of the JAX package ``repro``.
+import json
+import os
+import re
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|repro)(\.|\s|$)")
+
+_PROBE = """
+import json, sys
+import repro_torch
+import repro_torch.engine.session
+import repro_torch.core.passes
+import repro_torch.planner
+import repro_torch.backends.torch_vec
+import repro_torch.backends.reference
+import repro_torch.kernels.segreduce.ops
+import repro_torch.kernels.segreduce.kernel
+import repro_torch.frontends.sql
+import repro_torch.frontends.mapreduce
+import repro_torch.analysis
+import repro_torch.obs
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m == "repro" or m.startswith("repro."))
+print(json.dumps(bad))
+"""
+
+
+def test_import_loads_neither_jax_nor_repro():
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    out = subprocess.run(
+        [sys.executable, "-c", _PROBE], capture_output=True, text=True, env=env, timeout=120
+    )
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+def test_port_sources_name_neither_jax_nor_repro():
+    """No import line of the port or of chip_smoke.py names jax or repro."""
+    files = [os.path.join(ROOT, "chip_smoke.py")]
+    for base, _, names in os.walk(os.path.join(ROOT, "src", "repro_torch")):
+        files += [os.path.join(base, n) for n in names if n.endswith(".py")]
+    bad = []
+    for path in files:
+        with open(path) as fh:
+            for ln, line in enumerate(fh, 1):
+                if _FORBIDDEN.match(line):
+                    bad.append(f"{path}:{ln}: {line.strip()}")
+    assert bad == []

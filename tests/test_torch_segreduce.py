@@ -1,0 +1,215 @@
+# The port's segmented-reduction wrappers against the JAX package's: the
+# plain PyTorch version (what the wrappers run for CPU tensors) against the
+# Pallas kernel in interpret mode and the jnp fallback, over the fused
+# differential matrix of test_kernels.py — query ops {SUM, COUNT, MIN, MAX,
+# AVG} × {int32, f32} × {unfiltered, filtered} × {empty table, empty groups,
+# single tile, multi tile} — plus bf16 accumulation, the int32 edge cases and
+# partial-merge associativity.  Inputs are numpy, made from a seed, and go
+# through both packages.  Integers must match exactly; floats within
+# rtol 1e-5 / atol 1e-5, because the two sum in different orders.  The CUDA
+# kernel itself is held against the plain version by test_torch_cuda.py and
+# chip_smoke.py on the card.
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from repro.kernels.segreduce.kernel import fused_segreduce_pallas, segreduce_pallas
+from repro.kernels.segreduce.ref import fused_segreduce_ref as jax_fused_ref
+from repro_torch.kernels.segreduce import kernel as cuda_kernel
+from repro_torch.kernels.segreduce import ops
+from repro_torch.kernels.segreduce.ref import op_identity
+
+# (n rows, num_keys, key range) — the reference kernel's row tile is 1024,
+# so multi_tile spans 5 of its tiles; empty_groups leaves keys [8, 64) empty
+_SHAPES = {
+    "empty_table": (0, 16, 16),
+    "empty_groups": (200, 64, 8),
+    "single_tile": (300, 16, 16),
+    "multi_tile": (5000, 16, 16),
+}
+_MERGE = {"sum": np.add, "max": np.maximum, "min": np.minimum}
+_TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+def _lowering(qop, vals):
+    """One query-level aggregate as kernel (columns, ops), as the SQL
+    frontend lowers it: COUNT is a sum of ones, AVG a SUM/COUNT pair."""
+    ones = np.ones(vals.shape[0], np.int32)
+    return {
+        "SUM": ([vals], ["sum"]),
+        "COUNT": ([ones], ["sum"]),
+        "MIN": ([vals], ["min"]),
+        "MAX": ([vals], ["max"]),
+        "AVG": ([vals, ones], ["sum", "sum"]),
+    }[qop]
+
+
+def _inputs(seed, shape, dtype, filtered):
+    rng = np.random.default_rng(seed)
+    n, num_keys, key_range = _SHAPES[shape]
+    keys = rng.integers(0, key_range, n).astype(np.int32)
+    if dtype == "int32":
+        vals = rng.integers(-50, 50, n).astype(np.int32)
+    else:
+        vals = rng.normal(size=n).astype(np.float32)
+    mask = rng.integers(0, 2, n).astype(bool) if filtered else np.ones(n, bool)
+    return keys, vals, mask, num_keys
+
+
+def _port(keys, cols, ops_, num_keys, mask):
+    accs, pres = ops.fused_segreduce(
+        torch.from_numpy(keys),
+        tuple(torch.from_numpy(c) for c in cols),
+        tuple(ops_),
+        num_keys,
+        mask=torch.from_numpy(mask),
+    )
+    return [a.numpy() for a in accs], pres.numpy()
+
+
+def _jax(impl, keys, cols, ops_, num_keys, mask):
+    fn = fused_segreduce_pallas if impl == "pallas" else jax_fused_ref
+    kwargs = {"interpret": True} if impl == "pallas" else {}
+    accs, pres = fn(
+        jnp.asarray(keys), tuple(jnp.asarray(c) for c in cols), tuple(ops_), num_keys,
+        mask=jnp.asarray(mask), **kwargs,
+    )
+    return [np.asarray(a) for a in accs], np.asarray(pres)
+
+
+def _assert_same(got, want, dtype):
+    assert got.dtype == want.dtype, (got.dtype, want.dtype)
+    if np.issubdtype(got.dtype, np.integer):
+        np.testing.assert_array_equal(got, want)
+    else:
+        np.testing.assert_allclose(got.astype(np.float64), want.astype(np.float64), **_TOL)
+
+
+@pytest.mark.parametrize("shape", list(_SHAPES))
+@pytest.mark.parametrize("filtered", [False, True], ids=["unfiltered", "filtered"])
+@pytest.mark.parametrize("dtype", ["int32", "float32"])
+@pytest.mark.parametrize("qop", ["SUM", "COUNT", "MIN", "MAX", "AVG"])
+def test_fused_matrix_matches_jax(qop, dtype, filtered, shape):
+    keys, vals, mask, num_keys = _inputs(11, shape, dtype, filtered)
+    cols, ops_ = _lowering(qop, vals)
+    got, got_pres = _port(keys, cols, ops_, num_keys, mask)
+    for impl in ("pallas", "jnp"):
+        want, want_pres = _jax(impl, keys, cols, ops_, num_keys, mask)
+        np.testing.assert_array_equal(got_pres, want_pres)
+        for g, w, c in zip(got, want, cols):
+            assert g.dtype == c.dtype
+            _assert_same(g, w, c.dtype)
+
+
+@pytest.mark.parametrize("op", ["sum", "max", "min"])
+def test_bf16_accumulates_in_f32_like_pallas(op):
+    rng = np.random.default_rng(3)
+    keys = rng.integers(0, 33, 700).astype(np.int32)
+    vals = rng.normal(size=700).astype(np.float32)
+    mask = rng.integers(0, 3, 700) > 0
+    (got,), _ = ops.fused_segreduce(
+        torch.from_numpy(keys), (torch.from_numpy(vals).to(torch.bfloat16),), (op,), 33,
+        mask=torch.from_numpy(mask),
+    )
+    (want,), _ = fused_segreduce_pallas(
+        jnp.asarray(keys), (jnp.asarray(vals).astype(jnp.bfloat16),), (op,), 33,
+        mask=jnp.asarray(mask), interpret=True,
+    )
+    assert got.dtype == torch.bfloat16
+    # both accumulate in f32 and round once to bf16
+    np.testing.assert_allclose(
+        got.float().numpy(), np.asarray(want, np.float32), rtol=1e-2, atol=1e-2
+    )
+
+
+@pytest.mark.parametrize("op", ["sum", "max", "min"])
+@pytest.mark.parametrize("dtype", ["int32", "float32"])
+def test_single_op_matches_segreduce_pallas(op, dtype):
+    rng = np.random.default_rng(5)
+    keys = rng.integers(0, 40, 3000).astype(np.int32)
+    vals = (rng.integers(-9, 9, 3000) if dtype == "int32" else rng.normal(size=3000)).astype(dtype)
+    got = ops.segreduce(torch.from_numpy(keys), torch.from_numpy(vals), 41, op=op).numpy()
+    want = np.asarray(segreduce_pallas(jnp.asarray(keys), jnp.asarray(vals), 41, op=op))
+    _assert_same(got, want, vals.dtype)
+
+
+def test_int32_sum_wraps_and_extremes_survive():
+    keys = torch.tensor([0, 0, 1, 1, 2], dtype=torch.int32)
+    vals = torch.tensor([2**31 - 1, 5, -(2**31) + 5, 7, -3], dtype=torch.int32)
+    (s, mx, mn), pres = ops.fused_segreduce(keys, (vals, vals, vals), ("sum", "max", "min"), 4)
+    (js, jmx, jmn), jpres = fused_segreduce_pallas(
+        jnp.asarray(keys.numpy()), (jnp.asarray(vals.numpy()),) * 3, ("sum", "max", "min"), 4,
+        interpret=True,
+    )
+    for got, want in ((s, js), (mx, jmx), (mn, jmn), (pres, jpres)):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert s.tolist()[0] == -(2**31) + 4  # wrapped, as JAX's int32
+    assert mx.tolist()[3] == torch.iinfo(torch.int32).min == op_identity("max", torch.int32)
+
+
+@pytest.mark.parametrize("n_chunks", [1, 3, 8])
+def test_partial_merge_associativity(n_chunks):
+    """Split the rows into chunks, reduce each, merge every accumulator
+    under its own op and presence under +: the whole-table result, and the
+    JAX package's whole-table result."""
+    rng = np.random.default_rng(7)
+    n, num_keys = 3000, 32
+    keys = rng.integers(0, num_keys, n).astype(np.int32)
+    vi = rng.integers(-100, 100, n).astype(np.int32)
+    vf = rng.normal(size=n).astype(np.float32)
+    mask = rng.integers(0, 3, n) > 0
+    cols, ops_ = [vi, vf, vi], ["sum", "max", "min"]
+    bounds = np.linspace(0, n, n_chunks + 1).astype(int)
+    accs, pres = [None] * 3, None
+    for lo, hi in zip(bounds[:-1], bounds[1:]):
+        part, ppres = _port(keys[lo:hi], [c[lo:hi] for c in cols], ops_, num_keys, mask[lo:hi])
+        for i, op in enumerate(ops_):
+            accs[i] = part[i] if accs[i] is None else _MERGE[op](accs[i], part[i])
+        pres = ppres if pres is None else pres + ppres
+    want, want_pres = _jax("pallas", keys, cols, ops_, num_keys, mask)
+    np.testing.assert_array_equal(pres, want_pres)
+    for got, w, c in zip(accs, want, cols):
+        _assert_same(got, w, c.dtype)
+
+
+def test_wrappers_reject_bad_inputs():
+    keys = torch.zeros(4, dtype=torch.int32)
+    with pytest.raises(ValueError):
+        ops.fused_segreduce(keys, (torch.zeros(4),), ("sum", "max"), 2)
+    with pytest.raises(ValueError):
+        ops.fused_segreduce(keys, (torch.zeros(3),), ("sum",), 2)
+    with pytest.raises(ValueError):
+        ops.segreduce(keys, torch.zeros(4), 2, op="mean")
+    with pytest.raises(ValueError):
+        ops.segreduce(keys, torch.zeros(4), 0)
+
+
+def test_cpu_tensors_launch_nothing():
+    ops.reset_launches()
+    ops.fused_segreduce(torch.zeros(4, dtype=torch.int32), (torch.ones(4),), ("sum",), 1)
+    ops.segreduce(torch.zeros(4, dtype=torch.int32), torch.ones(4), 1)
+    assert ops.LAUNCHES == {"fused_segreduce": 0, "segreduce": 0}
+
+
+def test_table_layout_regimes():
+    """With a float sum, small key spaces keep W per-warp tables of every key
+    in shared memory; large ones are cut into key ranges whose tables fit
+    there, with every key in some range and every row in some tile."""
+    smem, n_sms = 232_448, 132
+    lay = cuda_kernel.table_layout(5000, 100, 2, smem, n_sms)
+    assert lay.regime == 0 and lay.n_warps * lay.rows_per_warp >= 5000 and lay.rows_per_warp % 32 == 0
+    assert lay.n_warps % cuda_kernel.WARPS_PER_BLOCK == 0
+    for n, k, tables in [(60_000_000, 100_001, 2), (8_000_000, 2_000_001, 2), (1, 5000, 17)]:
+        lay = cuda_kernel.table_layout(n, k, tables, smem, n_sms)
+        assert lay.regime == 1 and lay.n_buckets * lay.keys_per_bucket >= k
+        assert cuda_kernel.WARPS_PER_BLOCK * tables * lay.keys_per_bucket * 4 <= smem
+        assert lay.n_tiles * cuda_kernel.TILE_ROWS >= n
+    assert cuda_kernel.table_layout(0, 1, 2, smem, n_sms).n_warps == cuda_kernel.WARPS_PER_BLOCK
+    # without a float sum every op is exact, so atomics serve any K
+    lay = cuda_kernel.table_layout(15_000_000, 1_500_000, 2, smem, n_sms, float_sum=False)
+    assert lay.regime == 2 and not lay.atomic_smem and lay.n_blocks >= 1
+    assert cuda_kernel.table_layout(100, 100, 2, smem, n_sms, float_sum=False).atomic_smem
+    with pytest.raises(ValueError):
+        cuda_kernel.table_layout(10, 2**31 - 1, 17, smem, n_sms)
