@@ -6,7 +6,8 @@
 Phases, each of which must pass for the exit code to be 0:
 
 1. environment: torch and CUDA versions, the card's name and power limit;
-2. build: the segreduce CUDA kernel from src/repro_torch/kernels/segreduce/csrc;
+2. build: the segreduce and flash-attention CUDA kernels from their sources
+   under src/repro_torch/kernels/*/csrc, one nvcc each, started together;
 3. kernel against its plain PyTorch version on the card: fused_segreduce
    and segreduce for sum/max/min over int32/f32/bf16, masked and unmasked,
    N in {0, 1, 5000, 60M} and K in {1, 100, 100001, 2000001}, plus whole
@@ -25,12 +26,35 @@ Phases, each of which must pass for the exit code to be 0:
    kernel's launch counters, and agree with a numpy float64 oracle (counts
    and minimums exactly, revenue within rtol 1e-4);
 5. the kernel at the shapes the main path gave it: its time, its bound, the
-   plain version's time and one PyTorch library call's time.
+   plain version's time and one PyTorch library call's time;
+6. the flash-attention kernel against its plain version
+   (flash_attention_plain) on the card: f32 and bf16, head dim 64/128/256,
+   GQA groups 1/2/12, causal or not, window 0/32/4096, softcap 0/50,
+   (Sq, Sk) in (1, 2112), (8, 128), (1000, 1000), (2047, 2047),
+   (8191, 8191); held to ``ref.KERNEL_TOL`` (per element rtol 2e-3 for f32
+   and 3e-2 for bf16 plus a small fraction of the output's rms, and a
+   relative Frobenius limit), each case run twice and required to be
+   bitwise equal;
+7. the LM serving path at gemma2-9b's full published width (42 layers,
+   d_model 3584, 9.24 B parameters drawn on the card from ``--seed``):
+   ``serve.step.generate``, greedy, for (a) 8 requests of 2048 prompt tokens
+   and 64 new ones, (b) one request of 8192 prompt tokens (twice the local
+   window) and 16 new ones; each run twice with bitwise-equal tokens, 42
+   flash launches per prefill, every flash call of the prefills held against
+   the plain version at its shape (``ref.KERNEL_TOL``), finite logits, and
+   for (b) the first decode step's logits against prefill_forward of the
+   prompt plus that token, within rtol/atol 0.15 and within DECODE_REL of
+   the largest logit; then the profiler's device time of one prefill and of
+   decode steps by kernel, against the decode step's wall time;
+8. the flash kernel at the serving path's shapes: its time, its bound, the
+   plain version's time, and scaled_dot_product_attention's (which has no
+   softcap and no window) beside the kernel's own time without them.
 
 What is cut from TPC-H: Q15 keeps only its revenue view (no outer max or
 supplier join); Q13 keeps its inner aggregate (no outer join's zero-count
 customers, no comment filter); Q2 keeps only its inner MIN (no region
-joins); dbgen is replaced by numpy.
+joins); dbgen is replaced by numpy.  Nothing of gemma2-9b is cut; its
+weights are random.
 
 The last lines are the kernels' JSON record and {"ok": true, "device": ...}.
 The script exits non-zero, printing neither, without a CUDA device or
@@ -52,6 +76,15 @@ SRC = os.path.join(ROOT, "src")
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 F32_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
+BF16_OPS_PER_S = 989e12     # H100 SXM bf16 tensor cores, dense
+DECODE_TOL = 0.15           # the JAX package's decode-consistency tolerance
+# the first decode step's largest logit error over its largest |logit|, as
+# read on sound runs: 0.0122 / 0.539 = 0.023 (gemma2-9b, scenario (b), seed 0,
+# NVIDIA H100 80GB HBM3 at 700 W)
+DECODE_REL = 0.05
+FLASH_SHAPES = ((1, 2112), (8, 128), (1000, 1000), (2047, 2047), (8191, 8191))  # (Sq, Sk)
+SERVE_ARCH = "gemma2-9b"
+SERVE_SCENARIOS = {"a": (8, 2048, 64), "b": (1, 8192, 16)}  # batch, prompt, new tokens
 
 # TPC-H dates as int32 day numbers since 1970-01-01
 START_DATE = int(np.datetime64("1992-01-01", "D").astype(np.int64))
@@ -473,30 +506,387 @@ def time_call(torch, ops, ref, name: str, args, kw) -> dict:
     }
 
 
-def kernel_passes(torch, fn, reps: int = 3) -> dict:
-    """Device ms per call of each CUDA kernel ``fn`` launches, from the
-    profiler's trace of the card.  The breakdown is a detail: a profiler
-    that cannot trace the card leaves it empty instead of failing the run."""
+def trace_card(torch, fn, reps: int = 1):
+    """Call ``fn`` ``reps`` times under the profiler: the averages of the
+    card's kernels, copies and fills, or None when the profiler cannot
+    trace the card (``fn`` runs all the same).  Only the profiler's start
+    and stop are guarded: a failure inside ``fn`` (a kernel that does not
+    launch) fails the run."""
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
     torch.cuda.synchronize()
+    prof = profile(activities=[ProfilerActivity.CUDA])
     try:
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-    except RuntimeError as e:
-        print(f"    (no per-pass breakdown: {e})", flush=True)
+        prof.start()
+    except (RuntimeError, AssertionError) as e:
+        print(f"    (the profiler cannot trace the card: {e})", flush=True)
+        prof = None
+    try:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    finally:
+        if prof is not None:
+            try:
+                prof.stop()
+            except (RuntimeError, AssertionError) as e:
+                print(f"    (the profiler cannot trace the card: {e})", flush=True)
+                prof = None
+    return None if prof is None else prof.key_averages()
+
+
+def device_us(ev) -> float:
+    us = getattr(ev, "device_time_total", None)
+    return us if us is not None else getattr(ev, "cuda_time_total", 0.0)
+
+
+def kernel_passes(torch, fn, reps: int = 3) -> dict:
+    """Device ms per call of each CUDA kernel ``fn`` launches, from the
+    profiler's trace of the card (empty when the profiler cannot trace it)."""
+    fn()
+    events = trace_card(torch, fn, reps)
+    if events is None:
         return {}
-    out = {}
-    for ev in prof.key_averages():
-        us = getattr(ev, "device_time_total", None)
-        if us is None:
-            us = getattr(ev, "cuda_time_total", 0.0)
-        if us > 0 and ev.key.startswith("seg_"):
-            out[ev.key.split("(")[0]] = us / 1e3 / reps
+    return {ev.key.split("(")[0]: device_us(ev) / 1e3 / reps
+            for ev in events if device_us(ev) > 0 and ev.key.startswith("seg_")}
+
+
+# ---------------------------------------------------------------------------
+# phase 2: the builds, one nvcc per source, started together
+# ---------------------------------------------------------------------------
+
+
+def build_all(libraries: dict) -> dict:
+    """Build (or load) every kernel library in parallel; seconds per build."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(len(libraries)) as pool:
+        futures = {name: pool.submit(lib.load) for name, lib in libraries.items()}
+        for fut in futures.values():
+            fut.result()
+    return {name: lib.build_seconds for name, lib in libraries.items()}
+
+
+# ---------------------------------------------------------------------------
+# phase 6: the flash kernel against its plain version
+# ---------------------------------------------------------------------------
+
+
+def unmasked_pairs(sq: int, sk: int, causal: bool, window: int) -> int:
+    """Query-key pairs the mask leaves, summed over the query rows."""
+    q = np.arange(sq, dtype=np.int64) + (sk - sq)
+    hi = np.minimum(q + 1, sk) if causal else np.full(sq, sk, np.int64)
+    lo = np.maximum(q - window + 1, 0) if window > 0 else np.zeros(sq, np.int64)
+    return int(np.maximum(hi - lo, 0).sum())
+
+
+def flash_bound(B: int, sq: int, sk: int, H: int, Hkv: int, D: int, elem: int,
+                causal: bool, window: int, bf16: bool) -> tuple:
+    """(bound_ms, bound_by): 4*D FLOPs per unmasked pair and head against
+    the card's peak for the input type, and q, k, v, o each moved once."""
+    flops = 4.0 * D * unmasked_pairs(sq, sk, causal, window) * B * H
+    nbytes = (2 * B * sq * H * D + 2 * B * sk * Hkv * D) * elem
+    t_ops = flops / (BF16_OPS_PER_S if bf16 else F32_OPS_PER_S) * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def flash_matrix(torch, flash_ops, plain, agreement, fails: Failures, seed: int) -> list:
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    results = []
+    for dname in ("float32", "bfloat16"):
+        dtype = getattr(torch, dname)
+        for sq, sk in FLASH_SHAPES:
+            t0 = time.perf_counter()
+            B, Hkv = (2, 2) if sk <= 2112 and sq <= 8 else (1, 1)
+            n_cases = bad = 0
+            worst = {"max_abs_err": 0.0, "worst": 0.0, "rel": 0.0}
+            for D in (64, 128, 256):
+                for G in (1, 2, 12):
+                    H = Hkv * G
+                    q = torch.randn(B, sq, H, D, device=dev, generator=gen).to(dtype)
+                    k = torch.randn(B, sk, Hkv, D, device=dev, generator=gen).to(dtype)
+                    v = torch.randn(B, sk, Hkv, D, device=dev, generator=gen).to(dtype)
+                    for causal in (True, False):
+                        for window in (0, 32, 4096):
+                            for cap in (0.0, 50.0):
+                                kw = dict(causal=causal, window=window, scale=D ** -0.5, logit_softcap=cap)
+                                a = flash_ops.flash_attention(q, k, v, **kw)
+                                b = flash_ops.flash_attention(q, k, v, **kw)
+                                want = plain(q, k, v, **kw)
+                                torch.cuda.synchronize()
+                                agree = agreement(a, want)
+                                ok = agree["ok"] and bitwise_equal(torch, a, b)
+                                worst = {x: max(worst[x], agree[x]) for x in worst}
+                                n_cases += 1
+                                what = (f"flash {dname} Sq={sq} Sk={sk} D={D} G={G} causal={causal} "
+                                        f"window={window} softcap={cap}: max_abs_err {agree['max_abs_err']:.3g}, "
+                                        f"worst/limit {agree['worst']:.3g}, rel {agree['rel']:.3g}")
+                                bad += not fails.check(ok, what)
+                    del q, k, v
+            dt = time.perf_counter() - t0
+            results.append({"dtype": dname, "sq": sq, "sk": sk, "cases": n_cases, "failed": bad,
+                            **worst, "seconds": dt})
+            print(f"  flash {dname:<8} Sq={sq:>5} Sk={sk:>5}: {n_cases - bad}/{n_cases} cases agree "
+                  f"(max_abs_err {worst['max_abs_err']:.3g}, worst/limit {worst['worst']:.3g}, "
+                  f"rel {worst['rel']:.3g}; {dt:.1f} s)", flush=True)
+    return results
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the LM serving path at full width
+# ---------------------------------------------------------------------------
+
+
+class FlashRecorder:
+    """Wraps ops.flash_attention while the serving path runs: every call is
+    held against the plain version on its own inputs, and the inputs of the
+    first call of each distinct signature are kept for phase 8."""
+
+    def __init__(self, flash_ops, plain, agreement, fails: Failures) -> None:
+        self.ops, self.plain, self.agreement, self.fails = flash_ops, plain, agreement, fails
+        self.orig = flash_ops.flash_attention
+        self.label = ""
+        self.stats: dict = {}
+        self.inputs: dict = {}
+
+    def __enter__(self):
+        def record(q, k, v, **kw):
+            out = self.orig(q, k, v, **kw)
+            agree = self.agreement(out, self.plain(q, k, v, **kw))
+            key = (self.label, tuple(q.shape), tuple(k.shape), str(q.dtype).split(".")[-1],
+                   bool(kw.get("causal", True)), int(kw.get("window", 0)),
+                   float(kw.get("logit_softcap", 0.0)), float(kw.get("scale", 1.0)))
+            st = self.stats.setdefault(key, {"calls": 0, "ok": True, "max_abs_err": 0.0, "worst": 0.0, "rel": 0.0})
+            st["calls"] += 1
+            st["ok"] = st["ok"] and agree["ok"]
+            for x in ("max_abs_err", "worst", "rel"):
+                st[x] = max(st[x], agree[x])
+            self.fails.check(agree["ok"], f"flash at {key}: kernel and plain version disagree ({agree})")
+            if key not in self.inputs:
+                self.inputs[key] = (q.clone(), k.clone(), v.clone(), dict(kw))
+            return out
+
+        self.ops.flash_attention = record
+        return self
+
+    def __exit__(self, *exc):
+        self.ops.flash_attention = self.orig
+        return False
+
+
+def serve_breakdown(torch, model, prompts, n_steps: int = 4) -> dict:
+    """Where a batch's card time goes: the profiler's device ms of one
+    prefill and the flash kernel's share of it; then the wall ms of a
+    decode step on the host clock (synchronized, without the profiler), the
+    device ms the profiler sees in a step, and the card's idle share of the
+    step, 1 - device / wall, with the step's costliest kernels."""
+    from repro_torch.serve.step import make_decode_step, pad_cache
+
+    B, S = prompts.shape
+    held = {}
+
+    def prefill():
+        held["out"] = model.prefill({"tokens": prompts})
+
+    events = trace_card(torch, prefill)
+    logits, pcache = held.pop("out")
+    out: dict = {}
+    if events is not None:
+        total = sum(device_us(ev) for ev in events)
+        flash = sum(device_us(ev) for ev in events if "flash_fwd" in ev.key)  # either dtype's kernel
+        out.update(device_ms=total / 1e3, flash_ms=flash / 1e3, flash_share=flash / total if total else 0.0)
+    cache = pad_cache(pcache, model.cache_init(B, S + 2 * n_steps + 1))
+    state = {"tok": torch.argmax(logits[:, -1].float(), dim=-1)[:, None].to(torch.int32), "pos": S, "cache": cache}
+    del logits, pcache, cache
+    decode = make_decode_step(model)
+
+    def step():
+        state["tok"], _, state["cache"] = decode(state["cache"], state["tok"], state["pos"])
+        state["pos"] += 1
+
+    step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n_steps):
+        step()
+    torch.cuda.synchronize()
+    out["decode_wall_ms"] = (time.perf_counter() - t0) * 1e3 / n_steps
+    events = trace_card(torch, step, reps=n_steps)
+    if events is not None:
+        per = sorted(((device_us(ev) / 1e3 / n_steps, ev.key) for ev in events if device_us(ev) > 0), reverse=True)
+        busy = sum(ms for ms, _ in per)
+        out.update(decode_device_ms=busy, decode_idle_share=max(0.0, 1.0 - busy / out["decode_wall_ms"]),
+                   decode_top=[{"kernel": key[:90], "ms": ms} for ms, key in per[:6]])
     return out
+
+
+def serve_path(torch, flash_ops, plain, agreement, fails: Failures, seed: int, record: dict):
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.transformer import Model
+    from repro_torch.serve.step import generate
+
+    cfg = get_config(SERVE_ARCH)
+    n_layers = cfg.n_layers
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    model = Model(cfg).init_params(gen)
+    torch.cuda.synchronize()
+    n_params = model.n_params()
+    print(f"  {SERVE_ARCH}: {n_params:,} parameters drawn on the card in {time.perf_counter() - t0:.1f} s, "
+          f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated", flush=True)
+    rng = np.random.default_rng(seed)
+    scenarios = {
+        name: (rng.integers(4, cfg.vocab_size, (B, S)).astype(np.int32), new)
+        for name, (B, S, new) in SERVE_SCENARIOS.items()
+    }
+    report: dict = {"n_params": n_params}
+    flash_ops.reset_launches()
+    with FlashRecorder(flash_ops, plain, agreement, fails) as rec:
+        for name, (prompt_np, new) in scenarios.items():
+            prompts = torch.from_numpy(prompt_np).cuda()
+            runs = []
+            for run in ("checked", "timed"):
+                rec.label = name
+                before = flash_ops.LAUNCHES
+                if run == "timed":
+                    flash_ops.flash_attention, held = rec.orig, flash_ops.flash_attention
+                res = generate(model, prompts, new, keep_logits=(name == "b"))
+                if run == "timed":
+                    flash_ops.flash_attention = held
+                launched = flash_ops.LAUNCHES - before
+                fails.check(launched == n_layers, f"serve ({name}, {run}): {launched} flash launches, not {n_layers}")
+                finite = all(bool(torch.isfinite(lg).all()) for lg in res.logits) if res.logits else True
+                fails.check(finite, f"serve ({name}): non-finite logits")
+                runs.append(res)
+            fails.check(bool(torch.equal(runs[0].tokens, runs[1].tokens)),
+                        f"serve ({name}): two runs gave different tokens")
+            res = runs[1]
+            B = prompts.shape[0]
+            entry = {
+                "batch": B, "prompt": int(prompts.shape[1]), "new": new,
+                "prefill_ms": res.prefill_s * 1e3,
+                "decode_ms_per_token": res.decode_s * 1e3 / max(new - 1, 1),
+                "decode_tok_s": B * (new - 1) / res.decode_s if res.decode_s > 0 else 0.0,
+                "tok_s": B * new / (res.prefill_s + res.decode_s),
+                "prefill_tok_s": B * prompts.shape[1] / res.prefill_s,
+            }
+            if name == "b":
+                # the first decode step against a prefill of the prompt plus its token
+                rec.label = "b+1"
+                before = flash_ops.LAUNCHES
+                tok0 = res.tokens[:, prompts.shape[1] : prompts.shape[1] + 1]
+                with torch.inference_mode():
+                    full, _ = model.prefill({"tokens": torch.cat([prompts, tok0], dim=1)})
+                fails.check(flash_ops.LAUNCHES - before == n_layers, "consistency prefill: flash launches")
+                got, want = runs[1].logits[1].float(), full[:, -1].float()
+                err, top = float((got - want).abs().max()), float(want.abs().max())
+                ok = bool(torch.allclose(got, want, rtol=DECODE_TOL, atol=DECODE_TOL))
+                ok = ok and bool(torch.isfinite(want).all()) and err <= DECODE_REL * top
+                fails.check(ok, f"serve (b): first decode step against prefill: max_abs_err {err:.3g}, "
+                                f"{err / top:.3g} of the largest logit {top:.3g}")
+                entry["decode_vs_prefill_max_abs_err"] = err
+                entry["logit_abs_max"] = top
+            report[name] = entry
+            print(f"  ({name}) batch {B} x {prompts.shape[1]} prompt + {new} new: prefill {entry['prefill_ms']:.1f} ms, "
+                  f"decode {entry['decode_ms_per_token']:.2f} ms/token, {entry['decode_tok_s']:.1f} decode tok/s, "
+                  f"{entry['tok_s']:.1f} tok/s overall; tokens equal across runs", flush=True)
+    launches = flash_ops.LAUNCHES
+    report["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    print(f"  flash launches on the serving path: {launches}; peak memory {report['peak_gib']:.1f} GiB", flush=True)
+    if "b" in report:
+        b = report["b"]
+        print(f"  (b) first decode step vs prefill of prompt+token: max_abs_err "
+              f"{b['decode_vs_prefill_max_abs_err']:.4g}, logits up to {b['logit_abs_max']:.4g} (ratio "
+              f"{b['decode_vs_prefill_max_abs_err'] / b['logit_abs_max']:.4g}; limits {DECODE_TOL} and "
+              f"{DECODE_REL} of the largest logit)", flush=True)
+    # where each scenario's card time goes (these launches are not counted)
+    with torch.inference_mode():
+        for name, (prompt_np, _) in scenarios.items():
+            prof = serve_breakdown(torch, model, torch.from_numpy(prompt_np).cuda())
+            report[name]["profile"] = prof
+            if "device_ms" in prof:
+                print(f"  ({name}) prefill device time {prof['device_ms']:.1f} ms, flash kernel "
+                      f"{prof['flash_ms']:.1f} ms ({100 * prof['flash_share']:.1f}%)", flush=True)
+            line = f"  ({name}) decode step wall {prof['decode_wall_ms']:.2f} ms"
+            if "decode_device_ms" in prof:
+                line += (f", device {prof['decode_device_ms']:.2f} ms, card idle "
+                         f"{100 * prof['decode_idle_share']:.1f}%; costliest: "
+                         + "; ".join(f"{t['kernel'][:48]} {t['ms']:.2f}" for t in prof["decode_top"][:4]))
+            print(line, flush=True)
+    bad_calls = [k for k, st in rec.stats.items() if not st["ok"]]
+    fails.check(not bad_calls, f"flash calls disagreeing with the plain version: {bad_calls}")
+    record["serve"] = report
+    del model
+    torch.cuda.empty_cache()
+    return launches, rec
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the flash kernel at the serving path's shapes
+# ---------------------------------------------------------------------------
+
+
+def time_flash(torch, F, flash_ops, plain, agreement, key, inputs) -> dict:
+    label, qs, ks, dname, causal, window, cap, scale = key
+    q, k, v, kw = inputs
+    B, sq, H, D = qs
+    sk, Hkv = ks[1], ks[2]
+    bf16 = dname == "bfloat16"
+    t_bound, bound_by = flash_bound(B, sq, sk, H, Hkv, D, q.element_size(), causal, window, bf16)
+    reps = 3 if sq * sk * B * H > 2**31 else 10
+    out = {
+        "scenario": label, "q": list(qs), "k": list(ks), "dtype": dname, "causal": causal,
+        "window": window, "softcap": cap,
+        "ms": device_ms(torch, lambda: flash_ops.flash_attention(q, k, v, **kw), reps=reps),
+        "plain_ms": device_ms(torch, lambda: plain(q, k, v, **kw), reps=1, warmup=1),
+        "bound_ms": t_bound, "bound_by": bound_by,
+    }
+    # the yardstick: SDPA is causal attention with neither softcap nor
+    # window, so it computes this function only where both are off; beside
+    # it, the kernel's own time on that function
+    same_fn = causal and cap == 0.0 and unmasked_pairs(sq, sk, True, window) == unmasked_pairs(sq, sk, True, 0)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, scale=scale, enable_gqa=True)
+
+    out["sdpa_ms"] = device_ms(torch, sdpa, reps=reps)
+    kw0 = dict(causal=True, window=0, scale=scale, logit_softcap=0.0)
+    out["kernel_causal_nocap_ms"] = device_ms(torch, lambda: flash_ops.flash_attention(q, k, v, **kw0), reps=reps)
+    agree = agreement(flash_ops.flash_attention(q, k, v, **kw0), sdpa().transpose(1, 2))
+    out["sdpa_agrees"], out["sdpa_agreement"] = agree["ok"], agree
+    out["library_ms"] = out["sdpa_ms"] if same_fn else None
+    out["library_note"] = ("scaled_dot_product_attention computes this function" if same_fn else
+                           "no single PyTorch call computes this function (softcap/window); "
+                           "sdpa_ms is SDPA's causal attention without them, beside kernel_causal_nocap_ms")
+    return out
+
+
+def flash_at_shapes(torch, flash_ops, plain, agreement, rec, fails: Failures) -> list:
+    import torch.nn.functional as F
+
+    rows = []
+    for key, inputs in rec.inputs.items():
+        t = time_flash(torch, F, flash_ops, plain, agreement, key, inputs)
+        st = rec.stats[key]
+        t.update(calls=st["calls"], max_abs_err=st["max_abs_err"], worst=st["worst"], rel=st["rel"])
+        fails.check(t["sdpa_agrees"], f"flash at {key}: kernel without softcap/window and SDPA disagree "
+                                      f"({t['sdpa_agreement']})")
+        rows.append(t)
+        lib = "n/a" if t["library_ms"] is None else f"{t['library_ms']:.3f} ms"
+        print(f"  flash ({t['scenario']}) q={t['q']} window={t['window']} softcap={t['softcap']:g} "
+              f"calls {t['calls']}: kernel {t['ms']:.3f} ms  bound {t['bound_ms']:.3f} ms ({t['bound_by']})  "
+              f"plain {t['plain_ms']:.3f} ms  library {lib}  |  causal without softcap/window: "
+              f"kernel {t['kernel_causal_nocap_ms']:.3f} ms, SDPA {t['sdpa_ms']:.3f} ms  "
+              f"max_abs_err {t['max_abs_err']:.3g}, worst/limit {t['worst']:.3g}, rel {t['rel']:.3g}", flush=True)
+        rec.inputs[key] = None
+    torch.cuda.empty_cache()
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -530,6 +920,9 @@ def main(argv=None) -> int:
         return 2
     sys.path.insert(0, SRC)
     import repro_torch
+    from repro_torch.kernels.flash import kernel as flash_kernel
+    from repro_torch.kernels.flash import ops as flash_ops
+    from repro_torch.kernels.flash.ref import agreement, flash_attention_plain
     from repro_torch.kernels.segreduce import kernel, ops, ref
 
     fails = Failures()
@@ -545,10 +938,9 @@ def main(argv=None) -> int:
 
     # 2. build
     t0 = time.perf_counter()
-    kernel.library()
-    record["build_s"] = kernel.build_seconds
-    print(f"build: segreduce library in {kernel.build_seconds:.1f} s "
-          f"(load {time.perf_counter() - t0:.1f} s)", flush=True)
+    record["build_s"] = build_all({"segreduce": kernel.LIBRARY, "flash": flash_kernel.LIBRARY})
+    print("build: " + ", ".join(f"{n} library in {t:.1f} s" for n, t in record["build_s"].items())
+          + f" (in parallel; all loaded in {time.perf_counter() - t0:.1f} s)", flush=True)
 
     # 3. kernel against plain
     print("kernel against its plain version:", flush=True)
@@ -586,6 +978,22 @@ def main(argv=None) -> int:
             print("    passes " + "  ".join(f"{k} {v:.3f}" for k, v in t["passes_ms"].items()), flush=True)
         rec.calls.clear()
     record["shapes"] = shapes
+    torch.cuda.empty_cache()
+
+    # 6. flash against its plain version
+    print("flash kernel against its plain version:", flush=True)
+    record["flash_matrix"] = flash_matrix(torch, flash_ops, flash_attention_plain, agreement, fails, args.seed)
+    torch.cuda.empty_cache()
+
+    # 7. the serving path at full width
+    print(f"serving path: {SERVE_ARCH} at full width:", flush=True)
+    flash_launches, flash_rec = serve_path(torch, flash_ops, flash_attention_plain, agreement, fails, args.seed,
+                                           record)
+
+    # 8. flash at the serving path's shapes (these launches are not counted)
+    print("flash kernel at the serving path's shapes:", flush=True)
+    flash_rows = flash_at_shapes(torch, flash_ops, flash_attention_plain, agreement, flash_rec, fails)
+    record["flash_shapes"] = flash_rows
 
     # the JSON record: each kernel at the largest shape the main path gave it
     entries = []
@@ -611,6 +1019,22 @@ def main(argv=None) -> int:
             "bound_by": top["bound_by"],
             "library_ms": top["library_ms"],
         })
+    if fails.check(bool(flash_rows), "no serving-path shape recorded for flash_attention"):
+        top = max(flash_rows, key=lambda t: t["bound_ms"])
+        entries.append({
+            "name": "flash_attention",
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/flash/csrc/flash_fwd.cu",
+            "replaces": "src/repro/kernels/flash/kernel.py:74",
+            "launches": flash_launches,
+            "max_abs_err": max(t["max_abs_err"] for t in flash_rows),
+            "ms": top["ms"],
+            "plain_ms": top["plain_ms"],
+            "bound_ms": top["bound_ms"],
+            "bound_by": top["bound_by"],
+            "library_ms": top["library_ms"],
+        })
+    fails.check(flash_launches > 0, "the serving path never launched flash_attention")
     record["failures"] = fails.items
     os.makedirs(os.path.dirname(args.out), exist_ok=True)
     with open(args.out, "w") as fh:

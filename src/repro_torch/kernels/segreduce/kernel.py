@@ -1,34 +1,22 @@
 # The hand-written CUDA segmented-reduction kernel (csrc/segreduce.cu): its
-# build, its ctypes binding, and the launch that sizes the per-warp tables.
-#
-# The source is compiled with nvcc into a shared library with a plain C
-# interface at first use, into ``build/kernels/`` at the repository root,
-# under a name keyed by a hash of the source, and loaded with ctypes.  Nothing
-# here runs at import time: the CPU tests import this module on machines that
-# have no nvcc and no card.
+# ctypes binding and the launch that sizes the per-warp tables.  The build
+# (nvcc at first use into ``build/kernels/``, keyed by a hash of the source)
+# is the shared helper in ``kernels/_build.py``.  Nothing here runs at
+# import time: the CPU tests import this module on machines that have no
+# nvcc and no card.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
-import time
 from dataclasses import dataclass
 from pathlib import Path
 from typing import Optional, Sequence, Tuple
 
 import torch
 
+from .._build import CudaLibrary
 from .ref import OPS
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "segreduce.cu"
-BUILD_DIR = Path(__file__).resolve().parents[4] / "build" / "kernels"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
-)
 
 MAX_AGGS = 16            # SEG_MAX_AGGS in the source: aggregates per launch
 WARPS_PER_BLOCK = 8      # SEG_WARPS_PER_BLOCK in the source
@@ -73,54 +61,19 @@ class _SegParams(ctypes.Structure):
     ]
 
 
-_lock = threading.Lock()
-_lib: Optional[ctypes.CDLL] = None
-# seconds the last build of this process took (0.0 when the library was
-# already on disk); chip_smoke.py reports it
-build_seconds = 0.0
+def _configure(lib: ctypes.CDLL) -> None:
+    lib.segreduce_launch.argtypes = [ctypes.POINTER(_SegParams), ctypes.c_void_p]
+    lib.segreduce_launch.restype = ctypes.c_int
+    lib.segreduce_smem_limit.argtypes = [ctypes.c_int]
+    lib.segreduce_smem_limit.restype = ctypes.c_int
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cand = Path("/usr/local/cuda/bin/nvcc")
-    if cand.exists():
-        return str(cand)
-    raise RuntimeError("nvcc not found: the segreduce CUDA kernel cannot be built")
-
-
-def library_path() -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"segreduce-{digest}.so"
+LIBRARY = CudaLibrary("segreduce", SOURCE, _configure)
 
 
 def library() -> ctypes.CDLL:
     """Build (once per source hash) and load the kernel library."""
-    global _lib, build_seconds
-    with _lock:
-        if _lib is not None:
-            return _lib
-        path = library_path()
-        if not path.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = path.with_suffix(f".{os.getpid()}.tmp")
-            t0 = time.perf_counter()
-            proc = subprocess.run(
-                [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                capture_output=True, text=True,
-            )
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed on {SOURCE}:\n{proc.stderr}")
-            os.replace(tmp, path)
-            build_seconds = time.perf_counter() - t0
-        lib = ctypes.CDLL(str(path))
-        lib.segreduce_launch.argtypes = [ctypes.POINTER(_SegParams), ctypes.c_void_p]
-        lib.segreduce_launch.restype = ctypes.c_int
-        lib.segreduce_smem_limit.argtypes = [ctypes.c_int]
-        lib.segreduce_smem_limit.restype = ctypes.c_int
-        _lib = lib
-        return lib
+    return LIBRARY.load()
 
 
 def _ceil_div(a: int, b: int) -> int:

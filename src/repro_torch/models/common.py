@@ -1,0 +1,177 @@
+# Shared model machinery: parameter definition trees (shape + dtype +
+# logical axes, kept for parity with the JAX package's trees), their
+# initialisation from an explicit generator, norms, RoPE / M-RoPE,
+# activations and soft-capping.
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Any, Callable, List, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+# ---------------------------------------------------------------------------
+# Parameter definition trees
+# ---------------------------------------------------------------------------
+#
+# A model's parameters are described once as a tree (dicts and lists) of
+# ParamDef leaves; the Model module allocates one tensor per leaf under the
+# leaf's dotted path ("groups.pos0.attn.wq", "remainder.0.mlp.w_up").
+
+
+@dataclass(frozen=True)
+class ParamDef:
+    shape: Tuple[int, ...]
+    axes: Tuple[Optional[str], ...]  # logical axis names, len == len(shape)
+    dtype: torch.dtype = torch.bfloat16
+    init: str = "normal"  # 'normal' | 'zeros' | 'ones'
+    scale: float = 1.0
+
+    def __post_init__(self):
+        assert len(self.shape) == len(self.axes), (self.shape, self.axes)
+
+
+def tree_leaves(tree: Any, prefix: str = "") -> List[Tuple[str, Any]]:
+    """(dotted path, leaf) pairs of a tree of dicts and lists."""
+    if isinstance(tree, dict):
+        out: List[Tuple[str, Any]] = []
+        for k, v in tree.items():
+            out += tree_leaves(v, f"{prefix}{k}.")
+        return out
+    if isinstance(tree, (list, tuple)):
+        out = []
+        for i, v in enumerate(tree):
+            out += tree_leaves(v, f"{prefix}{i}.")
+        return out
+    return [(prefix[:-1], tree)]
+
+
+def tree_map(fn: Callable[[Any], Any], tree: Any) -> Any:
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tree_map(fn, v) for v in tree]
+    return fn(tree)
+
+
+def stack_defs(d: ParamDef, n: int, axis_name: Optional[str] = "layers") -> ParamDef:
+    """Add a leading stacking axis (one tensor per pattern position, with a
+    leading ``repeats`` axis, as the JAX package stacks for lax.scan)."""
+    return ParamDef((n,) + d.shape, (axis_name,) + d.axes, d.dtype, d.init, d.scale)
+
+
+def tree_stack_defs(defs: Any, n: int) -> Any:
+    return tree_map(lambda d: stack_defs(d, n), defs)
+
+
+def param_count(defs: Any) -> int:
+    return int(sum(math.prod(d.shape) for _, d in tree_leaves(defs)))
+
+
+def init_param(d: ParamDef, generator: torch.Generator, device: torch.device) -> torch.Tensor:
+    """One leaf after the JAX package's ``tree_init``: a normal draw in f32
+    times scale / sqrt(fan_in), cast to the def's dtype; zeros and ones as
+    declared.  fan_in is the second-to-last axis (the last for vectors)."""
+    if d.init == "zeros":
+        return torch.zeros(d.shape, dtype=d.dtype, device=device)
+    if d.init == "ones":
+        return torch.ones(d.shape, dtype=d.dtype, device=device)
+    fan_in = d.shape[-2] if len(d.shape) >= 2 else d.shape[-1]
+    std = d.scale / math.sqrt(max(fan_in, 1))
+    x = torch.randn(d.shape, dtype=torch.float32, device=device, generator=generator)
+    return x.mul_(std).to(d.dtype)
+
+
+def init_params(defs: Any, generator: torch.Generator, device: torch.device) -> Any:
+    """A tree of tensors congruent with ``defs``, drawn leaf by leaf from
+    ``generator`` (which lives on ``device``)."""
+    return tree_map(lambda d: init_param(d, generator, device), defs)
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    dt = x.dtype
+    x32 = x.float()
+    var = (x32 * x32).mean(dim=-1, keepdim=True)
+    out = x32 * torch.rsqrt(var + eps)
+    # gemma-style (1 + scale) parameterization keeps init at identity
+    return (out * (1.0 + scale.float())).to(dt)
+
+
+# ---------------------------------------------------------------------------
+# Rotary position embeddings (incl. Qwen2-VL M-RoPE)
+# ---------------------------------------------------------------------------
+
+
+def _inv_freq(head_dim: int, theta: float, device) -> torch.Tensor:
+    half = head_dim // 2
+    return 1.0 / (theta ** (torch.arange(0, half, dtype=torch.float32, device=device) / half))
+
+
+def rope_angles(head_dim: int, theta: float, positions: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """positions: (..., S) -> cos/sin of shape (..., S, head_dim//2), f32."""
+    ang = positions[..., None].float() * _inv_freq(head_dim, theta, positions.device)
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """x: (B, S, H, D); cos/sin: (B, S, half) or (S, half).  The bf16 x f32
+    products promote to f32; the result is cast back to x's dtype."""
+    half = x.shape[-1] // 2
+    x1, x2 = x[..., :half], x[..., half:]
+    if cos.dim() == 2:
+        cos = cos[None, :, None, :]
+        sin = sin[None, :, None, :]
+    else:
+        cos = cos[:, :, None, :]
+        sin = sin[:, :, None, :]
+    out1 = x1 * cos - x2 * sin
+    out2 = x2 * cos + x1 * sin
+    return torch.cat([out1, out2], dim=-1).to(x.dtype)
+
+
+def mrope_angles(
+    head_dim: int, theta: float, positions_3d: torch.Tensor, sections: Tuple[int, ...]
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Qwen2-VL multimodal RoPE: positions_3d (3, B, S) for (t, h, w);
+    the half-dim frequency bands are split into `sections` (e.g. 16/24/24),
+    each section using the corresponding position stream."""
+    half = head_dim // 2
+    assert sum(sections) == half, (sections, half)
+    ang = positions_3d[..., None].float() * _inv_freq(head_dim, theta, positions_3d.device)
+    parts = []
+    start = 0
+    for si, sec in enumerate(sections):
+        parts.append(ang[si, :, :, start : start + sec])
+        start += sec
+    ang_sel = torch.cat(parts, dim=-1)  # (B, S, half)
+    return torch.cos(ang_sel), torch.sin(ang_sel)
+
+
+# ---------------------------------------------------------------------------
+# Activations
+# ---------------------------------------------------------------------------
+
+
+def activation_fn(name: str) -> Callable[[torch.Tensor], torch.Tensor]:
+    if name == "silu":
+        return F.silu
+    if name == "gelu":
+        return F.gelu
+    if name == "gelu_tanh":
+        return lambda x: F.gelu(x, approximate="tanh")
+    if name == "relu2":
+        return lambda x: torch.square(F.relu(x))
+    raise ValueError(f"unknown activation {name}")
+
+
+def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
+    """Gemma2 logit soft-capping: cap * tanh(x / cap), computed in f32."""
+    if cap <= 0:
+        return x
+    return (cap * torch.tanh(x.float() / cap)).to(x.dtype)

@@ -1,0 +1,445 @@
+# Model assembly: parameter-definition trees, the layer stacker (pattern
+# periods with stacked parameters, plus a remainder), and the forward /
+# prefill / decode entry points for the attention families.
+#
+# Heterogeneous layer patterns (gemma local:global alternation) stack one
+# tensor per pattern position with a leading ``repeats`` axis, as the JAX
+# package stacks them for lax.scan; here a Python loop over the repeats
+# indexes ``[r]``.  Caches are stacked the same way; decode writes them in
+# place.
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, List, Optional, Tuple
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ArchConfig
+from .attention import AttnInputs, attention_block, attention_defs, init_cache_shape
+from .common import (
+    ParamDef,
+    init_param,
+    param_count,
+    rms_norm,
+    softcap,
+    tree_leaves,
+    tree_map,
+    tree_stack_defs,
+)
+from .mlp import mlp_block, mlp_defs
+
+ATTN_KINDS = ("global", "local", "chunked", "bidir")
+AUX_KEYS = ("lb_loss", "router_z")
+
+
+def _not_ported(what: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} not yet ported (ROADMAP A10)")
+
+
+def _check_ported(cfg: ArchConfig) -> None:
+    if cfg.family == "audio":
+        raise _not_ported("the audio frontend")
+    if cfg.moe is not None:
+        raise _not_ported("the moe block")
+    if cfg.shared_attn_period:
+        raise _not_ported("the zamba2 shared block")
+    for kind in set(cfg.layer_kinds()):
+        if kind not in ATTN_KINDS:
+            raise _not_ported(f"the {kind} layer")
+
+
+# ---------------------------------------------------------------------------
+# Parameter definitions
+# ---------------------------------------------------------------------------
+
+
+def block_defs(cfg: ArchConfig, kind: str) -> Dict[str, Any]:
+    d = cfg.d_model
+
+    def ln():
+        return ParamDef((d,), ("embed",), init="zeros")
+
+    if kind in ATTN_KINDS:
+        if cfg.moe is not None:
+            raise _not_ported("the moe block")
+        out: Dict[str, Any] = {"ln1": ln(), "attn": attention_defs(cfg)}
+        if cfg.post_block_norms:
+            out["ln1_post"] = ln()
+        out["ln2"] = ln()
+        out["mlp"] = mlp_defs(cfg)
+        if cfg.post_block_norms:
+            out["ln2_post"] = ln()
+        return out
+    if kind in ("rwkv", "mamba2"):
+        raise _not_ported(f"the {kind} layer")
+    raise ValueError(f"unknown layer kind {kind}")
+
+
+def model_defs(cfg: ArchConfig) -> Dict[str, Any]:
+    _check_ported(cfg)
+    d, V = cfg.d_model, cfg.vocab_size
+    (pattern, repeats), remainder = cfg.scan_groups()
+    defs: Dict[str, Any] = {
+        "final_norm": ParamDef((d,), ("embed",), init="zeros"),
+        "embed": ParamDef((V, d), ("vocab", "embed")),
+    }
+    if not cfg.tie_embeddings:
+        defs["lm_head"] = ParamDef((d, V), ("embed", "vocab"))
+    if repeats > 0:
+        defs["groups"] = {
+            f"pos{i}": tree_stack_defs(block_defs(cfg, kind), repeats)
+            for i, kind in enumerate(pattern)
+        }
+    if remainder:
+        defs["remainder"] = [block_defs(cfg, kind) for kind in remainder]
+    return defs
+
+
+# ---------------------------------------------------------------------------
+# Block application
+# ---------------------------------------------------------------------------
+
+
+def apply_block(
+    p: Dict[str, Any],
+    x: torch.Tensor,
+    cfg: ArchConfig,
+    kind: str,
+    positions: torch.Tensor,
+    cache: Optional[Dict[str, torch.Tensor]] = None,
+    cache_pos: Optional[int] = None,
+    prefill: bool = False,
+    prefill_quant: bool = False,
+) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]], Dict[str, torch.Tensor]]:
+    """Returns (x_out, new_cache, aux)."""
+    if kind not in ATTN_KINDS:
+        raise _not_ported(f"the {kind} layer")
+    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    attn_out, new_cache = attention_block(
+        p["attn"], h, cfg, kind,
+        AttnInputs(positions, cache, cache_pos, collect_kv=prefill, quantize_collected=prefill_quant),
+    )
+    if cfg.post_block_norms:
+        attn_out = rms_norm(attn_out, p["ln1_post"], cfg.norm_eps)
+    x = x + attn_out
+    h = rms_norm(x, p["ln2"], cfg.norm_eps)
+    ff = mlp_block(p["mlp"], h, cfg)
+    if cfg.post_block_norms:
+        ff = rms_norm(ff, p["ln2_post"], cfg.norm_eps)
+    x = x + ff
+    return x, new_cache, {}
+
+
+def _layer(tree: Dict[str, Any], r: int) -> Dict[str, Any]:
+    """Repeat ``r`` of a stacked tree (views, so writes reach the stack)."""
+    return tree_map(lambda a: a[r], tree)
+
+
+# ---------------------------------------------------------------------------
+# Cache construction
+# ---------------------------------------------------------------------------
+
+
+def _block_cache_shapes(cfg: ArchConfig, kind: str, batch: int, max_seq: int,
+                        quantized: bool = False) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
+    shape = init_cache_shape(cfg, kind, batch, max_seq)
+    if quantized:
+        s_shape = shape[:-1] + (1,)
+        return {
+            "k_q": (shape, torch.int8),
+            "k_s": (s_shape, torch.float16),
+            "v_q": (shape, torch.int8),
+            "v_s": (s_shape, torch.float16),
+        }
+    return {"k": (shape, torch.bfloat16), "v": (shape, torch.bfloat16)}
+
+
+def cache_abstract(cfg: ArchConfig, batch: int, max_seq: int, quantized: bool = False) -> Dict[str, Any]:
+    """The cache tree with (shape, dtype) leaves."""
+    _check_ported(cfg)
+    (pattern, repeats), remainder = cfg.scan_groups()
+    out: Dict[str, Any] = {}
+    if repeats > 0:
+        out["groups"] = {
+            f"pos{i}": {
+                name: ((repeats,) + shape, dt)
+                for name, (shape, dt) in _block_cache_shapes(cfg, kind, batch, max_seq, quantized).items()
+            }
+            for i, kind in enumerate(pattern)
+        }
+    if remainder:
+        out["remainder"] = [_block_cache_shapes(cfg, kind, batch, max_seq, quantized) for kind in remainder]
+    return out
+
+
+def _is_shape_leaf(x: Any) -> bool:
+    return isinstance(x, tuple) and len(x) == 2 and isinstance(x[1], torch.dtype)
+
+
+def _map_shapes(fn, tree: Any) -> Any:
+    if _is_shape_leaf(tree):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: _map_shapes(fn, v) for k, v in tree.items()}
+    return [_map_shapes(fn, v) for v in tree]
+
+
+def cache_init(cfg: ArchConfig, batch: int, max_seq: int, quantized: bool = False,
+               device: Any = None) -> Dict[str, Any]:
+    """A zero cache on ``device`` (the card unless the caller asks for the CPU)."""
+    dev = resolve_device(device)
+    return _map_shapes(lambda sd: torch.zeros(sd[0], dtype=sd[1], device=dev),
+                       cache_abstract(cfg, batch, max_seq, quantized))
+
+
+# ---------------------------------------------------------------------------
+# Forward pass
+# ---------------------------------------------------------------------------
+
+
+def embed_tokens(params: Dict[str, Any], batch: Dict[str, torch.Tensor], cfg: ArchConfig) -> torch.Tensor:
+    if cfg.family == "audio":
+        raise _not_ported("the audio frontend")
+    tok = batch["tokens"]
+    x = params["embed"][tok.long()]
+    if "patch_embeds" in batch:  # VLM stub frontend: positionwise merge
+        x = torch.where(batch["patch_mask"][..., None], batch["patch_embeds"].to(x.dtype), x)
+    if cfg.embed_scale:
+        # the JAX package casts sqrt(d) to the embedding's type first
+        # (sqrt(3584) = 59.87 becomes 59.75 in bf16), then multiplies
+        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype, device=x.device)
+    return x
+
+
+def _positions_of(batch: Dict[str, torch.Tensor], cfg: ArchConfig, B: int, S: int,
+                  device: torch.device) -> torch.Tensor:
+    if "positions" in batch:
+        return batch["positions"]
+    pos = torch.arange(S, dtype=torch.int32, device=device)[None].expand(B, S)
+    if cfg.m_rope_sections:
+        return pos[None].expand(3, B, S)
+    return pos
+
+
+def _layers(cfg: ArchConfig):
+    """(group key or None, repeat or remainder index, kind) in layer order."""
+    (pattern, repeats), remainder = cfg.scan_groups()
+    for r in range(repeats):
+        for i, kind in enumerate(pattern):
+            yield f"pos{i}", r, kind
+    for j, kind in enumerate(remainder):
+        yield None, j, kind
+
+
+def _layer_params(params: Dict[str, Any], group: Optional[str], idx: int) -> Dict[str, Any]:
+    if group is None:
+        return params["remainder"][idx]
+    return _layer(params["groups"][group], idx)
+
+
+def forward(
+    params: Dict[str, Any],
+    batch: Dict[str, torch.Tensor],
+    cfg: ArchConfig,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Full-sequence forward (train / prefill).  Returns (logits, aux)."""
+    x = embed_tokens(params, batch, cfg)
+    B, S, _ = x.shape
+    positions = _positions_of(batch, cfg, B, S, x.device)
+    for group, idx, kind in _layers(cfg):
+        x, _, _ = apply_block(_layer_params(params, group, idx), x, cfg, kind, positions)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    logits = _project_logits(params, x, cfg)
+    aux = {k: torch.zeros((), dtype=torch.float32, device=x.device) for k in AUX_KEYS}
+    return logits, aux
+
+
+def _project_logits(params: Dict[str, Any], x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    if cfg.tie_embeddings:
+        logits = x @ params["embed"].T
+    else:
+        logits = x @ params["lm_head"]
+    if cfg.final_softcap > 0:
+        logits = softcap(logits, cfg.final_softcap)
+    return logits
+
+
+def _stack_caches(caches: List[Dict[str, torch.Tensor]]) -> Dict[str, torch.Tensor]:
+    return {name: torch.stack([c[name] for c in caches]) for name in caches[0]}
+
+
+def prefill_forward(
+    params: Dict[str, Any],
+    batch: Dict[str, torch.Tensor],
+    cfg: ArchConfig,
+    quantize_cache: bool = False,
+) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """Forward pass that also materializes decode caches (serving prefill).
+    Returns (last-position logits (B, 1, V), cache): full (B, S, V) logits
+    at 32k x 256k vocab would be hundreds of GB."""
+    x = embed_tokens(params, batch, cfg)
+    B, S, _ = x.shape
+    positions = _positions_of(batch, cfg, B, S, x.device)
+    (pattern, repeats), remainder = cfg.scan_groups()
+    per_group: Dict[str, List[Dict[str, torch.Tensor]]] = {f"pos{i}": [] for i in range(len(pattern))}
+    rem_caches: List[Dict[str, torch.Tensor]] = []
+    for group, idx, kind in _layers(cfg):
+        x, c_new, _ = apply_block(_layer_params(params, group, idx), x, cfg, kind, positions,
+                                  prefill=True, prefill_quant=quantize_cache)
+        (rem_caches if group is None else per_group[group]).append(c_new)
+    cache: Dict[str, Any] = {}
+    if repeats > 0:
+        cache["groups"] = {g: _stack_caches(cs) for g, cs in per_group.items()}
+    if remainder:
+        cache["remainder"] = rem_caches
+    x = rms_norm(x[:, -1:], params["final_norm"], cfg.norm_eps)
+    logits = _project_logits(params, x, cfg)
+    return logits, cache
+
+
+# ---------------------------------------------------------------------------
+# Decode step (one token, cache-carrying)
+# ---------------------------------------------------------------------------
+
+
+def decode_step(
+    params: Dict[str, Any],
+    cache: Dict[str, Any],
+    batch: Dict[str, Any],
+    cfg: ArchConfig,
+) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """batch: {'tokens': (B,1), 'pos': int} -> (logits (B,1,V), cache).
+    The cache is written in place and returned."""
+    x = embed_tokens(params, batch, cfg)
+    B = x.shape[0]
+    pos = int(batch["pos"])
+    positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
+    if cfg.m_rope_sections:
+        positions = positions[None].expand(3, B, 1)
+    for group, idx, kind in _layers(cfg):
+        lc = cache["remainder"][idx] if group is None else _layer(cache["groups"][group], idx)
+        x, _, _ = apply_block(_layer_params(params, group, idx), x, cfg, kind, positions, lc, pos)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    logits = _project_logits(params, x, cfg)
+    return logits, cache
+
+
+# ---------------------------------------------------------------------------
+# Loss (forward only)
+# ---------------------------------------------------------------------------
+
+
+def lm_loss(
+    params: Dict[str, Any], batch: Dict[str, torch.Tensor], cfg: ArchConfig
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    logits, aux = forward(params, batch, cfg)
+    labels = batch["tokens"][:, 1:].long()
+    logits = logits[:, :-1]
+    mask = batch.get("loss_mask")
+    if mask is None:
+        mask = torch.ones(batch["tokens"].shape, device=logits.device)
+    mask = mask[:, 1:].float()
+    logits32 = logits.float()
+    lse = torch.logsumexp(logits32, dim=-1)
+    ll = torch.gather(logits32, -1, labels[..., None])[..., 0]
+    nll = (lse - ll) * mask
+    loss = nll.sum() / torch.clamp(mask.sum(), min=1.0)
+    return loss, {"loss": loss, **aux}
+
+
+# ---------------------------------------------------------------------------
+# Public model facade
+# ---------------------------------------------------------------------------
+
+
+def resolve_device(device: Any = None) -> torch.device:
+    """The card unless the caller asks for the CPU; never a silent CPU run."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: the port's LM stack runs on the card; pass device='cpu' to run on the CPU"
+        )
+    return dev
+
+
+class _Node(nn.Module):
+    """A dict level of the parameter tree."""
+
+
+def _populate(node: nn.Module, defs: Dict[str, Any], device: torch.device) -> nn.Module:
+    """Register ``defs`` on ``node``: a ParamDef as a parameter (ones where
+    declared, zeros otherwise), a dict as a child node, a list as a
+    ModuleList of nodes."""
+    for name, d in defs.items():
+        if isinstance(d, ParamDef):
+            fill = torch.ones if d.init == "ones" else torch.zeros
+            node.register_parameter(name, nn.Parameter(fill(d.shape, dtype=d.dtype, device=device),
+                                                       requires_grad=False))
+        elif isinstance(d, list):
+            node.add_module(name, nn.ModuleList([_populate(_Node(), x, device) for x in d]))
+        else:
+            node.add_module(name, _populate(_Node(), d, device))
+    return node
+
+
+def _tree_of(module: nn.Module) -> Any:
+    if isinstance(module, nn.ModuleList):
+        return [_tree_of(m) for m in module]
+    out: Dict[str, Any] = dict(module.named_parameters(recurse=False))
+    for name, child in module.named_children():
+        out[name] = _tree_of(child)
+    return out
+
+
+class Model(nn.Module):
+    """The LM as a module: its parameters live under the JAX tree's own names
+    with dots for nesting (``groups.pos0.attn.wq``, ``remainder.0.mlp.w_up``),
+    stacked as the JAX package stacks them, so weights carry across name for
+    name.  Parameters are allocated as declared (zeros, ones; the normal
+    ones as zeros) until ``init_params`` draws them or ``load_state_dict``
+    copies them in.  The card is the default device."""
+
+    def __init__(self, cfg: ArchConfig, *, device: Any = None) -> None:
+        super().__init__()
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self._defs = model_defs(cfg)
+        _populate(self, self._defs, self.device)
+
+    def defs(self) -> Dict[str, Any]:
+        return self._defs
+
+    def n_params(self) -> int:
+        return param_count(self._defs)
+
+    @property
+    def params(self) -> Dict[str, Any]:
+        """The parameters as the JAX package's nested tree of tensors."""
+        return _tree_of(self)
+
+    @torch.no_grad()
+    def init_params(self, generator: torch.Generator) -> "Model":
+        """Draw every parameter from ``generator`` (a generator on the
+        model's device), leaf by leaf, after the JAX package's scheme."""
+        for path, d in tree_leaves(self._defs):
+            self.get_parameter(path).copy_(init_param(d, generator, self.device))
+        return self
+
+    def forward(self, batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        return forward(self.params, batch, self.cfg)
+
+    def loss(self, batch: Dict[str, torch.Tensor]):
+        return lm_loss(self.params, batch, self.cfg)
+
+    def prefill(self, batch: Dict[str, torch.Tensor], quantize_cache: bool = False):
+        return prefill_forward(self.params, batch, self.cfg, quantize_cache)
+
+    def decode_step(self, cache: Dict[str, Any], batch: Dict[str, Any]):
+        return decode_step(self.params, cache, batch, self.cfg)
+
+    def cache_abstract(self, batch: int, max_seq: int, quantized: bool = False):
+        return cache_abstract(self.cfg, batch, max_seq, quantized)
+
+    def cache_init(self, batch: int, max_seq: int, quantized: bool = False):
+        return cache_init(self.cfg, batch, max_seq, quantized, device=self.device)

@@ -1,7 +1,9 @@
 # The port on a CUDA card: the hand-written segreduce kernel against its
 # plain PyTorch version in each of its three regimes, run twice to show that
 # its results are bitwise deterministic, and a default Session whose
-# aggregates go through the kernel.  This file imports neither jax nor the
+# aggregates go through the kernel; the hand-written flash-attention kernel
+# against its plain version (within ``ref.KERNEL_TOL``, reruns bitwise
+# equal), and a model on the card whose prefill runs through it.  This file imports neither jax nor the
 # JAX package, so it runs on a machine that has only the port:
 #
 #     PYTHONPATH=src python -m pytest tests/test_torch_cuda.py -q
@@ -14,8 +16,13 @@ import pytest
 import torch
 
 from repro_torch import Session
+from repro_torch.configs.base import get_config, reduced_config
+from repro_torch.kernels.flash import ops as flash_ops
+from repro_torch.kernels.flash.ref import agreement, flash_attention_plain
 from repro_torch.kernels.segreduce import ops
 from repro_torch.kernels.segreduce.ref import fused_segreduce_ref, segreduce_ref
+from repro_torch.models.transformer import Model
+from repro_torch.serve.step import generate
 
 _TOL = dict(rtol=1e-5, atol=1e-5)
 
@@ -103,3 +110,71 @@ def test_default_session_runs_the_kernel_on_the_card(cuda):
     for ra, rb in zip(sorted(got.rows), sorted(want.rows)):
         for x, y in zip(ra, rb):
             assert abs(float(x) - float(y)) <= 1e-3 + 1e-5 * abs(float(y)), (ra, rb)
+
+
+def _bitwise(a, b):
+    return torch.equal(a.view(torch.int16 if a.element_size() == 2 else torch.int32),
+                       b.view(torch.int16 if b.element_size() == 2 else torch.int32))
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("G", [1, 2, 12])
+@pytest.mark.parametrize("causal,window,cap", [
+    (True, 0, 0.0), (False, 0, 0.0), (True, 32, 50.0), (False, 32, 0.0),
+])
+@pytest.mark.parametrize("Sq,Sk", [(1, 300), (130, 257), (200, 200)])
+def test_flash_kernel_matches_plain(cuda, dtype, D, G, causal, window, cap, Sq, Sk):
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(D * 1000 + G * 10 + Sq)
+    Hkv = 2
+    q = torch.randn(2, Sq, Hkv * G, D, device=cuda, generator=gen).to(dtype)
+    k = torch.randn(2, Sk, Hkv, D, device=cuda, generator=gen).to(dtype)
+    v = torch.randn(2, Sk, Hkv, D, device=cuda, generator=gen).to(dtype)
+    kw = dict(causal=causal, window=window, scale=D ** -0.5, logit_softcap=cap)
+    before = flash_ops.LAUNCHES
+    a = flash_ops.flash_attention(q, k, v, **kw)
+    b = flash_ops.flash_attention(q, k, v, **kw)
+    want = flash_attention_plain(q, k, v, q_block=64, kv_block=64, **kw)
+    torch.cuda.synchronize()
+    assert flash_ops.LAUNCHES == before + 2
+    assert a.dtype == dtype and a.shape == q.shape
+    assert _bitwise(a, b)
+    agree = agreement(a, want)
+    assert agree["ok"], agree
+
+
+@pytest.mark.requires_cuda
+def test_flash_kernel_small_head_dim_pads(cuda):
+    """A head dim the kernel is not built for (the reduced configs' 16) is
+    zero-padded to the next one and cut back."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(3)
+    q, k, v = (torch.randn(1, 40, 4, 16, device=cuda, generator=gen) for _ in range(3))
+    got = flash_ops.flash_attention(q, k[:, :, :2].contiguous(), v[:, :, :2].contiguous(), window=16, scale=0.25)
+    want = flash_attention_plain(q, k[:, :, :2], v[:, :, :2], window=16, scale=0.25)
+    agree = agreement(got, want)
+    assert agree["ok"], agree
+
+
+@pytest.mark.requires_cuda
+def test_model_prefill_runs_the_kernel_and_matches_the_cpu(cuda):
+    """Reduced gemma2 on the card: every prefill attention launches the
+    kernel, and the logits agree with the same weights on the CPU within
+    the bf16 prefill tolerance."""
+    cfg = reduced_config(get_config("gemma2-9b"))
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(0)
+    card = Model(cfg).init_params(gen)
+    host = Model(cfg, device="cpu")
+    host.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    toks = torch.from_numpy(np.random.default_rng(0).integers(4, cfg.vocab_size, (2, 40)).astype(np.int32))
+    flash_ops.reset_launches()
+    with torch.inference_mode():
+        got, _ = card.prefill({"tokens": toks.to(cuda)})
+        want, _ = host.prefill({"tokens": toks})
+    assert flash_ops.LAUNCHES == cfg.n_layers
+    torch.testing.assert_close(got.float().cpu(), want.float(), rtol=5e-2, atol=5e-2)
+    res = generate(card, toks.to(cuda), 4)
+    assert res.tokens.shape == (2, 44) and res.tokens.device.type == "cuda"

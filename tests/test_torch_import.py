@@ -23,6 +23,21 @@ import repro_torch.frontends.sql
 import repro_torch.frontends.mapreduce
 import repro_torch.analysis
 import repro_torch.obs
+import repro_torch.kernels._build
+import repro_torch.kernels.flash.ops
+import repro_torch.kernels.flash.kernel
+import repro_torch.kernels.flash.ref
+import repro_torch.configs.base
+import repro_torch.models.common
+import repro_torch.models.mlp
+import repro_torch.models.attention
+import repro_torch.models.transformer
+import repro_torch.models.convert
+import repro_torch.serve.kvcache
+import repro_torch.serve.step
+import repro_torch.launch.serve
+from repro_torch.configs.base import list_archs
+assert len(list_archs()) == 10
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "repro" or m.startswith("repro."))
 print(json.dumps(bad))

@@ -1,0 +1,227 @@
+# The port's LM serving path on the CPU against the JAX package, on reduced
+# configs of gemma2-9b, gemma3-4b and starcoder2-3b with the reference's own
+# weights (Model.init_params(PRNGKey)) carried across by params_from_jax:
+# forward logits, prefill's last logits and caches at S > window (so local
+# layers mask by their window), decode logits teacher-forced on the
+# reference's tokens, and greedy generation.  Also: every config equal field
+# by field, and the int8 cache branch.
+#
+# Tolerances are the reference's own (tests/test_models_smoke.py): 5e-2 for
+# bf16 forward/prefill logits and caches, 0.15 for decode logits.
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from repro.configs import base as jax_base
+from repro.models.transformer import Model as JaxModel
+from repro.models.transformer import prefill_forward as jax_prefill
+from repro.serve.kvcache import quantize_kv as jax_quantize_kv
+from repro.serve.step import make_decode_step as jax_make_decode_step
+from repro_torch.configs import base
+from repro_torch.models.common import tree_leaves
+from repro_torch.models.convert import cache_from_jax, params_from_jax
+from repro_torch.models.transformer import Model
+from repro_torch.serve.kvcache import cache_bytes, dequantize_kv, quantize_kv
+from repro_torch.serve.step import generate, make_prefill_step, pad_cache
+
+PREFILL_TOL = dict(rtol=5e-2, atol=5e-2)
+DECODE_TOL = dict(rtol=0.15, atol=0.15)
+ARCHS = ["gemma2-9b", "gemma3-4b", "starcoder2-3b"]
+
+
+def _np(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(x, np.float32)
+
+
+def _close(got, want, tol) -> None:
+    np.testing.assert_allclose(_np(got), _np(want), **tol)
+
+
+def _tokens(vocab, B, S, seed):
+    return np.random.default_rng(seed).integers(4, vocab, (B, S)).astype(np.int32)
+
+
+def _numpy_tree(tree):
+    return jax.tree.map(np.asarray, tree)
+
+
+PROMPT, NEW = 24, 8  # prompts beyond the reduced window of 16; decode at 24..31
+
+
+@pytest.fixture(scope="module", params=ARCHS)
+def case(request):
+    """The port's model with the reference's weights, and the reference's
+    outputs on the inputs the tests share (computed once per arch)."""
+    cfg = jax_base.reduced_config(jax_base.get_config(request.param))
+    jm = JaxModel(cfg)
+    params = jax.jit(jm.init_params)(jax.random.PRNGKey(0))
+    model = Model(base.reduced_config(base.get_config(request.param)), device="cpu")
+    model.load_state_dict(params_from_jax(_numpy_tree(params)), strict=True)
+    toks = _tokens(cfg.vocab_size, 2, PROMPT, 1)  # reduced window 16 < PROMPT
+    logits, _ = jax.jit(jm.forward)(params, {"tokens": jnp.asarray(toks)})
+    prefill = jax.jit(jax_prefill, static_argnums=(2, 3))
+    last, cache = prefill(params, {"tokens": jnp.asarray(toks)}, cfg, False)
+    _, qcache = prefill(params, {"tokens": jnp.asarray(toks)}, cfg, True)
+    # the reference's generate loop (serve/step.py), step by step, with each
+    # step's logits; the decode step is the one its generate jits
+    full = jm.cache_init(2, PROMPT + NEW)
+    gcache = jax.tree.map(lambda a, b: jnp.pad(a, [(0, y - x) for x, y in zip(a.shape, b.shape)]), cache, full)
+    decode = jax.jit(jax_make_decode_step(jm))
+    tok = jnp.argmax(last[:, -1].astype(jnp.float32), axis=-1)[:, None].astype(jnp.int32)
+    gen_toks, gen_logits = [tok], [last[:, -1]]
+    for t in range(NEW - 1):
+        tok, lg, gcache = decode(params, gcache, tok, jnp.asarray(PROMPT + t, jnp.int32), jax.random.PRNGKey(0))
+        gen_toks.append(tok)
+        gen_logits.append(lg[:, -1])
+    # the int8 branch: one decode step on the padded quantized cache
+    qfull = jm.cache_init(2, PROMPT + 1, quantized=True)
+    qpad = jax.tree.map(lambda a, b: jnp.pad(a, [(0, y - x) for x, y in zip(a.shape, b.shape)]), qcache, qfull)
+    qlogits, _ = jax.jit(jm.decode_step)(
+        params, qpad, {"tokens": jnp.asarray(toks[:, -1:]), "pos": jnp.asarray(PROMPT)})
+    ref = dict(
+        toks=toks, logits=logits, last=last, cache=_numpy_tree(cache), qcache=_numpy_tree(qcache),
+        quantized=_numpy_tree(jax_quantize_kv(cache)), qlogits=qlogits,
+        gen_toks=np.asarray(jnp.concatenate(gen_toks, axis=1)), gen_logits=gen_logits,
+        n_params=jm.n_params(), params=_numpy_tree(params),
+    )
+    return cfg, model, ref
+
+
+def _first_layers(cfg):
+    """Cache names and repeat index of the first two layers, in layer order."""
+    pattern = cfg.layer_pattern
+    if len(pattern) >= 2:
+        return [("groups.pos0", 0), ("groups.pos1", 0)]
+    return [("groups.pos0", 0), ("groups.pos0", 1)]
+
+
+@pytest.mark.parametrize("arch", sorted(jax_base.list_archs()))
+def test_configs_equal_field_by_field(arch):
+    want, got = jax_base.get_config(arch), base.get_config(arch)
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert dataclasses.asdict(base.reduced_config(got)) == dataclasses.asdict(jax_base.reduced_config(want))
+    assert got.scan_groups() == want.scan_groups()
+    assert got.layer_kinds() == want.layer_kinds()
+    assert base.valid_cells(got) == jax_base.valid_cells(want)
+
+
+def test_param_names_and_counts(case):
+    cfg, model, ref = case
+    want = {path: tuple(np.shape(a)) for path, a in tree_leaves(ref["params"])}
+    got = {name: tuple(p.shape) for name, p in model.state_dict().items()}
+    assert got == want
+    assert model.n_params() == ref["n_params"]
+
+
+def test_forward_and_prefill_match(case):
+    cfg, model, ref = case
+    toks = torch.from_numpy(ref["toks"])
+    got, _ = model({"tokens": toks})
+    assert got.shape == ref["logits"].shape and got.dtype == torch.bfloat16
+    _close(got, ref["logits"], PREFILL_TOL)
+    got_last, got_cache = make_prefill_step(model)({"tokens": toks})
+    _close(got_last, ref["last"][:, -1], PREFILL_TOL)
+    want_leaves = dict(tree_leaves(cache_from_jax(ref["cache"])))
+    got_leaves = dict(tree_leaves(got_cache))
+    assert want_leaves.keys() == got_leaves.keys()
+    for name, w in want_leaves.items():
+        assert got_leaves[name].shape == w.shape and got_leaves[name].dtype == w.dtype, name
+    # the caches of the first two layers element by element, the ring
+    # buffers' roll included; deeper layers carry the bf16 drift of the
+    # layers below them into the decode logits, which the generation test
+    # holds to the decode tolerance
+    for group, r in _first_layers(cfg):
+        for kv in "kv":
+            _close(got_leaves[f"{group}.{kv}"][r], want_leaves[f"{group}.{kv}"][r], PREFILL_TOL)
+
+
+def test_generate_greedy_matches_teacher_forced(case):
+    """The port's logits at every step, fed the reference's tokens, match the
+    reference's; each of the port's tokens is the argmax of its step."""
+    cfg, model, ref = case
+    prompts = torch.from_numpy(ref["toks"])
+    res = generate(model, prompts, NEW, feed=torch.from_numpy(ref["gen_toks"].copy()), keep_logits=True)
+    assert res.tokens.shape == (2, PROMPT + NEW) and res.steps == NEW
+    assert torch.equal(res.tokens[:, :PROMPT], prompts)
+    assert len(res.logits) == NEW
+    for got, want in zip(res.logits, ref["gen_logits"]):
+        _close(got, want, DECODE_TOL)
+    picks = torch.stack([lg.argmax(-1) for lg in res.logits], dim=1).to(torch.int32)
+    assert torch.equal(res.tokens[:, PROMPT:], picks)
+    # without teacher forcing the port feeds on its own picks
+    free = generate(model, prompts, NEW)
+    assert torch.equal(free.tokens[:, : PROMPT + 1], res.tokens[:, : PROMPT + 1])
+
+
+def test_decode_step_matches_forward(case):
+    """Teacher-forced decode from an empty cache agrees with the reference's
+    forward pass (its own golden check), ring buffers included."""
+    cfg, model, ref = case
+    toks = ref["toks"]
+    cache = model.cache_init(2, PROMPT)
+    outs = []
+    for t in range(PROMPT):
+        lg, cache = model.decode_step(cache, {"tokens": torch.from_numpy(toks[:, t : t + 1]), "pos": t})
+        outs.append(lg[:, 0])
+    _close(torch.stack(outs, dim=1), ref["logits"], DECODE_TOL)
+
+
+def test_int8_cache_branch(case):
+    cfg, model, ref = case
+    # the same bf16 cache quantizes to the same bits in both packages
+    want = dict(tree_leaves(cache_from_jax(ref["quantized"])))
+    got = dict(tree_leaves(quantize_kv(cache_from_jax(ref["cache"]))))
+    assert want.keys() == got.keys()
+    for name in want:
+        assert got[name].dtype == want[name].dtype and torch.equal(got[name], want[name]), name
+    # the quantized prefill: the same layout, and the first layers' values
+    toks = torch.from_numpy(ref["toks"])
+    _, tq = model.prefill({"tokens": toks}, quantize_cache=True)
+    want = dict(tree_leaves(cache_from_jax(ref["qcache"])))
+    got = dict(tree_leaves(tq))
+    assert want.keys() == got.keys()
+    for name in want:
+        assert got[name].shape == want[name].shape and got[name].dtype == want[name].dtype, name
+    for group, r in _first_layers(cfg):
+        for kv in "kv":
+            deq = [c[f"{group}.{kv}_q"][r].float() * c[f"{group}.{kv}_s"][r].float() for c in (got, want)]
+            _close(deq[0], deq[1], PREFILL_TOL)
+    # decode through the int8 branch, padded to one more position
+    tpad = pad_cache(tq, model.cache_init(2, PROMPT + 1, quantized=True))
+    got_lg, _ = model.decode_step(tpad, {"tokens": toks[:, -1:], "pos": PROMPT})
+    _close(got_lg, ref["qlogits"], DECODE_TOL)
+    assert cache_bytes(tq) < cache_bytes(dequantize_kv(tq))
+
+
+def test_entry_points_default_to_the_card():
+    """Without a card, Model and the cache refuse to start rather than run
+    on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device works")
+    cfg = base.reduced_config(base.get_config("gemma2-9b"))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Model(cfg)
+    from repro_torch.launch import serve
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.main(["--requests", "1"])
+
+
+def test_serve_cli_on_the_cpu():
+    from repro_torch.launch import serve
+
+    out = serve.main(["--device", "cpu", "--requests", "3", "--batch", "2", "--new", "4", "--prompt-len", "20"])
+    assert out["done"] >= 2 and out["tokens"] > 0
+
+
+def test_not_ported_families_raise():
+    for arch in ("rwkv6-3b", "dbrx-132b", "zamba2-7b", "hubert-xlarge"):
+        with pytest.raises(NotImplementedError, match="not yet ported"):
+            Model(base.reduced_config(base.get_config(arch)), device="cpu")
