@@ -6,8 +6,9 @@
 Phases, each of which must pass for the exit code to be 0:
 
 1. environment: torch and CUDA versions, the card's name and power limit;
-2. build: the segreduce and flash-attention CUDA kernels from their sources
-   under src/repro_torch/kernels/*/csrc, one nvcc each, started together;
+2. build: the segreduce, flash-attention and WKV6 CUDA kernels from their
+   sources under src/repro_torch/kernels/*/csrc, one nvcc each, started
+   together;
 3. kernel against its plain PyTorch version on the card: fused_segreduce
    and segreduce for sum/max/min over int32/f32/bf16, masked and unmasked,
    N in {0, 1, 5000, 60M} and K in {1, 100, 100001, 2000001}, plus whole
@@ -48,13 +49,32 @@ Phases, each of which must pass for the exit code to be 0:
    decode steps by kernel, against the decode step's wall time;
 8. the flash kernel at the serving path's shapes: its time, its bound, the
    plain version's time, and scaled_dot_product_attention's (which has no
-   softcap and no window) beside the kernel's own time without them.
+   softcap and no window) beside the kernel's own time without them;
+9. the WKV6 kernel against its plain version (wkv6_plain) on the card: head
+   size 16/64, S in {1, 16, 100, 256, 2048, 16385}, (B, H) in {(2, 3),
+   (8, 40), (1, 40)}, r/k/v in bf16, log_w = -exp(N(0, 1)) or the constants
+   -5, -54.6 (the clip's strongest decay) and -3.4e-4 (its weakest), S0
+   zero or random; y and the final state held to ``ref.KERNEL_TOL``, each
+   case run twice and required to be bitwise equal;
+10. the LM serving path at rwkv6-3b's full published width (32 layers,
+   d_model 2560, 40 heads of 64, 3.07 B parameters drawn on the card from
+   ``--seed``, with the tensors the model initialises to zeros drawn too, so
+   that log_w spans the clip range): as phase 7, for (a) 8 requests of 2048
+   prompt tokens and 64 new ones and (b) one request of 16384 prompt tokens
+   and 16 new ones, with 32 wkv6 launches per prefill and every wkv6 call
+   of the prefills held against the plain version (y and the final state);
+   (b)'s consistency prefill of 16385 tokens runs the ragged tail;
+11. the WKV6 kernel at the serving path's shapes: its time, its bound and
+   what bounds it, the plain version's time (no PyTorch call computes the
+   recurrence, so there is no library time), and on the inputs of the
+   serving call that read worst, the kernel's and the plain version's
+   readings against the exact scan in f64.
 
 What is cut from TPC-H: Q15 keeps only its revenue view (no outer max or
 supplier join); Q13 keeps its inner aggregate (no outer join's zero-count
 customers, no comment filter); Q2 keeps only its inner MIN (no region
-joins); dbgen is replaced by numpy.  Nothing of gemma2-9b is cut; its
-weights are random.
+joins); dbgen is replaced by numpy.  Nothing of gemma2-9b or rwkv6-3b is
+cut; their weights are random.
 
 The last lines are the kernels' JSON record and {"ok": true, "device": ...}.
 The script exits non-zero, printing neither, without a CUDA device or
@@ -63,6 +83,7 @@ outside a checkout of the repository.  Details go to ``--out``.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -85,6 +106,13 @@ DECODE_REL = 0.05
 FLASH_SHAPES = ((1, 2112), (8, 128), (1000, 1000), (2047, 2047), (8191, 8191))  # (Sq, Sk)
 SERVE_ARCH = "gemma2-9b"
 SERVE_SCENARIOS = {"a": (8, 2048, 64), "b": (1, 8192, 16)}  # batch, prompt, new tokens
+RWKV_ARCH = "rwkv6-3b"
+RWKV_SCENARIOS = {"a": (8, 2048, 64), "b": (1, 16384, 16)}
+WKV6_HEAD_SIZES = (16, 64)
+WKV6_LENGTHS = (1, 16, 100, 256, 2048, 16385)
+WKV6_BATCH_HEADS = ((2, 3), (8, 40), (1, 40))
+# log_w: -exp(N(0, 1)), strong, the clip's strongest (-e^4), its weakest (-e^-8)
+WKV6_DECAYS = {"random": None, "-5": -5.0, "-54.6": -54.6, "-3.4e-4": -3.4e-4}
 
 # TPC-H dates as int32 day numbers since 1970-01-01
 START_DATE = int(np.datetime64("1992-01-01", "D").astype(np.int64))
@@ -636,53 +664,90 @@ def flash_matrix(torch, flash_ops, plain, agreement, fails: Failures, seed: int)
 
 
 # ---------------------------------------------------------------------------
-# phase 7: the LM serving path at full width
+# phases 7 and 10: an LM serving path at full width
 # ---------------------------------------------------------------------------
 
 
-class FlashRecorder:
-    """Wraps ops.flash_attention while the serving path runs: every call is
-    held against the plain version on its own inputs, and the inputs of the
-    first call of each distinct signature are kept for phase 8."""
+class CallRecorder:
+    """Wraps ``ops.<name>`` while a serving path runs: every call is held
+    against the plain version on its own inputs (``compare(args, kw, out)``
+    gives an agreement dict), under the signature ``key(label, args, kw)``,
+    and the inputs of the call of each signature that read worst are kept
+    for the timing phase.  ``paused()`` restores the wrapper for an unchecked run."""
 
-    def __init__(self, flash_ops, plain, agreement, fails: Failures) -> None:
-        self.ops, self.plain, self.agreement, self.fails = flash_ops, plain, agreement, fails
-        self.orig = flash_ops.flash_attention
+    def __init__(self, ops, name: str, compare, key, fails: Failures) -> None:
+        self.ops, self.name, self.compare, self.key, self.fails = ops, name, compare, key, fails
+        self.orig = getattr(ops, name)
         self.label = ""
         self.stats: dict = {}
         self.inputs: dict = {}
 
     def __enter__(self):
-        def record(q, k, v, **kw):
-            out = self.orig(q, k, v, **kw)
-            agree = self.agreement(out, self.plain(q, k, v, **kw))
-            key = (self.label, tuple(q.shape), tuple(k.shape), str(q.dtype).split(".")[-1],
-                   bool(kw.get("causal", True)), int(kw.get("window", 0)),
-                   float(kw.get("logit_softcap", 0.0)), float(kw.get("scale", 1.0)))
+        def record(*args, **kw):
+            out = self.orig(*args, **kw)
+            agree = self.compare(args, kw, out)
+            key = self.key(self.label, args, kw)
             st = self.stats.setdefault(key, {"calls": 0, "ok": True, "max_abs_err": 0.0, "worst": 0.0, "rel": 0.0})
+            if key not in self.inputs or agree["worst"] > st["worst"]:
+                self.inputs[key] = (tuple(a.clone() if hasattr(a, "clone") else a for a in args), dict(kw))
             st["calls"] += 1
             st["ok"] = st["ok"] and agree["ok"]
             for x in ("max_abs_err", "worst", "rel"):
                 st[x] = max(st[x], agree[x])
-            self.fails.check(agree["ok"], f"flash at {key}: kernel and plain version disagree ({agree})")
-            if key not in self.inputs:
-                self.inputs[key] = (q.clone(), k.clone(), v.clone(), dict(kw))
+            self.fails.check(agree["ok"], f"{self.name} at {key}: kernel and plain version disagree ({agree})")
             return out
 
-        self.ops.flash_attention = record
+        setattr(self.ops, self.name, record)
         return self
 
     def __exit__(self, *exc):
-        self.ops.flash_attention = self.orig
+        setattr(self.ops, self.name, self.orig)
         return False
 
+    @contextlib.contextmanager
+    def paused(self):
+        held = getattr(self.ops, self.name)
+        setattr(self.ops, self.name, self.orig)
+        try:
+            yield
+        finally:
+            setattr(self.ops, self.name, held)
 
-def serve_breakdown(torch, model, prompts, n_steps: int = 4) -> dict:
+
+def flash_recorder(flash_ops, plain, agreement, fails: Failures) -> CallRecorder:
+    def compare(args, kw, out):
+        return agreement(out, plain(*args, **kw))
+
+    def key(label, args, kw):
+        q, k = args[0], args[1]
+        return (label, tuple(q.shape), tuple(k.shape), str(q.dtype).split(".")[-1],
+                bool(kw.get("causal", True)), int(kw.get("window", 0)),
+                float(kw.get("logit_softcap", 0.0)), float(kw.get("scale", 1.0)))
+
+    return CallRecorder(flash_ops, "flash_attention", compare, key, fails)
+
+
+def wkv6_recorder(wkv6_ops, plain, agreement, fails: Failures) -> CallRecorder:
+    """y and the final state both held to the wkv6 kernel's tolerance."""
+
+    def compare(args, kw, out):
+        want = plain(*args, **kw)
+        ay, ast = agreement(out[0], want[0]), agreement(out[1], want[1])
+        return {"ok": ay["ok"] and ast["ok"], **{x: max(ay[x], ast[x]) for x in ("worst", "rel", "max_abs_err")}}
+
+    def key(label, args, kw):
+        return (label, tuple(args[0].shape), str(args[0].dtype).split(".")[-1])
+
+    return CallRecorder(wkv6_ops, "wkv6", compare, key, fails)
+
+
+def serve_breakdown(torch, model, prompts, kernel: str, n_steps: int = 4) -> dict:
     """Where a batch's card time goes: the profiler's device ms of one
-    prefill and the flash kernel's share of it; then the wall ms of a
-    decode step on the host clock (synchronized, without the profiler), the
-    device ms the profiler sees in a step, and the card's idle share of the
-    step, 1 - device / wall, with the step's costliest kernels."""
+    prefill and the share of the kernels whose name holds ``kernel``; then
+    the wall ms of a decode step on the host clock (synchronized, without
+    the profiler), the device ms the profiler sees in a step, and the card's
+    idle share of the step, 1 - device / wall, with the step's costliest
+    kernels."""
     from repro_torch.serve.step import make_decode_step, pad_cache
 
     B, S = prompts.shape
@@ -696,8 +761,8 @@ def serve_breakdown(torch, model, prompts, n_steps: int = 4) -> dict:
     out: dict = {}
     if events is not None:
         total = sum(device_us(ev) for ev in events)
-        flash = sum(device_us(ev) for ev in events if "flash_fwd" in ev.key)  # either dtype's kernel
-        out.update(device_ms=total / 1e3, flash_ms=flash / 1e3, flash_share=flash / total if total else 0.0)
+        ours = sum(device_us(ev) for ev in events if kernel in ev.key)  # every dtype's instance
+        out.update(device_ms=total / 1e3, kernel_ms=ours / 1e3, kernel_share=ours / total if total else 0.0)
     cache = pad_cache(pcache, model.cache_init(B, S + 2 * n_steps + 1))
     state = {"tok": torch.argmax(logits[:, -1].float(), dim=-1)[:, None].to(torch.int32), "pos": S, "cache": cache}
     del logits, pcache, cache
@@ -723,48 +788,81 @@ def serve_breakdown(torch, model, prompts, n_steps: int = 4) -> dict:
     return out
 
 
-def serve_path(torch, flash_ops, plain, agreement, fails: Failures, seed: int, record: dict):
+def spread_rwkv_zero_inits(torch, model, gen) -> None:
+    """rwkv6 initialises mu_*, w0, w_lora_b, u and ln_x to zeros, which
+    gives log_w = -1 everywhere, no bonus and no token shift.  Draw them
+    from ``gen`` instead: w0 uniform over the clip range [-8, 4] (so that
+    log_w spans [-e^4, -e^-8]), u 0.3 N(0, 1), mu_* U(0, 1), w_lora_b
+    0.01 N(0, 1), ln_x 0.1 N(0, 1)."""
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            leaf = name.split(".")[-1]
+            shape, dev = p.shape, p.device
+            if leaf == "w0":
+                p.copy_(torch.rand(shape, generator=gen, device=dev) * 12.0 - 8.0)
+            elif leaf == "u":
+                p.copy_(0.3 * torch.randn(shape, generator=gen, device=dev))
+            elif leaf.startswith("mu_"):
+                p.copy_(torch.rand(shape, generator=gen, device=dev))
+            elif leaf == "w_lora_b":
+                p.copy_(0.01 * torch.randn(shape, generator=gen, device=dev))
+            elif leaf == "ln_x":
+                p.copy_(0.1 * torch.randn(shape, generator=gen, device=dev))
+
+
+def serve_path(torch, arch: str, scenarios_spec: dict, ops, rec: CallRecorder, kernel: str, fails: Failures,
+               seed: int, record: dict, prepare=None):
+    """``generate`` at ``arch``'s full width for each scenario (batch,
+    prompt, new tokens), twice, through the kernel that ``rec`` wraps on
+    ``ops``: one launch per layer and prefill, every call held against the
+    plain version, bitwise-equal tokens, finite logits, and for (b) the
+    first decode step against a prefill of prompt + token; then where the
+    card time goes (``serve_breakdown``).  ``prepare(model, gen)`` adjusts
+    the drawn weights."""
     from repro_torch.configs.base import get_config
     from repro_torch.models.transformer import Model
     from repro_torch.serve.step import generate
 
-    cfg = get_config(SERVE_ARCH)
+    cfg = get_config(arch)
     n_layers = cfg.n_layers
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     gen = torch.Generator(device="cuda")
     gen.manual_seed(seed)
     model = Model(cfg).init_params(gen)
+    if prepare is not None:
+        prepare(model, gen)
     torch.cuda.synchronize()
     n_params = model.n_params()
-    print(f"  {SERVE_ARCH}: {n_params:,} parameters drawn on the card in {time.perf_counter() - t0:.1f} s, "
+    print(f"  {arch}: {n_params:,} parameters drawn on the card in {time.perf_counter() - t0:.1f} s, "
           f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated", flush=True)
     rng = np.random.default_rng(seed)
     scenarios = {
         name: (rng.integers(4, cfg.vocab_size, (B, S)).astype(np.int32), new)
-        for name, (B, S, new) in SERVE_SCENARIOS.items()
+        for name, (B, S, new) in scenarios_spec.items()
     }
-    report: dict = {"n_params": n_params}
-    flash_ops.reset_launches()
-    with FlashRecorder(flash_ops, plain, agreement, fails) as rec:
+    report: dict = {"arch": arch, "n_params": n_params}
+    ops.reset_launches()
+    with rec:
         for name, (prompt_np, new) in scenarios.items():
             prompts = torch.from_numpy(prompt_np).cuda()
             runs = []
             for run in ("checked", "timed"):
                 rec.label = name
-                before = flash_ops.LAUNCHES
+                before = ops.LAUNCHES
                 if run == "timed":
-                    flash_ops.flash_attention, held = rec.orig, flash_ops.flash_attention
-                res = generate(model, prompts, new, keep_logits=(name == "b"))
-                if run == "timed":
-                    flash_ops.flash_attention = held
-                launched = flash_ops.LAUNCHES - before
-                fails.check(launched == n_layers, f"serve ({name}, {run}): {launched} flash launches, not {n_layers}")
+                    with rec.paused():
+                        res = generate(model, prompts, new, keep_logits=(name == "b"))
+                else:
+                    res = generate(model, prompts, new, keep_logits=(name == "b"))
+                launched = ops.LAUNCHES - before
+                fails.check(launched == n_layers,
+                            f"serve {arch} ({name}, {run}): {launched} {rec.name} launches, not {n_layers}")
                 finite = all(bool(torch.isfinite(lg).all()) for lg in res.logits) if res.logits else True
-                fails.check(finite, f"serve ({name}): non-finite logits")
+                fails.check(finite, f"serve {arch} ({name}): non-finite logits")
                 runs.append(res)
             fails.check(bool(torch.equal(runs[0].tokens, runs[1].tokens)),
-                        f"serve ({name}): two runs gave different tokens")
+                        f"serve {arch} ({name}): two runs gave different tokens")
             res = runs[1]
             B = prompts.shape[0]
             entry = {
@@ -778,16 +876,16 @@ def serve_path(torch, flash_ops, plain, agreement, fails: Failures, seed: int, r
             if name == "b":
                 # the first decode step against a prefill of the prompt plus its token
                 rec.label = "b+1"
-                before = flash_ops.LAUNCHES
+                before = ops.LAUNCHES
                 tok0 = res.tokens[:, prompts.shape[1] : prompts.shape[1] + 1]
                 with torch.inference_mode():
                     full, _ = model.prefill({"tokens": torch.cat([prompts, tok0], dim=1)})
-                fails.check(flash_ops.LAUNCHES - before == n_layers, "consistency prefill: flash launches")
+                fails.check(ops.LAUNCHES - before == n_layers, f"serve {arch}: consistency prefill: launches")
                 got, want = runs[1].logits[1].float(), full[:, -1].float()
                 err, top = float((got - want).abs().max()), float(want.abs().max())
                 ok = bool(torch.allclose(got, want, rtol=DECODE_TOL, atol=DECODE_TOL))
                 ok = ok and bool(torch.isfinite(want).all()) and err <= DECODE_REL * top
-                fails.check(ok, f"serve (b): first decode step against prefill: max_abs_err {err:.3g}, "
+                fails.check(ok, f"serve {arch} (b): first decode step against prefill: max_abs_err {err:.3g}, "
                                 f"{err / top:.3g} of the largest logit {top:.3g}")
                 entry["decode_vs_prefill_max_abs_err"] = err
                 entry["logit_abs_max"] = top
@@ -795,9 +893,11 @@ def serve_path(torch, flash_ops, plain, agreement, fails: Failures, seed: int, r
             print(f"  ({name}) batch {B} x {prompts.shape[1]} prompt + {new} new: prefill {entry['prefill_ms']:.1f} ms, "
                   f"decode {entry['decode_ms_per_token']:.2f} ms/token, {entry['decode_tok_s']:.1f} decode tok/s, "
                   f"{entry['tok_s']:.1f} tok/s overall; tokens equal across runs", flush=True)
-    launches = flash_ops.LAUNCHES
+    launches = ops.LAUNCHES
+    report["launches"] = launches
     report["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
-    print(f"  flash launches on the serving path: {launches}; peak memory {report['peak_gib']:.1f} GiB", flush=True)
+    print(f"  {rec.name} launches on the serving path: {launches}; peak memory {report['peak_gib']:.1f} GiB",
+          flush=True)
     if "b" in report:
         b = report["b"]
         print(f"  (b) first decode step vs prefill of prompt+token: max_abs_err "
@@ -807,11 +907,11 @@ def serve_path(torch, flash_ops, plain, agreement, fails: Failures, seed: int, r
     # where each scenario's card time goes (these launches are not counted)
     with torch.inference_mode():
         for name, (prompt_np, _) in scenarios.items():
-            prof = serve_breakdown(torch, model, torch.from_numpy(prompt_np).cuda())
+            prof = serve_breakdown(torch, model, torch.from_numpy(prompt_np).cuda(), kernel)
             report[name]["profile"] = prof
             if "device_ms" in prof:
-                print(f"  ({name}) prefill device time {prof['device_ms']:.1f} ms, flash kernel "
-                      f"{prof['flash_ms']:.1f} ms ({100 * prof['flash_share']:.1f}%)", flush=True)
+                print(f"  ({name}) prefill device time {prof['device_ms']:.1f} ms, {rec.name} kernel "
+                      f"{prof['kernel_ms']:.1f} ms ({100 * prof['kernel_share']:.1f}%)", flush=True)
             line = f"  ({name}) decode step wall {prof['decode_wall_ms']:.2f} ms"
             if "decode_device_ms" in prof:
                 line += (f", device {prof['decode_device_ms']:.2f} ms, card idle "
@@ -819,11 +919,11 @@ def serve_path(torch, flash_ops, plain, agreement, fails: Failures, seed: int, r
                          + "; ".join(f"{t['kernel'][:48]} {t['ms']:.2f}" for t in prof["decode_top"][:4]))
             print(line, flush=True)
     bad_calls = [k for k, st in rec.stats.items() if not st["ok"]]
-    fails.check(not bad_calls, f"flash calls disagreeing with the plain version: {bad_calls}")
-    record["serve"] = report
+    fails.check(not bad_calls, f"{rec.name} calls disagreeing with the plain version: {bad_calls}")
+    record[f"serve_{arch}"] = report
     del model
     torch.cuda.empty_cache()
-    return launches, rec
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -833,7 +933,7 @@ def serve_path(torch, flash_ops, plain, agreement, fails: Failures, seed: int, r
 
 def time_flash(torch, F, flash_ops, plain, agreement, key, inputs) -> dict:
     label, qs, ks, dname, causal, window, cap, scale = key
-    q, k, v, kw = inputs
+    (q, k, v), kw = inputs
     B, sq, H, D = qs
     sk, Hkv = ks[1], ks[2]
     bf16 = dname == "bfloat16"
@@ -890,6 +990,124 @@ def flash_at_shapes(torch, flash_ops, plain, agreement, rec, fails: Failures) ->
 
 
 # ---------------------------------------------------------------------------
+# phase 9: the wkv6 kernel against its plain version
+# ---------------------------------------------------------------------------
+
+
+def wkv6_bound(B: int, S: int, H: int, K: int, elem: int, u_elem: int, with_state: bool) -> tuple:
+    """(bound_ms, bound_by): the scan's 5 K V f32 operations per token and
+    head (V = K; for each state element, y += r S is one FMA and S = w S +
+    k v a multiply and an FMA; the bonus, (sum_k r u k) v, is O(K + V))
+    against the card's f32 rate, and r, k, v (``elem`` bytes),
+    log_w and y (f32), u, S0 (when given) and S_out each moved once."""
+    n = B * S * H * K
+    t_ops = 5.0 * n * K / F32_OPS_PER_S * 1e3
+    nbytes = n * (3 * elem + 4 + 4) + H * K * u_elem + B * H * K * K * 4 * (2 if with_state else 1)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def wkv6_matrix(torch, wkv6_ops, plain, agreement, fails: Failures, seed: int) -> list:
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    results = []
+    for K in WKV6_HEAD_SIZES:
+        for S in WKV6_LENGTHS:
+            for B, H in WKV6_BATCH_HEADS:
+                t0 = time.perf_counter()
+                r, k, v = (0.5 * torch.randn(B, S, H, K, device=dev, generator=gen)).to(torch.bfloat16), \
+                    (0.5 * torch.randn(B, S, H, K, device=dev, generator=gen)).to(torch.bfloat16), \
+                    (0.5 * torch.randn(B, S, H, K, device=dev, generator=gen)).to(torch.bfloat16)
+                u = 0.3 * torch.randn(H, K, device=dev, generator=gen)
+                s0 = torch.randn(B, H, K, K, device=dev, generator=gen)
+                n_cases = bad = 0
+                worst = {"max_abs_err": 0.0, "worst": 0.0, "rel": 0.0}
+                for dname, value in WKV6_DECAYS.items():
+                    if value is None:
+                        lw = -torch.exp(torch.randn(B, S, H, K, device=dev, generator=gen))
+                    else:
+                        lw = torch.full((B, S, H, K), value, device=dev)
+                    for state in (None, s0):
+                        y1, st1 = wkv6_ops.wkv6(r, k, v, lw, u, state)
+                        y2, st2 = wkv6_ops.wkv6(r, k, v, lw, u, state)
+                        want_y, want_s = plain(r, k, v, lw, u, state)
+                        torch.cuda.synchronize()
+                        ay, ast = agreement(y1, want_y), agreement(st1, want_s)
+                        ok = ay["ok"] and ast["ok"] and bitwise_equal(torch, y1, y2) and bitwise_equal(torch, st1, st2)
+                        worst = {x: max(worst[x], ay[x], ast[x]) for x in worst}
+                        n_cases += 1
+                        what = (f"wkv6 K={K} S={S} B={B} H={H} log_w={dname} S0={state is not None}: "
+                                f"y worst/limit {ay['worst']:.3g} rel {ay['rel']:.3g}, state worst/limit "
+                                f"{ast['worst']:.3g} rel {ast['rel']:.3g}")
+                        bad += not fails.check(ok, what)
+                        del y1, y2, st1, st2, want_y, want_s
+                    del lw
+                del r, k, v
+                dt = time.perf_counter() - t0
+                results.append({"K": K, "S": S, "B": B, "H": H, "cases": n_cases, "failed": bad, **worst,
+                                "seconds": dt})
+                print(f"  wkv6 K={K:>3} S={S:>5} B={B} H={H:>2}: {n_cases - bad}/{n_cases} cases agree "
+                      f"(max_abs_err {worst['max_abs_err']:.3g}, worst/limit {worst['worst']:.3g}, "
+                      f"rel {worst['rel']:.3g}; {dt:.1f} s)", flush=True)
+                torch.cuda.empty_cache()
+    return results
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the wkv6 kernel at the serving path's shapes
+# ---------------------------------------------------------------------------
+
+
+def wkv6_witness(torch, wkv6_ops, plain, scan, agreement, args) -> dict:
+    """Which side of the kernel-versus-plain gap rounds more: the kernel's
+    and the plain version's y and final state, each held to the same
+    limits against the exact scan in f64 on the same inputs."""
+    want_y, want_s = scan(*args, dtype=torch.float64)
+    out = {}
+    for who, (y, st) in (("kernel", wkv6_ops.wkv6(*args)), ("plain", plain(*args))):
+        ay, ast = agreement(y, want_y), agreement(st, want_s)
+        out[who] = {x: max(ay[x], ast[x]) for x in ("worst", "rel", "max_abs_err")}
+    del want_y, want_s
+    return out
+
+
+def wkv6_at_shapes(torch, wkv6_ops, plain, scan, agreement, rec: CallRecorder) -> list:
+    """Each serving shape's kernel, plain and bound times, on the inputs of
+    the call that read worst against the plain version, with the f64
+    witness of that call (``wkv6_witness``)."""
+    rows = []
+    for key, (args, _) in rec.inputs.items():
+        label, shape, dname = key
+        r, k, v, lw, u, s0 = args
+        B, S, H, K = shape
+        t_bound, bound_by = wkv6_bound(B, S, H, K, r.element_size(), u.element_size(), s0 is not None)
+        st = rec.stats[key]
+        row = {
+            "scenario": label, "shape": list(shape), "dtype": dname, "calls": st["calls"],
+            "ms": device_ms(torch, lambda: wkv6_ops.wkv6(*args)),
+            "plain_ms": device_ms(torch, lambda: plain(*args), reps=1, warmup=1),
+            "bound_ms": t_bound, "bound_by": bound_by,
+            # no single PyTorch call computes the WKV6 recurrence
+            "library_ms": None,
+            "max_abs_err": st["max_abs_err"], "worst": st["worst"], "rel": st["rel"],
+            "witness_f64": wkv6_witness(torch, wkv6_ops, plain, scan, agreement, args),
+        }
+        rows.append(row)
+        print(f"  wkv6 ({label}) B={B} S={S} H={H} K={K} {dname} calls {st['calls']}: kernel {row['ms']:.3f} ms  "
+              f"bound {t_bound:.3f} ms ({bound_by})  plain {row['plain_ms']:.3f} ms  library n/a  "
+              f"max_abs_err {st['max_abs_err']:.3g}, worst/limit {st['worst']:.3g}, rel {st['rel']:.3g}",
+              flush=True)
+        wit = row["witness_f64"]
+        print(f"    that call against the f64 scan: kernel worst/limit {wit['kernel']['worst']:.3g}, "
+              f"rel {wit['kernel']['rel']:.3g}; plain worst/limit {wit['plain']['worst']:.3g}, "
+              f"rel {wit['plain']['rel']:.3g}", flush=True)
+        rec.inputs[key] = None
+    torch.cuda.empty_cache()
+    return rows
+
+
+# ---------------------------------------------------------------------------
 
 
 def nvidia_smi_line() -> str:
@@ -924,6 +1142,10 @@ def main(argv=None) -> int:
     from repro_torch.kernels.flash import ops as flash_ops
     from repro_torch.kernels.flash.ref import agreement, flash_attention_plain
     from repro_torch.kernels.segreduce import kernel, ops, ref
+    from repro_torch.kernels.wkv6 import kernel as wkv6_kernel
+    from repro_torch.kernels.wkv6 import ops as wkv6_ops
+    from repro_torch.kernels.wkv6.ref import agreement as wkv6_agreement
+    from repro_torch.kernels.wkv6.ref import wkv6_plain, wkv6_scan
 
     fails = Failures()
     record: dict = {"sf": args.sf, "seed": args.seed}
@@ -938,7 +1160,8 @@ def main(argv=None) -> int:
 
     # 2. build
     t0 = time.perf_counter()
-    record["build_s"] = build_all({"segreduce": kernel.LIBRARY, "flash": flash_kernel.LIBRARY})
+    record["build_s"] = build_all({"segreduce": kernel.LIBRARY, "flash": flash_kernel.LIBRARY,
+                                   "wkv6": wkv6_kernel.LIBRARY})
     print("build: " + ", ".join(f"{n} library in {t:.1f} s" for n, t in record["build_s"].items())
           + f" (in parallel; all loaded in {time.perf_counter() - t0:.1f} s)", flush=True)
 
@@ -987,13 +1210,29 @@ def main(argv=None) -> int:
 
     # 7. the serving path at full width
     print(f"serving path: {SERVE_ARCH} at full width:", flush=True)
-    flash_launches, flash_rec = serve_path(torch, flash_ops, flash_attention_plain, agreement, fails, args.seed,
-                                           record)
+    flash_rec = flash_recorder(flash_ops, flash_attention_plain, agreement, fails)
+    flash_launches = serve_path(torch, SERVE_ARCH, SERVE_SCENARIOS, flash_ops, flash_rec, "flash_fwd", fails,
+                                args.seed, record)
 
     # 8. flash at the serving path's shapes (these launches are not counted)
     print("flash kernel at the serving path's shapes:", flush=True)
     flash_rows = flash_at_shapes(torch, flash_ops, flash_attention_plain, agreement, flash_rec, fails)
     record["flash_shapes"] = flash_rows
+
+    # 9. wkv6 against its plain version
+    print("wkv6 kernel against its plain version:", flush=True)
+    record["wkv6_matrix"] = wkv6_matrix(torch, wkv6_ops, wkv6_plain, wkv6_agreement, fails, args.seed)
+
+    # 10. the rwkv6 serving path at full width
+    print(f"serving path: {RWKV_ARCH} at full width:", flush=True)
+    wkv6_rec = wkv6_recorder(wkv6_ops, wkv6_plain, wkv6_agreement, fails)
+    wkv6_launches = serve_path(torch, RWKV_ARCH, RWKV_SCENARIOS, wkv6_ops, wkv6_rec, "wkv6_kernel", fails,
+                               args.seed, record, prepare=lambda m, g: spread_rwkv_zero_inits(torch, m, g))
+
+    # 11. wkv6 at the serving path's shapes (these launches are not counted)
+    print("wkv6 kernel at the serving path's shapes:", flush=True)
+    wkv6_rows = wkv6_at_shapes(torch, wkv6_ops, wkv6_plain, wkv6_scan, wkv6_agreement, wkv6_rec)
+    record["wkv6_shapes"] = wkv6_rows
 
     # the JSON record: each kernel at the largest shape the main path gave it
     entries = []
@@ -1035,6 +1274,22 @@ def main(argv=None) -> int:
             "library_ms": top["library_ms"],
         })
     fails.check(flash_launches > 0, "the serving path never launched flash_attention")
+    if fails.check(bool(wkv6_rows), "no serving-path shape recorded for wkv6"):
+        top = max(wkv6_rows, key=lambda t: t["bound_ms"])
+        entries.append({
+            "name": "wkv6",
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/wkv6/csrc/wkv6.cu",
+            "replaces": "src/repro/kernels/wkv6/kernel.py:57",
+            "launches": wkv6_launches,
+            "max_abs_err": max(t["max_abs_err"] for t in wkv6_rows),
+            "ms": top["ms"],
+            "plain_ms": top["plain_ms"],
+            "bound_ms": top["bound_ms"],
+            "bound_by": top["bound_by"],
+            "library_ms": None,
+        })
+    fails.check(wkv6_launches > 0, "the rwkv6 serving path never launched wkv6")
     record["failures"] = fails.items
     os.makedirs(os.path.dirname(args.out), exist_ok=True)
     with open(args.out, "w") as fh:

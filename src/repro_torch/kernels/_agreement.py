@@ -1,0 +1,27 @@
+# How far a hand-written kernel's output lies from its plain version's, the
+# one check every kernel of the port is held to.  Each kernel's ``ref.py``
+# states its own limits (``KERNEL_TOL``) and calls ``agreement`` with them.
+from __future__ import annotations
+
+import torch
+
+
+def agreement(got: torch.Tensor, want: torch.Tensor, tol: dict) -> dict:
+    """``got`` against ``want`` under ``tol`` = dict(rtol, atol_frac, rel).
+    Per element, |got - want| <= rtol * |want| + atol_frac * rms(want's
+    row), a row being the last axis; over the whole tensor, ||got - want|| /
+    ||want|| <= rel; and every element of ``got`` finite.  ``ok`` when all
+    hold; ``worst`` is the largest |got - want| over its per-element limit
+    (at most 1 when ok), ``rel`` the relative Frobenius error,
+    ``max_abs_err`` the largest difference."""
+    if want.numel() == 0:
+        return dict(ok=True, worst=0.0, rel=0.0, max_abs_err=0.0)
+    g, w = got.float(), want.float()
+    diff = (g - w).abs()
+    limit = tol["rtol"] * w.abs() + tol["atol_frac"] * w.square().mean(dim=-1, keepdim=True).sqrt()
+    worst = float(torch.where(diff == 0, 0.0, diff / limit).max())
+    finite = bool(torch.isfinite(g).all())
+    norm_w, norm_d = float(torch.linalg.vector_norm(w)), float(torch.linalg.vector_norm(diff))
+    rel = norm_d / norm_w if norm_w > 0 else (0.0 if norm_d == 0 else float("inf"))
+    return dict(ok=finite and worst <= 1.0 and rel <= tol["rel"], worst=worst, rel=rel,
+                max_abs_err=float(diff.max()))

@@ -13,6 +13,8 @@ from __future__ import annotations
 
 import torch
 
+from .._agreement import agreement as _agreement
+
 NEG_INF = -2.0e38
 
 # What the hand-written kernel is held to against flash_attention_plain.
@@ -30,21 +32,9 @@ KERNEL_TOL = {
 
 
 def agreement(got: torch.Tensor, want: torch.Tensor) -> dict:
-    """How far the kernel's output ``got`` lies from the plain version's
-    ``want``: ``ok`` when both limits of KERNEL_TOL hold; ``worst`` is the
-    largest |got - want| over its per-element limit (at most 1 when ok),
-    ``rel`` the relative Frobenius error, ``max_abs_err`` the largest
-    difference."""
-    tol = KERNEL_TOL[want.dtype]
-    if want.numel() == 0:
-        return dict(ok=True, worst=0.0, rel=0.0, max_abs_err=0.0)
-    g, w = got.float(), want.float()
-    diff = (g - w).abs()
-    limit = tol["rtol"] * w.abs() + tol["atol_frac"] * w.square().mean(dim=-1, keepdim=True).sqrt()
-    worst = float(torch.where(diff == 0, 0.0, diff / limit).max())
-    norm_w, norm_d = float(torch.linalg.vector_norm(w)), float(torch.linalg.vector_norm(diff))
-    rel = norm_d / norm_w if norm_w > 0 else (0.0 if norm_d == 0 else float("inf"))
-    return dict(ok=worst <= 1.0 and rel <= tol["rel"], worst=worst, rel=rel, max_abs_err=float(diff.max()))
+    """The kernel's output ``got`` against the plain version's ``want``
+    under KERNEL_TOL for ``want``'s type (``kernels._agreement``)."""
+    return _agreement(got, want, KERNEL_TOL[want.dtype])
 
 
 def attention_ref(

@@ -1,12 +1,13 @@
 # Model assembly: parameter-definition trees, the layer stacker (pattern
 # periods with stacked parameters, plus a remainder), and the forward /
-# prefill / decode entry points for the attention families.
+# prefill / decode entry points for the attention families and rwkv6.
 #
 # Heterogeneous layer patterns (gemma local:global alternation) stack one
 # tensor per pattern position with a leading ``repeats`` axis, as the JAX
 # package stacks them for lax.scan; here a Python loop over the repeats
 # indexes ``[r]``.  Caches are stacked the same way; decode writes them in
-# place.
+# place (the attention block its k/v at the position, the rwkv block its
+# whole state).
 from __future__ import annotations
 
 import math
@@ -28,8 +29,10 @@ from .common import (
     tree_stack_defs,
 )
 from .mlp import mlp_block, mlp_defs
+from .rwkv6 import rwkv6_channel_defs, rwkv6_channel_mix, rwkv6_defs, rwkv6_time_mix
 
 ATTN_KINDS = ("global", "local", "chunked", "bidir")
+PORTED_KINDS = ATTN_KINDS + ("rwkv",)
 AUX_KEYS = ("lb_loss", "router_z")
 
 
@@ -45,7 +48,7 @@ def _check_ported(cfg: ArchConfig) -> None:
     if cfg.shared_attn_period:
         raise _not_ported("the zamba2 shared block")
     for kind in set(cfg.layer_kinds()):
-        if kind not in ATTN_KINDS:
+        if kind not in PORTED_KINDS:
             raise _not_ported(f"the {kind} layer")
 
 
@@ -71,7 +74,9 @@ def block_defs(cfg: ArchConfig, kind: str) -> Dict[str, Any]:
         if cfg.post_block_norms:
             out["ln2_post"] = ln()
         return out
-    if kind in ("rwkv", "mamba2"):
+    if kind == "rwkv":
+        return {"ln1": ln(), "tmix": rwkv6_defs(cfg), "ln2": ln(), "cmix": rwkv6_channel_defs(cfg)}
+    if kind == "mamba2":
         raise _not_ported(f"the {kind} layer")
     raise ValueError(f"unknown layer kind {kind}")
 
@@ -113,6 +118,8 @@ def apply_block(
     prefill_quant: bool = False,
 ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]], Dict[str, torch.Tensor]]:
     """Returns (x_out, new_cache, aux)."""
+    if kind == "rwkv":
+        return _rwkv_block(p, x, cfg, cache, prefill)
     if kind not in ATTN_KINDS:
         raise _not_ported(f"the {kind} layer")
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
@@ -131,6 +138,35 @@ def apply_block(
     return x, new_cache, {}
 
 
+def _rwkv_block(
+    p: Dict[str, Any],
+    x: torch.Tensor,
+    cfg: ArchConfig,
+    cache: Optional[Dict[str, torch.Tensor]],
+    prefill: bool,
+) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]], Dict[str, torch.Tensor]]:
+    """Time mix then channel mix, each on its normed input.  Prefill without
+    a cache starts from the zero state and returns the state it ends in;
+    with a cache (decode), the new wkv, shift_t and shift_c are copied into
+    the cache's tensors in place, since decode_step keeps the stacked cache
+    it was given and drops what the block returns."""
+    if prefill and cache is None:
+        cache = _map_shapes(lambda sd: torch.zeros(sd[0], dtype=sd[1], device=x.device),
+                            _block_cache_shapes(cfg, "rwkv", x.shape[0], 1))
+    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    t_out, tstate = rwkv6_time_mix(p["tmix"], h, cfg, state=cache)
+    # the JAX package's compiled block norms the f32 sum, unrounded (XLA
+    # keeps the add fused into the norm); the residual itself is rounded
+    h = rms_norm(x.float() + t_out.float(), p["ln2"], cfg.norm_eps).to(x.dtype)
+    x = x + t_out
+    c_out, cstate = rwkv6_channel_mix(p["cmix"], h, cfg, state=cache)
+    x = x + c_out
+    if cache is not None:
+        for name, value in {**tstate, **cstate}.items():
+            cache[name].copy_(value)
+    return x, cache, {}
+
+
 def _layer(tree: Dict[str, Any], r: int) -> Dict[str, Any]:
     """Repeat ``r`` of a stacked tree (views, so writes reach the stack)."""
     return tree_map(lambda a: a[r], tree)
@@ -143,6 +179,16 @@ def _layer(tree: Dict[str, Any], r: int) -> Dict[str, Any]:
 
 def _block_cache_shapes(cfg: ArchConfig, kind: str, batch: int, max_seq: int,
                         quantized: bool = False) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
+    if kind == "rwkv":
+        # the recurrent state has no sequence axis: max_seq and quantized
+        # do not apply
+        K = cfg.ssm.head_size
+        H = cfg.d_model // K
+        return {
+            "wkv": ((batch, H, K, K), torch.float32),
+            "shift_t": ((batch, cfg.d_model), torch.bfloat16),
+            "shift_c": ((batch, cfg.d_model), torch.bfloat16),
+        }
     shape = init_cache_shape(cfg, kind, batch, max_seq)
     if quantized:
         s_shape = shape[:-1] + (1,)

@@ -3,8 +3,12 @@
 # its results are bitwise deterministic, and a default Session whose
 # aggregates go through the kernel; the hand-written flash-attention kernel
 # against its plain version (within ``ref.KERNEL_TOL``, reruns bitwise
-# equal), and a model on the card whose prefill runs through it.  This file imports neither jax nor the
-# JAX package, so it runs on a machine that has only the port:
+# equal), and a model on the card whose prefill runs through it; the
+# hand-written WKV6 kernel against its plain version (within
+# ``ref.KERNEL_TOL``, reruns bitwise equal) over decay regimes from weak to
+# the clip's strongest, and a reduced rwkv6 on the card whose prefill runs
+# through it.  This file imports neither jax nor the JAX package, so it runs
+# on a machine that has only the port:
 #
 #     PYTHONPATH=src python -m pytest tests/test_torch_cuda.py -q
 #
@@ -21,6 +25,9 @@ from repro_torch.kernels.flash import ops as flash_ops
 from repro_torch.kernels.flash.ref import agreement, flash_attention_plain
 from repro_torch.kernels.segreduce import ops
 from repro_torch.kernels.segreduce.ref import fused_segreduce_ref, segreduce_ref
+from repro_torch.kernels.wkv6 import ops as wkv6_ops
+from repro_torch.kernels.wkv6.ref import agreement as wkv6_agreement
+from repro_torch.kernels.wkv6.ref import wkv6_plain
 from repro_torch.models.transformer import Model
 from repro_torch.serve.step import generate
 
@@ -176,5 +183,102 @@ def test_model_prefill_runs_the_kernel_and_matches_the_cpu(cuda):
         want, _ = host.prefill({"tokens": toks})
     assert flash_ops.LAUNCHES == cfg.n_layers
     torch.testing.assert_close(got.float().cpu(), want.float(), rtol=5e-2, atol=5e-2)
+    res = generate(card, toks.to(cuda), 4)
+    assert res.tokens.shape == (2, 44) and res.tokens.device.type == "cuda"
+
+
+# the decay regimes of log_w: random, strong, the clip's strongest
+# (-e^4) and its weakest (-e^-8)
+WKV_DECAYS = ["random", "-5", "-54.6", "-3.4e-4"]
+
+
+def _wkv_inputs(seed, B, S, H, K, decay, dtype, device, with_state):
+    rng = np.random.default_rng(seed)
+    r, k, v = (torch.from_numpy(0.5 * rng.normal(size=(B, S, H, K)).astype(np.float32)).to(dtype)
+               for _ in range(3))
+    if decay == "random":
+        lw = -np.exp(rng.normal(size=(B, S, H, K)))
+    else:
+        lw = np.full((B, S, H, K), float(decay))
+    u = 0.3 * rng.normal(size=(H, K))
+    s0 = rng.normal(size=(B, H, K, K)) if with_state else None
+    f32 = [torch.from_numpy(np.asarray(a, np.float32)) if a is not None else None for a in (lw, u, s0)]
+    return [t.to(device) if t is not None else None for t in (r, k, v, *f32)]
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("with_state", [False, True], ids=["zero", "S0"])
+@pytest.mark.parametrize("decay", WKV_DECAYS)
+@pytest.mark.parametrize("B,H", [(2, 3), (8, 40), (1, 40)])
+@pytest.mark.parametrize("S", [1, 100, 300])
+@pytest.mark.parametrize("K", [16, 64])
+def test_wkv6_kernel_matches_plain(cuda, K, S, B, H, decay, with_state):
+    r, k, v, lw, u, s0 = _wkv_inputs(K * 7 + S, B, S, H, K, decay, torch.bfloat16, cuda, with_state)
+    before = wkv6_ops.LAUNCHES
+    y1, s1 = wkv6_ops.wkv6(r, k, v, lw, u, s0)
+    y2, s2 = wkv6_ops.wkv6(r, k, v, lw, u, s0)
+    want_y, want_s = wkv6_plain(r, k, v, lw, u, s0)
+    torch.cuda.synchronize()
+    assert wkv6_ops.LAUNCHES == before + 2
+    assert y1.dtype == s1.dtype == torch.float32 and y1.shape == r.shape and s1.shape == (B, H, K, K)
+    assert _bitwise(y1, y2) and _bitwise(s1, s2)
+    for got, want in ((y1, want_y), (s1, want_s)):
+        agree = wkv6_agreement(got, want)
+        assert agree["ok"], agree
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("K,B,H", [(64, 8, 40), (64, 4, 40), (64, 2, 3), (16, 1, 1)])
+def test_wkv6_kernel_f32_and_every_row_split(cuda, K, B, H):
+    """f32 inputs, with K = 64 at each of its row splits on an H100 (4 for
+    8 x 40 heads, 8 for 4 x 40, 16 for 2 x 3)."""
+    r, k, v, lw, u, s0 = _wkv_inputs(K, B, 77, H, K, "random", torch.float32, cuda, True)
+    got_y, got_s = wkv6_ops.wkv6(r, k, v, lw, u, s0)
+    want_y, want_s = wkv6_plain(r, k, v, lw, u, s0)
+    assert wkv6_agreement(got_y, want_y)["ok"] and wkv6_agreement(got_s, want_s)["ok"]
+    # S = 0 returns the state it was given
+    y0, st = wkv6_ops.wkv6(r[:, :0], k[:, :0], v[:, :0], lw[:, :0], u, s0)
+    assert y0.shape == (B, 0, H, K) and torch.equal(st, s0)
+
+
+def _spread_rwkv(model, generator):
+    """Draw the tensors rwkv6 initialises to zeros, so that the decay spans
+    the clip range and the bonus and token shift are not zero."""
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            leaf = name.split(".")[-1]
+            if ".tmix." in name and leaf == "w0":
+                p.copy_(torch.rand(p.shape, generator=generator, device=p.device) * 12 - 8)
+            elif ".tmix." in name and leaf == "u":
+                p.copy_(0.3 * torch.randn(p.shape, generator=generator, device=p.device))
+            elif leaf.startswith("mu_"):
+                p.copy_(torch.rand(p.shape, generator=generator, device=p.device))
+            elif leaf == "w_lora_b":
+                p.copy_(0.01 * torch.randn(p.shape, generator=generator, device=p.device))
+            elif leaf == "ln_x":
+                p.copy_(0.1 * torch.randn(p.shape, generator=generator, device=p.device))
+    return model
+
+
+@pytest.mark.requires_cuda
+def test_rwkv6_prefill_runs_the_kernel_and_matches_the_cpu(cuda):
+    """Reduced rwkv6 on the card: every prefill time-mix launches the
+    kernel, and the logits and the final states agree with the same weights
+    on the CPU within the bf16 prefill tolerance."""
+    cfg = reduced_config(get_config("rwkv6-3b"))
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(0)
+    card = _spread_rwkv(Model(cfg).init_params(gen), gen)
+    host = Model(cfg, device="cpu")
+    host.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    toks = torch.from_numpy(np.random.default_rng(0).integers(4, cfg.vocab_size, (2, 40)).astype(np.int32))
+    wkv6_ops.reset_launches()
+    with torch.inference_mode():
+        got, gcache = card.prefill({"tokens": toks.to(cuda)})
+        want, wcache = host.prefill({"tokens": toks})
+    assert wkv6_ops.LAUNCHES == cfg.n_layers
+    torch.testing.assert_close(got.float().cpu(), want.float(), rtol=5e-2, atol=5e-2)
+    torch.testing.assert_close(gcache["groups"]["pos0"]["wkv"][0].cpu(), wcache["groups"]["pos0"]["wkv"][0],
+                               rtol=5e-2, atol=5e-2)
     res = generate(card, toks.to(cuda), 4)
     assert res.tokens.shape == (2, 44) and res.tokens.device.type == "cuda"

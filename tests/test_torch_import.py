@@ -24,9 +24,14 @@ import repro_torch.frontends.mapreduce
 import repro_torch.analysis
 import repro_torch.obs
 import repro_torch.kernels._build
+import repro_torch.kernels._agreement
 import repro_torch.kernels.flash.ops
 import repro_torch.kernels.flash.kernel
 import repro_torch.kernels.flash.ref
+import repro_torch.kernels.wkv6.ops
+import repro_torch.kernels.wkv6.kernel
+import repro_torch.kernels.wkv6.ref
+import repro_torch.models.rwkv6
 import repro_torch.configs.base
 import repro_torch.models.common
 import repro_torch.models.mlp
