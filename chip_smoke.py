@@ -30,12 +30,16 @@ Phases, each of which must pass for the exit code to be 0:
    plain version's time and one PyTorch library call's time;
 6. the flash-attention kernel against its plain version
    (flash_attention_plain) on the card: f32 and bf16, head dim 64/128/256,
-   GQA groups 1/2/12, causal or not, window 0/32/4096, softcap 0/50,
-   (Sq, Sk) in (1, 2112), (8, 128), (1000, 1000), (2047, 2047),
-   (8191, 8191); held to ``ref.KERNEL_TOL`` (per element rtol 2e-3 for f32
+   GQA groups 1/2/12, causal or not, window 0/32/4096, softcap 0/50 and
+   softcap 50 with q scaled by 32 (scores up to about 3x the cap),
+   (Sq, Sk) in (1, 2112), (8, 128), (129, 129), (200, 1000), (1000, 1000),
+   (2047, 2047), (8191, 8191) (129 crosses the bf16 kernel's 128-query
+   tile; 200 over 1000 puts the causal offset inside one); held to
+   ``ref.KERNEL_TOL`` (per element rtol 2e-3 for f32
    and 3e-2 for bf16 plus a small fraction of the output's rms, and a
    relative Frobenius limit), each case run twice and required to be
-   bitwise equal;
+   bitwise equal; and the bf16 kernel's tile configuration as the library
+   states it against ``kernel.TILES``;
 7. the LM serving path at gemma2-9b's full published width (42 layers,
    d_model 3584, 9.24 B parameters drawn on the card from ``--seed``):
    ``serve.step.generate``, greedy, for (a) 8 requests of 2048 prompt tokens
@@ -49,7 +53,10 @@ Phases, each of which must pass for the exit code to be 0:
    decode steps by kernel, against the decode step's wall time;
 8. the flash kernel at the serving path's shapes: its time, its bound, the
    plain version's time, and scaled_dot_product_attention's (which has no
-   softcap and no window) beside the kernel's own time without them;
+   softcap and no window) beside the kernel's own time without them; the
+   achieved TFLOP/s (the bound's FLOPs over the kernel's time), kernel over
+   SDPA, the serving call over the call without softcap and window, and
+   the ptxas report of the bf16 kernel at head dim 256;
 9. the WKV6 kernel against its plain version (wkv6_plain) on the card: head
    size 16/64, S in {1, 16, 100, 256, 2048, 16385}, (B, H) in {(2, 3),
    (8, 40), (1, 40)}, r/k/v in bf16, log_w = -exp(N(0, 1)) or the constants
@@ -103,7 +110,11 @@ DECODE_TOL = 0.15           # the JAX package's decode-consistency tolerance
 # read on sound runs: 0.0122 / 0.539 = 0.023 (gemma2-9b, scenario (b), seed 0,
 # NVIDIA H100 80GB HBM3 at 700 W)
 DECODE_REL = 0.05
-FLASH_SHAPES = ((1, 2112), (8, 128), (1000, 1000), (2047, 2047), (8191, 8191))  # (Sq, Sk)
+FLASH_SHAPES = ((1, 2112), (8, 128), (129, 129), (200, 1000), (1000, 1000), (2047, 2047), (8191, 8191))  # (Sq, Sk)
+# (softcap, q multiplier): with q x 32 the scaled scores are N(0, 32^2), up to
+# about 3x the cap of 50 over a row, where tanh bends and the kernel's
+# approximate tanh differs most from the plain version's
+FLASH_CAPS = ((0.0, 1), (50.0, 1), (50.0, 32))
 SERVE_ARCH = "gemma2-9b"
 SERVE_SCENARIOS = {"a": (8, 2048, 64), "b": (1, 8192, 16)}  # batch, prompt, new tokens
 RWKV_ARCH = "rwkv6-3b"
@@ -608,58 +619,73 @@ def unmasked_pairs(sq: int, sk: int, causal: bool, window: int) -> int:
     return int(np.maximum(hi - lo, 0).sum())
 
 
+def flash_flops(B: int, sq: int, sk: int, H: int, D: int, causal: bool, window: int) -> float:
+    """4*D FLOPs per unmasked query-key pair and head: the two products."""
+    return 4.0 * D * unmasked_pairs(sq, sk, causal, window) * B * H
+
+
 def flash_bound(B: int, sq: int, sk: int, H: int, Hkv: int, D: int, elem: int,
                 causal: bool, window: int, bf16: bool) -> tuple:
-    """(bound_ms, bound_by): 4*D FLOPs per unmasked pair and head against
-    the card's peak for the input type, and q, k, v, o each moved once."""
-    flops = 4.0 * D * unmasked_pairs(sq, sk, causal, window) * B * H
+    """(bound_ms, bound_by): flash_flops against the card's peak for the
+    input type, and q, k, v, o each moved once."""
+    flops = flash_flops(B, sq, sk, H, D, causal, window)
     nbytes = (2 * B * sq * H * D + 2 * B * sk * Hkv * D) * elem
     t_ops = flops / (BF16_OPS_PER_S if bf16 else F32_OPS_PER_S) * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def flash_cases(torch, dtype, sq: int, sk: int, gen):
+    """Phase 6's cases at one (Sq, Sk): (q, k, v, kw, q_mul, label) over head
+    dims, GQA groups, causal, window and FLASH_CAPS, inputs drawn from gen."""
+    dev = gen.device
+    B, Hkv = (2, 2) if sk <= 2112 and sq <= 8 else (1, 1)
+    for D in (64, 128, 256):
+        for G in (1, 2, 12):
+            q = torch.randn(B, sq, Hkv * G, D, device=dev, generator=gen).to(dtype)
+            k = torch.randn(B, sk, Hkv, D, device=dev, generator=gen).to(dtype)
+            v = torch.randn(B, sk, Hkv, D, device=dev, generator=gen).to(dtype)
+            for causal in (True, False):
+                for window in (0, 32, 4096):
+                    for cap, q_mul in FLASH_CAPS:
+                        kw = dict(causal=causal, window=window, scale=D ** -0.5, logit_softcap=cap)
+                        label = (f"Sq={sq} Sk={sk} D={D} G={G} causal={causal} window={window} "
+                                 f"softcap={cap} q*{q_mul}")
+                        yield (q * q_mul if q_mul != 1 else q), k, v, kw, q_mul, label
+
+
 def flash_matrix(torch, flash_ops, plain, agreement, fails: Failures, seed: int) -> list:
-    dev = torch.device("cuda")
-    gen = torch.Generator(device=dev)
+    gen = torch.Generator(device=torch.device("cuda"))
     gen.manual_seed(seed)
     results = []
     for dname in ("float32", "bfloat16"):
         dtype = getattr(torch, dname)
         for sq, sk in FLASH_SHAPES:
             t0 = time.perf_counter()
-            B, Hkv = (2, 2) if sk <= 2112 and sq <= 8 else (1, 1)
             n_cases = bad = 0
             worst = {"max_abs_err": 0.0, "worst": 0.0, "rel": 0.0}
-            for D in (64, 128, 256):
-                for G in (1, 2, 12):
-                    H = Hkv * G
-                    q = torch.randn(B, sq, H, D, device=dev, generator=gen).to(dtype)
-                    k = torch.randn(B, sk, Hkv, D, device=dev, generator=gen).to(dtype)
-                    v = torch.randn(B, sk, Hkv, D, device=dev, generator=gen).to(dtype)
-                    for causal in (True, False):
-                        for window in (0, 32, 4096):
-                            for cap in (0.0, 50.0):
-                                kw = dict(causal=causal, window=window, scale=D ** -0.5, logit_softcap=cap)
-                                a = flash_ops.flash_attention(q, k, v, **kw)
-                                b = flash_ops.flash_attention(q, k, v, **kw)
-                                want = plain(q, k, v, **kw)
-                                torch.cuda.synchronize()
-                                agree = agreement(a, want)
-                                ok = agree["ok"] and bitwise_equal(torch, a, b)
-                                worst = {x: max(worst[x], agree[x]) for x in worst}
-                                n_cases += 1
-                                what = (f"flash {dname} Sq={sq} Sk={sk} D={D} G={G} causal={causal} "
-                                        f"window={window} softcap={cap}: max_abs_err {agree['max_abs_err']:.3g}, "
-                                        f"worst/limit {agree['worst']:.3g}, rel {agree['rel']:.3g}")
-                                bad += not fails.check(ok, what)
-                    del q, k, v
+            bent = {"worst": 0.0, "rel": 0.0}  # the cases whose scores reach past the cap
+            for q, k, v, kw, q_mul, label in flash_cases(torch, dtype, sq, sk, gen):
+                a = flash_ops.flash_attention(q, k, v, **kw)
+                b = flash_ops.flash_attention(q, k, v, **kw)
+                want = plain(q, k, v, **kw)
+                torch.cuda.synchronize()
+                agree = agreement(a, want)
+                ok = agree["ok"] and bitwise_equal(torch, a, b)
+                worst = {x: max(worst[x], agree[x]) for x in worst}
+                if q_mul != 1:
+                    bent = {x: max(bent[x], agree[x]) for x in bent}
+                n_cases += 1
+                what = (f"flash {dname} {label}: max_abs_err {agree['max_abs_err']:.3g}, "
+                        f"worst/limit {agree['worst']:.3g}, rel {agree['rel']:.3g}")
+                bad += not fails.check(ok, what)
             dt = time.perf_counter() - t0
             results.append({"dtype": dname, "sq": sq, "sk": sk, "cases": n_cases, "failed": bad,
-                            **worst, "seconds": dt})
+                            **worst, "past_cap": bent, "seconds": dt})
             print(f"  flash {dname:<8} Sq={sq:>5} Sk={sk:>5}: {n_cases - bad}/{n_cases} cases agree "
                   f"(max_abs_err {worst['max_abs_err']:.3g}, worst/limit {worst['worst']:.3g}, "
-                  f"rel {worst['rel']:.3g}; {dt:.1f} s)", flush=True)
+                  f"rel {worst['rel']:.3g}; scores past the cap: worst/limit {bent['worst']:.3g}, "
+                  f"rel {bent['rel']:.3g}; {dt:.1f} s)", flush=True)
     return results
 
 
@@ -960,6 +986,10 @@ def time_flash(torch, F, flash_ops, plain, agreement, key, inputs) -> dict:
     out["kernel_causal_nocap_ms"] = device_ms(torch, lambda: flash_ops.flash_attention(q, k, v, **kw0), reps=reps)
     agree = agreement(flash_ops.flash_attention(q, k, v, **kw0), sdpa().transpose(1, 2))
     out["sdpa_agrees"], out["sdpa_agreement"] = agree["ok"], agree
+    out["tflops"] = flash_flops(B, sq, sk, H, D, causal, window) / (out["ms"] * 1e9)
+    out["causal_nocap_tflops"] = flash_flops(B, sq, sk, H, D, True, 0) / (out["kernel_causal_nocap_ms"] * 1e9)
+    out["kernel_over_sdpa"] = out["kernel_causal_nocap_ms"] / out["sdpa_ms"]
+    out["serve_over_nocap"] = out["ms"] / out["kernel_causal_nocap_ms"]
     out["library_ms"] = out["sdpa_ms"] if same_fn else None
     out["library_note"] = ("scaled_dot_product_attention computes this function" if same_fn else
                            "no single PyTorch call computes this function (softcap/window); "
@@ -984,6 +1014,9 @@ def flash_at_shapes(torch, flash_ops, plain, agreement, rec, fails: Failures) ->
               f"plain {t['plain_ms']:.3f} ms  library {lib}  |  causal without softcap/window: "
               f"kernel {t['kernel_causal_nocap_ms']:.3f} ms, SDPA {t['sdpa_ms']:.3f} ms  "
               f"max_abs_err {t['max_abs_err']:.3g}, worst/limit {t['worst']:.3g}, rel {t['rel']:.3g}", flush=True)
+        print(f"    {t['tflops']:.1f} TFLOP/s ({t['causal_nocap_tflops']:.1f} causal without softcap/window); "
+              f"kernel / SDPA {t['kernel_over_sdpa']:.2f}; serving call / causal call without softcap "
+              f"{t['serve_over_nocap']:.2f}", flush=True)
         rec.inputs[key] = None
     torch.cuda.empty_cache()
     return rows
@@ -1206,6 +1239,14 @@ def main(argv=None) -> int:
     # 6. flash against its plain version
     print("flash kernel against its plain version:", flush=True)
     record["flash_matrix"] = flash_matrix(torch, flash_ops, flash_attention_plain, agreement, fails, args.seed)
+    record["flash_config"] = {d: flash_kernel.library_config(d) for d in flash_kernel.HEAD_DIMS}
+    for d, built in record["flash_config"].items():
+        fails.check({x: built[x] for x in flash_kernel.TILES[d]} == flash_kernel.TILES[d]
+                    and built["smem"] == flash_kernel.smem_bytes(d),
+                    f"flash library's tiles at D={d} {built} differ from kernel.TILES {flash_kernel.TILES[d]}")
+    print("  bf16 tiles (q x k, stages, shared bytes): " + ", ".join(
+        f"D={d} {c['q_block']}x{c['kv_block']}, {c['stages']}, {c['smem']}" for d, c in record["flash_config"].items()),
+        flush=True)
     torch.cuda.empty_cache()
 
     # 7. the serving path at full width
@@ -1216,6 +1257,9 @@ def main(argv=None) -> int:
 
     # 8. flash at the serving path's shapes (these launches are not counted)
     print("flash kernel at the serving path's shapes:", flush=True)
+    record["flash_ptxas_d256"] = flash_kernel.ptxas_report(256)
+    for line in record["flash_ptxas_d256"] or ["ptxas: the flash library was not built in this run"]:
+        print("  " + line, flush=True)
     flash_rows = flash_at_shapes(torch, flash_ops, flash_attention_plain, agreement, flash_rec, fails)
     record["flash_shapes"] = flash_rows
 

@@ -1,6 +1,8 @@
 # The hand-written CUDA flash-attention forward kernel (csrc/flash_fwd.cu):
-# its ctypes binding and one launch.  The build (nvcc at first use into
-# ``build/kernels/``, keyed by a hash of the source) is the shared helper in
+# its ctypes binding, one launch, and the bf16 kernel's tile configuration
+# (``TILES``, the source's ``WgCfg``; the library reports its own through
+# ``library_config``).  The build (nvcc at first use into ``build/kernels/``,
+# keyed by a hash of the source) is the shared helper in
 # ``kernels/_build.py``.  Nothing here runs at import time.
 from __future__ import annotations
 
@@ -18,18 +20,85 @@ HEAD_DIMS = (32, 64, 128, 256)  # the head dims the kernel is built for
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def _configure(lib: ctypes.CDLL) -> None:
+# The bf16 kernel (flash_fwd_wgmma_kernel) at each head dim: a block of
+# THREADS threads (a producer warpgroup and two consumer warpgroups of 64
+# query rows) owns q_block queries and walks kv_block keys a tile through a
+# ring of `stages` k and v tiles in shared memory; setmaxnreg gives the
+# producer and each consumer thread the registers named here.
+THREADS = 384
+PRODUCER_REGS, CONSUMER_REGS = 24, 240
+TILES = {
+    32: dict(q_block=128, kv_block=128, stages=2),
+    64: dict(q_block=128, kv_block=128, stages=2),
+    128: dict(q_block=128, kv_block=128, stages=2),
+    256: dict(q_block=128, kv_block=80, stages=2),
+}
+SMEM_LIMIT = 232448  # shared memory a block may use on an H100
+REGISTER_FILE = 65536  # 32-bit registers of an SM
+
+
+def smem_bytes(d: int) -> int:
+    """Shared memory of one block at head dim d: 1024 bytes of alignment
+    slack, the q tile, the k and v ring in bf16, and 8 bytes per mbarrier."""
+    t = TILES[d]
+    return 1024 + 2 * d * (t["q_block"] + 2 * t["stages"] * t["kv_block"]) + 8 * (1 + 4 * t["stages"])
+
+
+def registers_per_block() -> int:
+    """Registers of one block after setmaxnreg: 128 producer threads and 256
+    consumer threads."""
+    return 128 * PRODUCER_REGS + 256 * CONSUMER_REGS
+
+
+def _configure_launch(lib: ctypes.CDLL) -> None:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.flash_fwd_launch.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, i, f, f, i, p]
     lib.flash_fwd_launch.restype = ctypes.c_int
 
 
+def _configure(lib: ctypes.CDLL) -> None:
+    _configure_launch(lib)
+    lib.flash_fwd_config.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    lib.flash_fwd_config.restype = ctypes.c_int
+
+
 LIBRARY = CudaLibrary("flash_fwd", SOURCE, _configure)
+
+
+def variant(name: str, source: Path) -> CudaLibrary:
+    """A build of another flash source with this library's C interface (an
+    earlier version of the kernel), for timing beside LIBRARY.  Only
+    ``flash_fwd_launch`` is bound."""
+    return CudaLibrary(name, source, _configure_launch)
 
 
 def library() -> ctypes.CDLL:
     """Build (once per source hash) and load the kernel library."""
     return LIBRARY.load()
+
+
+def library_config(d: int) -> dict:
+    """The bf16 kernel's configuration at head dim d as the built library
+    states it, in TILES' terms."""
+    out = (ctypes.c_int * 7)()
+    rc = library().flash_fwd_config(d, out)
+    if rc != 0:
+        raise ValueError(f"the flash library is not built for head dim {d}")
+    return dict(q_block=out[0], kv_block=out[1], stages=out[2], smem=out[3], threads=out[4],
+                producer_regs=out[5], consumer_regs=out[6])
+
+
+def ptxas_report(d: int, lib: CudaLibrary = LIBRARY) -> list:
+    """nvcc's -Xptxas -v lines (registers, spills, barriers) for the bf16
+    kernel's instances at head dim d; empty when this process loaded the
+    library from an earlier build."""
+    out, keep = [], False
+    for line in lib.ptxas_log.splitlines():
+        if "Compiling entry" in line:
+            keep = f"flash_fwd_wgmma_kernelILi{d}E" in line
+        if keep and ("Compiling entry" in line or "Used" in line or "spill" in line):
+            out.append(line.split("info    : ")[-1].strip())
+    return out
 
 
 def padded_head_dim(d: int) -> int:
@@ -41,14 +110,15 @@ def padded_head_dim(d: int) -> int:
 
 def launch(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-    causal: bool, window: int, scale: float, logit_softcap: float,
+    causal: bool, window: int, scale: float, logit_softcap: float, lib: CudaLibrary = LIBRARY,
 ) -> torch.Tensor:
     """One launch on CUDA tensors the caller has checked: q (B, Sq, H, D),
     k and v (B, Sk, Hkv, D), contiguous, of one type of ``_DTYPES``, on one
     device.  A head dim the kernel is not built for is zero-padded up to the
     next one (the padded features add exact zeros to every score) and the
     output cut back.  The output is allocated here; the kernel runs on the
-    current stream."""
+    current stream.  ``lib`` is the library that launches it (a ``variant``
+    when timing one)."""
     if q.dtype not in _DTYPES:
         raise TypeError(f"the flash kernel takes float32 or bfloat16, not {q.dtype}")
     B, Sq, H, D = q.shape
@@ -62,11 +132,12 @@ def launch(
     out = torch.empty((B, Sq, H, Dp), dtype=q.dtype, device=q.device)
     device = q.device.index if q.device.index is not None else torch.cuda.current_device()
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    rc = library().flash_fwd_launch(
+    rc = lib.load().flash_fwd_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _DTYPES[q.dtype],
         B, Sq, Sk, H, Hkv, Dp, int(causal), int(window), float(scale), float(logit_softcap),
         device, stream,
     )
     if rc != 0:
-        raise RuntimeError(f"flash kernel launch failed with cudaError {rc}")
+        what = f"CUresult {rc - 1000} encoding a tensor map" if rc >= 1000 else f"cudaError {rc}"
+        raise RuntimeError(f"flash kernel launch failed with {what}")
     return out if Dp == D else out[..., :D]

@@ -21,6 +21,7 @@ import torch
 
 from repro_torch import Session
 from repro_torch.configs.base import get_config, reduced_config
+from repro_torch.kernels.flash import kernel as flash_kernel
 from repro_torch.kernels.flash import ops as flash_ops
 from repro_torch.kernels.flash.ref import agreement, flash_attention_plain
 from repro_torch.kernels.segreduce import ops
@@ -163,6 +164,72 @@ def test_flash_kernel_small_head_dim_pads(cuda):
     want = flash_attention_plain(q, k[:, :, :2], v[:, :, :2], window=16, scale=0.25)
     agree = agreement(got, want)
     assert agree["ok"], agree
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("D", [32, 64, 128, 256])
+@pytest.mark.parametrize("cap,q_mul", [(0.0, 1), (50.0, 1), (50.0, 32), (50.0, 64)])
+@pytest.mark.parametrize("Sq,Sk,causal,window", [
+    (1, 1, True, 0), (1, 129, True, 0), (127, 127, True, 0), (128, 128, True, 0), (129, 129, True, 0),
+    (200, 1000, True, 0), (200, 1000, False, 96), (300, 100, True, 0), (257, 257, True, 64),
+])
+def test_flash_bf16_kernel_at_tile_edges(cuda, D, cap, q_mul, Sq, Sk, causal, window):
+    """The bf16 kernel (128-query tiles of two 64-row warpgroups, 80- or
+    128-key tiles) where a sequence ends inside a tile, where the causal
+    offset falls inside one, and where rows see no key (Sq > Sk, causal).
+    q scaled by 32 or 64 puts the scaled scores at up to about 3x or 6x the
+    softcap over a row, where tanh bends and the kernel's approximate tanh
+    is furthest from the plain version's."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(D + Sq * 7 + Sk)
+    q = torch.randn(2, Sq, 4, D, device=cuda, generator=gen).bfloat16() * q_mul
+    k = torch.randn(2, Sk, 2, D, device=cuda, generator=gen).bfloat16()
+    v = torch.randn(2, Sk, 2, D, device=cuda, generator=gen).bfloat16()
+    kw = dict(causal=causal, window=window, scale=D ** -0.5, logit_softcap=cap)
+    a = flash_ops.flash_attention(q, k, v, **kw)
+    b = flash_ops.flash_attention(q, k, v, **kw)
+    want = flash_attention_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert _bitwise(a, b)
+    agree = agreement(a, want)
+    assert agree["ok"], agree
+    if Sq > Sk and causal:
+        assert torch.count_nonzero(a[:, : Sq - Sk]) == 0
+
+
+@pytest.mark.requires_cuda
+def test_flash_bf16_small_head_dim_pads_and_one_query(cuda):
+    """Head dim 16 in bf16 is padded to the 32 the library is built for
+    (64-byte swizzle); one query over many keys, as a decode-shaped call."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(5)
+    q = torch.randn(3, 1, 4, 16, device=cuda, generator=gen).bfloat16()
+    k, v = (torch.randn(3, 300, 2, 16, device=cuda, generator=gen).bfloat16() for _ in range(2))
+    kw = dict(window=64, scale=0.25, logit_softcap=30.0)
+    got = flash_ops.flash_attention(q, k, v, **kw)
+    agree = agreement(got, flash_attention_plain(q, k, v, **kw))
+    assert got.shape == q.shape and agree["ok"], agree
+
+
+@pytest.mark.requires_cuda
+def test_flash_bf16_no_keys_gives_zero(cuda):
+    q = torch.ones(1, 5, 2, 64, device=cuda, dtype=torch.bfloat16)
+    k = v = torch.ones(1, 0, 1, 64, device=cuda, dtype=torch.bfloat16)
+    got = flash_ops.flash_attention(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert got.shape == q.shape and torch.count_nonzero(got) == 0
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("D", [32, 64, 128, 256])
+def test_flash_library_tiles_match_kernel_py(cuda, D):
+    """The tile configuration compiled into the library is the one
+    kernel.TILES states and the CPU tests hold to the SM's limits."""
+    built = flash_kernel.library_config(D)
+    assert {x: built[x] for x in flash_kernel.TILES[D]} == flash_kernel.TILES[D]
+    assert built["smem"] == flash_kernel.smem_bytes(D)
+    assert (built["threads"], built["producer_regs"], built["consumer_regs"]) == (
+        flash_kernel.THREADS, flash_kernel.PRODUCER_REGS, flash_kernel.CONSUMER_REGS)
 
 
 @pytest.mark.requires_cuda

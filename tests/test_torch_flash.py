@@ -15,7 +15,7 @@ from repro.kernels.flash.kernel import flash_attention_pallas
 from repro.kernels.flash.ref import attention_ref as jax_attention_ref
 from repro.models.attention import banded_window_attention as jax_banded
 from repro.models.attention import flash_attention_jnp
-from repro_torch.kernels.flash import ops
+from repro_torch.kernels.flash import kernel, ops
 from repro_torch.kernels.flash.ref import KERNEL_TOL, agreement, attention_ref, flash_attention_plain
 from repro_torch.models.attention import banded_window_attention
 
@@ -167,3 +167,40 @@ def test_cpu_tensors_launch_nothing_and_bad_inputs_raise():
         ops.flash_attention(q, k.to(torch.bfloat16), v)
     with pytest.raises(ValueError):
         ops.flash_attention(q.to("meta"), k.to("meta"), v.to("meta"))
+
+
+@pytest.mark.parametrize("D", kernel.HEAD_DIMS)
+def test_kernel_tiles_fit_the_sm(D):
+    """The bf16 kernel's tiles at each head dim fit one H100 SM: shared
+    memory (q tile and the k/v ring) within a block's 227 KB, the registers
+    setmaxnreg hands out within the SM's file, two consumer warpgroups of 64
+    query rows, and key tiles that wgmma takes (N a multiple of 16 up to
+    256, D a multiple of its 16-deep step)."""
+    t = kernel.TILES[D]
+    assert kernel.smem_bytes(D) <= kernel.SMEM_LIMIT
+    assert kernel.registers_per_block() <= kernel.REGISTER_FILE
+    assert kernel.THREADS == 3 * 128 and t["q_block"] == 2 * 64
+    assert t["kv_block"] % 16 == 0 and 16 <= t["kv_block"] <= 256 and D % 16 == 0
+    assert t["stages"] >= 2
+    for regs in (kernel.PRODUCER_REGS, kernel.CONSUMER_REGS):
+        assert regs % 8 == 0 and 24 <= regs <= 256
+    # the f32 accumulator of 64 x D and the scores of 64 x kv_block, per thread
+    # of a consumer warpgroup, leave room in its registers
+    assert D // 2 + t["kv_block"] // 2 + t["kv_block"] // 4 < kernel.CONSUMER_REGS
+
+
+@pytest.mark.parametrize("D", kernel.HEAD_DIMS)
+@pytest.mark.parametrize("Sq,Sk,window,cap", [(200, 200, 0, 50.0), (129, 300, 96, 0.0)])
+def test_plain_at_kernel_tiles_matches_pallas(D, Sq, Sk, window, cap):
+    """The plain version walking the bf16 kernel's own tiles (q_block,
+    kv_block) against the Pallas kernel in interpret mode at the same tiles,
+    with queries crossing a 128-query tile and (Sq < Sk) the causal offset
+    inside one."""
+    t = kernel.TILES[D]
+    B, H, Hkv = 1, 2, 1
+    q, k, v = _inputs(D + Sq, B, Sq, Sk, H, Hkv, D)
+    kw = dict(causal=True, window=window, scale=D ** -0.5, logit_softcap=cap)
+    pallas = flash_attention_pallas(_jax(q), _jax(k), _jax(v), q_block=t["q_block"], kv_block=t["kv_block"],
+                                    interpret=True, **kw)
+    got = flash_attention_plain(_torch(q), _torch(k), _torch(v), q_block=t["q_block"], kv_block=t["kv_block"], **kw)
+    _close(got, pallas, F32_TOL)
