@@ -13,7 +13,10 @@ Phases, each of which must pass for the exit code to be 0:
    and segreduce for sum/max/min over int32/f32/bf16, masked and unmasked,
    N in {0, 1, 5000, 60M} and K in {1, 100, 100001, 2000001}, plus whole
    groups of those columns in one launch, each case run twice and required
-   to be bitwise equal.  Integers, min/max and presence
+   to be bitwise equal; each (N, K) prints the regime its launches took
+   (without a float sum: K = 1 and 100 in per-block tables, larger K with
+   one table or fewer rows than keys straight into the outputs, else after
+   a partition by key range).  Integers, min/max and presence
    must match exactly; bf16 within rtol 1e-2 after its f32 accumulation; f32
    sums within rtol 1e-5 of the plain version run on the same values in
    float64 (at 60M rows in one key the plain version's own f32 atomic sum
@@ -26,8 +29,10 @@ Phases, each of which must pass for the exit code to be 0:
    Q2's inner minimum.  Each must choose agg_method='kernel', move the
    kernel's launch counters, and agree with a numpy float64 oracle (counts
    and minimums exactly, revenue within rtol 1e-4);
-5. the kernel at the shapes the main path gave it: its time, its bound, the
-   plain version's time and one PyTorch library call's time;
+5. the kernel at the shapes the main path gave it: its regime, its time
+   and each pass's, its bound, the plain version's time, one PyTorch
+   library call's time (a scatter over the first column) and that of one
+   scatter a table, presence included (the whole function);
 6. the flash-attention kernel against its plain version
    (flash_attention_plain) on the card: f32 and bf16, head dim 64/128/256,
    GQA groups 1/2/12, causal or not, window 0/32/4096, softcap 0/50 and
@@ -58,11 +63,13 @@ Phases, each of which must pass for the exit code to be 0:
    SDPA, the serving call over the call without softcap and window, and
    the ptxas report of the bf16 kernel at head dim 256;
 9. the WKV6 kernel against its plain version (wkv6_plain) on the card: head
-   size 16/64, S in {1, 16, 100, 256, 2048, 16385}, (B, H) in {(2, 3),
-   (8, 40), (1, 40)}, r/k/v in bf16, log_w = -exp(N(0, 1)) or the constants
-   -5, -54.6 (the clip's strongest decay) and -3.4e-4 (its weakest), S0
-   zero or random; y and the final state held to ``ref.KERNEL_TOL``, each
-   case run twice and required to be bitwise equal;
+   size 16/64, S in {1, 16, 53, 100, 207, 208, 209, 256, 2048, 16385} (some
+   at segment boundaries), (B, H) in {(2, 3), (8, 40), (1, 40)}, r/k/v in
+   bf16, log_w = -exp(N(0, 1)) or the constants -5, -54.6 (the clip's
+   strongest decay) and -3.4e-4 (its weakest), S0 zero or random; y and the
+   final state held to ``ref.KERNEL_TOL``, each case run twice and required
+   to be bitwise equal; where the launch cuts the sequence into segments,
+   the plain form of its passes (wkv6_segmented_plain) held against both;
 10. the LM serving path at rwkv6-3b's full published width (32 layers,
    d_model 2560, 40 heads of 64, 3.07 B parameters drawn on the card from
    ``--seed``, with the tensors the model initialises to zeros drawn too, so
@@ -120,7 +127,10 @@ SERVE_SCENARIOS = {"a": (8, 2048, 64), "b": (1, 8192, 16)}  # batch, prompt, new
 RWKV_ARCH = "rwkv6-3b"
 RWKV_SCENARIOS = {"a": (8, 2048, 64), "b": (1, 16384, 16)}
 WKV6_HEAD_SIZES = (16, 64)
-WKV6_LENGTHS = (1, 16, 100, 256, 2048, 16385)
+# 53 = 3 L + 5 and 207-209 = 13 L - 1, 13 L, 13 L + 1 for segments of
+# L = 16 tokens (the shortest the sequence-parallel form cuts: one long
+# prompt of 40 heads is cut in 13 segments, a few heads in more)
+WKV6_LENGTHS = (1, 16, 53, 100, 207, 208, 209, 256, 2048, 16385)
 WKV6_BATCH_HEADS = ((2, 3), (8, 40), (1, 40))
 # log_w: -exp(N(0, 1)), strong, the clip's strongest (-e^4), its weakest (-e^-8)
 WKV6_DECAYS = {"random": None, "-5": -5.0, "-54.6": -54.6, "-3.4e-4": -3.4e-4}
@@ -277,6 +287,8 @@ def bitwise_equal(torch, a, b) -> bool:
 
 
 def kernel_matrix(torch, ops, ref, fails: Failures, big_n: int, seed: int) -> list:
+    from repro_torch.kernels.segreduce import kernel as kern
+
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
@@ -336,9 +348,19 @@ def kernel_matrix(torch, ops, ref, fails: Failures, big_n: int, seed: int) -> li
                     bad += not fails.check(ok, what)
             n_cases = 18 + 2 * len(groups)
             dt = time.perf_counter() - t0
-            results.append({"n": n, "num_keys": num_keys, "cases": n_cases, "failed": bad, "seconds": dt})
-            print(f"  kernel N={n:>9} K={num_keys:>8}: {n_cases - bad}/{n_cases} cases agree ({dt:.1f} s)",
-                  flush=True)
+            # the regime each kind of launch took: a float sum with presence,
+            # one int32 sum alone (segreduce), and the group without a float sum
+            no_fs = groups["no-float-sum"]
+            paths = {
+                "float sum": kernel_regime(torch, kern, keys, (cols["float32"],), ("sum",), num_keys, True),
+                "int32 sum alone": kernel_regime(torch, kern, keys, (cols["int32"],), ("sum",), num_keys, False),
+                "no-float-sum group": kernel_regime(torch, kern, keys, tuple(cols[d] for d, _ in no_fs),
+                                                    tuple(op for _, op in no_fs), num_keys, True),
+            }
+            results.append({"n": n, "num_keys": num_keys, "cases": n_cases, "failed": bad, "seconds": dt,
+                            "regimes": paths})
+            print(f"  kernel N={n:>9} K={num_keys:>8}: {n_cases - bad}/{n_cases} cases agree ({dt:.1f} s); "
+                  "regimes " + ", ".join(f"{k} {v}" for k, v in paths.items()), flush=True)
             del keys, mask, cols
     return results
 
@@ -470,8 +492,20 @@ def shape_key(name: str, args, kw) -> tuple:
     return (int(args[0].shape[0]), args[2])
 
 
+def kernel_regime(torch, kern, keys, values, op_names, num_keys: int, with_presence: bool) -> int:
+    """The regime (``kernel.table_layout``) a launch on these inputs takes."""
+    index = keys.device.index if keys.device.index is not None else torch.cuda.current_device()
+    float_sum = any(op == "sum" and v.dtype.is_floating_point for v, op in zip(values, op_names))
+    lay = kern.table_layout(int(keys.shape[0]), num_keys, len(values) + int(with_presence),
+                            kern.library().segreduce_smem_limit(index),
+                            torch.cuda.get_device_properties(index).multi_processor_count, float_sum)
+    return lay.regime
+
+
 def time_call(torch, ops, ref, name: str, args, kw) -> dict:
-    """Kernel, plain version and library call on one captured input."""
+    """Kernel, plain version and library calls on one captured input."""
+    from repro_torch.kernels.segreduce import kernel as kern
+
     if name == "fused_segreduce":
         keys, values, op_names, num_keys = args
         mask = kw.get("mask")
@@ -506,22 +540,31 @@ def time_call(torch, ops, ref, name: str, args, kw) -> dict:
     if isinstance(got, tuple) and got[1] is not None:
         ok = ok and bool(torch.equal(got[1], want[1]))
 
-    # the library yardstick: one scatter call over the first aggregate,
-    # masked rows given the identity beforehand, no presence histogram
-    lib_vals = values[0]
+    # the library yardsticks: one scatter call over the first aggregate
+    # (``library``), and one a table, presence included (``library_all``:
+    # the whole function), masked rows given the identity beforehand
     lib_keys = keys.long()
-    ident = ref.op_identity(op_names[0], lib_vals.dtype)
-    if mask is not None:
-        lib_vals = torch.where(mask, lib_vals, torch.tensor(ident, dtype=lib_vals.dtype, device=lib_vals.device))
-    table = torch.full((num_keys,), ident, dtype=lib_vals.dtype, device=lib_vals.device)
-    if op_names[0] == "sum":
-        def library():
-            return table.clone().index_add_(0, lib_keys, lib_vals)
-    else:
-        reduce = "amax" if op_names[0] == "max" else "amin"
+    scatters = []
+    tables = [(v, op) for v, op in zip(values, op_names)]
+    if with_presence:
+        tables.append((torch.ones(keys.shape, dtype=torch.int32, device=keys.device), "sum"))
+    for lib_vals, op in tables:
+        ident = ref.op_identity(op, lib_vals.dtype)
+        if mask is not None:
+            lib_vals = torch.where(mask, lib_vals, torch.tensor(ident, dtype=lib_vals.dtype, device=lib_vals.device))
+        table = torch.full((num_keys,), ident, dtype=lib_vals.dtype, device=lib_vals.device)
+        if op == "sum":
+            scatters.append(lambda t=table, x=lib_vals: t.clone().index_add_(0, lib_keys, x))
+        else:
+            reduce = "amax" if op == "max" else "amin"
+            scatters.append(lambda t=table, x=lib_vals, rd=reduce: t.clone().scatter_reduce_(
+                0, lib_keys, x, reduce=rd, include_self=True))
 
-        def library():
-            return table.clone().scatter_reduce_(0, lib_keys, lib_vals, reduce=reduce, include_self=True)
+    def library():
+        return scatters[0]()
+
+    def library_all():
+        return [call() for call in scatters]
 
     n = int(keys.shape[0])
     passes = kernel_passes(torch, kernel)
@@ -539,9 +582,11 @@ def time_call(torch, ops, ref, name: str, args, kw) -> dict:
         "ms": device_ms(torch, kernel),
         "plain_ms": device_ms(torch, plain, reps=3, warmup=1),
         "library_ms": device_ms(torch, library),
+        "library_all_ms": device_ms(torch, library_all),
         "bound_ms": t_bound,
         "bound_by": bound_by,
         "passes_ms": passes,
+        "regime": kernel_regime(torch, kern, keys, values, op_names, num_keys, with_presence),
     }
 
 
@@ -579,15 +624,20 @@ def device_us(ev) -> float:
     return us if us is not None else getattr(ev, "cuda_time_total", 0.0)
 
 
-def kernel_passes(torch, fn, reps: int = 3) -> dict:
-    """Device ms per call of each CUDA kernel ``fn`` launches, from the
-    profiler's trace of the card (empty when the profiler cannot trace it)."""
+def kernel_passes(torch, fn, reps: int = 3, prefixes=("seg_", "Memset")) -> dict:
+    """Device ms per call of each CUDA kernel (and memset) ``fn`` launches
+    whose name starts with one of ``prefixes``, from the profiler's trace of
+    the card (empty when the profiler cannot trace it)."""
     fn()
     events = trace_card(torch, fn, reps)
     if events is None:
         return {}
-    return {ev.key.split("(")[0]: device_us(ev) / 1e3 / reps
-            for ev in events if device_us(ev) > 0 and ev.key.startswith("seg_")}
+    out = {}
+    for ev in events:
+        name = ev.key.removeprefix("void ").split("(")[0]
+        if device_us(ev) > 0 and name.startswith(prefixes):
+            out[name] = device_us(ev) / 1e3 / reps
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1041,7 +1091,15 @@ def wkv6_bound(B: int, S: int, H: int, K: int, elem: int, u_elem: int, with_stat
 
 
 def wkv6_matrix(torch, wkv6_ops, plain, agreement, fails: Failures, seed: int) -> list:
+    """Phase 9.  Where the launch cuts the sequence into segments, the
+    plain form of its three passes (``ref.wkv6_segmented_plain`` at the
+    launch's segment length) is held too, on the random decays from S0:
+    against the plain version, and the kernel against it."""
+    from repro_torch.kernels.wkv6 import kernel as kern
+    from repro_torch.kernels.wkv6.ref import wkv6_segmented_plain
+
     dev = torch.device("cuda")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     results = []
@@ -1056,6 +1114,8 @@ def wkv6_matrix(torch, wkv6_ops, plain, agreement, fails: Failures, seed: int) -
                 s0 = torch.randn(B, H, K, K, device=dev, generator=gen)
                 n_cases = bad = 0
                 worst = {"max_abs_err": 0.0, "worst": 0.0, "rel": 0.0}
+                n_seg = kern.segments(B, H, S, K, sms)
+                seg_len = kern.segment_length(S, n_seg)
                 for dname, value in WKV6_DECAYS.items():
                     if value is None:
                         lw = -torch.exp(torch.randn(B, S, H, K, device=dev, generator=gen))
@@ -1074,13 +1134,25 @@ def wkv6_matrix(torch, wkv6_ops, plain, agreement, fails: Failures, seed: int) -
                                 f"y worst/limit {ay['worst']:.3g} rel {ay['rel']:.3g}, state worst/limit "
                                 f"{ast['worst']:.3g} rel {ast['rel']:.3g}")
                         bad += not fails.check(ok, what)
+                        if n_seg > 1 and value is None and state is not None:
+                            seg_y, seg_s = wkv6_segmented_plain(r, k, v, lw, u, state, seg_len=seg_len)
+                            for got, want, who in ((seg_y, want_y, "segmented plain y"),
+                                                   (seg_s, want_s, "segmented plain state"),
+                                                   (y1, seg_y, "kernel y against the segmented plain"),
+                                                   (st1, seg_s, "kernel state against the segmented plain")):
+                                agree = agreement(got, want)
+                                n_cases += 1
+                                bad += not fails.check(agree["ok"], f"wkv6 K={K} S={S} B={B} H={H} {n_seg} "
+                                                       f"segments: {who} worst/limit {agree['worst']:.3g}")
+                            del seg_y, seg_s
                         del y1, y2, st1, st2, want_y, want_s
                     del lw
                 del r, k, v
                 dt = time.perf_counter() - t0
-                results.append({"K": K, "S": S, "B": B, "H": H, "cases": n_cases, "failed": bad, **worst,
-                                "seconds": dt})
-                print(f"  wkv6 K={K:>3} S={S:>5} B={B} H={H:>2}: {n_cases - bad}/{n_cases} cases agree "
+                results.append({"K": K, "S": S, "B": B, "H": H, "segments": n_seg, "segment_length": seg_len,
+                                "cases": n_cases, "failed": bad, **worst, "seconds": dt})
+                print(f"  wkv6 K={K:>3} S={S:>5} B={B} H={H:>2} segments {n_seg:>2} of {seg_len:>5}: "
+                      f"{n_cases - bad}/{n_cases} cases agree "
                       f"(max_abs_err {worst['max_abs_err']:.3g}, worst/limit {worst['worst']:.3g}, "
                       f"rel {worst['rel']:.3g}; {dt:.1f} s)", flush=True)
                 torch.cuda.empty_cache()
@@ -1109,15 +1181,19 @@ def wkv6_at_shapes(torch, wkv6_ops, plain, scan, agreement, rec: CallRecorder) -
     """Each serving shape's kernel, plain and bound times, on the inputs of
     the call that read worst against the plain version, with the f64
     witness of that call (``wkv6_witness``)."""
+    from repro_torch.kernels.wkv6 import kernel as kern
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     rows = []
     for key, (args, _) in rec.inputs.items():
         label, shape, dname = key
         r, k, v, lw, u, s0 = args
         B, S, H, K = shape
+        n_seg = kern.segments(B, H, S, K, sms)
         t_bound, bound_by = wkv6_bound(B, S, H, K, r.element_size(), u.element_size(), s0 is not None)
         st = rec.stats[key]
         row = {
-            "scenario": label, "shape": list(shape), "dtype": dname, "calls": st["calls"],
+            "scenario": label, "shape": list(shape), "dtype": dname, "calls": st["calls"], "segments": n_seg,
             "ms": device_ms(torch, lambda: wkv6_ops.wkv6(*args)),
             "plain_ms": device_ms(torch, lambda: plain(*args), reps=1, warmup=1),
             "bound_ms": t_bound, "bound_by": bound_by,
@@ -1127,7 +1203,8 @@ def wkv6_at_shapes(torch, wkv6_ops, plain, scan, agreement, rec: CallRecorder) -
             "witness_f64": wkv6_witness(torch, wkv6_ops, plain, scan, agreement, args),
         }
         rows.append(row)
-        print(f"  wkv6 ({label}) B={B} S={S} H={H} K={K} {dname} calls {st['calls']}: kernel {row['ms']:.3f} ms  "
+        print(f"  wkv6 ({label}) B={B} S={S} H={H} K={K} {dname} calls {st['calls']} segments {n_seg}: "
+              f"kernel {row['ms']:.3f} ms  "
               f"bound {t_bound:.3f} ms ({bound_by})  plain {row['plain_ms']:.3f} ms  library n/a  "
               f"max_abs_err {st['max_abs_err']:.3g}, worst/limit {st['worst']:.3g}, rel {st['rel']:.3g}",
               flush=True)
@@ -1228,9 +1305,10 @@ def main(argv=None) -> int:
             t = time_call(torch, ops, ref, rec.name, cargs, ckw)
             fails.check(t["ok"], f"{rec.name} at {label}'s shape disagrees with its plain version")
             shapes.setdefault(rec.name, []).append({"query": label, **t})
-            print(f"  {rec.name:<16} {label:<14} N={t['n']:>9} K={t['num_keys']:>8} "
+            print(f"  {rec.name:<16} {label:<14} N={t['n']:>9} K={t['num_keys']:>8} regime {t['regime']} "
                   f"kernel {t['ms']:.3f} ms  bound {t['bound_ms']:.3f} ms  plain {t['plain_ms']:.3f} ms  "
-                  f"library {t['library_ms']:.3f} ms  max_abs_err {t['max_abs_err']:.3g}", flush=True)
+                  f"library {t['library_ms']:.3f} ms (every table {t['library_all_ms']:.3f} ms)  "
+                  f"max_abs_err {t['max_abs_err']:.3g}", flush=True)
             print("    passes " + "  ".join(f"{k} {v:.3f}" for k, v in t["passes_ms"].items()), flush=True)
         rec.calls.clear()
     record["shapes"] = shapes
@@ -1270,7 +1348,7 @@ def main(argv=None) -> int:
     # 10. the rwkv6 serving path at full width
     print(f"serving path: {RWKV_ARCH} at full width:", flush=True)
     wkv6_rec = wkv6_recorder(wkv6_ops, wkv6_plain, wkv6_agreement, fails)
-    wkv6_launches = serve_path(torch, RWKV_ARCH, RWKV_SCENARIOS, wkv6_ops, wkv6_rec, "wkv6_kernel", fails,
+    wkv6_launches = serve_path(torch, RWKV_ARCH, RWKV_SCENARIOS, wkv6_ops, wkv6_rec, "wkv6_", fails,
                                args.seed, record, prepare=lambda m, g: spread_rwkv_zero_inits(torch, m, g))
 
     # 11. wkv6 at the serving path's shapes (these launches are not counted)

@@ -29,6 +29,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path[:0] = [ROOT, os.path.join(ROOT, "src")]
 
 from chip_smoke import BF16_OPS_PER_S, FLASH_SHAPES, device_ms, flash_cases, flash_flops  # noqa: E402
+from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash import kernel  # noqa: E402
 from repro_torch.kernels.flash.ref import agreement, flash_attention_plain  # noqa: E402
 
@@ -81,7 +82,9 @@ def main(argv=None) -> int:
     print(smi, torch.__version__, torch.version.cuda, flush=True)
     libs = {"kernel": kernel.LIBRARY}
     if args.baseline_source:
-        libs["baseline"] = kernel.variant("flash_fwd_baseline", source=args.baseline_source)
+        # an earlier source may lack flash_fwd_config: bind the launch alone
+        libs["baseline"] = _build.variant(kernel.LIBRARY, "flash_fwd_baseline", args.baseline_source,
+                                          kernel.configure_launch)
     with ThreadPoolExecutor(len(libs)) as pool:
         for fut in [pool.submit(lib.load) for lib in libs.values()]:
             fut.result()

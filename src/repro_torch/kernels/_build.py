@@ -75,3 +75,13 @@ class CudaLibrary:
             self.configure(lib)
             self._lib = lib
             return lib
+
+
+def variant(library: CudaLibrary, name: str, source: Path,
+            configure: Optional[Callable[[ctypes.CDLL], None]] = None) -> CudaLibrary:
+    """A build of another source of ``library``'s kernel (an earlier version,
+    or an edited copy) under ``name``, for timing beside it: bound by
+    ``configure``, by default ``library``'s own, so the other source must
+    keep the C functions that binds (pass one that binds fewer when it
+    lacks some)."""
+    return CudaLibrary(name, Path(source), configure or library.configure)

@@ -50,26 +50,21 @@ def registers_per_block() -> int:
     return 128 * PRODUCER_REGS + 256 * CONSUMER_REGS
 
 
-def _configure_launch(lib: ctypes.CDLL) -> None:
+def configure_launch(lib: ctypes.CDLL) -> None:
+    """Binds the launch alone (an earlier build of the source may lack
+    ``flash_fwd_config``)."""
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.flash_fwd_launch.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, i, f, f, i, p]
     lib.flash_fwd_launch.restype = ctypes.c_int
 
 
 def _configure(lib: ctypes.CDLL) -> None:
-    _configure_launch(lib)
+    configure_launch(lib)
     lib.flash_fwd_config.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
     lib.flash_fwd_config.restype = ctypes.c_int
 
 
 LIBRARY = CudaLibrary("flash_fwd", SOURCE, _configure)
-
-
-def variant(name: str, source: Path) -> CudaLibrary:
-    """A build of another flash source with this library's C interface (an
-    earlier version of the kernel), for timing beside LIBRARY.  Only
-    ``flash_fwd_launch`` is bound."""
-    return CudaLibrary(name, source, _configure_launch)
 
 
 def library() -> ctypes.CDLL:

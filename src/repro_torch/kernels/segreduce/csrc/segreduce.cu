@@ -40,12 +40,33 @@
 //     dropped here), then one block per range reduces its rows in shared
 //     memory and writes its slice of the outputs.  The bytes moved are a
 //     small multiple of the bound instead of tables of all K keys per warp.
-//   * No float sum (regime 2).  Integer sums (which wrap), min, max and
-//     presence give the same bits in any order, so one pass of atomics, into
-//     per-block tables in shared memory when they fit and into one global
-//     table otherwise, is deterministic too.  Float min/max use atomics on
-//     an order-preserving map of the bits to int32 (which orders -0.0 below
-//     +0.0 and sends NaN beyond the infinities).
+//   * No float sum (regimes 2 and 3).  Integer sums (which wrap), min, max
+//     and presence give the same bits in any order, so atomics are
+//     deterministic too, and rows may be moved in any order.  Float min/max
+//     fold as int32 through an order-preserving map of their bits (-0.0
+//     below +0.0; a NaN is sent past both ends, so that it wins as it does
+//     in torch.maximum/minimum), unmapped when written out.  Int32 columns
+//     and presence need no map: the table's bits are the output's, so there
+//     is no scratch table.  Every pass loads SEG_ROW_STEP rows a thread
+//     before it folds them, aggregate by aggregate.
+//     - Regime 2, direct: every block folds a grid-stride share of the rows
+//       into one table of all K keys in shared memory when such tables fit
+//       a quarter of it (small K), then adds its table into the outputs with
+//       global atomics; otherwise straight into the outputs, one L2 atomic a
+//       row and table.  The outputs are first filled with their (mapped)
+//       identities, and float min/max columns are unmapped in place at the
+//       end.  16-bit min/max columns fold into their own outputs by a CAS on
+//       the aligned word.
+//     - Regime 3, partitioned, for large K with at least two tables and as
+//       many rows as keys.  A histogram pass counts the rows of each key
+//       range (2^shift keys), a scatter pass moves each counted row's 16-bit
+//       key offset and one word a value column (none for presence) into its
+//       range's run, in any order (masked rows are dropped there), and one
+//       block a range folds its rows into one shared-memory table a column
+//       and writes its slice of every output: no fill, and no global atomic
+//       on a table.  Those passes cost about what one L2 atomic a row does
+//       (measured on an H100), so one table, or fewer rows than keys, take
+//       the direct pass.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -66,8 +87,7 @@ struct SegParams {
     const void* vals[SEG_MAX_AGGS];
     void* out[SEG_MAX_AGGS];          // int32, f32, bf16 or f16, as the value column
     int32_t* presence;                // nullptr unless with_presence
-    uint32_t* scratch;                // regime 0: n_warps / W * n_tables * num_keys words;
-                                      // regime 2: n_tables * num_keys words
+    uint32_t* scratch;                // regime 0: n_warps / W * n_tables * num_keys words
     int32_t* counts;                  // regime 1: n_tiles * n_buckets, tile-major
     int32_t* bucket_start;            // regime 1: n_buckets + 1
     int32_t* part_keys;               // regime 1: n_rows
@@ -84,10 +104,15 @@ struct SegParams {
     int32_t keys_per_bucket;          // regime 1
     int32_t n_tiles;                  // regime 1
     int32_t reduce_warps;             // regime 1: warps of a bucket's block
-    int32_t n_blocks;                 // regime 2: grid of the row pass
+    int32_t n_blocks;                 // regime 2: grid of the row pass; regime 3: of the histogram
     int32_t atomic_smem;              // regime 2: per-block tables in shared memory
     int32_t vtype[SEG_MAX_AGGS];
     int32_t op[SEG_MAX_AGGS];
+    // Fields added after the ones above, which keep their order, so that an
+    // earlier build of this source reads the same struct.
+    uint16_t* part_off;               // regime 3: n_rows key offsets within a range
+    int32_t* part_ranges;             // regime 3: 2 * n_buckets + 2 words (see seg_part_histogram)
+    int32_t bucket_shift;             // regime 3: a range holds 1 << bucket_shift keys
 };
 
 __device__ __forceinline__ bool is_int(int vt) { return vt == VT_INT32; }
@@ -260,83 +285,6 @@ __global__ void seg_combine(const SegParams p) {
         acc = combine(op, vt, acc, p.scratch[((int64_t)b * nt + t) * K + k]);
     for (int d = 16; d > 0; d >>= 1) acc = combine(op, vt, acc, __shfl_xor_sync(FULL, acc, d));
     if (lane == 0) emit_output(p, t, k, acc);
-}
-
-// ---------------------------------------------------------------------------
-// Regime 2: no float sum in the group — integer sums (which wrap), min, max
-// and presence are exact whatever their order, so atomics keep the results
-// deterministic.  Float min/max go through an order-preserving map to int32.
-// ---------------------------------------------------------------------------
-
-__device__ __forceinline__ uint32_t to_ordered(int vt, uint32_t w) {
-    if (is_int(vt)) return w;
-    return (int32_t)w >= 0 ? w : w ^ 0x7fffffffu;  // an involution
-}
-
-__device__ __forceinline__ void atomic_fold(uint32_t* slot, int op, int vt, uint32_t w) {
-    if (op == OP_SUM) atomicAdd(slot, w);  // int32 sums only here: wraps
-    else if (op == OP_MAX) atomicMax((int*)slot, (int)to_ordered(vt, w));
-    else atomicMin((int*)slot, (int)to_ordered(vt, w));
-}
-
-__device__ __forceinline__ uint32_t ordered_identity(int t, const SegParams& p) {
-    return t < p.n_aggs ? to_ordered(p.vtype[t], identity_word(p.op[t], p.vtype[t])) : 0u;
-}
-
-__global__ void seg_atomic_init(const SegParams p) {
-    const int64_t K = p.num_keys;
-    const int nt = n_tables(p);
-    for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < nt * K;
-         i += (int64_t)gridDim.x * blockDim.x)
-        p.scratch[i] = ordered_identity((int)(i / K), p);
-}
-
-// Rows in a grid-stride loop, folded into a per-block table in shared memory
-// when one fits (use_smem_table), else straight into the global table.
-__global__ void seg_atomic_rows(const SegParams p) {
-    extern __shared__ uint32_t smem[];
-    const int64_t K = p.num_keys;
-    const int nt = n_tables(p);
-    uint32_t* table = p.atomic_smem ? smem : p.scratch;
-    if (p.atomic_smem) {
-        for (int64_t i = threadIdx.x; i < nt * K; i += blockDim.x) smem[i] = ordered_identity((int)(i / K), p);
-        __syncthreads();
-    }
-    for (int64_t r = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; r < p.n_rows;
-         r += (int64_t)gridDim.x * blockDim.x) {
-        const int32_t key = counted_key(p, r, p.n_rows);
-        if (key < 0) continue;
-        for (int a = 0; a < p.n_aggs; ++a)
-            atomic_fold(table + (int64_t)a * K + key, p.op[a], p.vtype[a], load_value(p.vals[a], p.vtype[a], r));
-        if (p.with_presence) atomicAdd(table + (int64_t)p.n_aggs * K + key, 1u);
-    }
-    if (p.atomic_smem) {
-        __syncthreads();
-        for (int64_t i = threadIdx.x; i < nt * K; i += blockDim.x) {
-            const int t = (int)(i / K);
-            const uint32_t w = smem[i];
-            if (w == ordered_identity(t, p)) continue;  // nothing to add
-            if (t < p.n_aggs) {
-                const int op = p.op[t];
-                if (op == OP_SUM) atomicAdd(p.scratch + i, w);
-                else if (op == OP_MAX) atomicMax((int*)(p.scratch + i), (int)w);
-                else atomicMin((int*)(p.scratch + i), (int)w);
-            } else {
-                atomicAdd(p.scratch + i, w);
-            }
-        }
-    }
-}
-
-__global__ void seg_atomic_finish(const SegParams p) {
-    const int64_t K = p.num_keys;
-    const int nt = n_tables(p);
-    for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < nt * K;
-         i += (int64_t)gridDim.x * blockDim.x) {
-        const int t = (int)(i / K);
-        const uint32_t w = p.scratch[i];
-        emit_output(p, t, i % K, t < p.n_aggs ? to_ordered(p.vtype[t], w) : w);
-    }
 }
 
 // ---------------------------------------------------------------------------
@@ -533,6 +481,425 @@ seg_reduce_buckets(const SegParams p) {
 }
 
 // ---------------------------------------------------------------------------
+// Regimes 2 and 3: no float sum in the group
+// ---------------------------------------------------------------------------
+
+#define SEG_PART_THREADS 512
+#define SEG_SCATTER_THREADS 1024   // threads of a scatter block: two fill an SM
+#define SEG_PART_TILE 8192     // rows of a scatter block (its places are 16-bit)
+#define SEG_NO_BUCKET 0xffffu
+
+// Columns that fold through the order-preserving map: float min and max.
+__device__ __forceinline__ bool mapped(int op, int vt) { return op != OP_SUM && !is_int(vt); }
+
+// An involution on the bits of an f32 that orders them as int32.
+__device__ __forceinline__ uint32_t flip32(uint32_t w) {
+    return (int32_t)w >= 0 ? w : w ^ 0x7fffffffu;
+}
+__device__ __forceinline__ uint16_t flip16(uint16_t h) {
+    return (int16_t)h >= 0 ? h : (uint16_t)(h ^ 0x7fffu);
+}
+
+// The table word of a value word (an int32, or an f32 for every float type):
+// float min/max mapped, a NaN past the end its op moves towards.
+__device__ __forceinline__ uint32_t table_word(int op, int vt, uint32_t w) {
+    if (!mapped(op, vt)) return w;
+    if (isnan(__uint_as_float(w))) return op == OP_MAX ? 0x7fffffffu : 0x80000000u;
+    return flip32(w);
+}
+
+__device__ __forceinline__ uint32_t table_identity(int op, int vt) {
+    return mapped(op, vt) ? flip32(identity_word(op, vt)) : identity_word(op, vt);
+}
+
+__device__ __forceinline__ uint32_t table_atomic(uint32_t* slot, int op, uint32_t w) {
+    if (op == OP_SUM) return atomicAdd(slot, w);  // int32 sums only here: wraps
+    if (op == OP_MAX) return (uint32_t)atomicMax((int*)slot, (int)w);
+    return (uint32_t)atomicMin((int*)slot, (int)w);
+}
+
+// Rows a lane loads before it folds or places them, so that their loads are
+// in flight together.
+#define SEG_ROW_STEP 4
+
+// Keys of rows r0 + j * stride (j < STEP) where the row counts, else -1;
+// every load is issued before any is used.
+template <int STEP>
+__device__ __forceinline__ void counted_keys(const SegParams& p, int64_t r0, int64_t stride, int32_t (&key)[STEP]) {
+    uint8_t m[STEP];
+#pragma unroll
+    for (int j = 0; j < STEP; ++j) {
+        const int64_t r = r0 + j * stride;
+        const bool in = r < p.n_rows;
+        key[j] = in ? p.keys[r] : -1;
+        m[j] = p.mask != nullptr && in ? p.mask[r] : (uint8_t)1;
+    }
+#pragma unroll
+    for (int j = 0; j < STEP; ++j)
+        if (m[j] == 0 || key[j] < 0 || key[j] >= p.num_keys) key[j] = -1;
+}
+
+// Table words of aggregate a at rows row[j] (those with row[j] < 0 read
+// nothing): the type is switched on once for the STEP loads.
+template <int STEP>
+__device__ __forceinline__ void table_words(const SegParams& p, int a, const int64_t (&row)[STEP],
+                                            uint32_t (&w)[STEP]) {
+    const int vt = p.vtype[a], op = p.op[a];
+    const void* base = p.vals[a];
+#pragma unroll
+    for (int j = 0; j < STEP; ++j) w[j] = 0u;
+    switch (vt) {
+        case VT_INT32:
+#pragma unroll
+            for (int j = 0; j < STEP; ++j) if (row[j] >= 0) w[j] = (uint32_t)((const int32_t*)base)[row[j]];
+            break;
+        case VT_F32:
+#pragma unroll
+            for (int j = 0; j < STEP; ++j) if (row[j] >= 0) w[j] = __float_as_uint(((const float*)base)[row[j]]);
+            break;
+        case VT_BF16:
+#pragma unroll
+            for (int j = 0; j < STEP; ++j)
+                if (row[j] >= 0) w[j] = __float_as_uint(__bfloat162float(((const __nv_bfloat16*)base)[row[j]]));
+            break;
+        default:
+#pragma unroll
+            for (int j = 0; j < STEP; ++j)
+                if (row[j] >= 0) w[j] = __float_as_uint(__half2float(((const __half*)base)[row[j]]));
+            break;
+    }
+#pragma unroll
+    for (int j = 0; j < STEP; ++j) w[j] = table_word(op, vt, w[j]);
+}
+
+// Fills a block's tables of ``used`` keys (``width`` apart) with the mapped
+// identities of regimes 2 and 3.
+__device__ __forceinline__ void init_mapped_tables(const SegParams& p, uint32_t* table, int width, int used) {
+    for (int t = 0; t < n_tables(p); ++t) {
+        const uint32_t id = t < p.n_aggs ? table_identity(p.op[t], p.vtype[t]) : 0u;
+        for (int k = threadIdx.x; k < used; k += blockDim.x) table[t * width + k] = id;
+    }
+}
+
+// STEP rows a lane, aggregate by aggregate: ``key[j]`` is the key of row j
+// (-1 when it does not count), ``words(a, w)`` fills w with aggregate a's
+// table words of the STEP rows (their loads in flight together), and
+// ``fold(t, key, w)`` folds word w into column t at key (t = n_aggs:
+// presence, w a count).  Lanes of one warp that hit one address are
+// serialised by the hardware; folding them by warp reductions first was
+// measured slower, even with every lane on one key.  NA is the aggregate
+// count, or -1 for one read at run time.
+template <int NA, int STEP, typename Words, typename Fold>
+__device__ __forceinline__ void fold_rows(const SegParams& p, const int32_t (&key)[STEP], Words words, Fold fold) {
+    const int na = NA >= 0 ? NA : p.n_aggs;
+    auto column = [&](int a) {
+        uint32_t w[STEP];
+        words(a, w);
+#pragma unroll
+        for (int j = 0; j < STEP; ++j)
+            if (key[j] >= 0) fold(a, key[j], w[j]);
+    };
+    if constexpr (NA >= 0) {
+#pragma unroll
+        for (int a = 0; a < NA; ++a) column(a);
+    } else {
+        for (int a = 0; a < na; ++a) column(a);
+    }
+    if (p.with_presence) {
+#pragma unroll
+        for (int j = 0; j < STEP; ++j)
+            if (key[j] >= 0) fold(na, key[j], 1u);
+    }
+}
+
+// Regime 2: fills the outputs with their identities (mapped where the column
+// is mapped; 16-bit columns get the 16-bit map of their own identity).
+__global__ void seg_direct_init(const SegParams p) {
+    const int64_t K = p.num_keys;
+    const int nt = n_tables(p);
+    for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < nt * K;
+         i += (int64_t)gridDim.x * blockDim.x) {
+        const int t = (int)(i / K);
+        const int64_t k = i - t * K;
+        if (t == p.n_aggs) { p.presence[k] = 0; continue; }
+        const int op = p.op[t], vt = p.vtype[t];
+        if (vt == VT_BF16 || vt == VT_F16) {
+            // only min/max reach here with a 16-bit column: +-inf in either type
+            const uint16_t inf = vt == VT_BF16 ? 0x7f80u : 0x7c00u;
+            ((uint16_t*)p.out[t])[k] = flip16(op == OP_MAX ? (uint16_t)(inf | 0x8000u) : inf);
+        } else {
+            ((uint32_t*)p.out[t])[k] = table_identity(op, vt);
+        }
+    }
+}
+
+// Max or min of a 16-bit mapped value into a 16-bit output, by a CAS on the
+// aligned word that holds it (the other half is written back unchanged).
+__device__ __forceinline__ void atomic_minmax16(uint16_t* addr, int op, uint16_t h) {
+    uint32_t* word = (uint32_t*)((uintptr_t)addr & ~(uintptr_t)3);
+    const int shift = (int)((uintptr_t)addr & 2) * 8;
+    uint32_t old = *word, assumed;
+    do {
+        assumed = old;
+        const int16_t cur = (int16_t)(uint16_t)(assumed >> shift);
+        const int16_t want = op == OP_MAX ? max(cur, (int16_t)h) : min(cur, (int16_t)h);
+        if (want == cur) return;
+        const uint32_t next = (assumed & ~(0xffffu << shift)) | ((uint32_t)(uint16_t)want << shift);
+        old = atomicCAS(word, assumed, next);
+    } while (old != assumed);
+}
+
+// Regime 2: a table word folded into the outputs with a global atomic.
+__device__ __forceinline__ void fold_output(const SegParams& p, int t, int64_t k, uint32_t w) {
+    if (t == p.n_aggs) {
+        atomicAdd((uint32_t*)p.presence + k, w);
+        return;
+    }
+    const int op = p.op[t], vt = p.vtype[t];
+    if (vt == VT_BF16 || vt == VT_F16) {
+        // the f32 word holds a value of the column's own type: exact
+        const float f = __uint_as_float(flip32(w));
+        const uint16_t h = vt == VT_BF16 ? __bfloat16_as_ushort(__float2bfloat16_rn(f))
+                                         : __half_as_ushort(__float2half_rn(f));
+        const uint16_t m = isnan(f) ? (op == OP_MAX ? 0x7fffu : 0x8000u) : flip16(h);
+        atomic_minmax16((uint16_t*)p.out[t] + k, op, m);
+    } else {
+        table_atomic((uint32_t*)p.out[t] + k, op, w);
+    }
+}
+
+// Regime 2: every block folds a grid-stride share of the rows, into one
+// table of all K keys a column in shared memory when atomic_smem (then
+// added into the outputs), else straight into the outputs.
+template <int NA>
+__global__ void __launch_bounds__(256)
+seg_direct_rows(const SegParams p) {
+    extern __shared__ uint32_t smem[];
+    const int K = p.num_keys;
+    const int nt = n_tables(p);
+    const bool in_smem = p.atomic_smem != 0;
+    if (in_smem) init_mapped_tables(p, smem, K, K);
+    __syncthreads();
+    const int na = NA >= 0 ? NA : p.n_aggs;
+    const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+    auto fold = [&](int t, int key, uint32_t w) {
+        if (in_smem) {
+            if (t == na) atomicAdd(smem + t * K + key, w);
+            else table_atomic(smem + t * K + key, p.op[t], w);
+        } else {
+            fold_output(p, t, key, w);
+        }
+    };
+    for (int64_t base = (int64_t)blockIdx.x * blockDim.x; base < p.n_rows; base += stride * SEG_ROW_STEP) {
+        int32_t key[SEG_ROW_STEP];
+        int64_t row[SEG_ROW_STEP];
+        counted_keys<SEG_ROW_STEP>(p, base + threadIdx.x, stride, key);
+#pragma unroll
+        for (int j = 0; j < SEG_ROW_STEP; ++j) row[j] = key[j] >= 0 ? base + j * stride + threadIdx.x : -1;
+        fold_rows<NA>(p, key, [&](int a, uint32_t (&w)[SEG_ROW_STEP]) { table_words<SEG_ROW_STEP>(p, a, row, w); },
+                      fold);
+    }
+    if (!in_smem) return;
+    __syncthreads();
+    for (int i = threadIdx.x; i < nt * K; i += blockDim.x) {
+        const int t = i / K, k = i - t * K;
+        const uint32_t w = smem[i];
+        const uint32_t id = t == p.n_aggs ? 0u : table_identity(p.op[t], p.vtype[t]);
+        if (w != id) fold_output(p, t, k, w);  // else nothing to add
+    }
+}
+
+// Regime 2: the mapped columns unmapped in place.
+__global__ void seg_direct_finish(const SegParams p) {
+    const int64_t K = p.num_keys;
+    for (int t = 0; t < p.n_aggs; ++t) {
+        const int op = p.op[t], vt = p.vtype[t];
+        if (!mapped(op, vt)) continue;
+        for (int64_t k = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; k < K;
+             k += (int64_t)gridDim.x * blockDim.x) {
+            if (vt == VT_F32) ((uint32_t*)p.out[t])[k] = flip32(((uint32_t*)p.out[t])[k]);
+            else ((uint16_t*)p.out[t])[k] = flip16(((uint16_t*)p.out[t])[k]);
+        }
+    }
+}
+
+// Adds one to count[b] where b >= 0 and returns the count before it: the
+// row's slot among its range's rows.
+__device__ __forceinline__ int32_t claim(int32_t* count, int32_t b) {
+    return b >= 0 ? atomicAdd(count + b, 1) : 0;
+}
+
+// Regime 3, pass 1: rows per key range, counted in shared memory and added
+// to part_ranges[0, R) with one global atomic a range and block; the last
+// block to finish turns the counts into where each range begins
+// (part_ranges[0, R], the last entry all counted rows) and sets each
+// range's cursor (part_ranges[R + 1, 2 R + 1)) to its beginning.
+__global__ void __launch_bounds__(SEG_PART_THREADS)
+seg_part_histogram(const SegParams p) {
+    extern __shared__ uint32_t smem[];
+    int32_t* count = (int32_t*)smem;
+    __shared__ int32_t total;
+    __shared__ bool last;
+    const int R = p.n_buckets;
+    for (int b = threadIdx.x; b < R; b += blockDim.x) count[b] = 0;
+    __syncthreads();
+    const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+    for (int64_t base = (int64_t)blockIdx.x * blockDim.x; base < p.n_rows; base += stride * SEG_ROW_STEP) {
+        int32_t key[SEG_ROW_STEP];
+        counted_keys<SEG_ROW_STEP>(p, base + threadIdx.x, stride, key);
+#pragma unroll
+        for (int j = 0; j < SEG_ROW_STEP; ++j) claim(count, key[j] < 0 ? -1 : key[j] >> p.bucket_shift);
+    }
+    __syncthreads();
+    for (int b = threadIdx.x; b < R; b += blockDim.x)
+        if (count[b] != 0) atomicAdd(p.part_ranges + b, count[b]);
+    __threadfence();
+    __syncthreads();
+    if (threadIdx.x == 0) last = atomicAdd(p.part_ranges + 2 * R + 1, 1) == (int32_t)gridDim.x - 1;
+    __syncthreads();
+    if (!last) return;
+    __threadfence();
+    for (int b = threadIdx.x; b < R; b += blockDim.x) count[b] = ((volatile int32_t*)p.part_ranges)[b];
+    __syncthreads();
+    block_exclusive_scan(count, R, 1, &total);
+    for (int b = threadIdx.x; b < R; b += blockDim.x) {
+        p.part_ranges[b] = count[b];
+        p.part_ranges[R + 1 + b] = count[b];
+    }
+    if (threadIdx.x == 0) p.part_ranges[R] = total;
+}
+
+// Regime 3, pass 2: one block a tile of SEG_PART_TILE rows.  Each counted
+// row takes a slot in its range's run of the tile; the runs are laid out by
+// range in shared memory (row order within a run is not kept: nothing that
+// folds here depends on it); each run is reserved at its range's cursor,
+// and the tile writes its key offsets, then each value column, run by run:
+// neighbouring threads to neighbouring places.  Values are read in row
+// order and staged in run order in shared memory, one column at a time.
+__global__ void __launch_bounds__(SEG_SCATTER_THREADS)
+seg_part_scatter(const SegParams p) {
+    extern __shared__ uint32_t smem[];
+    const int R = p.n_buckets;
+    int32_t* run = (int32_t*)smem;                   // R: the tile's rows a range, then where its run goes
+    int32_t* local = run + R;                        // R: where each run begins within the tile
+    uint32_t* staged = (uint32_t*)(local + R);       // SEG_PART_TILE: a column in run order; before
+    uint16_t* t_range = (uint16_t*)staged;           //   that, each row's range
+    uint16_t* t_off = t_range + SEG_PART_TILE;        //   and key offset
+    uint16_t* t_place = t_off + SEG_PART_TILE;        // SEG_PART_TILE: a row's slot, then place in the tile
+    uint16_t* s_range = t_place + SEG_PART_TILE;      // SEG_PART_TILE: range of each place
+    uint16_t* s_off = s_range + SEG_PART_TILE;        // SEG_PART_TILE: key offset of each place
+    __shared__ int32_t n_counted;
+    const int64_t tile0 = (int64_t)blockIdx.x * SEG_PART_TILE;
+    const int rows = (int)min((int64_t)SEG_PART_TILE, p.n_rows - tile0);
+    for (int b = threadIdx.x; b < R; b += blockDim.x) run[b] = 0;
+    __syncthreads();
+    for (int i0 = 0; i0 < rows; i0 += blockDim.x * SEG_ROW_STEP) {
+        int32_t key[SEG_ROW_STEP];
+        counted_keys<SEG_ROW_STEP>(p, tile0 + i0 + threadIdx.x, blockDim.x, key);  // rows past the tile are
+#pragma unroll                                                                  // past n_rows or not read
+        for (int j = 0; j < SEG_ROW_STEP; ++j) {
+            const int i = i0 + j * blockDim.x + threadIdx.x;
+            const int32_t b = key[j] < 0 || i >= rows ? -1 : key[j] >> p.bucket_shift;
+            const int32_t slot = claim(run, b);
+            if (i < rows) {
+                t_range[i] = b < 0 ? (uint16_t)SEG_NO_BUCKET : (uint16_t)b;
+                t_off[i] = (uint16_t)(key[j] & ((1 << p.bucket_shift) - 1));
+                t_place[i] = (uint16_t)slot;
+            }
+        }
+    }
+    __syncthreads();
+    for (int b = threadIdx.x; b < R; b += blockDim.x) local[b] = run[b];
+    __syncthreads();
+    block_exclusive_scan(local, R, 1, &n_counted);
+    for (int b = threadIdx.x; b < R; b += blockDim.x) {
+        const int32_t c = run[b];
+        run[b] = c != 0 ? atomicAdd(p.part_ranges + R + 1 + b, c) - local[b] : 0;
+    }
+    for (int i = threadIdx.x; i < rows; i += blockDim.x) {
+        const uint32_t b = t_range[i];
+        if (b == SEG_NO_BUCKET) {
+            t_place[i] = (uint16_t)SEG_NO_BUCKET;
+            continue;
+        }
+        const int q = local[b] + t_place[i];
+        t_place[i] = (uint16_t)q;
+        s_range[q] = (uint16_t)b;
+        s_off[q] = t_off[i];
+    }
+    __syncthreads();
+    const int placed = n_counted;
+    for (int q = threadIdx.x; q < placed; q += blockDim.x) p.part_off[run[s_range[q]] + q] = s_off[q];
+    for (int a = 0; a < p.n_aggs; ++a) {
+        for (int i0 = 0; i0 < rows; i0 += blockDim.x * SEG_ROW_STEP) {
+            int64_t row[SEG_ROW_STEP];
+            int place[SEG_ROW_STEP];
+#pragma unroll
+            for (int j = 0; j < SEG_ROW_STEP; ++j) {
+                const int i = i0 + j * blockDim.x + threadIdx.x;
+                place[j] = i < rows ? t_place[i] : (int)SEG_NO_BUCKET;
+                row[j] = place[j] != (int)SEG_NO_BUCKET ? tile0 + i : -1;
+            }
+            uint32_t w[SEG_ROW_STEP];
+            table_words<SEG_ROW_STEP>(p, a, row, w);
+#pragma unroll
+            for (int j = 0; j < SEG_ROW_STEP; ++j)
+                if (row[j] >= 0) staged[place[j]] = w[j];
+        }
+        __syncthreads();
+        for (int q = threadIdx.x; q < placed; q += blockDim.x)
+            p.part_vals[(int64_t)a * p.n_rows + run[s_range[q]] + q] = staged[q];
+        __syncthreads();
+    }
+}
+
+// Regime 3, pass 3: one block a key range folds the range's rows into one
+// table a column in shared memory and writes its slice of every output.
+template <int NA>
+__global__ void __launch_bounds__(SEG_PART_THREADS)
+seg_part_fold(const SegParams p) {
+    extern __shared__ uint32_t smem[];
+    const int b = blockIdx.x;
+    const int width = 1 << p.bucket_shift;
+    const int64_t k0 = (int64_t)b << p.bucket_shift;
+    const int used = (int)min((int64_t)width, (int64_t)p.num_keys - k0);
+    init_mapped_tables(p, smem, width, used);
+    __syncthreads();
+    // no rows: the histogram never ran
+    const int64_t lo = p.n_rows > 0 ? p.part_ranges[b] : 0, hi = p.n_rows > 0 ? p.part_ranges[b + 1] : 0;
+    const int na = NA >= 0 ? NA : p.n_aggs;
+    auto fold = [&](int t, int key, uint32_t w) {
+        if (t == na) atomicAdd(smem + t * width + key, w);
+        else table_atomic(smem + t * width + key, p.op[t], w);
+    };
+    for (int64_t base = lo; base < hi; base += (int64_t)blockDim.x * SEG_ROW_STEP) {
+        int32_t key[SEG_ROW_STEP];
+#pragma unroll
+        for (int j = 0; j < SEG_ROW_STEP; ++j) {
+            const int64_t i = base + j * blockDim.x + threadIdx.x;
+            key[j] = i < hi ? (int32_t)p.part_off[i] : -1;
+        }
+        fold_rows<NA>(p, key, [&](int a, uint32_t (&w)[SEG_ROW_STEP]) {
+#pragma unroll
+            for (int j = 0; j < SEG_ROW_STEP; ++j) {
+                const int64_t i = base + j * blockDim.x + threadIdx.x;
+                w[j] = i < hi ? p.part_vals[(int64_t)a * p.n_rows + i] : 0u;
+            }
+        }, fold);
+    }
+    __syncthreads();
+    const int nt = n_tables(p);
+    for (int t = 0; t < nt; ++t) {
+        const bool agg = t < p.n_aggs;
+        for (int k = threadIdx.x; k < used; k += blockDim.x) {
+            const uint32_t w = smem[t * width + k];
+            if (!agg) p.presence[k0 + k] = (int32_t)w;
+            else store_value(p.out[t], p.vtype[t], k0 + k, mapped(p.op[t], p.vtype[t]) ? flip32(w) : w);
+        }
+    }
+}
+
+// ---------------------------------------------------------------------------
 
 extern "C" int segreduce_smem_limit(int dev) {
     int bytes = 0;
@@ -545,11 +912,50 @@ static cudaError_t allow_smem(Kernel kernel, size_t bytes) {
     return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
+// Asks for the largest shared-memory carveout, so that as many blocks of a
+// kernel that needs much of it run on an SM as its shared memory allows.
+template <typename Kernel>
+static cudaError_t prefer_smem(Kernel kernel) {
+    return cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                                (int)cudaSharedmemCarveoutMaxShared);
+}
+
 #define SEG_CHECK(call)                        \
     do {                                       \
         cudaError_t e_ = (call);               \
         if (e_ != cudaSuccess) return (int)e_; \
     } while (0)
+
+// The row kernels of regimes 2 and 3 are built for 0, 1 and 2 aggregates
+// (their loads unrolled over the aggregates) and for any count read at run
+// time; these pick the instance and launch it.
+struct DirectRows {
+    template <int NA> static auto kernel() { return seg_direct_rows<NA>; }
+};
+struct PartFold {
+    template <int NA> static auto kernel() { return seg_part_fold<NA>; }
+};
+
+template <int NA, typename Which>
+static cudaError_t launch_instance(const SegParams& p, cudaStream_t s, int grid, int threads, size_t smem) {
+    auto kernel = Which::template kernel<NA>();
+    cudaError_t e = allow_smem(kernel, smem);
+    if (e == cudaSuccess) e = prefer_smem(kernel);
+    if (e != cudaSuccess) return e;
+    kernel<<<grid, threads, smem, s>>>(p);
+    return cudaGetLastError();
+}
+
+template <typename Which>
+static cudaError_t launch_by_aggs(const SegParams& p, cudaStream_t s, int grid, int threads, size_t smem,
+                                  Which) {
+    switch (p.n_aggs) {
+        case 0: return launch_instance<0, Which>(p, s, grid, threads, smem);
+        case 1: return launch_instance<1, Which>(p, s, grid, threads, smem);
+        case 2: return launch_instance<2, Which>(p, s, grid, threads, smem);
+        default: return launch_instance<-1, Which>(p, s, grid, threads, smem);
+    }
+}
 
 // Launches the passes of the chosen regime on ``stream``; allocates nothing
 // and does not synchronise.  Returns the first cudaError_t met (0 on
@@ -573,13 +979,31 @@ extern "C" int segreduce_launch(const SegParams* hp, void* stream) {
     if (p.regime == 2) {
         const int grid = (int)min((cells + 255) / 256, (int64_t)65535);
         const size_t smem = p.atomic_smem ? (size_t)cells * sizeof(uint32_t) : 0;
-        SEG_CHECK(allow_smem(seg_atomic_rows, smem));
-        seg_atomic_init<<<grid, 256, 0, s>>>(p);
+        seg_direct_init<<<grid, 256, 0, s>>>(p);
         SEG_CHECK(cudaGetLastError());
-        seg_atomic_rows<<<p.n_blocks, 256, smem, s>>>(p);
-        SEG_CHECK(cudaGetLastError());
-        seg_atomic_finish<<<grid, 256, 0, s>>>(p);
+        SEG_CHECK(launch_by_aggs(p, s, p.n_blocks, 256, smem, DirectRows{}));
+        bool any_mapped = false;
+        for (int a = 0; a < p.n_aggs; ++a) any_mapped |= p.op[a] != OP_SUM && p.vtype[a] != VT_INT32;
+        if (!any_mapped) return 0;
+        seg_direct_finish<<<(int)min(((int64_t)p.num_keys + 255) / 256, (int64_t)65535), 256, 0, s>>>(p);
         return (int)cudaGetLastError();
+    }
+    if (p.regime == 3) {
+        const int R = p.n_buckets;
+        const size_t hist_smem = (size_t)R * sizeof(int32_t);
+        const size_t scatter_smem = 2 * hist_smem + 5 * (size_t)SEG_PART_TILE * sizeof(uint16_t);
+        const size_t fold_smem = (size_t)nt * sizeof(uint32_t) << p.bucket_shift;
+        SEG_CHECK(allow_smem(seg_part_histogram, hist_smem));
+        SEG_CHECK(allow_smem(seg_part_scatter, scatter_smem));
+        SEG_CHECK(prefer_smem(seg_part_scatter));
+        if (p.n_rows > 0) {
+            SEG_CHECK(cudaMemsetAsync(p.part_ranges, 0, (2 * (size_t)R + 2) * sizeof(int32_t), s));
+            seg_part_histogram<<<p.n_blocks, SEG_PART_THREADS, hist_smem, s>>>(p);
+            SEG_CHECK(cudaGetLastError());
+            seg_part_scatter<<<p.n_tiles, SEG_SCATTER_THREADS, scatter_smem, s>>>(p);
+            SEG_CHECK(cudaGetLastError());
+        }
+        return (int)launch_by_aggs(p, s, R, SEG_PART_THREADS, fold_smem, PartFold{});
     }
     const size_t hist_smem = (size_t)SEG_WARPS_PER_BLOCK * p.n_buckets * sizeof(int32_t);
     const size_t scatter_smem = hist_smem + (2 * (size_t)p.n_buckets + 1) * sizeof(int32_t)

@@ -21,6 +21,7 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "segreduce.cu"
 MAX_AGGS = 16            # SEG_MAX_AGGS in the source: aggregates per launch
 WARPS_PER_BLOCK = 8      # SEG_WARPS_PER_BLOCK in the source
 TILE_ROWS = 8192         # SEG_TILE_ROWS in the source: rows a partition warp takes
+PART_TILE = 8192         # SEG_PART_TILE in the source: rows of a regime-3 scatter block
 ROWS_PER_WARP_MIN = 1024  # fewer rows per warp buy nothing but table traffic
 BLOCKS_PER_SM = 4
 
@@ -58,6 +59,9 @@ class _SegParams(ctypes.Structure):
         ("atomic_smem", ctypes.c_int32),
         ("vtype", ctypes.c_int32 * MAX_AGGS),
         ("op", ctypes.c_int32 * MAX_AGGS),
+        ("part_off", ctypes.c_void_p),
+        ("part_ranges", ctypes.c_void_p),
+        ("bucket_shift", ctypes.c_int32),
     ]
 
 
@@ -90,8 +94,16 @@ class Layout:
     regime 1 (a float sum, large K): ``n_tiles`` tiles of TILE_ROWS rows
     partitioned into ``n_buckets`` key ranges of ``keys_per_bucket`` keys,
     one block of ``reduce_warps`` warps a range.
-    regime 2 (no float sum): ``n_blocks`` blocks of atomics, into per-block
-    tables in shared memory when ``atomic_smem``."""
+    regime 2 (no float sum: small K, one table, or fewer rows than keys):
+    ``n_blocks`` blocks of atomics, into a table of all K keys in shared
+    memory each, added into the outputs, when ``atomic_smem``, else straight
+    into the outputs.
+    regime 3 (no float sum, large K): a histogram of ``n_blocks`` blocks and
+    a scatter of ``n_tiles`` tiles of PART_TILE rows partition the rows into
+    ``n_buckets`` ranges of 2^``bucket_shift`` keys; one block a range
+    folds them in shared memory.
+    ``scratch_words``: the 32-bit words of the ``scratch`` table the launch
+    allocates (regime 0's per-block tables)."""
 
     regime: int
     n_warps: int = 0
@@ -102,6 +114,8 @@ class Layout:
     reduce_warps: int = 0
     n_blocks: int = 0
     atomic_smem: bool = False
+    bucket_shift: int = 0
+    scratch_words: int = 0
 
 
 def table_layout(
@@ -111,14 +125,23 @@ def table_layout(
     ``n_tables`` accumulator columns (aggregates plus presence);
     ``float_sum`` says whether any aggregate is a floating-point sum."""
     if not float_sum:
-        n_blocks = max(1, min(n_sms * 8, _ceil_div(n, 256 * 16)))
-        return Layout(2, n_blocks=n_blocks, atomic_smem=n_tables * num_keys * 4 <= smem_limit // 4)
+        # tables of every key that leave room for four blocks an SM take the
+        # rows directly; past that limit the rows are partitioned by key
+        # range first, whatever their order, when there are at least two
+        # tables and as many rows as keys.  The partition's passes cost
+        # about what one L2 atomic a row does, so with one table, or fewer
+        # rows than keys, the rows go straight into the outputs.
+        atomic_smem = n_tables * num_keys * 4 <= smem_limit // 4
+        if atomic_smem or n_tables < 2 or n < num_keys:
+            return direct_layout(n, n_sms, atomic_smem)
+        return partition_layout(n, num_keys, n_tables, smem_limit, n_sms)
     per_key = WARPS_PER_BLOCK * n_tables * 4  # shared bytes per key of a block
     if num_keys * per_key <= smem_limit:
         n_blocks = max(1, min(n_sms * BLOCKS_PER_SM, _ceil_div(n, WARPS_PER_BLOCK * ROWS_PER_WARP_MIN)))
         n_warps = n_blocks * WARPS_PER_BLOCK
         rows_per_warp = 32 * max(1, _ceil_div(_ceil_div(max(n, 1), n_warps), 32))
-        return Layout(0, n_warps=n_warps, rows_per_warp=rows_per_warp)
+        return Layout(0, n_warps=n_warps, rows_per_warp=rows_per_warp,
+                      scratch_words=n_blocks * n_tables * num_keys)
     # key ranges as wide as shared memory allows, but narrow enough to give
     # every SM two ranges to reduce; fewer warps a range (wider tables) only
     # when the ranges would be too many for the scatter's shared memory
@@ -137,6 +160,42 @@ def table_layout(
     )
 
 
+def direct_layout(n: int, n_sms: int, atomic_smem: bool) -> Layout:
+    """Regime 2: a block of 256 threads every 256 rows, at most eight an SM."""
+    return Layout(2, n_blocks=max(1, min(n_sms * 8, _ceil_div(n, 256))), atomic_smem=atomic_smem)
+
+
+def partition_layout(n: int, num_keys: int, n_tables: int, smem_limit: int, n_sms: int) -> Layout:
+    """Regime 3: ranges of a power of two of keys (at most 2^16, the 16-bit
+    key offsets), the widest that give every SM two ranges to fold and
+    whose tables leave room for four folding blocks an SM, else for one."""
+    for room in (smem_limit // 4, smem_limit):
+        widest = min(1 << 16, room // (n_tables * 4), _ceil_div(num_keys, 2 * n_sms))
+        if widest < 1:
+            continue
+        shift = widest.bit_length() - 1
+        n_buckets = _ceil_div(num_keys, 1 << shift)
+        if part_scatter_smem_bytes(n_buckets) <= smem_limit:
+            return Layout(
+                3, n_buckets=n_buckets, keys_per_bucket=1 << shift, bucket_shift=shift,
+                n_tiles=max(1, _ceil_div(n, PART_TILE)),
+                n_blocks=max(1, min(4 * n_sms, _ceil_div(n, PART_TILE))),
+            )
+    raise ValueError(
+        f"num_keys={num_keys} with {n_tables} accumulator columns is beyond the "
+        "segreduce kernel's key ranges"
+    )
+
+
+def part_scatter_smem_bytes(n_buckets: int) -> int:
+    """Shared memory of regime 3's scatter: two arrays of the ranges; for
+    every row of its tile, its range and key offset (16 bits each; later a
+    value column's 32-bit word, staged), and its place; the range and key
+    offset of every place (16 bits each); and the scan's own (static)
+    shared arrays."""
+    return 2 * n_buckets * 4 + 5 * PART_TILE * 2 + 256
+
+
 def scatter_smem_bytes(n_buckets: int) -> int:
     """Shared memory of the partition scatter: per-warp bucket counts, two
     bucket arrays, a count, the tile's row order, and the scan's own
@@ -151,20 +210,24 @@ def launch(
     num_keys: int,
     mask: Optional[torch.Tensor],
     with_presence: bool,
+    lib: CudaLibrary = LIBRARY,
+    layout: Optional[Layout] = None,
 ) -> Tuple[Tuple[torch.Tensor, ...], Optional[torch.Tensor]]:
     """One launch of the kernel on CUDA tensors the caller has checked:
     keys int32 (N,), mask bool (N,) or None, at most MAX_AGGS value columns
     of (N,) in the types of ``_VTYPES``, all contiguous on one device.
     Outputs and scratch are allocated here; the kernel runs on the
-    device's current stream."""
-    lib = library()
+    device's current stream.  ``lib`` and ``layout`` name another build and
+    its layout (an earlier source, timed beside this one); by default this
+    source and ``table_layout``."""
+    lib = lib.load()
     device = keys.device
     index = device.index if device.index is not None else torch.cuda.current_device()
     n = int(keys.shape[0])
     n_tables = len(values) + (1 if with_presence else 0)
     props = torch.cuda.get_device_properties(index)
     float_sum = any(op == "sum" and v.dtype.is_floating_point for v, op in zip(values, ops))
-    lay = table_layout(
+    lay = layout or table_layout(
         n, num_keys, n_tables, lib.segreduce_smem_limit(index), props.multi_processor_count,
         float_sum,
     )
@@ -174,17 +237,20 @@ def launch(
     def words(count: int) -> torch.Tensor:
         return torch.empty((count,), dtype=torch.int32, device=device)
 
-    if lay.regime == 0:
-        scratch = {"scratch": words(lay.n_warps // WARPS_PER_BLOCK * n_tables * num_keys)}
-    elif lay.regime == 2:
-        scratch = {"scratch": words(n_tables * num_keys)}
-    else:
-        scratch = {
+    scratch = {"scratch": words(lay.scratch_words)} if lay.scratch_words else {}
+    if lay.regime == 3:
+        scratch.update({
+            "part_ranges": words(2 * lay.n_buckets + 2),
+            "part_off": torch.empty((n,), dtype=torch.int16, device=device),
+            "part_vals": words(len(values) * n),
+        })
+    elif lay.regime == 1:
+        scratch.update({
             "counts": words(lay.n_tiles * lay.n_buckets),
             "bucket_start": words(lay.n_buckets + 1),
             "part_keys": words(n),
             "part_vals": words(len(values) * n),
-        }
+        })
 
     p = _SegParams()
     p.keys = keys.data_ptr()
@@ -211,6 +277,7 @@ def launch(
     p.reduce_warps = lay.reduce_warps
     p.n_blocks = lay.n_blocks
     p.atomic_smem = int(lay.atomic_smem)
+    p.bucket_shift = lay.bucket_shift
     stream = torch.cuda.current_stream(device).cuda_stream
     rc = lib.segreduce_launch(ctypes.byref(p), stream)
     if rc != 0:

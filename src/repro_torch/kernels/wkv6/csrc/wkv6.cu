@@ -24,8 +24,7 @@
 // operations bound it, narrowly: 5 * 64 = 320 operations per 14 bytes of
 // each (token, head, k), 23 per byte against the card's 20.
 //
-// Design, and what it does about that bound.  A first kernel: right before
-// fast.
+// Design, and what it does about that bound.
 //   * The chunked algebra of the Pallas kernel exists to feed the TPU's
 //     matrix unit.  In f32 on CUDA cores it would cost more operations than
 //     the scan (the pairwise decay alone is L/2 exps per token and k), so
@@ -46,8 +45,12 @@
 //     otherwise be one row).
 //   * KS, the number of row slices, sets how many blocks there are: the
 //     fewest built split that gives two blocks per SM (KS = 4 for a batch
-//     of 8 x 40 heads at K = 64, 320 blocks), else the most (KS = 16 for
-//     one long prompt of 40 heads, 160 blocks).
+//     of 8 x 40 heads at K = 64, 320 blocks).  Where B * H cannot give that
+//     (one long prompt of 40 heads), the sequence is cut into segments,
+//     each scanned at KS = 4 by its own blocks from the state the segments
+//     before it leave (the sequence-parallel passes below): 13 segments of
+//     40 blocks fill the card's 132 SMs with four blocks each, where one
+//     pass at KS = 16 had 160 thin blocks whose thread each holds 4 rows.
 //   * TT tokens at a time are staged in shared memory: r, k and exp(log_w)
 //     (one exp per element and block), v of the block's columns, and the
 //     products r u k, whose sum over k (the bonus of each token) four
@@ -99,7 +102,7 @@ __global__ void __launch_bounds__(WKV_THREADS)
 wkv6_kernel(const T* __restrict__ r, const T* __restrict__ k, const T* __restrict__ v,
             const float* __restrict__ log_w, const float* __restrict__ u,
             const float* __restrict__ s0, float* __restrict__ y, float* __restrict__ s_out,
-            int S, int H) {
+            int S, int H, int n_seg, int seg_len) {
     using Sh = WkvShape<K, KS, C>;
     constexpr int R = Sh::R, VB = Sh::VB, CG = Sh::CG, RP = Sh::RP, KP = Sh::KP;
     __shared__ __align__(16) float sr[WKV_TT][KP];
@@ -115,10 +118,12 @@ wkv6_kernel(const T* __restrict__ r, const T* __restrict__ k, const T* __restric
     const int cg = tid % CG;            // which group of C columns
     const int ks = tid / CG;            // which row slice
     const int col0 = blockIdx.x * VB;
-    const int h = blockIdx.y, b = blockIdx.z;
+    const int h = blockIdx.y, b = blockIdx.z / n_seg, seg = blockIdx.z % n_seg;
+    const int t_begin = seg * seg_len, t_end = min(S, t_begin + seg_len);
     const int64_t stride_t = (int64_t)H * K;                 // one token of (B, S, H, K)
     const int64_t base = ((int64_t)b * S * H + h) * K;       // token 0 of (b, h)
-    const int64_t sbase = ((int64_t)b * H + h) * K * K;      // (b, h) of the state
+    const int64_t sbase = ((int64_t)b * H + h) * K * K;      // (b, h) of the final state
+    const int64_t start = (((int64_t)b * H + h) * n_seg + seg) * K * K;  // the segment's first state
 
     for (int j = tid; j < K; j += WKV_THREADS) su[j] = u[h * K + j];
     float st[R][C];
@@ -126,7 +131,7 @@ wkv6_kernel(const T* __restrict__ r, const T* __restrict__ k, const T* __restric
     for (int i = 0; i < R; ++i)
 #pragma unroll
         for (int c = 0; c < C; ++c)
-            st[i][c] = s0 ? s0[sbase + (int64_t)(ks * R + i) * K + col0 + cg * C + c] : 0.f;
+            st[i][c] = s0 ? s0[start + (int64_t)(ks * R + i) * K + col0 + cg * C + c] : 0.f;
 
     // The next chunk's inputs wait in registers while the current chunk is
     // scanned, so that their loads are in flight during the scan.
@@ -138,7 +143,7 @@ wkv6_kernel(const T* __restrict__ r, const T* __restrict__ k, const T* __restric
 #pragma unroll
         for (int m = 0; m < PER; ++m) {
             const int idx = tid + m * WKV_THREADS, t = idx / K, j = idx - t * K;
-            if (t0 + t < S) {
+            if (t0 + t < t_end) {
                 const int64_t o = base + (int64_t)(t0 + t) * stride_t + j;
                 nr[m] = r[o];
                 nk[m] = k[o];
@@ -148,15 +153,15 @@ wkv6_kernel(const T* __restrict__ r, const T* __restrict__ k, const T* __restric
 #pragma unroll
         for (int m = 0; m < PER_V; ++m) {
             const int idx = tid + m * WKV_THREADS, t = idx / VB, cc = idx - t * VB;
-            if (idx < WKV_TT * VB && t0 + t < S) nv[m] = v[base + (int64_t)(t0 + t) * stride_t + col0 + cc];
+            if (idx < WKV_TT * VB && t0 + t < t_end) nv[m] = v[base + (int64_t)(t0 + t) * stride_t + col0 + cc];
         }
     };
-    // stage a fetched chunk; tokens past S get k = v = 0 and log_w = 0
+    // stage a fetched chunk; tokens past the segment get k = v = 0 and log_w = 0
     auto stage = [&](int t0) {
 #pragma unroll
         for (int m = 0; m < PER; ++m) {
             const int idx = tid + m * WKV_THREADS, t = idx / K, j = idx - t * K, p = padded<R>(j);
-            const bool in = t0 + t < S;
+            const bool in = t0 + t < t_end;
             const float rv = in ? widen(nr[m]) : 0.f, kv = in ? widen(nk[m]) : 0.f;
             sr[t][p] = rv;
             sk[t][p] = kv;
@@ -166,16 +171,16 @@ wkv6_kernel(const T* __restrict__ r, const T* __restrict__ k, const T* __restric
 #pragma unroll
         for (int m = 0; m < PER_V; ++m) {
             const int idx = tid + m * WKV_THREADS, t = idx / VB, cc = idx - t * VB;
-            if (idx < WKV_TT * VB) sv[t][cc] = t0 + t < S ? widen(nv[m]) : 0.f;
+            if (idx < WKV_TT * VB) sv[t][cc] = t0 + t < t_end ? widen(nv[m]) : 0.f;
         }
     };
-    fetch(0);
+    fetch(t_begin);
     __syncthreads();
 
-    for (int t0 = 0; t0 < S; t0 += WKV_TT) {
+    for (int t0 = t_begin; t0 < t_end; t0 += WKV_TT) {
         stage(t0);
         __syncthreads();
-        if (t0 + WKV_TT < S) fetch(t0 + WKV_TT);
+        if (t0 + WKV_TT < t_end) fetch(t0 + WKV_TT);
 
         // the bonus sum_k r u k of each token, in WKV_PARTS parts of K /
         // WKV_PARTS rows (read after the next barrier)
@@ -227,7 +232,7 @@ wkv6_kernel(const T* __restrict__ r, const T* __restrict__ k, const T* __restric
         // y = the KS partials in row-slice order, plus the bonus
         for (int idx = tid; idx < WKV_TT * VB; idx += WKV_THREADS) {
             const int t = idx / VB, cc = idx - t * VB;
-            if (t0 + t < S) {
+            if (t0 + t < t_end) {
                 float acc = 0.f;
 #pragma unroll
                 for (int q = 0; q < KS; ++q) acc += sy[t][q * VB + cc];
@@ -240,27 +245,211 @@ wkv6_kernel(const T* __restrict__ r, const T* __restrict__ k, const T* __restric
         }
         __syncthreads();
     }
+    if (seg != n_seg - 1) return;  // the last segment leaves the final state
 #pragma unroll
     for (int i = 0; i < R; ++i)
 #pragma unroll
         for (int c = 0; c < C; ++c) s_out[sbase + (int64_t)(ks * R + i) * K + col0 + cg * C + c] = st[i][c];
 }
 
+// ---------------------------------------------------------------------------
+// Sequence-parallel passes, for when B * H cannot fill the card (one long
+// prompt): the S tokens of each (b, h) are cut into n_seg segments of
+// seg_len tokens.
+//   1. wkv6_states: per (b, h, segment but the last), in parallel, the state
+//      the segment leaves from zero, E = sum_j (k_j * exp(tot - cum_j)) v_j^T,
+//      and its decay D = exp(tot), where cum is the running sum of log_w
+//      within the segment and tot its last value (every exponent <= 0).
+//   2. wkv6_carry: per (b, h) and state element, in order over segments,
+//      start[0] = S0 (or 0) and start[s + 1] = D_s * start[s] + E_s, in
+//      place of E.
+//   3. wkv6_kernel (the scan above) per (b, h, segment) from start[s]; the
+//      last segment writes the final state.
+// ---------------------------------------------------------------------------
+
+#define WKV_ST_THREADS 256
+#define WKV_ST_TT 32                       // tokens staged at a time
+#define WKV_CARRY_STEP 8
+
+// One block of 256 threads per (segment, h, b): each thread owns a
+// (K / 16) x (K / 16) tile of E and adds k~_j v_j^T token by token (K / 16
+// squared FMAs per two 16-byte shared reads at K = 64), where k~_j = k_j *
+// exp(sum of log_w after j in the segment).  Those suffix sums are taken
+// walking the segment from its end, WKV_ST_TT tokens at a time, split over
+// the threads of each key row in WKV_ST_THREADS / K groups.
+template <typename T, int K>
+__global__ void __launch_bounds__(WKV_ST_THREADS)
+wkv6_states(const T* __restrict__ k, const T* __restrict__ v, const float* __restrict__ log_w,
+            float* __restrict__ e_out, float* __restrict__ d_out, int S, int H, int n_seg, int seg_len) {
+    constexpr int TR = K / 16;                          // rows and columns of a thread's tile
+    constexpr int G = WKV_ST_THREADS / K;               // groups of a key row's threads
+    constexpr int TPG = WKV_ST_TT / G;                  // tokens of a group
+    static_assert(WKV_ST_TT % G == 0, "the staged tokens split over the groups");
+    __shared__ __align__(16) float sk[WKV_ST_TT][K];    // k, then k~
+    __shared__ __align__(16) float sv[WKV_ST_TT][K];
+    __shared__ float sw[WKV_ST_TT][K];                  // log_w
+    __shared__ float gsum[G][K];                        // each group's sum of log_w
+    __shared__ float suf[K];                            // log_w summed after the staged tokens
+
+    const int tid = threadIdx.x;
+    const int seg = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+    const int t_begin = seg * seg_len, t_end = min(S, t_begin + seg_len);
+    const int64_t stride_t = (int64_t)H * K;
+    const int64_t base = ((int64_t)b * S * H + h) * K;
+    const int ti = tid / 16, tj = tid % 16;             // the thread's tile of E
+    const int kr = tid % K, g = tid / K;                // the thread's key row and group
+    float e[TR][TR];
+#pragma unroll
+    for (int i = 0; i < TR; ++i)
+#pragma unroll
+        for (int j = 0; j < TR; ++j) e[i][j] = 0.f;
+    if (tid < K) suf[tid] = 0.f;
+
+    // The next chunk's inputs wait in registers while the current chunk is
+    // folded, as in the scan.
+    constexpr int PER = WKV_ST_TT * K / WKV_ST_THREADS;     // elements of each input a thread stages
+    T nk[PER], nv[PER];
+    float nw[PER];
+    auto fetch = [&](int c0) {
+#pragma unroll
+        for (int m = 0; m < PER; ++m) {
+            const int idx = tid + m * WKV_ST_THREADS, t = idx / K, j = idx - t * K;
+            if (c0 + t < t_end) {
+                const int64_t o = base + (int64_t)(c0 + t) * stride_t + j;
+                nk[m] = k[o];
+                nv[m] = v[o];
+                nw[m] = log_w[o];
+            }
+        }
+    };
+    // tokens past the segment get k = v = 0 and log_w = 0, which add nothing
+    auto stage = [&](int c0) {
+#pragma unroll
+        for (int m = 0; m < PER; ++m) {
+            const int idx = tid + m * WKV_ST_THREADS, t = idx / K, j = idx - t * K;
+            const bool in = c0 + t < t_end;
+            sk[t][j] = in ? widen(nk[m]) : 0.f;
+            sv[t][j] = in ? widen(nv[m]) : 0.f;
+            sw[t][j] = in ? nw[m] : 0.f;
+        }
+    };
+    const int n_chunks = (t_end - t_begin + WKV_ST_TT - 1) / WKV_ST_TT;
+    if (n_chunks > 0) fetch(t_begin + (n_chunks - 1) * WKV_ST_TT);
+    for (int c = n_chunks - 1; c >= 0; --c) {
+        const int c0 = t_begin + c * WKV_ST_TT;
+        stage(c0);
+        __syncthreads();
+        if (c > 0) fetch(c0 - WKV_ST_TT);
+        {
+            float part = 0.f;
+#pragma unroll
+            for (int q = 0; q < TPG; ++q) part += sw[g * TPG + q][kr];
+            gsum[g][kr] = part;
+        }
+        __syncthreads();
+        {
+            float acc = suf[kr];
+            for (int q = G - 1; q > g; --q) acc += gsum[q][kr];
+#pragma unroll
+            for (int q = TPG - 1; q >= 0; --q) {
+                const int t = g * TPG + q;
+                sk[t][kr] *= expf(acc);
+                acc += sw[t][kr];
+            }
+        }
+        __syncthreads();
+        if (g == 0) {
+            float acc = suf[kr];
+            for (int q = G - 1; q >= 0; --q) acc += gsum[q][kr];
+            suf[kr] = acc;
+        }
+#pragma unroll 4
+        for (int t = 0; t < WKV_ST_TT; ++t) {
+            float kk[TR], vv[TR];
+            if constexpr (TR == 4) {
+                const float4 k4 = *reinterpret_cast<const float4*>(&sk[t][ti * 4]);
+                const float4 v4 = *reinterpret_cast<const float4*>(&sv[t][tj * 4]);
+                kk[0] = k4.x; kk[1] = k4.y; kk[2] = k4.z; kk[3] = k4.w;
+                vv[0] = v4.x; vv[1] = v4.y; vv[2] = v4.z; vv[3] = v4.w;
+            } else {
+#pragma unroll
+                for (int i = 0; i < TR; ++i) {
+                    kk[i] = sk[t][ti * TR + i];
+                    vv[i] = sv[t][tj * TR + i];
+                }
+            }
+#pragma unroll
+            for (int i = 0; i < TR; ++i)
+#pragma unroll
+                for (int j = 0; j < TR; ++j) e[i][j] = fmaf(kk[i], vv[j], e[i][j]);
+        }
+        __syncthreads();
+    }
+    const int64_t cell = ((int64_t)b * H + h) * n_seg + seg;
+#pragma unroll
+    for (int i = 0; i < TR; ++i)
+#pragma unroll
+        for (int j = 0; j < TR; ++j) e_out[cell * K * K + (int64_t)(ti * TR + i) * K + tj * TR + j] = e[i][j];
+    if (tid < K) d_out[cell * K + tid] = expf(suf[tid]);
+}
+
+// One thread per (b, h, row, column) of the state: the segments' first
+// states, in place of their E (the last segment's E is never made).
+__global__ void wkv6_carry(float* __restrict__ states, const float* __restrict__ decay,
+                           const float* __restrict__ s0, int BH, int K, int n_seg) {
+    const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+    const int64_t kk = (int64_t)K * K;
+    if (i >= BH * kk) return;
+    const int64_t bh = i / kk, cell = i - bh * kk, row = cell / K;
+    float st = s0 ? s0[i] : 0.f;
+    // WKV_CARRY_STEP segments' E and decay are loaded before they are used
+    for (int s0_ = 0; s0_ < n_seg; s0_ += WKV_CARRY_STEP) {
+        float e[WKV_CARRY_STEP], d[WKV_CARRY_STEP];
+#pragma unroll
+        for (int j = 0; j < WKV_CARRY_STEP; ++j) {
+            const int s = s0_ + j;
+            const bool has_e = s + 1 < n_seg;
+            e[j] = has_e ? states[(bh * n_seg + s) * kk + cell] : 0.f;
+            d[j] = has_e ? decay[(bh * n_seg + s) * K + row] : 0.f;
+        }
+#pragma unroll
+        for (int j = 0; j < WKV_CARRY_STEP; ++j) {
+            const int s = s0_ + j;
+            if (s < n_seg) states[(bh * n_seg + s) * kk + cell] = st;
+            if (s + 1 < n_seg) st = fmaf(d[j], st, e[j]);
+        }
+    }
+}
+
 template <typename T, int K, int KS, int C>
 static int launch(const void* r, const void* k, const void* v, const float* log_w, const float* u,
-                  const float* s0, float* y, float* s_out, int B, int S, int H, cudaStream_t stream) {
-    const dim3 grid(K / WkvShape<K, KS, C>::VB, H, B);
+                  const float* s0, float* y, float* s_out, int B, int S, int H, int n_seg,
+                  int seg_len, float* states, float* decay, cudaStream_t stream) {
+    const T* kt = static_cast<const T*>(k);
+    const T* vt = static_cast<const T*>(v);
+    const float* starts = s0;
+    if (n_seg > 1) {
+        wkv6_states<T, K><<<dim3(n_seg - 1, H, B), WKV_ST_THREADS, 0, stream>>>(
+            kt, vt, log_w, states, decay, S, H, n_seg, seg_len);
+        cudaError_t e = cudaGetLastError();
+        if (e != cudaSuccess) return (int)e;
+        const int64_t cells = (int64_t)B * H * K * K;
+        wkv6_carry<<<(int)((cells + 255) / 256), 256, 0, stream>>>(states, decay, s0, B * H, K, n_seg);
+        e = cudaGetLastError();
+        if (e != cudaSuccess) return (int)e;
+        starts = states;
+    }
+    const dim3 grid(K / WkvShape<K, KS, C>::VB, H, B * n_seg);
     wkv6_kernel<T, K, KS, C><<<grid, WKV_THREADS, 0, stream>>>(
-        static_cast<const T*>(r), static_cast<const T*>(k), static_cast<const T*>(v), log_w, u, s0,
-        y, s_out, S, H);
+        static_cast<const T*>(r), kt, vt, log_w, u, starts, y, s_out, S, H, n_seg, seg_len);
     return (int)cudaGetLastError();
 }
 
 template <typename T>
 static int dispatch(const void* r, const void* k, const void* v, const float* log_w, const float* u,
                     const float* s0, float* y, float* s_out, int B, int S, int H, int K, int ks,
-                    cudaStream_t stream) {
-#define WKV_ARGS r, k, v, log_w, u, s0, y, s_out, B, S, H, stream
+                    int n_seg, int seg_len, float* states, float* decay, cudaStream_t stream) {
+#define WKV_ARGS r, k, v, log_w, u, s0, y, s_out, B, S, H, n_seg, seg_len, states, decay, stream
     if (K == 16 && ks == 4) return launch<T, 16, 4, 1>(WKV_ARGS);
     if (K == 64 && ks == 4) return launch<T, 64, 4, 4>(WKV_ARGS);
     if (K == 64 && ks == 8) return launch<T, 64, 8, 4>(WKV_ARGS);
@@ -269,24 +458,45 @@ static int dispatch(const void* r, const void* k, const void* v, const float* lo
     return (int)cudaErrorInvalidValue;
 }
 
-// One launch on `stream` of the device `device` (this library carries its
-// own CUDA runtime, so the launch names its device).  (K, ks) is one of
-// (16, 4), (64, 4), (64, 8), (64, 16); dtype is DT_F32 or
-// DT_BF16 for r, k and v; s0 may be null.  Returns a cudaError_t, 0 on
-// success.
-extern "C" int wkv6_launch(const void* r, const void* k, const void* v, const void* log_w,
-                           const void* u, const void* s0, void* y, void* s_out, int dtype, int B,
-                           int S, int H, int K, int ks, int device, void* stream) {
+static int run(const void* r, const void* k, const void* v, const void* log_w, const void* u,
+               const void* s0, void* y, void* s_out, int dtype, int B, int S, int H, int K, int ks,
+               int n_seg, int seg_len, void* states, void* decay, int device, void* stream) {
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return (int)err;
     if (B == 0 || H == 0) return 0;
+    if (n_seg < 1 || (n_seg > 1 && (states == nullptr || decay == nullptr))) return (int)cudaErrorInvalidValue;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     const float* lw = static_cast<const float*>(log_w);
     const float* uu = static_cast<const float*>(u);
     const float* st = static_cast<const float*>(s0);
     float* yo = static_cast<float*>(y);
     float* so = static_cast<float*>(s_out);
-    if (dtype == DT_F32) return dispatch<float>(r, k, v, lw, uu, st, yo, so, B, S, H, K, ks, s);
-    if (dtype == DT_BF16) return dispatch<__nv_bfloat16>(r, k, v, lw, uu, st, yo, so, B, S, H, K, ks, s);
+    float* ws = static_cast<float*>(states);
+    float* wd = static_cast<float*>(decay);
+    if (dtype == DT_F32) return dispatch<float>(r, k, v, lw, uu, st, yo, so, B, S, H, K, ks, n_seg, seg_len, ws, wd, s);
+    if (dtype == DT_BF16)
+        return dispatch<__nv_bfloat16>(r, k, v, lw, uu, st, yo, so, B, S, H, K, ks, n_seg, seg_len, ws, wd, s);
     return (int)cudaErrorInvalidValue;
+}
+
+// One launch on `stream` of the device `device` (this library carries its
+// own CUDA runtime, so the launch names its device), in one pass over the
+// sequence.  (K, ks) is one of (16, 4), (64, 4), (64, 8), (64, 16); dtype is
+// DT_F32 or DT_BF16 for r, k and v; s0 may be null.  Returns a cudaError_t,
+// 0 on success.
+extern "C" int wkv6_launch(const void* r, const void* k, const void* v, const void* log_w,
+                           const void* u, const void* s0, void* y, void* s_out, int dtype, int B,
+                           int S, int H, int K, int ks, int device, void* stream) {
+    return run(r, k, v, log_w, u, s0, y, s_out, dtype, B, S, H, K, ks, 1, S, nullptr, nullptr, device, stream);
+}
+
+// The same over n_seg segments of seg_len tokens (the last may be shorter;
+// none empty), with workspace states (B, H, n_seg, K, K) and decay (B, H,
+// n_seg, K), both f32.
+extern "C" int wkv6_launch_segmented(const void* r, const void* k, const void* v, const void* log_w,
+                                     const void* u, const void* s0, void* y, void* s_out, int dtype,
+                                     int B, int S, int H, int K, int ks, int n_seg, int seg_len,
+                                     void* states, void* decay, int device, void* stream) {
+    return run(r, k, v, log_w, u, s0, y, s_out, dtype, B, S, H, K, ks, n_seg, seg_len, states, decay,
+               device, stream);
 }

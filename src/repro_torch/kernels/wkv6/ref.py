@@ -5,7 +5,9 @@
 # oracle, and the decode step.  ``wkv6_plain`` is the exact chunked form of
 # ``models/rwkv6._wkv_chunked`` (the algebra ``wkv6_pallas`` computes), plus
 # the carried state: the CUDA kernel's plain version, which the ``ops``
-# wrapper takes for a tensor on the CPU.  ``agreement`` is the tolerance the
+# wrapper takes for a tensor on the CPU.  ``wkv6_segmented_plain`` is the
+# kernel's sequence-parallel algebra (segment states, carry, rescan) written
+# plainly, so that the decomposition can be checked without a card.  ``agreement`` is the tolerance the
 # kernel is held to against it.
 #
 # Recurrence, per head (k, r in R^K, v in R^V, w_t = e^{log_w_t} in (0, 1]^K,
@@ -110,3 +112,34 @@ def wkv6_plain(
         ys.append(y)
     y = torch.stack(ys, dim=1).reshape(B, n * L, H, K)[:, :S]
     return y, state
+
+
+def wkv6_segmented_plain(
+    r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, log_w: torch.Tensor, u: torch.Tensor,
+    S0: Optional[torch.Tensor] = None, seg_len: int = 16,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The three passes of the kernel's sequence-parallel form over segments
+    of ``seg_len`` tokens (the last may be shorter): (1) the state each
+    segment but the last leaves from zero, E = sum_j (k_j * e^{tot - cum_j})
+    v_j^T, and its decay e^{tot} (cum the running sum of log_w within the
+    segment, tot its last value: every exponent <= 0); (2) the carry,
+    start[s + 1] = e^{tot_s} start[s] + E_s from start[0] = S0; (3) the
+    exact scan of each segment from its start.  Returns y (B, S, H, K) and
+    the final state, both f32."""
+    B, S, H, K = r.shape
+    state = _zero_state(r) if S0 is None else S0.float()
+    bounds = [(a, min(S, a + seg_len)) for a in range(0, S, seg_len)]
+    starts = [state]
+    for a, b in bounds[:-1]:
+        cum = torch.cumsum(log_w[:, a:b].float(), dim=1)               # (B, L, H, K)
+        tot = cum[:, -1]                                                # (B, H, K)
+        k_dec = k[:, a:b].float() * torch.exp(tot[:, None] - cum)
+        e = torch.einsum("bjhk,bjhv->bhkv", k_dec, v[:, a:b].float())
+        starts.append(torch.exp(tot)[..., None] * starts[-1] + e)
+    ys = []
+    for (a, b), start in zip(bounds, starts):
+        y, state = wkv6_scan(r[:, a:b], k[:, a:b], v[:, a:b], log_w[:, a:b], u, start)
+        ys.append(y)
+    if not ys:
+        return torch.zeros((B, 0, H, K), dtype=torch.float32, device=r.device), state
+    return torch.cat(ys, dim=1), state

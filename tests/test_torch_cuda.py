@@ -26,6 +26,7 @@ from repro_torch.kernels.flash import ops as flash_ops
 from repro_torch.kernels.flash.ref import agreement, flash_attention_plain
 from repro_torch.kernels.segreduce import ops
 from repro_torch.kernels.segreduce.ref import fused_segreduce_ref, segreduce_ref
+from repro_torch.kernels.wkv6 import kernel as wkv6_kernel
 from repro_torch.kernels.wkv6 import ops as wkv6_ops
 from repro_torch.kernels.wkv6.ref import agreement as wkv6_agreement
 from repro_torch.kernels.wkv6.ref import wkv6_plain
@@ -74,6 +75,74 @@ def test_kernel_matches_plain_and_is_deterministic(cuda, num_keys, float_sum):
     for x, y, w in zip(a1, a2, want):
         assert torch.equal(x.view(torch.int32), y.view(torch.int32))  # bitwise
         _same(x, w)
+
+
+def _exact(got, want):
+    """Equal values, NaN where the other has NaN (-0.0 equals +0.0)."""
+    assert got.dtype == want.dtype
+    if got.dtype.is_floating_point:
+        torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
+    else:
+        assert torch.equal(got, want)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("group", ["one", "two", "seven"])
+@pytest.mark.parametrize("masked", [False, True], ids=["all", "masked"])
+@pytest.mark.parametrize("order", ["random", "sorted"])
+@pytest.mark.parametrize("num_keys", [1, 100, 1_500_000, 2_000_001, 5_000_011])
+def test_no_float_sum_regimes_match_plain_exactly(cuda, num_keys, order, masked, group):
+    """Regime 2 (K = 1, 100 in shared tables; 5M, more keys than rows,
+    straight into the outputs) and 3 (K = 1.5M, 2M): int32 sums that wrap,
+    int32 and float min/max over values with -0.0, +-inf and NaN, bf16
+    min/max, presence, masked rows, keys in random or sorted order; every
+    result equal to the plain version's, and reruns bitwise equal."""
+    rng = np.random.default_rng(num_keys + len(group) + masked)
+    n = 3_000_000
+    keys_np = rng.integers(0, num_keys, n).astype(np.int32)
+    if order == "sorted":
+        keys_np.sort()
+    keys = torch.from_numpy(keys_np).to(cuda)
+    mask = torch.from_numpy(rng.integers(0, 4, n) > 0).to(cuda) if masked else None
+    vi = torch.from_numpy(rng.integers(2**29, 2**31 - 1, n).astype(np.int32)).to(cuda)  # sums wrap
+    vf_np = rng.normal(size=n).astype(np.float32)
+    special = rng.integers(0, n, 4000)
+    vf_np[special] = np.array([-0.0, 0.0, np.inf, -np.inf, np.nan], np.float32)[special % 5]
+    vf = torch.from_numpy(vf_np).to(cuda)
+    vb = vf.to(torch.bfloat16)
+    cols, ops_ = {
+        "one": ((vi,), ("sum",)),
+        "two": ((vf, vi), ("min", "sum")),
+        "seven": ((vi, vi, vi, vf, vf, vb, vb), ("sum", "max", "min", "max", "min", "max", "min")),
+    }[group]
+    a1, p1 = ops.fused_segreduce(keys, cols, ops_, num_keys, mask=mask)
+    a2, p2 = ops.fused_segreduce(keys, cols, ops_, num_keys, mask=mask)
+    want, want_pres = fused_segreduce_ref(keys, cols, ops_, num_keys, mask=mask)
+    torch.cuda.synchronize()
+    assert torch.equal(p1, want_pres) and torch.equal(p1, p2)
+    for x, y, w in zip(a1, a2, want):
+        assert _bitwise(x, y)
+        _exact(x, w)
+    accs, pres = ops.fused_segreduce(keys, (), (), num_keys, mask=mask)  # presence alone
+    assert accs == () and torch.equal(pres, want_pres)
+    if not masked:
+        single = ops.segreduce(keys, cols[0], num_keys, ops_[0])
+        _exact(single, segreduce_ref(keys, cols[0], num_keys, ops_[0]))
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("num_keys", [100, 2_000_001])
+def test_no_float_sum_regimes_on_no_rows_give_identities(cuda, num_keys):
+    """N = 0 in regimes 2 and 3: every output its op's identity."""
+    keys = torch.empty(0, dtype=torch.int32, device=cuda)
+    vi = torch.empty(0, dtype=torch.int32, device=cuda)
+    vb = torch.empty(0, dtype=torch.bfloat16, device=cuda)
+    cols, ops_ = (vi, vi, vb, vb), ("sum", "max", "max", "min")
+    got, pres = ops.fused_segreduce(keys, cols, ops_, num_keys)
+    want, want_pres = fused_segreduce_ref(keys, cols, ops_, num_keys)
+    assert torch.equal(pres, want_pres)
+    for x, w in zip(got, want):
+        _exact(x, w)
 
 
 @pytest.mark.requires_cuda
@@ -288,6 +357,30 @@ def test_wkv6_kernel_matches_plain(cuda, K, S, B, H, decay, with_state):
     torch.cuda.synchronize()
     assert wkv6_ops.LAUNCHES == before + 2
     assert y1.dtype == s1.dtype == torch.float32 and y1.shape == r.shape and s1.shape == (B, H, K, K)
+    assert _bitwise(y1, y2) and _bitwise(s1, s2)
+    for got, want in ((y1, want_y), (s1, want_s)):
+        agree = wkv6_agreement(got, want)
+        assert agree["ok"], agree
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("with_state", [False, True], ids=["zero", "S0"])
+@pytest.mark.parametrize("decay", ["random", "-54.6", "-3.4e-4"])
+@pytest.mark.parametrize("split", ["rule", "two", "every-16"])
+@pytest.mark.parametrize("S", [63, 64, 65, 197], ids=["4L-1", "4L", "4L+1", "12L+5"])
+@pytest.mark.parametrize("B,H", [(1, 40), (2, 3)])
+def test_wkv6_kernel_at_segment_boundaries(cuda, B, H, S, split, decay, with_state):
+    """The sequence-parallel passes where segments begin and end: the
+    launch's own segment count, two segments, and one segment per 16 tokens
+    (L = 16, so S is a multiple of L, one less or one more, or 12 L + 5),
+    with and without S0, over the clip's decays; y and the final state
+    within KERNEL_TOL of the plain version, reruns bitwise equal."""
+    r, k, v, lw, u, s0 = _wkv_inputs(S * 3 + H, B, S, H, 64, decay, torch.bfloat16, cuda, with_state)
+    n_seg = {"rule": None, "two": 2, "every-16": -(-S // 16)}[split]
+    y1, s1 = wkv6_kernel.launch(r, k, v, lw, u, s0, n_seg=n_seg)
+    y2, s2 = wkv6_kernel.launch(r, k, v, lw, u, s0, n_seg=n_seg)
+    want_y, want_s = wkv6_plain(r, k, v, lw, u, s0)
+    torch.cuda.synchronize()
     assert _bitwise(y1, y2) and _bitwise(s1, s2)
     for got, want in ((y1, want_y), (s1, want_s)):
         agree = wkv6_agreement(got, want)

@@ -207,9 +207,43 @@ def test_table_layout_regimes():
         assert cuda_kernel.WARPS_PER_BLOCK * tables * lay.keys_per_bucket * 4 <= smem
         assert lay.n_tiles * cuda_kernel.TILE_ROWS >= n
     assert cuda_kernel.table_layout(0, 1, 2, smem, n_sms).n_warps == cuda_kernel.WARPS_PER_BLOCK
-    # without a float sum every op is exact, so atomics serve any K
-    lay = cuda_kernel.table_layout(15_000_000, 1_500_000, 2, smem, n_sms, float_sum=False)
-    assert lay.regime == 2 and not lay.atomic_smem and lay.n_blocks >= 1
-    assert cuda_kernel.table_layout(100, 100, 2, smem, n_sms, float_sum=False).atomic_smem
+    # without a float sum every op is exact in any order: tables of every
+    # key in shared memory for small K, a partition by key range past them
+    # (atomics straight into the outputs for one table, or where the rows
+    # are fewer than the keys)
+    for n, k, tables in [(15_000_000, 1_500_000, 2), (8_000_000, 2_000_001, 2), (60_000_000, 100_001, 8)]:
+        lay = cuda_kernel.table_layout(n, k, tables, smem, n_sms, float_sum=False)
+        assert lay.regime == 3 and lay.keys_per_bucket == 1 << lay.bucket_shift <= 1 << 16
+        assert (lay.n_buckets - 1) * lay.keys_per_bucket < k <= lay.n_buckets * lay.keys_per_bucket
+        assert lay.n_buckets >= 2 * n_sms and lay.n_tiles * cuda_kernel.PART_TILE >= n
+        assert tables * lay.keys_per_bucket * 4 <= smem // 4          # the fold's tables
+        assert lay.n_buckets * 4 <= smem                             # the histogram's counts
+        assert cuda_kernel.part_scatter_smem_bytes(lay.n_buckets) <= smem
+        assert lay.n_buckets < 0xFFFF                                # 16-bit range ids
+        assert lay.scratch_words == 0
+    lay = cuda_kernel.table_layout(100, 100, 2, smem, n_sms, float_sum=False)
+    assert lay.regime == 2 and lay.atomic_smem and lay.n_blocks >= 1 and lay.scratch_words == 0
+    for n, k, tables in [(0, 100_001, 2), (1, 100_001, 2), (5000, 2_000_001, 8), (15_000_000, 1_500_001, 1)]:
+        lay = cuda_kernel.table_layout(n, k, tables, smem, n_sms, float_sum=False)
+        assert lay.regime == 2 and not lay.atomic_smem and lay.n_blocks >= 1
+    for k in (1, 100, 7264):  # the last key space whose two tables fit a quarter of shared memory
+        assert cuda_kernel.table_layout(60_000_000, k, 2, smem, n_sms, float_sum=False).atomic_smem
+    assert cuda_kernel.table_layout(8000, 7265, 2, smem, n_sms, float_sum=False).regime == 3
     with pytest.raises(ValueError):
         cuda_kernel.table_layout(10, 2**31 - 1, 17, smem, n_sms)
+
+
+def test_variant_builds_another_source_behind_the_same_binding(tmp_path):
+    """_build.variant: another source of a kernel (an earlier version, timed
+    beside it) under its own name, bound like the kernel unless told
+    otherwise, built nowhere until it is loaded."""
+    from repro_torch.kernels import _build
+
+    older = tmp_path / "older.cu"
+    older.write_text("// an earlier version\n")
+    lib = _build.variant(cuda_kernel.LIBRARY, "segreduce_older", older)
+    assert lib.source == older and lib.configure is cuda_kernel.LIBRARY.configure
+    assert lib.path().name.startswith("segreduce_older-") and lib.path() != cuda_kernel.LIBRARY.path()
+    assert not lib.path().exists()
+    bind_less = _build.variant(cuda_kernel.LIBRARY, "segreduce_older", older, configure=print)
+    assert bind_less.configure is print

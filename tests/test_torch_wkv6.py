@@ -18,7 +18,7 @@ from repro.kernels.wkv6.kernel import wkv6_pallas
 from repro.kernels.wkv6.ref import wkv6_ref
 from repro.models.rwkv6 import _wkv_chunked, _wkv_chunked_factorized, _wkv_scan
 from repro_torch.kernels.wkv6 import kernel, ops
-from repro_torch.kernels.wkv6.ref import KERNEL_TOL, agreement, wkv6_plain, wkv6_scan
+from repro_torch.kernels.wkv6.ref import KERNEL_TOL, agreement, wkv6_plain, wkv6_scan, wkv6_segmented_plain
 from repro_torch.models import rwkv6 as port_rwkv6
 
 TOL = dict(rtol=2e-3, atol=2e-3)
@@ -188,6 +188,64 @@ def test_row_split_fills_the_card():
     assert kernel.row_split(1, 40, 64, sms) == 16    # one long prompt: 160 blocks of 16 columns
     assert kernel.row_split(1, 40, 16, sms) == 4
     assert tuple(kernel.ROW_SPLITS) == (16, 64)
+
+
+def test_segments_split_only_one_long_prompt():
+    """One segment wherever the heads already give two blocks per SM (a
+    serving batch); more for one long prompt; never an empty segment, and
+    every token in one."""
+    sms = 132
+    assert kernel.segments(8, 40, 2048, 64, sms) == 1
+    assert kernel.segments(1, 40, 16384, 64, sms) > 1
+    assert kernel.segments(1, 40, 16385, 64, sms) > 1
+    for B, H, K in ((1, 40, 64), (2, 3, 64), (2, 3, 16), (1, 1, 16), (8, 40, 64)):
+        for S in (0, 1, 15, 16, 17, 100, 1263, 1264, 1265, 16384, 16385):
+            n = kernel.segments(B, H, S, K, sms)
+            L = kernel.segment_length(S, n)
+            assert n >= 1 and L % kernel.TOKENS_STAGED == 0
+            assert (n - 1) * L < max(S, 1) <= n * L, (B, H, K, S, n, L)
+
+
+@pytest.mark.parametrize("S,seg_len", [(12, 16), (15, 16), (16, 16), (17, 16), (53, 16), (100, 32)],
+                         ids=["S<L", "S=L-1", "S=L", "S=L+1", "3L+5", "ragged"])
+@pytest.mark.parametrize("with_state", [False, True], ids=["zero", "S0"])
+def test_segmented_plain_matches_the_reference(S, seg_len, with_state):
+    """The kernel's three passes (segment states, carry, rescan), written
+    plainly, against wkv6_plain, the Pallas kernel in interpret mode and
+    wkv6_ref (y and the final state), at the reference's 2e-3."""
+    arrays = _inputs(S + seg_len, 2, S, 3, 16, with_state=with_state)
+    jr, jk, jv, jlw, ju, js0 = _jax(arrays)
+    r, k, v, lw, u, s0 = _torch(arrays)
+    got, got_s = wkv6_segmented_plain(r, k, v, lw, u, s0, seg_len=seg_len)
+    plain, plain_s = wkv6_plain(r, k, v, lw, u, s0)
+    oracle, oracle_s = wkv6_ref(jr, jk, jv, jlw, ju, js0)
+    _close(got, plain, TOL)
+    _close(got_s, plain_s, TOL)
+    _close(got, oracle, TOL)
+    _close(got_s, oracle_s, TOL)
+    if not with_state:
+        _close(got, wkv6_pallas(jr, jk, jv, jlw, ju, chunk=16, interpret=True), TOL)
+
+
+@pytest.mark.parametrize("log_w,tol", [(-54.6, TOL), (-3.4e-4, TOL), (-5.0, STRONG_TOL)],
+                         ids=["clip-strongest", "clip-weakest", "strong"])
+def test_segmented_plain_across_the_decay_range(log_w, tol):
+    """The clip's strongest and weakest decays over several segments and a
+    ragged tail, from a carried state: finite, and wkv6_ref's values; strong
+    decay (u = 0, as the reference's test) at the reference's 1e-4."""
+    arrays = _inputs(23, 2, 75, 3, 16, log_w=log_w, with_state=True)
+    if tol is STRONG_TOL:
+        arrays[4] = np.zeros_like(arrays[4])
+    jr, jk, jv, jlw, ju, js0 = _jax(arrays)
+    want, want_s = wkv6_ref(jr, jk, jv, jlw, ju, js0)
+    r, k, v, lw, u, s0 = _torch(arrays)
+    got, got_s = wkv6_segmented_plain(r, k, v, lw, u, s0, seg_len=16)
+    assert bool(torch.isfinite(got).all()) and bool(torch.isfinite(got_s).all())
+    _close(got, want, tol)
+    _close(got_s, want_s, tol)
+    plain, plain_s = wkv6_plain(r, k, v, lw, u, s0)
+    _close(got, plain, tol)
+    _close(got_s, plain_s, tol)
 
 
 def test_agreement_catches_a_dropped_token_and_a_lost_bonus():
