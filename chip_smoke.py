@@ -82,7 +82,30 @@ Phases, each of which must pass for the exit code to be 0:
    what bounds it, the plain version's time (no PyTorch call computes the
    recurrence, so there is no library time), and on the inputs of the
    serving call that read worst, the kernel's and the plain version's
-   readings against the exact scan in f64.
+   readings against the exact scan in f64;
+12. the partitioned backend at phase 4's size: phase 4's five queries
+   through ``Session(backend='partitioned')`` with worker-pool dispatch (one
+   CUDA stream a worker) and chunk kernels captured in CUDA graphs, once
+   with the planner's K and schedule and once with K = 8 under 'guided';
+   every query against the oracle, counts and minimums also against phase
+   4's rows, and the same plan run with serial dispatch bitwise equal on
+   the kernel path; cold and warm wall, the synchronized ``plan.run``
+   time of both dispatches, the card's idle share, captures/hits/overflows,
+   per op its chunks, their time and the worker imbalance; then the
+   segreduce launch of each chunk shape (the first chunk of each shape held
+   against the plain version) with its regime, time, bound and one
+   ``index_add_``/``scatter_reduce_``'s time;
+13. the multi-tenant QueryServer: a table of lineitem's row count whose
+   group key is Zipf-skewed (s = 1.1 over 100,000 keys, from ``--seed``);
+   its GROUP BY through a feedback Session whose SplitPolicy splits
+   partitions mid-run, against the serial unsplit run (bitwise); then 4
+   tenants submitting phase 4's five queries and the Zipf query at once
+   through one QueryServer (one SharedChunkPool, feedback on), each result
+   against the oracle or the serial run; admissions, plan-cache hits,
+   splits, re-plans and pool scale events.
+
+Phases 12 and 13 count their own segreduce launches (a CUDA graph's replay
+counts the launches it captured); the kernels' line adds them to phase 4's.
 
 What is cut from TPC-H: Q15 keeps only its revenue view (no outer max or
 supplier join); Q13 keeps its inner aggregate (no outer join's zero-count
@@ -380,17 +403,37 @@ def close(torch, got, want, dname: str, op: str) -> bool:
 
 
 class Recorder:
-    """Keeps the arguments of the wrapper calls the main path makes."""
+    """Keeps the arguments of the wrapper calls the main path makes.  With
+    ``first_only`` it keeps copies of the first call of each label and shape
+    (a chunk kernel's inputs are buffers that later chunks overwrite), and
+    skips the calls a CUDA graph capture makes, which launch nothing."""
 
-    def __init__(self, ops, name: str) -> None:
+    def __init__(self, ops, name: str, first_only: bool = False) -> None:
         self.ops, self.name = ops, name
         self.orig = getattr(ops, name)
         self.calls: list = []
         self.label = ""
+        self.first_only = first_only
+        self._seen: set = set()
 
     def __enter__(self):
+        import torch
+
+        def copy(x):
+            if isinstance(x, torch.Tensor):
+                return x.clone()
+            if isinstance(x, (tuple, list)):
+                return type(x)(copy(y) for y in x)
+            return x
+
         def record(*args, **kw):
-            self.calls.append((self.label, args, kw))
+            if not self.first_only:
+                self.calls.append((self.label, args, kw))
+            elif not torch.cuda.is_current_stream_capturing():
+                key = (self.label, shape_key(self.name, args, kw))
+                if key not in self._seen:
+                    self._seen.add(key)
+                    self.calls.append((self.label, copy(args), {k: copy(v) for k, v in kw.items()}))
             return self.orig(*args, **kw)
 
         setattr(self.ops, self.name, record)
@@ -428,22 +471,26 @@ def run_query(session, label: str, submit, recorders) -> dict:
     return {"result": result, "times": times}
 
 
-def main_path(torch, repro_torch, ops, tables: dict, fails: Failures) -> tuple:
-    t0 = time.perf_counter()
-    want = oracle(tables)
-    print(f"  oracle {time.perf_counter() - t0:.1f} s", flush=True)
+def smoke_queries(repro_torch) -> list:
+    """(label, submit(session), oracle answer, rtol) of the main path's five
+    queries."""
+    return [
+        ("q15", lambda s: s.sql(Q15, params={"lo": Q15_LO, "hi": Q15_HI}), "q15", 1e-4),
+        ("q13_sql", lambda s: s.sql(Q13), "q13", 0),
+        ("q13_mapreduce", lambda s: s.mapreduce(repro_torch.MapReduceSpec.count("orders", "o_custkey")),
+         "q13", 0),
+        ("q13_join", lambda s: s.sql(Q13_JOIN), "q13", 0),
+        ("q2", lambda s: s.sql(Q2), "q2", 0),
+    ]
+
+
+def main_path(torch, repro_torch, ops, tables: dict, want: dict, fails: Failures, rows_out: dict) -> tuple:
     session = repro_torch.Session()
     for name, cols in tables.items():
         session.register(name, **cols)
     recorders = [Recorder(ops, "fused_segreduce"), Recorder(ops, "segreduce")]
-    queries = [
-        ("q15", lambda: session.sql(Q15, params={"lo": Q15_LO, "hi": Q15_HI}), "q15", 1e-4),
-        ("q13_sql", lambda: session.sql(Q13), "q13", 0),
-        ("q13_mapreduce", lambda: session.mapreduce(repro_torch.MapReduceSpec.count("orders", "o_custkey")),
-         "q13", 0),
-        ("q13_join", lambda: session.sql(Q13_JOIN), "q13", 0),
-        ("q2", lambda: session.sql(Q2), "q2", 0),
-    ]
+    queries = [(label, (lambda f=f: f(session)), answer, rtol)
+               for label, f, answer, rtol in smoke_queries(repro_torch)]
     report = {}
     ops.reset_launches()
     with recorders[0], recorders[1]:
@@ -457,6 +504,7 @@ def main_path(torch, repro_torch, ops, tables: dict, fails: Failures) -> tuple:
             fails.check(sum(launched.values()) > 0, f"{label}: no kernel launch")
             keys, vals = want[answer]
             fails.check(rows_match(res.rows, keys, vals, rtol), f"{label}: rows disagree with the oracle")
+            rows_out[label] = sorted(res.rows or [])
             if label == "q13_mapreduce":
                 fails.check(out["times"]["cold"]["cache_hit"], "q13_mapreduce: not a plan-cache hit")
             report[label] = {
@@ -502,7 +550,7 @@ def kernel_regime(torch, kern, keys, values, op_names, num_keys: int, with_prese
     return lay.regime
 
 
-def time_call(torch, ops, ref, name: str, args, kw) -> dict:
+def time_call(torch, ops, ref, name: str, args, kw, passes: bool = True) -> dict:
     """Kernel, plain version and library calls on one captured input."""
     from repro_torch.kernels.segreduce import kernel as kern
 
@@ -567,7 +615,7 @@ def time_call(torch, ops, ref, name: str, args, kw) -> dict:
         return [call() for call in scatters]
 
     n = int(keys.shape[0])
-    passes = kernel_passes(torch, kernel)
+    passes = kernel_passes(torch, kernel) if passes else {}
     t_bound, bound_by = bound(
         n, num_keys, sum(v.element_size() for v in values),
         len(values) + (1 if with_presence else 0), mask is not None,
@@ -637,6 +685,255 @@ def kernel_passes(torch, fn, reps: int = 3, prefixes=("seg_", "Memset")) -> dict
         name = ev.key.removeprefix("void ").split("(")[0]
         if device_us(ev) > 0 and name.startswith(prefixes):
             out[name] = device_us(ev) / 1e3 / reps
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the partitioned backend at the main path's size
+# ---------------------------------------------------------------------------
+
+# (label, Session knobs): the planner's K and schedule, then K pinned to 8
+# under guided self-scheduling
+PART_CONFIGS = (("planner", {}), ("k8_guided", {"n_partitions": 8, "schedule": "guided"}))
+
+
+def card_busy(torch, fn, wall_ms: float) -> dict:
+    """The card's busy device ms over one call of ``fn`` (the profiler's sum
+    over kernels, copies and fills) and its idle share against ``wall_ms``,
+    the call's synchronized wall time without the profiler."""
+    events = trace_card(torch, fn)
+    if events is None:
+        return {"device_ms": None, "idle_share": None}
+    busy = sum(device_us(ev) for ev in events) / 1e3
+    return {"device_ms": busy, "idle_share": max(0.0, 1.0 - busy / wall_ms) if wall_ms else None}
+
+
+def timed_run(torch, plan, params) -> float:
+    """One synchronized ``plan.run``, wall ms on the host clock."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plan.run(params)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def partitioned_path(torch, repro_torch, ops, tables: dict, want: dict, main_rows: dict,
+                     fails: Failures, recorders) -> dict:
+    """Phase 4's five queries through ``Session(backend='partitioned')`` with
+    worker-pool dispatch and captured chunk kernels, and beside each run the
+    same plan's serial dispatch, which must give the same bits."""
+    report = {}
+    params = {"q15": {"lo": Q15_LO, "hi": Q15_HI}}
+    for cname, kw in PART_CONFIGS:
+        sessions = {}
+        for mode in ("async", "serial"):
+            sessions[mode] = repro_torch.Session(backend="partitioned", async_dispatch=mode == "async", **kw)
+            for name, cols in tables.items():
+                sessions[mode].register(name, **cols)
+        for label, submit, answer, rtol in smoke_queries(repro_torch):
+            what = f"partitioned {cname} {label}"
+            out = run_query(sessions["async"], f"{cname}:{label}", lambda: submit(sessions["async"]), recorders)
+            res = out["result"]
+            plan = res.plan
+            chosen = res.decision.chosen
+            keys, vals = want[answer]
+            fails.check(rows_match(res.rows, keys, vals, rtol), f"{what}: rows disagree with the oracle")
+            if label != "q15":  # counts and minimums: the same rows as the 'torch' backend's
+                fails.check(sorted(res.rows or []) == main_rows.get(label), f"{what}: rows differ from phase 4's")
+            ser = submit(sessions["serial"])
+            same = sorted(ser.rows or []) == sorted(res.rows or [])
+            if chosen.agg_method == "kernel":
+                fails.check(same, f"{what}: serial and async dispatch differ on the kernel path")
+            p = params.get(answer)
+            run_ms = {mode: timed_run(torch, s_res.plan, p) for mode, s_res in (("async", res), ("serial", ser))}
+            busy = card_busy(torch, lambda: plan.run(p), run_ms["async"])
+            rep = plan.runtime_report()
+            jit = rep["jit"]
+            fails.check(jit["compiles"] > 0 and jit["hits"] > 0, f"{what}: no captured chunk kernel replayed ({jit})")
+            report[f"{cname}:{label}"] = {
+                "k": plan.k, "schedule": plan.choices.schedule, "agg_method": chosen.agg_method,
+                "join_method": chosen.join_method, "rows": len(res.rows or []),
+                "serial_equal": same, **out["times"], "compute_ms": run_ms["async"],
+                "serial_compute_ms": run_ms["serial"], "async_over_serial": run_ms["async"] / run_ms["serial"],
+                **busy, "jit": jit,
+                "ops": [{k: o[k] for k in ("op", "n_chunks", "rows", "t_ms", "achieved_imbalance")}
+                        for o in rep["ops"]],
+                "queue_ms": rep["queue_wait_ms"], "n_workers": rep["n_workers"],
+            }
+            c, w = out["times"]["cold"], out["times"]["warm"]
+            print(f"  {cname:<9} {label:<14} K={plan.k} {plan.choices.schedule:<6} agg={chosen.agg_method:<6} "
+                  f"cold {c['wall_ms']:.1f} ms  warm {w['wall_ms']:.1f} ms (revalidate {w['revalidate_ms']:.1f})  "
+                  f"compute {run_ms['async']:.1f} ms (serial {run_ms['serial']:.1f}, ratio "
+                  f"{run_ms['async'] / run_ms['serial']:.2f})  device {busy['device_ms'] or 0:.1f} ms idle "
+                  f"{busy['idle_share'] if busy['idle_share'] is not None else float('nan'):.3f}  "
+                  f"captures {jit['compiles']} hits {jit['hits']} overflows {jit['overflows']}  "
+                  f"serial==async {same}", flush=True)
+            for o in rep["ops"]:
+                print(f"    {o['op']:<34} chunks {o['n_chunks']:>3} rows {o['rows']:>9} t {o['t_ms']:.1f} ms "
+                      f"imbalance {o['achieved_imbalance']:.3f}", flush=True)
+            print(f"    queue {rep['queue_wait_ms']:.1f} ms over {rep['n_dispatches']} dispatches, "
+                  f"{rep['n_workers']} workers", flush=True)
+        del sessions
+        torch.cuda.empty_cache()
+    return report
+
+
+def chunk_shapes(torch, ops, ref, recorders, fails: Failures) -> list:
+    """The segreduce launches of the chunk kernels, one per label and chunk
+    shape: the first chunk's inputs held against the plain version, and the
+    kernel's regime, time, bound and one library call's time there."""
+    rows = []
+    for rec in recorders:
+        for label, cargs, ckw in rec.calls:
+            t = time_call(torch, ops, ref, rec.name, cargs, ckw, passes=False)
+            fails.check(t["ok"], f"{rec.name} at chunk {label} disagrees with its plain version")
+            rows.append({"name": rec.name, "query": label, **t})
+            print(f"  {rec.name:<16} {label:<26} N={t['n']:>8} K={t['num_keys']:>8} regime {t['regime']} "
+                  f"kernel {t['ms']:.4f} ms  bound {t['bound_ms']:.4f} ms  plain {t['plain_ms']:.3f} ms  "
+                  f"library {t['library_ms']:.3f} ms (every table {t['library_all_ms']:.3f} ms)", flush=True)
+        rec.calls.clear()
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 13: the multi-tenant QueryServer
+# ---------------------------------------------------------------------------
+
+ZIPF_S = 1.1             # Zipf exponent of the skewed table's group key
+ZIPF_KEYS = 100_000      # its key space: SF10's supplier count
+QZ = "SELECT zk, SUM(zv), MIN(zv), MAX(zv), COUNT(zk) FROM zipf GROUP BY zk"
+
+
+def zipf_table(n: int, seed: int) -> dict:
+    """``n`` rows whose group key follows a Zipf law of exponent ZIPF_S over
+    ZIPF_KEYS keys (ranks drawn by the inverse CDF, then given shuffled key
+    ids), with int32 values."""
+    rng = np.random.default_rng(seed + 13)
+    w = 1.0 / np.arange(1, ZIPF_KEYS + 1, dtype=np.float64) ** ZIPF_S
+    cdf = np.cumsum(w / w.sum())
+    ranks = np.minimum(np.searchsorted(cdf, rng.random(n)), ZIPF_KEYS - 1)
+    ids = rng.permutation(ZIPF_KEYS).astype(np.int32)
+    return {"zk": ids[ranks], "zv": rng.integers(-1000, 1000, n).astype(np.int32)}
+
+
+def zipf_oracle(t: dict) -> list:
+    k, v = t["zk"].astype(np.int64), t["zv"].astype(np.int64)
+    order = np.argsort(k, kind="stable")
+    ks, vs = k[order], v[order]
+    starts = np.r_[0, np.nonzero(ks[1:] != ks[:-1])[0] + 1]
+    sums = np.add.reduceat(vs, starts)
+    sums = ((sums + 2**31) % 2**32 - 2**31)  # int32 SUM wraps
+    return sorted(zip(ks[starts].tolist(), sums.tolist(), np.minimum.reduceat(vs, starts).tolist(),
+                      np.maximum.reduceat(vs, starts).tolist(), np.diff(np.r_[starts, len(ks)]).tolist()))
+
+
+def server_path(torch, repro_torch, tables: dict, want: dict, fails: Failures, n_tenants: int = 4) -> dict:
+    """The Zipf query through a feedback Session whose SplitPolicy splits
+    partitions mid-run, against the serial unsplit run; then ``n_tenants``
+    tenants submit phase 4's five queries and the Zipf query at once through
+    one QueryServer (one SharedChunkPool, feedback on; the shared pool runs
+    chunk sets as they are and never splits)."""
+    import threading
+
+    from repro_torch.backends.partitioned import SplitPolicy
+
+    zipf = tables["zipf"]
+    t0 = time.perf_counter()
+    zwant = zipf_oracle(zipf)
+    print(f"  zipf oracle {time.perf_counter() - t0:.1f} s", flush=True)
+    out: dict = {}
+    # K = 8 and 'fixed' chunks (N/64 rows), pinned: a split needs chunks
+    # still pending after the first ones finish, which the planner's K and
+    # static chunks (one or two a partition, all taken by 8 workers at once)
+    # would not leave
+    pinned = dict(backend="partitioned", n_partitions=8, schedule="fixed")
+    serial = repro_torch.Session(async_dispatch=False, **pinned)
+    serial.register("zipf", **zipf)
+    base = serial.sql(QZ)
+    fails.check(sorted(base.rows) == zwant, "zipf query: the serial run disagrees with the oracle")
+    # the split at SplitPolicy's default factor of 4 (counted: chunks of one
+    # size take about one time, so it may flag none), then at factor 0,
+    # which flags every partition once two chunks are done
+    for factor in (SplitPolicy().threshold_factor, 0.0):
+        split = repro_torch.Session(async_dispatch=True, feedback=True, **pinned)
+        split._split_policy = SplitPolicy(threshold_factor=factor)
+        split.register("zipf", **zipf)
+        t0 = time.perf_counter()
+        r = split.sql(QZ)
+        wall = (time.perf_counter() - t0) * 1e3
+        n_split = split.metrics_registry.counter_total("replan.splits")
+        ok = repr(r.results) == repr(base.results)
+        fails.check(ok, f"zipf query split (factor {factor}) differs from the serial unsplit run")
+        out[f"split_factor_{factor:g}"] = {"splits": n_split, "bitwise_equal": ok, "wall_ms": wall,
+                                           "chunks": len(r.plan.dispatch_log)}
+        print(f"  zipf split at factor {factor:g}: {n_split} splits, {len(r.plan.dispatch_log)} chunks, "
+              f"bitwise equal to serial unsplit {ok}, {wall:.1f} ms", flush=True)
+        del split
+    fails.check(out["split_factor_0"]["splits"] > 0, "SplitPolicy never split a partition")
+
+    srv = repro_torch.QueryServer(feedback=True, max_pending=2 * n_tenants, admission="block")
+    try:
+        for name, cols in tables.items():
+            srv.register(name, **cols)
+        errors: list = []
+        results: dict = {}
+
+        class Tenant:
+            """One tenant's view of the server, shaped like a Session for
+            ``smoke_queries``."""
+
+            def __init__(self, name: str) -> None:
+                self.name = name
+
+            def sql(self, q, params=None):
+                return srv.submit(q, params, tenant=self.name)
+
+            def mapreduce(self, spec):
+                return srv.submit(spec, tenant=self.name)
+
+        def tenant(tn: str) -> None:
+            try:
+                for label, submit, answer, rtol in smoke_queries(repro_torch):
+                    results[(tn, label)] = (submit(Tenant(tn)).rows, answer, rtol)
+                results[(tn, "zipf")] = (srv.submit(QZ, tenant=tn).results, None, 0)
+            except Exception as e:  # noqa: BLE001 — every tenant's failure is reported
+                errors.append(f"{tn}: {type(e).__name__}: {e}")
+
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=tenant, args=(f"tenant{i}",)) for i in range(n_tenants)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        wall = (time.perf_counter() - t0) * 1e3
+        fails.check(not errors and not any(t.is_alive() for t in threads), f"server tenants failed: {errors}")
+        for (tn, label), (rows, answer, rtol) in sorted(results.items()):
+            if label == "zipf":
+                fails.check(repr(rows) == repr(base.results), f"server {tn} zipf: differs from the serial run")
+            else:
+                keys, vals = want[answer]
+                fails.check(rows_match(rows, keys, vals, rtol), f"server {tn} {label}: rows disagree with the oracle")
+        st = srv.stats()
+
+        def total(name: str) -> float:
+            return srv.metrics.counter_total(name)
+
+        out["server"] = {
+            "tenants": n_tenants, "queries": len(results), "wall_ms": wall,
+            "admitted": total("serve.admitted"), "blocked": total("serve.blocked"),
+            "rejected": total("serve.rejected"), "plan_cache": st["plan_cache"],
+            "splits": total("replan.splits"),
+            "replans": total("replan.drift"), "profiles": total("replan.profiles"),
+            "pool": st["pool"], "scale_up": total("serve.pool.scale_up"),
+            "scale_down": total("serve.pool.scale_down"),
+        }
+        s = out["server"]
+        print(f"  server: {n_tenants} tenants, {len(results)} queries in {wall:.1f} ms; admitted {s['admitted']:g} "
+              f"blocked {s['blocked']:g} rejected {s['rejected']:g}; plan cache {st['plan_cache']}; "
+              f"splits {s['splits']:g} replans {s['replans']:g}; pool {st['pool']['n_workers']} workers, "
+              f"scale up {s['scale_up']:g} down {s['scale_down']:g}", flush=True)
+    finally:
+        srv.close()
     return out
 
 
@@ -1288,9 +1585,13 @@ def main(argv=None) -> int:
     rows = {t: len(next(iter(c.values()))) for t, c in tables.items()}
     print(f"  data {rows} in {time.perf_counter() - t0:.1f} s", flush=True)
     record["tables"] = rows
-    report, launches, recorders = main_path(torch, repro_torch, ops, tables, fails)
+    t0 = time.perf_counter()
+    want = oracle(tables)
+    print(f"  oracle {time.perf_counter() - t0:.1f} s", flush=True)
+    main_rows: dict = {}
+    report, launches, recorders = main_path(torch, repro_torch, ops, tables, want, fails, main_rows)
     record["queries"] = report
-    record["launches"] = launches
+    record["launches"] = dict(launches)
 
     # 5. the kernel at the main path's shapes (these launches are not counted)
     print("kernel at the main path's shapes:", flush=True)
@@ -1355,6 +1656,36 @@ def main(argv=None) -> int:
     print("wkv6 kernel at the serving path's shapes:", flush=True)
     wkv6_rows = wkv6_at_shapes(torch, wkv6_ops, wkv6_plain, wkv6_scan, wkv6_agreement, wkv6_rec)
     record["wkv6_shapes"] = wkv6_rows
+
+    # 12. the partitioned backend at the main path's size
+    print(f"partitioned backend at TPC-H SF{args.sf:g}:", flush=True)
+    chunk_recorders = [Recorder(ops, "fused_segreduce", first_only=True),
+                       Recorder(ops, "segreduce", first_only=True)]
+    ops.reset_launches()
+    with chunk_recorders[0], chunk_recorders[1]:
+        record["partitioned"] = partitioned_path(torch, repro_torch, ops, tables, want, main_rows, fails,
+                                                 chunk_recorders)
+    part_launches = dict(ops.LAUNCHES)
+    record["partitioned_launches"] = part_launches
+    print(f"  segreduce launches on this path: {part_launches}", flush=True)
+    fails.check(part_launches["fused_segreduce"] > 0, "the partitioned path never launched fused_segreduce")
+    print("segreduce at the chunk shapes:", flush=True)
+    record["chunk_shapes"] = chunk_shapes(torch, ops, ref, chunk_recorders, fails)
+    torch.cuda.empty_cache()
+
+    # 13. the multi-tenant QueryServer
+    print("QueryServer: tenants over one shared chunk pool:", flush=True)
+    t0 = time.perf_counter()
+    tables["zipf"] = zipf_table(rows["lineitem"], args.seed)
+    print(f"  zipf table of {rows['lineitem']} rows in {time.perf_counter() - t0:.1f} s", flush=True)
+    ops.reset_launches()
+    record["server"] = server_path(torch, repro_torch, tables, want, fails)
+    server_launches = dict(ops.LAUNCHES)
+    record["server_launches"] = server_launches
+    print(f"  segreduce launches on this path: {server_launches}", flush=True)
+    fails.check(sum(server_launches.values()) > 0, "the server path never launched segreduce")
+    for kname in launches:
+        launches[kname] += part_launches[kname] + server_launches[kname]
 
     # the JSON record: each kernel at the largest shape the main path gave it
     entries = []

@@ -9,7 +9,7 @@
 #
 # The low-level pipeline (frontend → optimize → plan.run) stays available
 # for callers that need to drive individual passes.
-from repro_torch.engine import EngineError, QueryResult, Session  # noqa: F401
+from repro_torch.engine import AdmissionError, EngineError, QueryResult, QueryServer, Session  # noqa: F401
 from repro_torch.core.passes import OptimizeOptions, OptimizeResult, optimize  # noqa: F401
 from repro_torch.frontends.sql import sql_to_forelem  # noqa: F401
 from repro_torch.frontends.mapreduce import MapReduceSpec  # noqa: F401
@@ -18,6 +18,8 @@ from repro_torch.obs import MetricsRegistry, QueryTrace, Tracer  # noqa: F401
 
 __all__ = [
     "Session",
+    "QueryServer",
+    "AdmissionError",
     "QueryResult",
     "EngineError",
     "optimize",

@@ -7,7 +7,13 @@
 #   codegen.py    shared pattern extraction (ProgramSpec) + helpers,
 #   dtypes.py     how host columns and constants become tensors,
 #   reference.py  the oracle interpreter backend ('reference'),
-#   torch_vec.py  the vectorized PyTorch lowering ('torch').
+#   torch_vec.py  the vectorized PyTorch lowering ('torch'),
+#   partitioned.py K-way data distribution + scheduled chunk dispatch over
+#                 the torch_vec kernels ('partitioned').
+#
+# ``repro_torch.core.lower`` remains as a thin compatibility shim
+# re-exporting these names; new code should import from here (or use the
+# registry).
 from .interface import (  # noqa: F401
     ExecutablePlan,
     ExecutorBackend,
@@ -30,6 +36,11 @@ from .codegen import (  # noqa: F401
 )
 from .reference import ReferenceBackend, ReferenceInterpreter, ReferencePlan  # noqa: F401
 from .torch_vec import CodegenChoices, Plan, TorchBackend, TorchLowering  # noqa: F401
+from .partitioned import (  # noqa: F401
+    PartitionedBackend,
+    PartitionedChoices,
+    PartitionedPlan,
+)
 
 __all__ = [
     "ExecutablePlan",
@@ -50,6 +61,9 @@ __all__ = [
     "ReferenceInterpreter",
     "ReferencePlan",
     "CodegenChoices",
+    "PartitionedBackend",
+    "PartitionedChoices",
+    "PartitionedPlan",
     "Plan",
     "TorchBackend",
     "TorchLowering",

@@ -24,34 +24,43 @@ from .codegen import UnsupportedProgram
 Device = Union[str, torch.device]
 
 
-def column_tensor(values: Any, device: Device) -> torch.Tensor:
-    """One host column as a tensor on ``device`` under the policy."""
-    arr = np.asarray(values)
-    if arr.dtype == np.bool_:
-        return torch.from_numpy(arr).to(device)
-    if np.issubdtype(arr.dtype, np.integer):
-        return torch.from_numpy(arr.astype(np.int32, copy=False)).to(device)
-    if arr.dtype == np.float64:
-        return torch.from_numpy(arr.astype(np.float32)).to(device)
-    if arr.dtype in (np.float32, np.float16):
-        return torch.from_numpy(arr).to(device)
+def host_dtype(dtype: Any) -> np.dtype:
+    """The numpy dtype a host column of ``dtype`` takes under the policy
+    (the partitioned backend casts each chunk's slice to it on the host)."""
+    dtype = np.dtype(dtype)
+    if dtype == np.bool_:
+        return dtype
+    if np.issubdtype(dtype, np.integer):
+        return np.dtype(np.int32)
+    if dtype == np.float64:
+        return np.dtype(np.float32)
+    if dtype in (np.float32, np.float16):
+        return dtype
     raise UnsupportedProgram(
-        f"column of {arr.dtype} has no tensor form — apply data reformatting "
+        f"column of {dtype} has no tensor form — apply data reformatting "
         "(dictionary encoding) first, or use the reference backend"
     )
 
 
+def column_tensor(values: Any, device: Device) -> torch.Tensor:
+    """One host column as a tensor on ``device`` under the policy."""
+    arr = np.asarray(values)
+    return torch.from_numpy(arr.astype(host_dtype(arr.dtype), copy=False)).to(device)
+
+
 def scalar_tensor(value: Any, device: Device) -> torch.Tensor:
-    """A constant or query parameter as a 0-d tensor under the policy."""
+    """A constant or query parameter as a 0-d tensor under the policy.  It is
+    filled on the device (no copy from the host), so a chunk kernel captured
+    in a CUDA graph may make one."""
     if isinstance(value, torch.Tensor):
         return value.to(device)
     arr = np.asarray(value)
     if arr.dtype == np.bool_:
-        return torch.tensor(bool(arr), device=device)
+        return torch.full((), bool(arr), dtype=torch.bool, device=device)
     if np.issubdtype(arr.dtype, np.integer):
-        return torch.tensor(int(arr.astype(np.int32)), dtype=torch.int32, device=device)
+        return torch.full((), int(arr.astype(np.int32)), dtype=torch.int32, device=device)
     if np.issubdtype(arr.dtype, np.floating):
-        return torch.tensor(float(arr), dtype=torch.float32, device=device)
+        return torch.full((), float(arr), dtype=torch.float32, device=device)
     raise UnsupportedProgram(f"constant {value!r} has no tensor form")
 
 

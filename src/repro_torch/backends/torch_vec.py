@@ -83,18 +83,41 @@ class CodegenChoices:
     device: str = "cuda"
 
 
+def _in_key_space(keys: torch.Tensor, num_keys: int) -> torch.Tensor:
+    """Rows whose key lies in [0, num_keys).  XLA's segment ops and the
+    segreduce kernel drop the others, so the JAX package's 'jax' backend
+    returns no group for a negative key (its ReferenceInterpreter keeps
+    those groups: 45 against 40 on keys drawn from [-5, 40)); every
+    aggregation path here drops them too, masking before the scatter so
+    that no out-of-range index reaches ``index_add_``."""
+    return (keys >= 0) & (keys < num_keys)
+
+
 def _segment_reduce(keys: torch.Tensor, values: torch.Tensor, num_keys: int, op: str) -> torch.Tensor:
     """XLA's segment_sum/max/min: a dense (num_keys,) table in the values'
-    dtype, empty segments holding the op's identity."""
-    out = torch.full(
-        (num_keys,), _op_identity(op, values.dtype), dtype=values.dtype, device=values.device
-    )
-    idx = keys.long()
+    dtype, empty segments holding the op's identity, rows with a key
+    outside [0, num_keys) dropped."""
+    ident = _op_identity(op, values.dtype)
+    out = torch.full((num_keys,), ident, dtype=values.dtype, device=values.device)
+    inside = _in_key_space(keys, num_keys)
+    idx = torch.where(inside, keys, 0).long()
+    values = torch.where(inside, values, ident)
     if op == "+":
         return out.index_add_(0, idx, values)
     if op in _SCATTER_REDUCE:
         return out.scatter_reduce_(0, idx, values, reduce=_SCATTER_REDUCE[op], include_self=True)
     raise UnsupportedProgram(op)
+
+
+def _member(values: torch.Tensor, members: torch.Tensor) -> torch.Tensor:
+    """``torch.isin(values, members)`` by a sort and a binary search, which
+    never waits on the device (``isin`` may, to size a ``unique``), so a
+    chunk kernel captured in a CUDA graph can hold it."""
+    if members.shape[0] == 0:
+        return torch.zeros(values.shape, dtype=torch.bool, device=values.device)
+    s = torch.sort(members).values
+    pos = torch.clamp(torch.searchsorted(s, values), max=s.shape[0] - 1)
+    return s[pos] == values
 
 
 class TorchLowering:
@@ -180,7 +203,14 @@ class TorchLowering:
             )
         if not np.issubdtype(vals.dtype, np.integer):
             raise UnsupportedProgram(f"non-integer key column {table}.{fld}")
-        return int(vals.max()) + 1 if len(vals) else 1
+        num_keys = int(vals.max()) + 1 if len(vals) else 1
+        if num_keys >= 2**31:
+            # the tables are indexed by int32 keys; the JAX package raises
+            # OverflowError here too, before any work
+            raise OverflowError(
+                f"key column {table}.{fld} holds {num_keys - 1}, beyond int32 group keys"
+            )
+        return num_keys
 
     def _scalar(self, value: Any) -> torch.Tensor:
         return scalar_tensor(value, self.device)
@@ -223,7 +253,9 @@ class TorchLowering:
         if method == "dense":
             return _segment_reduce(keys, values, num_keys, op)
         if method == "onehot":
-            oh = F.one_hot(keys.long(), num_keys).to(values.dtype)
+            inside = _in_key_space(keys, num_keys)
+            oh = F.one_hot(torch.where(inside, keys, 0).long(), num_keys).to(values.dtype)
+            values = torch.where(inside, values, 0)
             if values.dtype.is_floating_point:
                 return oh.T @ values
             # integer matrix products do not exist on CUDA: multiply and sum
@@ -251,7 +283,7 @@ class TorchLowering:
         mask = self._pred_mask(agg.filter_pred, cols, agg.table)
         if agg.member_filter is not None:
             mf, mt, mfld = agg.member_filter
-            member = torch.isin(cols[agg.table][mf], cols[mt][mfld])
+            member = _member(cols[agg.table][mf], cols[mt][mfld])
             mask = member if mask is None else (mask & member)
         return mask
 
@@ -298,6 +330,153 @@ class TorchLowering:
         keys = torch.where(jr.present, keys, 0)
         ones = jr.present.to(torch.int32)
         return keys, values, ones
+
+    # -- per-chunk kernel entry points (bucketed, captured) ------------------------
+    #
+    # The partitioned backend (backends/partitioned.py) pads each chunk's
+    # row count up to a small geometric set of shape buckets and, on a CUDA
+    # device, captures these functions in one CUDA graph per (kernel,
+    # bucket): shapes are static per bucket, so one capture serves every
+    # chunk that lands in the same bucket.  Rows at index >= ``n_valid`` are
+    # padding; they contribute the accumulate op's *identity* (the masking
+    # discipline above) so they can never perturb a segment, and padded
+    # join/projection slots carry present=False.  ``n_valid`` is a 0-d int32
+    # tensor on the plan's device, compared on the device, so a captured
+    # graph reads each chunk's count instead of baking in the first one's.
+
+    def _valid(self, m: int, n_valid: torch.Tensor) -> torch.Tensor:
+        return torch.arange(m, dtype=torch.int32, device=self.device) < n_valid
+
+    def chunk_agg_fn(self, agg, with_presence: bool = True) -> Callable:
+        """(padded chunk cols, n_valid, env, arrays) -> (partial acc,
+        presence partial or None).
+
+        ``with_presence=False`` skips the presence histogram scatter — the
+        partitioned runner passes it when the presence of an *unfiltered*
+        aggregation is already memoized from a previous run (it is a pure
+        function of the key column)."""
+        nk = self.num_keys[(agg.table, agg.key_field)]
+
+        def fn(chunk_cols, n_valid, env, arrays):
+            cols = dict(env)
+            cols[agg.table] = chunk_cols
+            keys, values, ones, _ = self.agg_inputs(agg, cols, arrays)
+            valid = self._valid(keys.shape[0], n_valid)
+            keys = torch.where(valid, keys, 0)
+            values = torch.where(valid, values, _op_identity(agg.op, values.dtype))
+            acc = self._aggregate(keys, values, nk, agg.op)
+            if not with_presence:
+                return acc, None
+            ones = torch.where(valid, ones, 0)
+            return acc, self._aggregate(keys, ones, nk, "+")
+
+        return fn
+
+    def chunk_fused_agg_fn(self, aggs, with_presence: bool = True) -> Callable:
+        """(padded chunk cols, n_valid, env, arrays) -> (tuple of partial
+        accumulators — one per aggregate in the group, input dtypes
+        preserved — and the presence partial or None).
+
+        The fused variant of ``chunk_agg_fn``: the whole aggregate group
+        runs in ONE fused segreduce launch per chunk (filter mask, padding
+        mask and every accumulator in a single data pass); the partitioned
+        runner merges the multi-accumulator state across chunks element-wise
+        under each aggregate's own op."""
+        first = aggs[0]
+        nk = self.num_keys[(first.table, first.key_field)]
+        ops = tuple(_KERNEL_OPS[a.op] for a in aggs)
+
+        def fn(chunk_cols, n_valid, env, arrays):
+            cols = dict(env)
+            cols[first.table] = chunk_cols
+            keys, values, mask = self.fused_agg_inputs(aggs, cols, arrays)
+            valid = self._valid(keys.shape[0], n_valid)
+            mask = valid if mask is None else (mask & valid)
+            return segops.fused_segreduce(keys, values, ops, nk, mask=mask, with_presence=with_presence)
+
+        return fn
+
+    def chunk_reduce_fn(self, sr) -> Callable:
+        """(padded chunk cols, n_valid, env, arrays) -> partial scalar sum."""
+
+        def fn(chunk_cols, n_valid, env, arrays):
+            cols = dict(env)
+            cols[sr.table] = chunk_cols
+            m = cols_len_shape(cols, sr.table)[0]
+            expr = self._vec(sr.expr, cols, sr.table, arrays)
+            mask = self._valid(m, n_valid)
+            if sr.match_field is not None:
+                mv = sr.match_value
+                mval = self._scalar(mv.value) if isinstance(mv, Const) else cols["__params__"][mv.name]
+                mask = mask & (cols[sr.table][sr.match_field] == mval)
+            pmask = self._pred_mask(sr.filter_pred, cols, sr.table)
+            if pmask is not None:
+                mask = mask & pmask
+            vals = torch.broadcast_to(expr, (m,))
+            return scalar_sum(torch.where(mask, vals, 0))
+
+        return fn
+
+    def chunk_project_fn(self, fp) -> Callable:
+        """(padded chunk cols, n_valid, env) -> (item columns, present mask)."""
+
+        def fn(chunk_cols, n_valid, env):
+            cols = dict(env)
+            cols[fp.table] = chunk_cols
+            m = cols_len_shape(cols, fp.table)[0]
+            mask = self._pred_mask(fp.filter_pred, cols, fp.table)
+            valid = self._valid(m, n_valid)
+            mask = valid if mask is None else (mask & valid)
+            items = tuple(
+                torch.broadcast_to(self._vec(el, cols, fp.table, {}), (m,)).contiguous()
+                for el in fp.items
+            )
+            return items, mask
+
+        return fn
+
+    def chunk_join_fn(self, j: JoinSpec, mult: int, with_presence: bool = True) -> Callable:
+        """(padded probe cols, n_valid_probe, sorted+padded build cols,
+        sorted build keys, n_valid_build, env) -> join-agg partials (one
+        (acc, presence-or-None) pair per JoinAgg), or (item columns,
+        present, probe_idx) for a materialized join.
+
+        The build side arrives already gathered into sorted-key order (the
+        host sorts once per partition), so the ``order`` mapping is the
+        identity.  ``with_presence=False`` skips the group-presence
+        scatters (memoized across runs for filter-free joins, exactly like
+        the single-table aggregation presence)."""
+
+        def fn(probe_cols, n_valid_probe, build_cols, sorted_keys, n_valid_build, env):
+            cols = dict(env)
+            cols[j.probe_table] = probe_cols
+            cols[j.build_table] = build_cols
+            ident = torch.arange(sorted_keys.shape[0], device=self.device)
+            jr = self._join_rows(
+                j, mult, cols, build_sorted=(ident, sorted_keys), n_valid_build=n_valid_build
+            )
+            n = cols_len_shape(cols, j.probe_table)[0]
+            valid = self._valid(n, n_valid_probe)
+            jr.present = jr.present & (valid if jr.probe_idx is None else valid[jr.probe_idx])
+            if j.aggs:
+                outs = []
+                for ja in j.aggs:
+                    nk = self.num_keys[(ja.key.table, ja.key.field)]
+                    keys, values, ones = self.join_agg_inputs(ja, j, jr, cols)
+                    outs.append(
+                        (
+                            self._aggregate(keys, values, nk, ja.op),
+                            self._aggregate(keys, ones, nk, "+") if with_presence else None,
+                        )
+                    )
+                return tuple(outs)
+            items = tuple(
+                torch.broadcast_to(self._join_gather(el, j, jr, cols), jr.present.shape).contiguous()
+                for el in j.items
+            )
+            return items, jr.present, jr.probe_idx
+
+        return fn
 
     # -- build the callable -------------------------------------------------------
     def build(self) -> Callable[[Dict[str, Dict[str, torch.Tensor]]], Dict[str, Any]]:
@@ -457,7 +636,18 @@ class TorchLowering:
     # (probe_rows × M) where M is the max key multiplicity measured at
     # compile time ('expand'); absent slots are masked out.
 
-    def _join_rows(self, j: JoinSpec, mult: int, cols) -> "_JoinRows":
+    def _join_rows(
+        self, j: JoinSpec, mult: int, cols, build_sorted=None, n_valid_build=None
+    ) -> "_JoinRows":
+        """``build_sorted`` is an optional precomputed ``(order, sorted_keys)``
+        of the build side in ``cols`` — chunked executors that probe the same
+        build partition many times pass it to sort once per partition.
+
+        ``n_valid_build`` (a 0-d tensor) marks the build side as *padded*:
+        only the first ``n_valid_build`` sorted rows are real (the rest carry
+        a maximal key sentinel), so match runs are clipped to it.  Padding
+        sorts to the end, which keeps every real match run inside the valid
+        prefix even when real keys equal the sentinel value."""
         bk = cols[j.build_table][j.build_key]
         pk = cols[j.probe_table][j.probe_fk]
         n_probe = pk.shape[0]
@@ -471,17 +661,25 @@ class TorchLowering:
                 torch.zeros((n_probe,), dtype=torch.bool, device=self.device),
                 True,
             )
-        order = torch.argsort(bk, stable=True)
-        sk = bk[order]
+        if build_sorted is not None:
+            order, sk = build_sorted
+        else:
+            order = torch.argsort(bk, stable=True)
+            sk = bk[order]
         expand = self.choices.join_method == "expand" or mult > 1
         if not expand:
             pos = torch.clip(torch.searchsorted(sk, pk), 0, sk.shape[0] - 1)
             present = sk[pos] == pk
+            if n_valid_build is not None:
+                present = present & (pos < n_valid_build)
             if pmask is not None:
                 present = present & pmask
             return _JoinRows(None, order[pos], present, False)
         lo = torch.searchsorted(sk, pk, side="left")
         hi = torch.searchsorted(sk, pk, side="right")
+        if n_valid_build is not None:
+            lo = torch.minimum(lo, n_valid_build)
+            hi = torch.minimum(hi, n_valid_build)
         counts = hi - lo
         slots = torch.arange(mult, device=self.device)
         pos = torch.clip(lo[:, None] + slots[None, :], 0, sk.shape[0] - 1)  # (n_probe, M)

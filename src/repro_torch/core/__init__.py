@@ -3,9 +3,10 @@
 # optimization, parallelization, data distribution and data reformatting are
 # all carried out (Rietveld & Wijshoff, 2022).
 #
-# Only the IR itself is imported eagerly; the pass pipeline loads lazily via
-# PEP 562 so that ``repro_torch.backends`` can import ``repro_torch.core.ir``
-# without a cycle.
+# Only the IR itself is imported eagerly; the executor re-exports (the
+# ``lower`` shim over the pluggable ``repro_torch.backends`` package) and the
+# pass pipeline load lazily via PEP 562 so that ``repro_torch.backends`` can
+# import ``repro_torch.core.ir`` without a cycle.
 from .ir import (  # noqa: F401
     Accumulate,
     ArrayRead,
@@ -38,11 +39,21 @@ from .ir import (  # noqa: F401
 
 # names re-exported from the pass pipeline
 _PASSES_NAMES = frozenset({"OptimizeOptions", "OptimizeResult", "optimize"})
+# names re-exported from the executor-backend shim (repro_torch.backends)
+_LOWER_NAMES = frozenset(
+    {"CodegenChoices", "TorchLowering", "Plan", "ReferenceInterpreter", "UnsupportedProgram"}
+)
 # submodules importable as attributes (historically imported eagerly here)
-_SUBMODULES = frozenset({"transforms", "partition", "distribution", "reformat", "passes", "ir"})
+_SUBMODULES = frozenset(
+    {"transforms", "partition", "distribution", "reformat", "lower", "passes", "ir"}
+)
 
 
 def __getattr__(name):
+    if name in _LOWER_NAMES:
+        from . import lower
+
+        return getattr(lower, name)
     if name in _PASSES_NAMES:
         from . import passes
 
@@ -55,4 +66,4 @@ def __getattr__(name):
 
 
 def __dir__():
-    return sorted(set(globals()) | _PASSES_NAMES | _SUBMODULES)
+    return sorted(set(globals()) | _LOWER_NAMES | _PASSES_NAMES | _SUBMODULES)

@@ -22,7 +22,7 @@ from . import transforms as T
 from .partition import partition_direct, partition_indirect
 from .distribution import optimize_distribution, DistributionReport
 from .reformat import auto_reformat, ReformatPlan
-from repro_torch.backends import ExecutablePlan, UnsupportedProgram, get_backend
+from repro_torch.backends import ExecutablePlan, get_backend
 from repro_torch.backends.torch_vec import CodegenChoices
 from repro_torch.obs.trace import NULL_TRACER
 
@@ -54,12 +54,28 @@ class OptimizeOptions:
     planner: str = "none"
     plan_cache: Any = None             # planner.PlanCache; None → shared default
     # executor backend (repro_torch.backends registry): 'torch' (vectorized
-    # PyTorch) or 'reference' (the oracle interpreter).  The JAX package's
-    # 'partitioned' backend is not ported yet and raises.
+    # PyTorch), 'reference' (the oracle interpreter) or 'partitioned' (K-way
+    # data distribution + chunk-scheduled execution over the torch kernels).
     backend: str = "torch"
-    # device the 'torch' backend's plan runs on; None → 'cuda'.  It also
-    # sets which mode of the segreduce kernel the cost model prices.
+    # device the 'torch' and 'partitioned' backends' plans run on; None →
+    # 'cuda'.  It also sets which mode of the segreduce kernel the cost model
+    # prices.
     device: Optional[str] = None
+    # -- partitioned-backend knobs (backend='partitioned') -------------------
+    # K-way data distribution; None → planner-chosen (planner='cost') or
+    # max(1, n_parts) with the fixed pipeline.
+    n_partitions: Optional[int] = None
+    # chunk-schedule policy over the partitioned iteration space
+    # (sched/loop_schedule.py): 'auto' → planner-chosen ('static' with the
+    # fixed pipeline); or pin 'static' | 'fixed' | 'guided'.
+    schedule: str = "auto"
+    # bucketed chunk kernels: pad each chunk up to a geometric shape bucket
+    # so per-chunk kernels are captured once per (kernel, bucket)
+    jit_chunks: bool = True
+    # overlap host-side chunk slice/upload with device execution via a
+    # thread worker pool, one CUDA stream per worker (self-scheduling
+    # policies become real load balancing)
+    async_dispatch: bool = True
     # -- adaptive re-optimization (planner='cost'; repro_torch.planner.feedback) ---
     # FeedbackStore of ObservedProfiles from earlier runs of the same
     # program: the planner substitutes measured selectivity / row skew /
@@ -107,8 +123,6 @@ def optimize(program: Program, db: Database, opts: Optional[OptimizeOptions] = N
     6. codegen:             index-set materialization + parallel execution
     """
     opts = opts or OptimizeOptions()
-    if opts.backend == "partitioned":
-        raise UnsupportedProgram("backend='partitioned' is not yet ported to PyTorch")
     device = opts.device or "cuda"
     trace: List[str] = []
     tr = opts.tracer if opts.tracer is not None else NULL_TRACER
@@ -153,6 +167,15 @@ def optimize(program: Program, db: Database, opts: Optional[OptimizeOptions] = N
     outcome = None
     decision = None
     explain = None
+    n_partitions = opts.n_partitions or max(1, opts.n_parts)
+    if opts.schedule == "auto":
+        schedule = "static"
+    else:
+        # validate (and canonicalize 'gss'→'guided') before planning, so an
+        # unknown policy fails here, not after the whole pipeline has run
+        from repro_torch.backends.partitioned import normalize_schedule
+
+        schedule = normalize_schedule(opts.schedule)
     if opts.planner == "cost":
         from repro_torch.planner import run_planner
 
@@ -163,6 +186,10 @@ def optimize(program: Program, db: Database, opts: Optional[OptimizeOptions] = N
             plan_cache=opts.plan_cache,
             backend=opts.backend,
             device=device,
+            n_partitions=opts.n_partitions,
+            schedule=None if opts.schedule == "auto" else schedule,
+            jit_chunks=opts.jit_chunks,
+            async_dispatch=opts.async_dispatch,
             tracer=tr,
             feedback=opts.feedback,
             feedback_tenant=opts.feedback_tenant,
@@ -181,6 +208,10 @@ def optimize(program: Program, db: Database, opts: Optional[OptimizeOptions] = N
         partition_field = chosen.partition_field
         if chosen.join_method is not None:
             join_method = chosen.join_method
+        if chosen.n_partitions is not None:
+            n_partitions = chosen.n_partitions
+        if chosen.schedule is not None:
+            schedule = chosen.schedule
         if chosen.parallel == "none":
             n_parts = 1  # partitioning buys nothing without parallel execution
         check(p, "planner.join_order")
@@ -189,7 +220,10 @@ def optimize(program: Program, db: Database, opts: Optional[OptimizeOptions] = N
         raise ValueError(f"unknown planner {opts.planner!r} (use 'none' or 'cost')")
 
     # -- 3/4. parallelization ---------------------------------------------------
-    if n_parts > 1 and opts.partition != "none":
+    # The partitioned backend distributes the *data* (hash/range partitions
+    # + scheduled chunk dispatch) instead of restructuring the IR, so the
+    # loop-level partitioning transform is skipped for it.
+    if n_parts > 1 and opts.partition != "none" and opts.backend != "partitioned":
         # legality: per-partition partials are only mergeable when every
         # accumulate op is commutative + associative (analysis.deps); with
         # the fixed pipeline an illegal program silently stays sequential.
@@ -222,12 +256,23 @@ def optimize(program: Program, db: Database, opts: Optional[OptimizeOptions] = N
     log("distributed", p)
 
     # -- 6. codegen ----------------------------------------------------------------
-    choices = CodegenChoices(
+    choices: Any = CodegenChoices(
         agg_method=agg_method,
         parallel=parallel_exec if n_parts > 1 else "none",
         join_method=join_method,
         device=device,
     )
+    if opts.backend == "partitioned":
+        from repro_torch.backends.partitioned import PartitionedChoices
+
+        choices = PartitionedChoices(
+            base=choices,
+            n_partitions=n_partitions,
+            schedule=schedule,
+            partition_field=partition_field,
+            jit_chunks=opts.jit_chunks,
+            async_dispatch=opts.async_dispatch,
+        )
     with tr.span("lower", backend=opts.backend):
         plan = get_backend(opts.backend).compile(p, db, choices)
     # Per-aggregate method downgrades (e.g. a non-SUM op under

@@ -40,6 +40,22 @@ class EngineError(Exception):
     pass
 
 
+def resolve_device(device: Optional[str]) -> str:
+    """The device a Session or QueryServer runs on: None means 'cuda', and
+    asking for a CUDA device where torch sees none raises EngineError — the
+    engine never falls back to the CPU without being told."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise EngineError(
+                "no CUDA device: the engine runs on the card by default — "
+                "pass device='cpu' to run on the CPU"
+            )
+        return "cuda"
+    if str(device).startswith("cuda") and not torch.cuda.is_available():
+        raise EngineError(f"device={device!r} asked for, but no CUDA device is present")
+    return str(device)
+
+
 @dataclass
 class QueryResult:
     """Outcome of one query submitted through a ``Session``.
@@ -129,15 +145,20 @@ class Session:
     ``n_parts``         target parallel width for the monolithic backends.
     ``planner``         'cost' (default: statistics-driven planning with a
                         plan cache) or 'none' (the fixed pass pipeline).
-    ``backend``         executor: 'torch' | 'reference'.  The JAX package's
-                        'partitioned' backend is not ported yet: asking for
-                        it raises EngineError.
-    ``device``          where the 'torch' backend runs: None means 'cuda',
-                        and raises EngineError when no CUDA device is
-                        present (pass device='cpu' to run on the CPU).
-    ``schedule``        chunk schedule of the partitioned backend: only
-                        'auto' until that backend is ported.
-    ``plan_cache``      planner.PlanCache to share; None = private cache.
+    ``backend``         executor: 'torch' | 'reference' | 'partitioned'.
+    ``device``          where the 'torch' and 'partitioned' backends run:
+                        None means 'cuda', and raises EngineError when no
+                        CUDA device is present (pass device='cpu' to run on
+                        the CPU).
+    ``n_partitions``    pin the partitioned backend's K (None = planner).
+    ``schedule``        pin the chunk schedule policy ('static' | 'fixed' |
+                        'guided'); 'auto' leaves it to the planner.
+    ``jit_chunks``      bucketed chunk kernels, captured in CUDA graphs on
+                        the card (partitioned backend).
+    ``async_dispatch``  worker-pool chunk dispatch, one CUDA stream per
+                        worker (partitioned backend).
+    ``plan_cache``      planner.PlanCache to share (a QueryServer passes
+                        its server-wide cache); None = private cache.
     ``reformat``        allow amortized data reformatting.
     ``expected_runs``   reformatting amortization horizon.
     ``history_limit`` / ``max_query_log``
@@ -149,10 +170,8 @@ class Session:
                         ``profile()`` scopes a tracer to one block instead.
     ``metrics``         MetricsRegistry to feed (shared by a QueryServer);
                         None = a private registry (``metrics()`` snapshot).
-    ``fault`` / ``chunk_executor``
-                        serving hooks of the partitioned backend (chunk
-                        retries, a shared chunk pool): not yet ported, only
-                        None is accepted.
+    ``fault``           sched.fault_tolerant.RetryPolicy for chunk retries.
+    ``chunk_executor``  shared chunk pool (engine.server.SharedChunkPool).
     ``feedback``        adaptive re-optimization: True → private
                         FeedbackStore; a FeedbackStore instance → shared
                         (the QueryServer wiring); False/None → open loop.
@@ -170,7 +189,10 @@ class Session:
         planner: str = "cost",
         backend: str = "torch",
         device: Optional[str] = None,
+        n_partitions: Optional[int] = None,
         schedule: str = "auto",
+        jit_chunks: bool = True,
+        async_dispatch: bool = True,
         plan_cache: Optional[PlanCache] = None,
         reformat: bool = True,
         expected_runs: int = 20,
@@ -187,25 +209,29 @@ class Session:
     ):
         if revalidate not in ("content", "signature"):
             raise EngineError(f"revalidate must be 'content' or 'signature', got {revalidate!r}")
-        if backend == "partitioned" or schedule != "auto":
-            raise EngineError("the partitioned backend and its chunk schedules are not yet ported")
-        if fault is not None or chunk_executor is not None:
-            raise EngineError("chunk retries and shared chunk pools are not yet ported")
-        if device is None:
-            if not torch.cuda.is_available():
-                raise EngineError(
-                    "no CUDA device: the engine runs on the card by default — "
-                    "pass device='cpu' to run on the CPU"
-                )
-            device = "cuda"
-        elif str(device).startswith("cuda") and not torch.cuda.is_available():
-            raise EngineError(f"device={device!r} asked for, but no CUDA device is present")
+        if schedule != "auto":
+            from repro_torch.backends.partitioned import normalize_schedule
+
+            try:
+                schedule = normalize_schedule(schedule)
+            except ValueError as e:
+                raise EngineError(str(e)) from None
+        device = resolve_device(device)
         self.db = db if db is not None else Database()
         self.plan_cache = plan_cache if plan_cache is not None else PlanCache()
         self.n_parts = n_parts
         self.planner = planner
         self.backend = backend
         self.device = str(device)
+        # partitioned-backend knobs (ignored by the monolithic executors):
+        # K-way data distribution and the chunk-schedule policy; None /
+        # 'auto' leave the choice to the cost planner
+        self.n_partitions = n_partitions
+        self.schedule = schedule
+        # bucketed captured chunk kernels + worker-pool dispatch
+        # (backends/partitioned.py); part of the plan-cache fingerprint
+        self.jit_chunks = jit_chunks
+        self.async_dispatch = async_dispatch
         self.reformat = reformat
         self.expected_runs = expected_runs
         self.revalidate = revalidate
@@ -229,6 +255,13 @@ class Session:
         else:
             self.tracer = Tracer() if trace else NULL_TRACER
         self.metrics_registry = metrics if metrics is not None else MetricsRegistry()
+        # serving-time execution policy, attached to every compiled plan on
+        # the dispatch path (run-time attachments — deliberately NOT part of
+        # the plan-cache fingerprint, see ``_configure_plan``): a
+        # ``sched.fault_tolerant.RetryPolicy`` and a shared chunk executor
+        # (``engine.server.SharedChunkPool``)
+        self.fault = fault
+        self.chunk_executor = chunk_executor
         # adaptive re-optimization (planner/feedback.py): the feedback store
         # (True = private, or a shared FeedbackStore), the drift band the
         # trigger compares observed/estimated ratios against, and the tenant
@@ -246,6 +279,7 @@ class Session:
             raise EngineError(f"drift_band must be >= 1.0, got {drift_band}")
         self.drift_band = drift_band
         self.feedback_tenant = feedback_tenant
+        self._split_policy: Any = None
         # warm-dispatch memo: (query key, stats epoch) → OptimizeResult;
         # bounded like the plan cache — serving traffic with per-request
         # literals would otherwise pin one compiled plan per query text
@@ -429,7 +463,7 @@ class Session:
                 prog,
                 db=self.db,
                 stats=collect_stats(self.db),
-                n_partitions=self.n_parts,
+                n_partitions=self.n_partitions or self.n_parts,
             )
         return CheckReport(text, source, prog, err is None, err, warnings)
 
@@ -468,7 +502,7 @@ class Session:
                 prog,
                 db=self.db,
                 stats=collect_stats(self.db),
-                n_partitions=self.n_parts,
+                n_partitions=self.n_partitions or self.n_parts,
             )
             text += "\n" + render_lint(warnings)
         if analyze:
@@ -493,6 +527,37 @@ class Session:
         return text
 
     # -- the one pipeline ----------------------------------------------------
+    def _configure_plan(self, plan: Any) -> None:
+        """Attach the serving-time execution policy to a compiled plan.
+
+        These are *run-time attachments*, deliberately not plan-cache
+        fingerprint inputs: a plan cached by one tenant must behave
+        identically for every tenant, so sessions sharing a cache (a
+        ``QueryServer``) all attach the same server-wide fault policy /
+        chunk executor / metrics registry, and re-attaching on every
+        dispatch keeps a cache-shared plan consistent with *this*
+        session's configuration."""
+        if hasattr(plan, "fault"):
+            plan.fault = self.fault
+        if hasattr(plan, "chunk_executor"):
+            plan.chunk_executor = self.chunk_executor
+        if hasattr(plan, "metrics_registry"):
+            plan.metrics_registry = self.metrics_registry
+        if hasattr(plan, "split"):
+            plan.split = self._split_policy_for()
+
+    def _split_policy_for(self) -> Any:
+        """The mid-run skew-split policy attached to partitioned plans —
+        only when feedback is enabled (the split is the runtime half of the
+        adaptive loop; open-loop sessions keep the historical behavior)."""
+        if self.feedback is None:
+            return None
+        if self._split_policy is None:
+            from repro_torch.backends.partitioned import SplitPolicy
+
+            self._split_policy = SplitPolicy()
+        return self._split_policy
+
     def _prepare(self, key: str, prog: Program) -> Tuple[OptimizeResult, bool]:
         """Returns (optimize outcome, dispatch_hit).  Callers run
         ``_revalidate`` first, so ``self._epoch`` is trustworthy here."""
@@ -506,6 +571,7 @@ class Session:
             if self.tracer.enabled:
                 with self.tracer.span("dispatch.lookup") as ds:
                     ds.set(hit=True)
+            self._configure_plan(hit.plan)
             return hit, True
         with self.tracer.span("optimize", backend=self.backend):
             res = optimize(
@@ -517,6 +583,10 @@ class Session:
                     plan_cache=self.plan_cache,
                     backend=self.backend,
                     device=self.device,
+                    n_partitions=self.n_partitions,
+                    schedule=self.schedule,
+                    jit_chunks=self.jit_chunks,
+                    async_dispatch=self.async_dispatch,
                     reformat=self.reformat,
                     expected_runs=self.expected_runs,
                     tracer=self.tracer,
@@ -534,6 +604,7 @@ class Session:
             if len(self._dispatch) >= self._dispatch_cap:
                 self._dispatch.pop(next(iter(self._dispatch)))
             self._dispatch[(key, self._epoch)] = res
+        self._configure_plan(res.plan)
         return res, False
 
     def _submit(

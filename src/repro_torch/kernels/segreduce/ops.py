@@ -4,7 +4,10 @@
 # There is no fallback from the card to the plain version.
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+import threading
+from collections import Counter
+from contextlib import contextmanager
+from typing import Dict, Iterator, Optional, Sequence, Tuple
 
 import torch
 
@@ -13,13 +16,49 @@ from .ref import OPS, fused_segreduce_ref, segreduce_ref
 
 # Launches of the CUDA kernel, counted by the wrapper that made them, so a
 # run can show that its aggregates went through the kernel.  Only the CUDA
-# path counts; the plain version on the CPU launches nothing.
+# path counts; the plain version on the CPU launches nothing.  A launch
+# made while the calling thread captures a CUDA graph (``capturing``) is
+# recorded into that graph's count instead, and each replay of the graph
+# adds its count here (``add_replay``): a capture launches nothing, a
+# replay launches what was captured.
 LAUNCHES = {"fused_segreduce": 0, "segreduce": 0}
+_LOCK = threading.Lock()
+_CAPTURE = threading.local()
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    with _LOCK:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
+
+
+def _count(name: str) -> None:
+    log = getattr(_CAPTURE, "log", None)
+    if log is not None:
+        log[name] += 1
+        return
+    with _LOCK:
+        LAUNCHES[name] += 1
+
+
+@contextmanager
+def capturing() -> Iterator[Counter]:
+    """The kernel launches the calling thread makes inside the block, which
+    captures them into a CUDA graph, counted into the yielded Counter and
+    not into ``LAUNCHES``."""
+    prev = getattr(_CAPTURE, "log", None)
+    _CAPTURE.log = Counter()
+    try:
+        yield _CAPTURE.log
+    finally:
+        _CAPTURE.log = prev
+
+
+def add_replay(launches: Dict[str, int]) -> None:
+    """One replay of a CUDA graph that captured ``launches``."""
+    with _LOCK:
+        for name, n in launches.items():
+            LAUNCHES[name] += n
 
 
 def _check(keys, values, ops, num_keys, mask) -> None:
@@ -61,7 +100,7 @@ def _cuda_launch(name, keys, values, ops, num_keys, mask, with_presence):
         outs, p = kernel.launch(
             keys, part_v, part_ops, num_keys, mask, with_presence and lo == 0
         )
-        LAUNCHES[name] += 1
+        _count(name)
         accs.extend(outs)
         if lo == 0:
             pres = p

@@ -1,8 +1,9 @@
 # The plain PyTorch version of the segmented-reduction kernels: the same
 # contract as kernel.py's CUDA kernel and as the JAX package's
 # kernels/segreduce (masked rows contribute the op's identity, empty segments
-# hold it, int32 sums wrap, sub-f32 floats accumulate in f32 and are cast
-# back, N == 0 returns identities).  The wrappers in ops.py run it for
+# hold it, rows with a key outside [0, K) are dropped, int32 sums wrap,
+# sub-f32 floats accumulate in f32 and are cast back, N == 0 returns
+# identities).  The wrappers in ops.py run it for
 # tensors on the CPU; chip_smoke.py holds the kernel against it on the card.
 from __future__ import annotations
 
@@ -42,12 +43,19 @@ def acc_dtype(dtype: torch.dtype) -> torch.dtype:
 
 
 def _reduce_into(keys: torch.Tensor, values: torch.Tensor, num_keys: int, op: str) -> torch.Tensor:
+    """Rows whose key lies outside [0, num_keys) are dropped, as the CUDA
+    kernel and the JAX package's segment ops drop them: they are given key 0
+    and the op's identity before the scatter (on the card a scatter with an
+    out-of-range index would trip a device-side assert)."""
     dt = acc_dtype(values.dtype)
-    out = torch.full((num_keys,), op_identity(op, dt), dtype=dt, device=values.device)
-    idx = keys.long()
+    ident = op_identity(op, dt)
+    out = torch.full((num_keys,), ident, dtype=dt, device=values.device)
+    inside = (keys >= 0) & (keys < num_keys)
+    idx = torch.where(inside, keys, 0).long()
+    vals = torch.where(inside, values.to(dt), torch.tensor(ident, dtype=dt, device=values.device))
     if op == "sum":
-        return out.index_add_(0, idx, values.to(dt))
-    return out.scatter_reduce_(0, idx, values.to(dt), reduce=_REDUCE[op], include_self=True)
+        return out.index_add_(0, idx, vals)
+    return out.scatter_reduce_(0, idx, vals, reduce=_REDUCE[op], include_self=True)
 
 
 def segreduce_ref(

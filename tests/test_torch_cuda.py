@@ -442,3 +442,212 @@ def test_rwkv6_prefill_runs_the_kernel_and_matches_the_cpu(cuda):
                                rtol=5e-2, atol=5e-2)
     res = generate(card, toks.to(cuda), 4)
     assert res.tokens.shape == (2, 44) and res.tokens.device.type == "cuda"
+
+
+# ---------------------------------------------------------------------------
+# the partitioned backend's captured chunk kernels (backends/partitioned.py)
+# ---------------------------------------------------------------------------
+
+_CHUNK_SQL = "SELECT k, SUM(v), MIN(v), MAX(w), COUNT(k) FROM t WHERE v > -50 GROUP BY k"
+
+
+def _chunk_kernel(cuda, agg_method="kernel"):
+    """A fused chunk aggregation of _CHUNK_SQL on the card, wrapped in the
+    backend's capture cache, with its eager function beside it."""
+    from repro_torch.backends import CodegenChoices, TorchLowering
+    from repro_torch.backends.partitioned import JitCacheStats, _JitKernel
+    from repro_torch.data.multiset import database_from_columns
+    from repro_torch.frontends.sql import sql_to_forelem
+
+    rng = np.random.default_rng(21)
+    db = database_from_columns({"t": dict(
+        k=rng.integers(0, 300, 1000).astype(np.int32),
+        v=rng.integers(-100, 100, 1000).astype(np.int32),
+        w=rng.random(1000).astype(np.float32),
+    )})
+    low = TorchLowering(sql_to_forelem(_CHUNK_SQL, {"t": ["k", "v", "w"]}), db,
+                        CodegenChoices(agg_method=agg_method, device="cuda"))
+    group = [low.spec.aggs[i] for i in low.fused_groups[0]]
+    fn = low.chunk_fused_agg_fn(tuple(group))
+    return _JitKernel("agg", fn, JitCacheStats(), 64, cuda), fn
+
+
+def _chunk(seed, m, n, cuda):
+    rng = np.random.default_rng(seed)
+    cols = {
+        "k": torch.from_numpy(rng.integers(0, 300, m).astype(np.int32)).to(cuda),
+        "v": torch.from_numpy(rng.integers(-100, 100, m).astype(np.int32)).to(cuda),
+        "w": torch.from_numpy(rng.random(m).astype(np.float32)).to(cuda),
+    }
+    return cols, torch.full((), n, dtype=torch.int32, device=cuda)
+
+
+def _equal_partials(a, b):
+    (accs_a, pres_a), (accs_b, pres_b) = a, b
+    return all(_bitwise(x, y) for x, y in zip(accs_a, accs_b)) and torch.equal(pres_a, pres_b)
+
+
+@pytest.mark.requires_cuda
+def test_graph_replays_two_chunks_of_one_bucket_without_aliasing(cuda):
+    kern, fn = _chunk_kernel(cuda)
+    c1, n1 = _chunk(1, 4096, 4000, cuda)
+    c2, n2 = _chunk(2, 4096, 3900, cuda)
+    r1, first = kern(c1, n1, {"__params__": {}}, {})
+    r2, again = kern(c2, n2, {"__params__": {}}, {})
+    assert first and not again and kern.stats.compiles == 1 and kern.stats.hits == 1
+    torch.cuda.synchronize()
+    assert _equal_partials(r1, fn(c1, n1, {"__params__": {}}, {}))
+    assert _equal_partials(r2, fn(c2, n2, {"__params__": {}}, {}))
+    assert not torch.equal(r1[1], r2[1])  # the first result was not overwritten
+
+
+@pytest.mark.requires_cuda
+def test_graph_reads_n_valid_at_each_replay(cuda):
+    kern, fn = _chunk_kernel(cuda)
+    cols, _ = _chunk(3, 2048, 2048, cuda)
+    for n in (2048, 1500, 1, 0, 1025):
+        nv = torch.full((), n, dtype=torch.int32, device=cuda)
+        got, _ = kern(cols, nv, {"__params__": {}}, {})
+        assert int(got[1].sum()) <= n
+        assert _equal_partials(got, fn(cols, nv, {"__params__": {}}, {}))
+    assert kern.stats.compiles == 1 and kern.stats.hits == 4
+
+
+@pytest.mark.requires_cuda
+def test_concurrent_workers_replay_one_signature(cuda):
+    import threading
+
+    kern, fn = _chunk_kernel(cuda)
+    chunks = [_chunk(10 + i, 4096, 4096 - 7 * i, cuda) for i in range(16)]
+    want = [fn(c, n, {"__params__": {}}, {}) for c, n in chunks]
+    torch.cuda.synchronize()
+    got = [None] * len(chunks)
+    errors = []
+
+    def worker(w):
+        stream = torch.cuda.Stream()
+        try:
+            with torch.cuda.stream(stream):
+                for i in range(w, len(chunks), 4):
+                    c, n = chunks[i]
+                    got[i], _ = kern(c, n, {"__params__": {}}, {})
+            stream.synchronize()
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(e)
+
+    threads = [threading.Thread(target=worker, args=(w,)) for w in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    assert not errors and not any(t.is_alive() for t in threads)
+    torch.cuda.synchronize()
+    assert all(_equal_partials(g, w) for g, w in zip(got, want))
+    assert kern.stats.compiles == 1 and kern.stats.hits == len(chunks) - 1
+
+
+@pytest.mark.requires_cuda
+def test_capture_stream_is_no_worker_stream(cuda):
+    from repro_torch.backends.partitioned import StreamHandoff, capture_stream
+
+    handoff = StreamHandoff(cuda)
+    workers = {handoff.new_stream().cuda_stream for _ in range(100)}  # the pool wraps
+    assert capture_stream(cuda).cuda_stream not in workers
+    assert capture_stream(cuda) is capture_stream(cuda)
+
+
+@pytest.mark.requires_cuda
+def test_workers_replay_while_others_capture(cuda):
+    """Workers on fresh streams (more than the stream pool holds) replay
+    some signatures while other workers capture new ones."""
+    import threading
+
+    from repro_torch.backends.partitioned import StreamHandoff
+
+    kern, fn = _chunk_kernel(cuda)
+    sizes = [1024 * (1 + i % 8) for i in range(48)]
+    chunks = [_chunk(40 + i, m, m - 3 * i, cuda) for i, m in enumerate(sizes)]
+    want = [fn(c, n, {"__params__": {}}, {}) for c, n in chunks]
+    torch.cuda.synchronize()
+    got = [None] * len(chunks)
+    errors = []
+    handoff = StreamHandoff(cuda)
+
+    def worker(w):
+        try:
+            for i in range(w, len(chunks), 6):
+                stream = handoff.new_stream()
+                with handoff.on(stream):
+                    c, n = chunks[i]
+                    got[i], _ = kern(c, n, {"__params__": {}}, {})
+                handoff.finish(stream, got[i])
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(e)
+
+    threads = [threading.Thread(target=worker, args=(w,)) for w in range(6)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    assert not errors, errors[0]
+    assert not any(t.is_alive() for t in threads)
+    torch.cuda.synchronize()
+    assert all(_equal_partials(g, w) for g, w in zip(got, want))
+    assert kern.stats.compiles == 8 and kern.stats.hits == len(chunks) - 8
+
+
+def _partitioned_rows(sql, tables, **kw):
+    from repro_torch.backends import CodegenChoices, PartitionedChoices, get_backend
+    from repro_torch.data.multiset import database_from_columns
+    from repro_torch.frontends.sql import sql_to_forelem
+
+    schemas = {t: list(c) for t, c in tables.items()}
+    base = CodegenChoices(agg_method=kw.pop("agg_method", "kernel"), device=kw.pop("device", "cuda"))
+    plan = get_backend("partitioned").compile(
+        sql_to_forelem(sql, schemas), database_from_columns(tables), PartitionedChoices(base=base, **kw))
+    return plan.run()["R"], plan
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("schedule", ["static", "guided"])
+def test_partitioned_async_equals_serial_bitwise_on_the_kernel_path(cuda, schedule):
+    rng = np.random.default_rng(5)
+    n = 300_000
+    tables = {"t": dict(
+        k=rng.integers(0, 5000, n).astype(np.int32),
+        v=rng.integers(-100, 100, n).astype(np.int32),
+        w=rng.random(n).astype(np.float32),
+    )}
+    q = "SELECT k, SUM(v), SUM(w), MIN(w), MAX(v), COUNT(k) FROM t WHERE v > -90 GROUP BY k"
+    serial, _ = _partitioned_rows(q, tables, n_partitions=8, schedule=schedule, async_dispatch=False)
+    pooled, plan = _partitioned_rows(q, tables, n_partitions=8, schedule=schedule, async_dispatch=True)
+    assert plan.jit_stats.compiles > 0 and plan.jit_stats.hits > 0
+    assert sorted(serial) == sorted(pooled)  # floats included: bitwise
+    host, _ = _partitioned_rows(q, tables, n_partitions=8, schedule=schedule, device="cpu")
+    for ra, rb in zip(sorted(pooled), sorted(host)):
+        assert ra[0] == rb[0] and ra[1] == rb[1] and ra[4:] == rb[4:]
+        assert all(abs(x - y) <= 1e-3 + 1e-5 * abs(y) for x, y in zip(ra[2:4], rb[2:4]))
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("method", ["dense", "onehot", "sort", "kernel"])
+def test_negative_group_keys_are_dropped_on_the_card(cuda, method):
+    rng = np.random.default_rng(28)
+    n = 2000
+    tables = {"t": dict(k=rng.integers(-5, 40, n).astype(np.int32),
+                        v=rng.integers(-100, 100, n).astype(np.int32))}
+    q = "SELECT k, SUM(v), COUNT(k) FROM t GROUP BY k"
+    from repro_torch.core import OptimizeOptions, optimize
+    from repro_torch.data.multiset import database_from_columns
+    from repro_torch.frontends.sql import sql_to_forelem
+
+    prog = sql_to_forelem(q, {"t": ["k", "v"]})
+    rows = {}
+    for device in ("cuda", "cpu"):
+        res = optimize(prog, database_from_columns(tables),
+                       OptimizeOptions(agg_method=method, reformat=False, device=device))
+        rows[device] = sorted(res.plan.run()["R"])
+        torch.cuda.synchronize()
+    part, _ = _partitioned_rows(q, tables, n_partitions=4, agg_method=method)
+    assert rows["cuda"] == rows["cpu"] == sorted(part)
+    assert len(rows["cuda"]) == 40 and all(r[0] >= 0 for r in rows["cuda"])

@@ -41,6 +41,15 @@ import repro_torch.models.convert
 import repro_torch.serve.kvcache
 import repro_torch.serve.step
 import repro_torch.launch.serve
+import repro_torch.sched
+import repro_torch.sched.loop_schedule
+import repro_torch.sched.fault_tolerant
+import repro_torch.sched.elastic
+import repro_torch.frontends.export_mr
+import repro_torch.core.lower
+import repro_torch.backends.partitioned
+import repro_torch.engine.server
+from repro_torch import QueryServer
 from repro_torch.configs.base import list_archs
 assert len(list_archs()) == 10
 bad = sorted(m for m in sys.modules

@@ -172,10 +172,25 @@ def test_default_device_without_cuda_raises(monkeypatch):
         Session(device="cuda")
 
 
-@pytest.mark.parametrize("kw", [dict(backend="partitioned"), dict(schedule="guided"), dict(fault=object())])
+@pytest.mark.parametrize("kw", [dict(backend="partitioned"), dict(schedule="guided"), dict(fault="retry")])
 def test_unported_hooks_raise(kw):
-    with pytest.raises(EngineError, match="not yet ported"):
-        Session(device="cpu", **kw)
+    """The hooks that raised "not yet ported" until the partitioned backend
+    came over now run: each gives the JAX package's rows, and an unknown
+    chunk schedule still raises."""
+    from repro_torch.sched import RetryPolicy
+
+    if kw.get("fault") == "retry":
+        kw = dict(backend="partitioned", fault=RetryPolicy(max_retries=1))
+    tables = _tables(12)
+    js = repro.Session(**{k: v for k, v in kw.items() if k != "fault"})
+    ts = Session(device="cpu", **kw)
+    for name, cols in tables.items():
+        js.register(name, **cols)
+        ts.register(name, **cols)
+    q = "SELECT k, SUM(v), MIN(v), COUNT(k) FROM t GROUP BY k"
+    assert sorted(ts.sql(q).rows) == sorted(js.sql(q).rows)
+    with pytest.raises(EngineError, match="unknown schedule"):
+        Session(device="cpu", schedule="not-a-policy")
 
 
 def test_database_from_columns_matches_jax_epoch():
