@@ -6,9 +6,9 @@
 Phases, each of which must pass for the exit code to be 0:
 
 1. environment: torch and CUDA versions, the card's name and power limit;
-2. build: the segreduce, flash-attention and WKV6 CUDA kernels from their
-   sources under src/repro_torch/kernels/*/csrc, one nvcc each, started
-   together;
+2. build: the segreduce, flash-attention forward and backward and WKV6
+   CUDA kernels from their sources under src/repro_torch/kernels/*/csrc,
+   one nvcc each, started together;
 3. kernel against its plain PyTorch version on the card: fused_segreduce
    and segreduce for sum/max/min over int32/f32/bf16, masked and unmasked,
    N in {0, 1, 5000, 60M} and K in {1, 100, 100001, 2000001}, plus whole
@@ -54,8 +54,12 @@ Phases, each of which must pass for the exit code to be 0:
    the plain version at its shape (``ref.KERNEL_TOL``), finite logits, and
    for (b) the first decode step's logits against prefill_forward of the
    prompt plus that token, within rtol/atol 0.15 and within DECODE_REL of
-   the largest logit; then the profiler's device time of one prefill and of
-   decode steps by kernel, against the decode step's wall time;
+   the largest logit; each scenario decoded once more eagerly, its greedy
+   tokens bitwise equal to the CUDA graph's (the decode step is one graph,
+   serve/step.py); then the profiler's device time of one prefill and, for
+   the eager and the graph decode step, device time by kernel against the
+   step's wall time (the card's idle share), and the eager step's device
+   time by PyTorch op;
 8. the flash kernel at the serving path's shapes: its time, its bound, the
    plain version's time, and scaled_dot_product_attention's (which has no
    softcap and no window) beside the kernel's own time without them; the
@@ -102,7 +106,33 @@ Phases, each of which must pass for the exit code to be 0:
    tenants submitting phase 4's five queries and the Zipf query at once
    through one QueryServer (one SharedChunkPool, feedback on), each result
    against the oracle or the serial run; admissions, plan-cache hits,
-   splits, re-plans and pool scale events.
+   splits, re-plans and pool scale events;
+14. the flash backward kernel (dq, dk, dv) against its plain version
+   (flash_attention_bwd_plain) in float64 given the forward's output,
+   held to ``ref.BWD_TOL``, and against the exact gradient (autograd of
+   attention_ref in f32) within ``ref.BWD_EXACT_REL``, on the same bf16
+   inputs: head dim 16/32/64/128, GQA
+   groups 1/12, causal or not, window 0/100, softcap 0/50, S in {128, 200,
+   1000, 2048} (200 and 1000 ragged against its tiles), each case run
+   twice and required to be bitwise equal;
+   then the kernel at starcoder2-3b's training shape (a microbatch of 2 x
+   2048 tokens, 24 heads over 2 kv heads of 128, causal): its time, its
+   bound (the gradient's and the statistics pass's FLOPs), the plain
+   version's time and scaled_dot_product_attention's backward;
+15. training starcoder2-3b at its published width and depth (30 layers,
+   d_model 3072, vocab 49152, 3.03 B parameters drawn on the card from
+   ``--seed``) through launch/train.py's model and train_step: data from
+   the port's pipeline over Zipf documents from ``--seed`` packed at 2048,
+   global batch 8 in 4 microbatches, remat on, the JAX package's
+   launch/train.py AdamWConfig with f32 state; 6 steps, each launching the flash backward
+   once per layer and microbatch and the plain backward never; the loss
+   finite and falling; per step (under the profiler) its ms, tokens/s,
+   model-FLOP share of the bf16 peak, peak memory, the card's idle share
+   and the flash kernels' share of device time;
+16. the training CLI on the card: ``python -m repro_torch.launch.train
+   --reduced --steps 40 --ckpt-every 10 --fail-at 25`` in a temporary
+   directory resumes from step 20, ends at 40 and restores its final
+   checkpoint bitwise equal to the state in memory.
 
 Phases 12 and 13 count their own segreduce launches (a CUDA graph's replay
 counts the launches it captured); the kernels' line adds them to phase 4's.
@@ -110,8 +140,8 @@ counts the launches it captured); the kernels' line adds them to phase 4's.
 What is cut from TPC-H: Q15 keeps only its revenue view (no outer max or
 supplier join); Q13 keeps its inner aggregate (no outer join's zero-count
 customers, no comment filter); Q2 keeps only its inner MIN (no region
-joins); dbgen is replaced by numpy.  Nothing of gemma2-9b or rwkv6-3b is
-cut; their weights are random.
+joins); dbgen is replaced by numpy.  Nothing of gemma2-9b, rwkv6-3b or
+starcoder2-3b is cut; their weights are random.
 
 The last lines are the kernels' JSON record and {"ok": true, "device": ...}.
 The script exits non-zero, printing neither, without a CUDA device or
@@ -1114,13 +1144,38 @@ def wkv6_recorder(wkv6_ops, plain, agreement, fails: Failures) -> CallRecorder:
     return CallRecorder(wkv6_ops, "wkv6", compare, key, fails)
 
 
+def decode_ops(torch, step, n_steps: int):
+    """The device ms per decode step of each PyTorch op that launched
+    kernels in it (the profiler's CPU ops with their self device time), the
+    costliest first; None when the profiler cannot trace the card."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(n_steps):
+                step()
+            torch.cuda.synchronize()
+    except (RuntimeError, AssertionError) as e:
+        print(f"    (the profiler cannot trace the card: {e})", flush=True)
+        return None
+    rows = []
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total", None)
+        us = us if us is not None else getattr(ev, "self_cuda_time_total", 0.0)
+        if us > 0 and ev.key.startswith("aten::"):
+            rows.append({"op": ev.key, "ms": us / 1e3 / n_steps, "calls": ev.count / n_steps})
+    return sorted(rows, key=lambda r: -r["ms"])
+
+
 def serve_breakdown(torch, model, prompts, kernel: str, n_steps: int = 4) -> dict:
     """Where a batch's card time goes: the profiler's device ms of one
-    prefill and the share of the kernels whose name holds ``kernel``; then
-    the wall ms of a decode step on the host clock (synchronized, without
-    the profiler), the device ms the profiler sees in a step, and the card's
-    idle share of the step, 1 - device / wall, with the step's costliest
-    kernels."""
+    prefill and the share of the kernels whose name holds ``kernel``; then,
+    for the decode step run eagerly and replayed as a CUDA graph, the wall
+    ms of a step on the host clock (synchronized, without the profiler),
+    the device ms the profiler sees in a step, and the card's idle share of
+    the step, 1 - device / wall, with the step's costliest kernels; and for
+    the eager step the PyTorch ops that launch its device time."""
     from repro_torch.serve.step import make_decode_step, pad_cache
 
     B, S = prompts.shape
@@ -1136,28 +1191,35 @@ def serve_breakdown(torch, model, prompts, kernel: str, n_steps: int = 4) -> dic
         total = sum(device_us(ev) for ev in events)
         ours = sum(device_us(ev) for ev in events if kernel in ev.key)  # every dtype's instance
         out.update(device_ms=total / 1e3, kernel_ms=ours / 1e3, kernel_share=ours / total if total else 0.0)
-    cache = pad_cache(pcache, model.cache_init(B, S + 2 * n_steps + 1))
+    cache = pad_cache(pcache, model.cache_init(B, S + 6 * n_steps + 4))
     state = {"tok": torch.argmax(logits[:, -1].float(), dim=-1)[:, None].to(torch.int32), "pos": S, "cache": cache}
     del logits, pcache, cache
-    decode = make_decode_step(model)
+    for mode in ("eager", "graph"):
+        decode = make_decode_step(model, graph=mode == "graph")
 
-    def step():
-        state["tok"], _, state["cache"] = decode(state["cache"], state["tok"], state["pos"])
-        state["pos"] += 1
+        def step():
+            state["tok"], _, state["cache"] = decode(state["cache"], state["tok"], state["pos"])
+            state["pos"] += 1
 
-    step()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(n_steps):
-        step()
-    torch.cuda.synchronize()
-    out["decode_wall_ms"] = (time.perf_counter() - t0) * 1e3 / n_steps
-    events = trace_card(torch, step, reps=n_steps)
-    if events is not None:
-        per = sorted(((device_us(ev) / 1e3 / n_steps, ev.key) for ev in events if device_us(ev) > 0), reverse=True)
-        busy = sum(ms for ms, _ in per)
-        out.update(decode_device_ms=busy, decode_idle_share=max(0.0, 1.0 - busy / out["decode_wall_ms"]),
-                   decode_top=[{"kernel": key[:90], "ms": ms} for ms, key in per[:6]])
+        for _ in range(2):  # the graph: one eager step, then the capture
+            step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n_steps):
+            step()
+        torch.cuda.synchronize()
+        row = {"decode_wall_ms": (time.perf_counter() - t0) * 1e3 / n_steps}
+        events = trace_card(torch, step, reps=n_steps)
+        if events is not None:
+            per = sorted(((device_us(ev) / 1e3 / n_steps, ev.key) for ev in events if device_us(ev) > 0),
+                         reverse=True)
+            busy = sum(ms for ms, _ in per)
+            row.update(decode_device_ms=busy, decode_idle_share=max(0.0, 1.0 - busy / row["decode_wall_ms"]),
+                       decode_top=[{"kernel": key[:90], "ms": ms} for ms, key in per[:6]])
+        if mode == "eager":
+            row["decode_ops"] = decode_ops(torch, step, n_steps)
+        out[mode] = row
+        del decode
     return out
 
 
@@ -1220,14 +1282,14 @@ def serve_path(torch, arch: str, scenarios_spec: dict, ops, rec: CallRecorder, k
         for name, (prompt_np, new) in scenarios.items():
             prompts = torch.from_numpy(prompt_np).cuda()
             runs = []
-            for run in ("checked", "timed"):
+            for run in ("checked", "timed", "eager"):
                 rec.label = name
                 before = ops.LAUNCHES
-                if run == "timed":
-                    with rec.paused():
-                        res = generate(model, prompts, new, keep_logits=(name == "b"))
-                else:
+                if run == "checked":
                     res = generate(model, prompts, new, keep_logits=(name == "b"))
+                else:
+                    with rec.paused():
+                        res = generate(model, prompts, new, keep_logits=(name == "b"), graph=run != "eager")
                 launched = ops.LAUNCHES - before
                 fails.check(launched == n_layers,
                             f"serve {arch} ({name}, {run}): {launched} {rec.name} launches, not {n_layers}")
@@ -1236,15 +1298,20 @@ def serve_path(torch, arch: str, scenarios_spec: dict, ops, rec: CallRecorder, k
                 runs.append(res)
             fails.check(bool(torch.equal(runs[0].tokens, runs[1].tokens)),
                         f"serve {arch} ({name}): two runs gave different tokens")
+            fails.check(bool(torch.equal(runs[1].tokens, runs[2].tokens)),
+                        f"serve {arch} ({name}): the graph decode's tokens differ from the eager decode's")
+            eager = runs[2]
             res = runs[1]
             B = prompts.shape[0]
             entry = {
                 "batch": B, "prompt": int(prompts.shape[1]), "new": new,
                 "prefill_ms": res.prefill_s * 1e3,
                 "decode_ms_per_token": res.decode_s * 1e3 / max(new - 1, 1),
+                "eager_decode_ms_per_token": eager.decode_s * 1e3 / max(new - 1, 1),
                 "decode_tok_s": B * (new - 1) / res.decode_s if res.decode_s > 0 else 0.0,
                 "tok_s": B * new / (res.prefill_s + res.decode_s),
                 "prefill_tok_s": B * prompts.shape[1] / res.prefill_s,
+                "graph_tokens_equal_eager": bool(torch.equal(res.tokens, eager.tokens)),
             }
             if name == "b":
                 # the first decode step against a prefill of the prompt plus its token
@@ -1264,8 +1331,10 @@ def serve_path(torch, arch: str, scenarios_spec: dict, ops, rec: CallRecorder, k
                 entry["logit_abs_max"] = top
             report[name] = entry
             print(f"  ({name}) batch {B} x {prompts.shape[1]} prompt + {new} new: prefill {entry['prefill_ms']:.1f} ms, "
-                  f"decode {entry['decode_ms_per_token']:.2f} ms/token, {entry['decode_tok_s']:.1f} decode tok/s, "
-                  f"{entry['tok_s']:.1f} tok/s overall; tokens equal across runs", flush=True)
+                  f"decode {entry['decode_ms_per_token']:.2f} ms/token as a CUDA graph (eager "
+                  f"{entry['eager_decode_ms_per_token']:.2f}), {entry['decode_tok_s']:.1f} decode tok/s, "
+                  f"{entry['tok_s']:.1f} tok/s overall; tokens equal across runs and to the eager decode's",
+                  flush=True)
     launches = ops.LAUNCHES
     report["launches"] = launches
     report["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
@@ -1285,12 +1354,18 @@ def serve_path(torch, arch: str, scenarios_spec: dict, ops, rec: CallRecorder, k
             if "device_ms" in prof:
                 print(f"  ({name}) prefill device time {prof['device_ms']:.1f} ms, {rec.name} kernel "
                       f"{prof['kernel_ms']:.1f} ms ({100 * prof['kernel_share']:.1f}%)", flush=True)
-            line = f"  ({name}) decode step wall {prof['decode_wall_ms']:.2f} ms"
-            if "decode_device_ms" in prof:
-                line += (f", device {prof['decode_device_ms']:.2f} ms, card idle "
-                         f"{100 * prof['decode_idle_share']:.1f}%; costliest: "
-                         + "; ".join(f"{t['kernel'][:48]} {t['ms']:.2f}" for t in prof["decode_top"][:4]))
-            print(line, flush=True)
+            for mode in ("eager", "graph"):
+                row = prof[mode]
+                line = f"  ({name}) {mode} decode step wall {row['decode_wall_ms']:.2f} ms"
+                if "decode_device_ms" in row:
+                    line += (f", device {row['decode_device_ms']:.2f} ms, card idle "
+                             f"{100 * row['decode_idle_share']:.1f}%; costliest: "
+                             + "; ".join(f"{t['kernel'][:48]} {t['ms']:.2f}" for t in row["decode_top"][:4]))
+                print(line, flush=True)
+            if prof["eager"].get("decode_ops"):
+                print(f"  ({name}) eager decode step's device time by op: " + "; ".join(
+                    f"{r['op']} {r['ms']:.2f} ms ({r['calls']:.0f} calls)" for r in prof["eager"]["decode_ops"][:8]),
+                    flush=True)
     bad_calls = [k for k, st in rec.stats.items() if not st["ok"]]
     fails.check(not bad_calls, f"{rec.name} calls disagreeing with the plain version: {bad_calls}")
     record[f"serve_{arch}"] = report
@@ -1517,6 +1592,425 @@ def wkv6_at_shapes(torch, wkv6_ops, plain, scan, agreement, rec: CallRecorder) -
 # ---------------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the flash backward kernel against its plain version
+# ---------------------------------------------------------------------------
+
+# (causal, window) of phase 14's cases; (Sq = Sk) lengths, 200 and 1000
+# ragged against the kernels' 64-row and 32-column tiles
+FLASH_BWD_MASKS = ((True, 0), (True, 100), (False, 0), (False, 100))
+FLASH_BWD_LENGTHS = (128, 200, 1000, 2048)
+# (softcap, q multiplier): q scaled by 32 and 64 puts the scores at several
+# times the cap, where the cap's derivative 1 - (s/c)^2 is far from 1 (at
+# q x 1 the scores are about N(0, 1) and the derivative is within 1e-3 of 1)
+FLASH_BWD_CAPS = ((0.0, 1), (50.0, 1), (50.0, 32), (50.0, 64))
+# starcoder2-3b's training shape: (microbatch, S, heads, kv heads, head dim)
+TRAIN_ARCH = "starcoder2-3b"
+TRAIN_SEQ = 2048
+TRAIN_GLOBAL_BATCH = 8
+TRAIN_MICROBATCHES = 4
+TRAIN_STEPS = 6
+TRAIN_DOCS = 1500
+
+
+def flash_bwd_bound(B: int, S: int, H: int, Hkv: int, D: int, causal: bool, window: int) -> tuple:
+    """(bound_ms, bound_by, flops): the gradient's five products (10 D
+    FLOPs a pair and head) and the statistics pass's q.k^T (2 D) against
+    the bf16 peak; q, k, v, dout, out read and dq, dk, dv written once (bf16)
+    and delta read (f32)."""
+    flops = 12.0 * D * unmasked_pairs(S, S, causal, window) * B * H
+    nbytes = 2 * (4 * B * S * H * D + 4 * B * S * Hkv * D) + 4 * B * S * H
+    t_ops = flops / BF16_OPS_PER_S * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return ((t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")) + (flops,)
+
+
+def flash_bwd_matrix(torch, flash_kernel, plain_bwd, attention_ref, bwd_agreement, bwd_exact_agreement,
+                     fails: Failures, seed: int) -> list:
+    """Phase 14: dq, dk, dv of the backward kernel (kernel.launch_bwd, after
+    the forward kernel's output) against flash_attention_bwd_plain in
+    float64 given the same output, within ref.BWD_TOL, and against the
+    exact gradient (autograd of attention_ref in f32; dv only where q is
+    scaled) within ref.BWD_EXACT_REL, on the same bf16 inputs, over
+    FLASH_BWD_MASKS, FLASH_BWD_CAPS (q scaled so the softcap's derivative
+    matters) and FLASH_BWD_LENGTHS; each case run twice and required to be
+    bitwise equal."""
+    gen = torch.Generator(device=torch.device("cuda"))
+    gen.manual_seed(seed)
+    rows = []
+    for S in FLASH_BWD_LENGTHS:
+        t0 = time.perf_counter()
+        n_cases = bad = 0
+        worst = {"max_abs_err": 0.0, "worst": 0.0, "rel": 0.0}
+        worst_ref = {"rel": 0.0}
+        B, Hkv = (1, 2) if S >= 1000 else (2, 2)
+        for D in flash_kernel.BWD_HEAD_DIMS:
+            for G in (1, 12):
+                q0 = torch.randn(B, S, Hkv * G, D, device="cuda", generator=gen).to(torch.bfloat16)
+                k, v = (torch.randn(B, S, Hkv, D, device="cuda", generator=gen).to(torch.bfloat16)
+                        for _ in range(2))
+                dout = torch.randn(B, S, Hkv * G, D, device="cuda", generator=gen).to(torch.bfloat16)
+                for causal, window in FLASH_BWD_MASKS:
+                    for cap, q_mul in FLASH_BWD_CAPS:
+                        kw = dict(causal=causal, window=window, scale=D ** -0.5, logit_softcap=cap)
+                        q = q0 * q_mul
+                        out = flash_kernel.launch(q, k, v, **kw)
+                        a = flash_kernel.launch_bwd(q, k, v, out, dout, **kw)
+                        b = flash_kernel.launch_bwd(q, k, v, out, dout, **kw)
+                        want = plain_bwd(q.double(), k.double(), v.double(), dout.double(), out.double(), **kw)
+                        ref = [t.float().requires_grad_() for t in (q, k, v)]
+                        attention_ref(*ref, **kw).backward(dout.float())
+                        torch.cuda.synchronize()
+                        agree = bwd_agreement(a, want)
+                        # saturated scores (q x 32, 64): only dv against the
+                        # exact gradient, as in tests/test_torch_cuda.py
+                        held = slice(None) if q_mul == 1 else slice(2, 3)
+                        agree_ref = bwd_exact_agreement(a[held], [t.grad for t in ref][held])
+                        same = all(bitwise_equal(torch, x, y) for x, y in zip(a, b))
+                        worst = {x: max(worst[x], agree[x]) for x in worst}
+                        worst_ref = {x: max(worst_ref[x], agree_ref[x]) for x in worst_ref}
+                        n_cases += 1
+                        label = f"S={S} D={D} G={G} causal={causal} window={window} softcap={cap} q*{q_mul}"
+                        bad += not fails.check(
+                            agree["ok"] and agree_ref["ok"] and same,
+                            f"flash backward {label}: against float64 worst/limit {agree['worst']:.3g} rel "
+                            f"{agree['rel']:.3g}; against autograd of attention_ref rel {agree_ref['rel']:.3g}; "
+                            f"reruns bitwise equal: {same}")
+                        del q, out, a, b, want, ref
+        dt = time.perf_counter() - t0
+        rows.append({"S": S, "cases": n_cases, "failed": bad, **worst, "against_autograd": worst_ref,
+                     "seconds": dt})
+        print(f"  flash backward S={S:>5}: {n_cases - bad}/{n_cases} cases agree (against float64 given the "
+              f"forward's output: max_abs_err {worst['max_abs_err']:.3g}, worst/limit {worst['worst']:.3g}, rel "
+              f"{worst['rel']:.3g}; against autograd of attention_ref: rel {worst_ref['rel']:.3g}; reruns "
+              f"bitwise equal; {dt:.1f} s)", flush=True)
+        torch.cuda.empty_cache()
+    return rows
+
+
+def flash_bwd_at_train_shape(torch, flash_kernel, plain_bwd, bwd_agreement, seed: int) -> dict:
+    """The backward kernel at starcoder2-3b's training shape (one
+    microbatch of 2048 tokens, causal, no softcap): its time, its bound,
+    the plain version's time (f32, on the card) and SDPA's backward on the
+    same inputs (the library call), with the agreement to the plain
+    version."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs.base import get_config
+
+    cfg = get_config(TRAIN_ARCH)
+    B, S, H, Hkv, D = TRAIN_GLOBAL_BATCH // TRAIN_MICROBATCHES, TRAIN_SEQ, cfg.n_heads, cfg.n_kv_heads, \
+        cfg.resolved_head_dim
+    gen = torch.Generator(device=torch.device("cuda"))
+    gen.manual_seed(seed)
+    q = torch.randn(B, S, H, D, device="cuda", generator=gen).to(torch.bfloat16)
+    k, v = (torch.randn(B, S, Hkv, D, device="cuda", generator=gen).to(torch.bfloat16) for _ in range(2))
+    dout = torch.randn(B, S, H, D, device="cuda", generator=gen).to(torch.bfloat16)
+    kw = dict(causal=True, window=0, scale=D ** -0.5, logit_softcap=0.0)
+    out = flash_kernel.launch(q, k, v, **kw)
+    t_bound, bound_by, flops = flash_bwd_bound(B, S, H, Hkv, D, True, 0)
+    got = flash_kernel.launch_bwd(q, k, v, out, dout, **kw)
+    agree = bwd_agreement(got, plain_bwd(q, k, v, dout, out, **kw))
+    row = {"q": [B, S, H, D], "kv_heads": Hkv, "causal": True, "softcap": 0.0,
+           "ms": device_ms(torch, lambda: flash_kernel.launch_bwd(q, k, v, out, dout, **kw), reps=10),
+           "plain_ms": device_ms(torch, lambda: plain_bwd(q, k, v, dout, out, **kw), reps=1, warmup=1),
+           "bound_ms": t_bound, "bound_by": bound_by, "agreement": agree}
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+    o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, scale=kw["scale"], enable_gqa=True)
+    dot = dout.transpose(1, 2)
+    row["library_ms"] = device_ms(torch, lambda: torch.autograd.grad(o, (qt, kt, vt), dot, retain_graph=True),
+                                  reps=10)
+    row["tflops"] = flops / (row["ms"] * 1e9)
+    print(f"  flash backward at {TRAIN_ARCH}'s training shape q={row['q']} kv heads {Hkv} causal: kernel "
+          f"{row['ms']:.3f} ms ({row['tflops']:.1f} TFLOP/s of the bound's work)  bound {t_bound:.3f} ms "
+          f"({bound_by}: the gradient's 10 D and the statistics pass's 2 D FLOPs a pair and head)  plain "
+          f"{row['plain_ms']:.3f} ms  SDPA backward {row['library_ms']:.3f} ms  max_abs_err "
+          f"{agree['max_abs_err']:.3g}, worst/limit {agree['worst']:.3g}, rel {agree['rel']:.3g}", flush=True)
+    del q, k, v, dout, out, got, qt, kt, vt, o
+    torch.cuda.empty_cache()
+    return row
+
+
+# ---------------------------------------------------------------------------
+# phase 15: training starcoder2-3b at full width
+# ---------------------------------------------------------------------------
+
+
+def zipf_documents(n_docs: int, vocab_words: int, seed: int) -> list:
+    """Documents of 200-1200 words drawn Zipf (s = 1.1) over ``vocab_words``
+    words, from ``seed``."""
+    rng = np.random.default_rng(seed)
+    ranks = np.arange(1, vocab_words + 1, dtype=np.float64)
+    p = ranks ** -1.1
+    p /= p.sum()
+    lengths = rng.integers(200, 1200, n_docs)
+    words = rng.choice(vocab_words, size=int(lengths.sum()), p=p)
+    out, at = [], 0
+    for n in lengths:
+        out.append(" ".join(f"t{w}" for w in words[at:at + n]))
+        at += n
+    return out
+
+
+def train_flops(n_params: int, cfg, tokens: int, B: int, S: int) -> float:
+    """Model FLOPs of one training step: 6 per parameter and token, and the
+    attention's 4 D a pair and head forward, three times that with the
+    backward (the recomputation of remat not counted)."""
+    attn = 3 * 4.0 * cfg.resolved_head_dim * unmasked_pairs(S, S, True, 0) * cfg.n_heads * B * cfg.n_layers
+    return 6.0 * n_params * tokens + attn
+
+
+class BackwardProbe:
+    """Wraps ``ops._backward`` while the training steps run.  Of each
+    step's calls, the one numbered ``pick(step)`` keeps clones of its
+    inputs (a real layer's q, k, v, the saved output and the gradient that
+    reached it) and of the kernel's dq, dk, dv; ``check`` holds those
+    against flash_attention_bwd_plain in float64 given the same output,
+    under ref.BWD_TOL, after the step (its activations freed), beside
+    SDPA's backward on the same inputs against the plain backward given
+    SDPA's output (reported, not held).  The wrapped call still launches
+    the kernel once and counts once."""
+
+    def __init__(self, ops, pick) -> None:
+        self.ops, self.pick = ops, pick
+        self.orig = ops._backward
+        self.step = self.calls = 0
+        self.held = None
+
+    def __enter__(self):
+        def record(q, k, v, out, dout, *kw):
+            grads = self.orig(q, k, v, out, dout, *kw)
+            if self.calls == self.pick(self.step):
+                self.held = ([t.clone() for t in (q, k, v, out, dout)], kw, [g.clone() for g in grads],
+                             self.calls)
+            self.calls += 1
+            return grads
+
+        self.ops._backward = record
+        return self
+
+    def __exit__(self, *exc):
+        self.ops._backward = self.orig
+        return False
+
+    def check(self, plain_bwd, bwd_agreement) -> dict:
+        """The kept call of the step just run against the plain version;
+        then the next step's calls count from 0."""
+        if self.held is None:
+            raise RuntimeError(f"step {self.step}: call {self.pick(self.step)} of the flash backward never came "
+                               f"({self.calls} calls)")
+        (q, k, v, out, dout), (causal, window, scale, cap), got, n = self.held
+        want = plain_bwd(q.double(), k.double(), v.double(), dout.double(), out.double(), causal=causal,
+                         window=window, scale=scale, logit_softcap=cap)
+        agree = dict(bwd_agreement(got, want), call=n, q=list(q.shape), kv_heads=k.shape[2])
+        if window == 0 and cap == 0.0:
+            import torch
+            import torch.nn.functional as F
+
+            qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+            o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal, scale=scale, enable_gqa=True)
+            lib = [g.transpose(1, 2) for g in torch.autograd.grad(o, (qt, kt, vt), dout.transpose(1, 2))]
+            lib_want = plain_bwd(q.double(), k.double(), v.double(), dout.double(),
+                                 o.detach().transpose(1, 2).double(), causal=causal, window=0, scale=scale)
+            agree["library"] = bwd_agreement(lib, lib_want)
+        self.held = None
+        self.step += 1
+        self.calls = 0
+        return agree
+
+
+def train_path(torch, flash_ops, fails: Failures, seed: int, record: dict) -> dict:
+    """Phase 15.  starcoder2-3b at its published config (30 layers, bf16,
+    weights drawn from ``seed``), trained TRAIN_STEPS steps through
+    launch/train.py's model and step: data from the port's pipeline over
+    Zipf documents from ``seed`` packed at TRAIN_SEQ, global batch
+    TRAIN_GLOBAL_BATCH in TRAIN_MICROBATCHES microbatches, remat on, the
+    JAX package's launch/train.py AdamWConfig with f32 state (int8 state, said so, if the
+    card cannot hold f32).  Checks: finite loss that falls from the first
+    step to the last, flash backward launches = layers x microbatches a
+    step, no plain backward, and one backward kernel call a step (a real
+    layer's inputs and gradient) within ref.BWD_TOL of the plain backward
+    in float64 (BackwardProbe).  Per step, each under the profiler: ms,
+    tokens/s, the model-FLOP share of the card's bf16 peak, peak memory,
+    the card's idle share and the flash kernels' share of device time."""
+    import gc
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.pipeline import PipelineConfig, ShardedLoader, build_dataset
+    from repro_torch.kernels.flash.ref import bwd_agreement, flash_attention_bwd_plain
+    from repro_torch.launch.train import batch_on, build_model
+    from repro_torch.train.optimizer import AdamWConfig, adamw_init
+    from repro_torch.train.step import TrainSpec, make_train_step
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config(TRAIN_ARCH)
+    print(f"  {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated before the model "
+          f"(the serving models are freed)", flush=True)
+    t0 = time.perf_counter()
+    docs = zipf_documents(TRAIN_DOCS, cfg.vocab_size - 8, seed)
+    ds = build_dataset(docs, PipelineConfig(seq_len=TRAIN_SEQ, min_doc_tokens=8, vocab_size=cfg.vocab_size,
+                                            device="cuda"))
+    loader = ShardedLoader(ds, global_batch=TRAIN_GLOBAL_BATCH, seed=seed)
+    print(f"  data: {len(docs)} documents, {ds.n_tokens:,} tokens packed in {len(ds)} rows of {TRAIN_SEQ}, "
+          f"vocab {ds.vocab.size:,} (of the model's {cfg.vocab_size:,}) in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    spec = TrainSpec(microbatches=TRAIN_MICROBATCHES, remat=True)
+    report: dict = {"arch": TRAIN_ARCH, "layers": cfg.n_layers, "d_model": cfg.d_model,
+                    "vocab": cfg.vocab_size, "seq": TRAIN_SEQ, "global_batch": TRAIN_GLOBAL_BATCH,
+                    "microbatches": TRAIN_MICROBATCHES, "remat": True, "cuts": []}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_model(cfg, torch.device("cuda"), seed)
+    params = model.params
+    n_params = model.n_params()
+    opt_cfg = AdamWConfig(lr_peak=3e-3, warmup_steps=10, total_steps=TRAIN_STEPS)
+    state_dtype = "f32"
+    try:
+        opt_state = adamw_init(params, state_dtype)
+    except torch.cuda.OutOfMemoryError:
+        state_dtype = "int8"
+        gc.collect()
+        torch.cuda.empty_cache()
+        print("  the card cannot hold f32 AdamW state beside the model: int8 state "
+              "(AdamWConfig.state_dtype='int8')", flush=True)
+        opt_cfg = AdamWConfig(lr_peak=3e-3, warmup_steps=10, total_steps=TRAIN_STEPS, state_dtype="int8")
+        opt_state = adamw_init(params, state_dtype)
+        report["cuts"].append("optimizer state int8 (f32 did not fit)")
+    report.update(n_params=n_params, state_dtype=state_dtype)
+    step_fn = make_train_step(model, opt_cfg, spec)
+    torch.cuda.synchronize()
+    print(f"  {TRAIN_ARCH}: {n_params:,} parameters and {state_dtype} AdamW state on the card in "
+          f"{time.perf_counter() - t0:.1f} s, {torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated; "
+          f"{cfg.n_layers} layers, d_model {cfg.d_model}, vocab {cfg.vocab_size} (nothing cut)", flush=True)
+    tokens = TRAIN_GLOBAL_BATCH * TRAIN_SEQ
+    flops = train_flops(n_params, cfg, tokens, TRAIN_GLOBAL_BATCH, TRAIN_SEQ)
+    steps = []
+    # one call a step held against the plain backward, a different layer
+    # and microbatch each step
+    per_step = cfg.n_layers * TRAIN_MICROBATCHES
+    probe = BackwardProbe(flash_ops, lambda s: s * per_step // TRAIN_STEPS)
+    path_check = {"calls": 0, "max_abs_err": 0.0, "worst": 0.0, "rel": 0.0}
+    flash_ops.reset_launches()
+    for s in range(TRAIN_STEPS):
+        batch = batch_on(loader, s, torch.device("cuda"))
+        before = (flash_ops.LAUNCHES, flash_ops.BWD_LAUNCHES)
+        torch.cuda.reset_peak_memory_stats()
+        held = {}
+
+        def one():
+            held["t0"] = time.perf_counter()
+            held["out"] = step_fn(params, opt_state, batch)
+            torch.cuda.synchronize()
+            held["t1"] = time.perf_counter()
+
+        # each step under the profiler (CUDA activity only); its wall time
+        # is taken inside the profiled window, without the profiler's start
+        # and stop
+        with probe:
+            events = trace_card(torch, one)
+        params, opt_state, metrics = held["out"]
+        agree = probe.check(flash_attention_bwd_plain, bwd_agreement)
+        path_check["calls"] += 1
+        path_check.update({x: max(path_check[x], agree[x]) for x in ("max_abs_err", "worst", "rel")})
+        fails.check(agree["ok"], f"train step {s}: flash backward call {agree['call']} (q {agree['q']}) disagrees "
+                                 f"with the plain backward in float64 ({agree})")
+        dt = held["t1"] - held["t0"]
+        loss = float(metrics["loss"])
+        fwd, bwd = flash_ops.LAUNCHES - before[0], flash_ops.BWD_LAUNCHES - before[1]
+        row = {"step": s, "loss": loss, "ms": dt * 1e3, "tokens_per_s": tokens / dt,
+               "model_flop_share_of_bf16_peak": flops / dt / BF16_OPS_PER_S,
+               "grad_norm": float(metrics["grad_norm"]), "lr": float(metrics["lr"]),
+               "peak_gib": torch.cuda.max_memory_allocated() / 2**30, "flash_fwd": fwd, "flash_bwd": bwd,
+               "bwd_check": agree}
+        line = ""
+        total = sum(device_us(ev) for ev in events) / 1e3 if events is not None else 0.0
+        if total > 0:
+            fwd_ms = sum(device_us(ev) for ev in events if "flash_fwd" in ev.key) / 1e3
+            bwd_ms = sum(device_us(ev) for ev in events if "flash_bwd" in ev.key) / 1e3
+            top = sorted(((device_us(ev) / 1e3, ev.key) for ev in events if device_us(ev) > 0), reverse=True)[:6]
+            row.update(device_ms=total, idle_share=max(0.0, 1 - total / row["ms"]), flash_fwd_ms=fwd_ms,
+                       flash_bwd_ms=bwd_ms, flash_fwd_share=fwd_ms / total, flash_bwd_share=bwd_ms / total,
+                       top=[{"kernel": k[:90], "ms": ms} for ms, k in top])
+            line = (f"  device {total:.1f} ms, card idle {100 * row['idle_share']:.1f}%, flash forward "
+                    f"{100 * row['flash_fwd_share']:.1f}% and backward {100 * row['flash_bwd_share']:.1f}% of "
+                    f"device time")
+        steps.append(row)
+        fails.check(bwd == cfg.n_layers * TRAIN_MICROBATCHES,
+                    f"train step {s}: {bwd} flash backward launches, not {cfg.n_layers} x {TRAIN_MICROBATCHES}")
+        fails.check(fwd == 2 * cfg.n_layers * TRAIN_MICROBATCHES,
+                    f"train step {s}: {fwd} flash forward launches, not 2 x {cfg.n_layers} x {TRAIN_MICROBATCHES} "
+                    f"(remat recomputes each layer's forward)")
+        print(f"  step {s}: loss {loss:.4f}  {row['ms']:.1f} ms  {row['tokens_per_s']:.0f} tokens/s  "
+              f"model FLOPs {100 * row['model_flop_share_of_bf16_peak']:.1f}% of the bf16 peak (989 TFLOP/s)  "
+              f"peak {row['peak_gib']:.1f} GiB  grad norm {row['grad_norm']:.3g}  lr {row['lr']:.2e}  flash "
+              f"launches {fwd} forward, {bwd} backward; backward call {agree['call']} against float64: "
+              f"worst/limit {agree['worst']:.3g}, rel {agree['rel']:.3g}" + (
+                  f" (SDPA's backward on its inputs: worst/limit {agree['library']['worst']:.3g}, rel "
+                  f"{agree['library']['rel']:.3g})" if "library" in agree else "") + ";" + line, flush=True)
+        del held
+    losses = [r["loss"] for r in steps]
+    fails.check(all(np.isfinite(losses)), f"train: non-finite loss {losses}")
+    fails.check(losses[-1] < losses[0], f"train: the loss did not fall ({losses[0]:.4f} -> {losses[-1]:.4f})")
+    fails.check(flash_ops.PLAIN_BWD_CALLS == 0, f"train: the plain backward ran {flash_ops.PLAIN_BWD_CALLS} times")
+    report["steps"] = steps
+    report["bwd_check"] = path_check
+    report["launches"] = {"flash_fwd": flash_ops.LAUNCHES, "flash_bwd": flash_ops.BWD_LAUNCHES,
+                          "plain_bwd": flash_ops.PLAIN_BWD_CALLS}
+    if steps[-1].get("top"):
+        print("  costliest kernels of the last step: " + "; ".join(
+            f"{t['kernel'][:48]} {t['ms']:.1f} ms" for t in steps[-1]["top"][:5]), flush=True)
+    report["peak_gib"] = max(r["peak_gib"] for r in steps)
+    print(f"  {TRAIN_ARCH} trained {TRAIN_STEPS} steps: loss {losses[0]:.4f} -> {losses[-1]:.4f}; step "
+          f"{np.median([r['ms'] for r in steps]):.1f} ms (median); peak memory {report['peak_gib']:.1f} GiB; "
+          f"flash launches {report['launches']}; on {nvidia_smi_line()}", flush=True)
+    record["train"] = report
+    del model, params, opt_state, step_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+    return report
+
+
+# ---------------------------------------------------------------------------
+# phase 16: the training CLI with a failure and a restart
+# ---------------------------------------------------------------------------
+
+
+def cli_path(fails: Failures, record: dict) -> dict:
+    """``python -m repro_torch.launch.train --reduced --steps 40
+    --ckpt-every 10 --fail-at 25`` on the card in a temporary directory: it
+    must resume from step 20, finish at 40, and restore its final
+    checkpoint bitwise equal to the state in memory."""
+    import tempfile
+
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--reduced", "--steps", "40", "--ckpt-every", "10",
+           "--fail-at", "25"]
+    with tempfile.TemporaryDirectory() as tmp:
+        env = dict(os.environ, PYTHONPATH=SRC)
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd + ["--ckpt-dir", os.path.join(tmp, "ckpt")], capture_output=True, text=True,
+                              env=env, cwd=tmp, timeout=600)
+        dt = time.perf_counter() - t0
+    lines = proc.stdout.splitlines()
+    for line in lines:
+        if not line.startswith("[train] summary"):
+            print("  " + line, flush=True)
+    summary = {}
+    if proc.returncode == 0 and lines and lines[-1].startswith("[train] summary "):
+        summary = json.loads(lines[-1][len("[train] summary "):])
+    ok = (proc.returncode == 0 and summary.get("resumed_from") == [20] and summary.get("final_step") == 40
+          and summary.get("restores_bitwise") is True)
+    fails.check(ok, f"launch.train with --fail-at 25: exit {proc.returncode}, summary "
+                    f"{ {k: summary.get(k) for k in ('resumed_from', 'final_step', 'restores_bitwise')} }; "
+                    f"stderr {proc.stderr[-2000:]}")
+    losses = summary.get("losses") or [float("nan")]
+    print(f"  {' '.join(cmd[1:])}: exit {proc.returncode} in {dt:.1f} s, resumed from {summary.get('resumed_from')}, "
+          f"final step {summary.get('final_step')}, final checkpoint restores bitwise: "
+          f"{summary.get('restores_bitwise')}, loss {losses[0]:.4f} -> {losses[-1]:.4f}", flush=True)
+    record["cli"] = {"cmd": cmd, "returncode": proc.returncode, "seconds": dt, **summary}
+    return record["cli"]
+
+
 def nvidia_smi_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1547,7 +2041,14 @@ def main(argv=None) -> int:
     import repro_torch
     from repro_torch.kernels.flash import kernel as flash_kernel
     from repro_torch.kernels.flash import ops as flash_ops
-    from repro_torch.kernels.flash.ref import agreement, flash_attention_plain
+    from repro_torch.kernels.flash.ref import (
+        agreement,
+        attention_ref,
+        bwd_agreement,
+        bwd_exact_agreement,
+        flash_attention_bwd_plain,
+        flash_attention_plain,
+    )
     from repro_torch.kernels.segreduce import kernel, ops, ref
     from repro_torch.kernels.wkv6 import kernel as wkv6_kernel
     from repro_torch.kernels.wkv6 import ops as wkv6_ops
@@ -1568,7 +2069,7 @@ def main(argv=None) -> int:
     # 2. build
     t0 = time.perf_counter()
     record["build_s"] = build_all({"segreduce": kernel.LIBRARY, "flash": flash_kernel.LIBRARY,
-                                   "wkv6": wkv6_kernel.LIBRARY})
+                                   "flash_bwd": flash_kernel.BWD_LIBRARY, "wkv6": wkv6_kernel.LIBRARY})
     print("build: " + ", ".join(f"{n} library in {t:.1f} s" for n, t in record["build_s"].items())
           + f" (in parallel; all loaded in {time.perf_counter() - t0:.1f} s)", flush=True)
 
@@ -1686,6 +2187,24 @@ def main(argv=None) -> int:
     fails.check(sum(server_launches.values()) > 0, "the server path never launched segreduce")
     for kname in launches:
         launches[kname] += part_launches[kname] + server_launches[kname]
+    torch.cuda.empty_cache()
+
+    # 14. the flash backward against its plain version
+    print("flash backward kernel against its plain version:", flush=True)
+    record["flash_bwd_matrix"] = flash_bwd_matrix(torch, flash_kernel, flash_attention_bwd_plain, attention_ref,
+                                                  bwd_agreement, bwd_exact_agreement, fails, args.seed)
+    bwd_row = flash_bwd_at_train_shape(torch, flash_kernel, flash_attention_bwd_plain, bwd_agreement, args.seed)
+    record["flash_bwd_shape"] = bwd_row
+
+    # 15. training starcoder2-3b at full width
+    print(f"training path: {TRAIN_ARCH} at full width:", flush=True)
+    train = train_path(torch, flash_ops, fails, args.seed, record)
+    flash_launches += train["launches"]["flash_fwd"]
+    bwd_launches = train["launches"]["flash_bwd"]
+
+    # 16. the training CLI: a failure and a restart from the checkpoint
+    print("training CLI with a simulated failure:", flush=True)
+    cli_path(fails, record)
 
     # the JSON record: each kernel at the largest shape the main path gave it
     entries = []
@@ -1743,6 +2262,26 @@ def main(argv=None) -> int:
             "library_ms": None,
         })
     fails.check(wkv6_launches > 0, "the rwkv6 serving path never launched wkv6")
+    entries.append({
+        "name": "flash_attention_bwd",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/flash/csrc/flash_bwd.cu",
+        "replaces": None,
+        "replaces_note": "no TPU kernel: the reference differentiates flash_attention_jnp "
+                         "(src/repro/models/attention.py:54) by autodiff",
+        "launches": bwd_launches,
+        "max_abs_err": max([r["max_abs_err"] for r in record["flash_bwd_matrix"]]
+                           + [bwd_row["agreement"]["max_abs_err"], train["bwd_check"]["max_abs_err"]]),
+        "train_path_check": train["bwd_check"],
+        "ms": bwd_row["ms"],
+        "plain_ms": bwd_row["plain_ms"],
+        "bound_ms": bwd_row["bound_ms"],
+        "bound_by": bwd_row["bound_by"],
+        "library_ms": bwd_row["library_ms"],
+    })
+    fails.check(bwd_launches > 0, "the training path never launched the flash backward")
+    fails.check(bwd_row["agreement"]["ok"], f"flash backward at the training shape disagrees with its plain "
+                                            f"version ({bwd_row['agreement']})")
     record["failures"] = fails.items
     os.makedirs(os.path.dirname(args.out), exist_ok=True)
     with open(args.out, "w") as fh:

@@ -7,10 +7,11 @@ import torch
 
 
 def agreement(got: torch.Tensor, want: torch.Tensor, tol: dict) -> dict:
-    """``got`` against ``want`` under ``tol`` = dict(rtol, atol_frac, rel).
-    Per element, |got - want| <= rtol * |want| + atol_frac * rms(want's
-    row), a row being the last axis; over the whole tensor, ||got - want|| /
-    ||want|| <= rel; and every element of ``got`` finite.  ``ok`` when all
+    """``got`` against ``want`` under ``tol`` = dict(rtol, atol_frac, rel,
+    and optionally floor_frac).  Per element, |got - want| <= rtol * |want|
+    + atol_frac * rms(want's row) + floor_frac * rms(want), a row being the
+    last axis; over the whole tensor, ||got - want|| / ||want|| <= rel; and
+    every element of ``got`` finite.  ``ok`` when all
     hold; ``worst`` is the largest |got - want| over its per-element limit
     (at most 1 when ok), ``rel`` the relative Frobenius error,
     ``max_abs_err`` the largest difference."""
@@ -19,6 +20,8 @@ def agreement(got: torch.Tensor, want: torch.Tensor, tol: dict) -> dict:
     g, w = got.float(), want.float()
     diff = (g - w).abs()
     limit = tol["rtol"] * w.abs() + tol["atol_frac"] * w.square().mean(dim=-1, keepdim=True).sqrt()
+    if tol.get("floor_frac"):
+        limit = limit + tol["floor_frac"] * w.square().mean().sqrt()
     worst = float(torch.where(diff == 0, 0.0, diff / limit).max())
     finite = bool(torch.isfinite(g).all())
     norm_w, norm_d = float(torch.linalg.vector_norm(w)), float(torch.linalg.vector_norm(diff))

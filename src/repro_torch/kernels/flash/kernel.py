@@ -1,9 +1,10 @@
-# The hand-written CUDA flash-attention forward kernel (csrc/flash_fwd.cu):
-# its ctypes binding, one launch, and the bf16 kernel's tile configuration
-# (``TILES``, the source's ``WgCfg``; the library reports its own through
-# ``library_config``).  The build (nvcc at first use into ``build/kernels/``,
-# keyed by a hash of the source) is the shared helper in
-# ``kernels/_build.py``.  Nothing here runs at import time.
+# The hand-written CUDA flash-attention kernels: the forward
+# (csrc/flash_fwd.cu), its ctypes binding, one launch, and the bf16 kernel's
+# tile configuration (``TILES``, the source's ``WgCfg``; the library reports
+# its own through ``library_config``); and the backward (csrc/flash_bwd.cu),
+# its binding and one launch (``launch_bwd``).  The build (nvcc at first
+# use into ``build/kernels/``, keyed by a hash of the source) is the shared
+# helper in ``kernels/_build.py``.  Nothing here runs at import time.
 from __future__ import annotations
 
 import ctypes
@@ -15,8 +16,10 @@ import torch.nn.functional as F
 from .._build import CudaLibrary
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_fwd.cu"
+BWD_SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_bwd.cu"
 
 HEAD_DIMS = (32, 64, 128, 256)  # the head dims the kernel is built for
+BWD_HEAD_DIMS = (16, 32, 64, 128)  # the head dims the backward kernel is built for
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -136,3 +139,39 @@ def launch(
         what = f"CUresult {rc - 1000} encoding a tensor map" if rc >= 1000 else f"cudaError {rc}"
         raise RuntimeError(f"flash kernel launch failed with {what}")
     return out if Dp == D else out[..., :D]
+
+
+def _configure_bwd(lib: ctypes.CDLL) -> None:
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.flash_bwd_launch.argtypes = [p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, f, f, i, p]
+    lib.flash_bwd_launch.restype = ctypes.c_int
+
+
+BWD_LIBRARY = CudaLibrary("flash_bwd", BWD_SOURCE, _configure_bwd)
+
+
+def launch_bwd(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor, dout: torch.Tensor, *,
+    causal: bool, window: int, scale: float, logit_softcap: float, lib: CudaLibrary = BWD_LIBRARY,
+) -> tuple:
+    """One launch of the backward on CUDA tensors the caller has checked:
+    bf16 q, out, dout (B, S, H, D) and k, v (B, S, Hkv, D), contiguous, on
+    one device, D in BWD_HEAD_DIMS.  dq, dk, dv and the scratch of the row
+    statistics and of delta = rowsum(dout * out) (which the kernel takes)
+    are allocated here; the kernels run on the current stream.  Returns
+    (dq, dk, dv) in bf16."""
+    B, S, H, D = q.shape
+    Hkv = k.shape[2]
+    out = out.contiguous()  # the forward's output at a head dim it pads (16) is a view
+    delta, lse = torch.empty((2, B, S, H), dtype=torch.float32, device=q.device)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    device = q.device.index if q.device.index is not None else torch.cuda.current_device()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    rc = lib.load().flash_bwd_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(), delta.data_ptr(),
+        lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, S, H, Hkv, D, int(causal), int(window),
+        float(scale), float(logit_softcap), device, stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"flash backward kernel launch failed with cudaError {rc}")
+    return dq, dk, dv

@@ -1,24 +1,31 @@
-# Public wrapper of the flash-attention forward kernel.  A tensor on the CPU
-# goes to the plain PyTorch version (ref.flash_attention_plain); a tensor on
-# a CUDA device goes to the hand-written CUDA kernel (kernel.py,
-# csrc/flash_fwd.cu) or raises.  There is no fallback from the card to the
-# plain version.
+# Public wrapper of the flash-attention kernels.  A tensor on the CPU goes
+# to the plain PyTorch versions (ref.flash_attention_plain, and
+# ref.flash_attention_bwd_plain for the gradient); a tensor on a CUDA device
+# goes to the hand-written CUDA kernels (kernel.py, csrc/flash_fwd.cu and
+# csrc/flash_bwd.cu) or raises.  There is no fallback from the card to the
+# plain versions.  When q, k or v requires grad, the call goes through the
+# autograd Function ``FlashAttention``, whose backward is the backward
+# kernel.
 from __future__ import annotations
 
 import torch
 
 from . import kernel
-from .ref import flash_attention_plain
+from .ref import flash_attention_bwd_plain, flash_attention_plain
 
-# Launches of the CUDA kernel, so a run can show that its attention went
-# through the kernel.  Only the CUDA path counts; the plain version on the
-# CPU launches nothing.
+# Launches of the CUDA kernels, so a run can show that its attention and its
+# gradient went through them: LAUNCHES counts the forward, BWD_LAUNCHES the
+# backward.  Only the CUDA path counts; the plain versions on the CPU launch
+# nothing.  PLAIN_BWD_CALLS counts the plain backward's calls, so a run on
+# the card can show it never took one.
 LAUNCHES = 0
+BWD_LAUNCHES = 0
+PLAIN_BWD_CALLS = 0
 
 
 def reset_launches() -> None:
-    global LAUNCHES
-    LAUNCHES = 0
+    global LAUNCHES, BWD_LAUNCHES, PLAIN_BWD_CALLS
+    LAUNCHES = BWD_LAUNCHES = PLAIN_BWD_CALLS = 0
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -37,6 +44,66 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError(f"q, k and v lie on {q.device}, {k.device} and {v.device}")
 
 
+def _forward(q, k, v, causal, window, scale, logit_softcap) -> torch.Tensor:
+    global LAUNCHES
+    if q.device.type == "cpu":
+        return flash_attention_plain(
+            q, k, v, causal=causal, window=window, scale=scale, logit_softcap=logit_softcap
+        )
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention runs on the CPU or a CUDA device, not {q.device}")
+    for t in (q, k, v):
+        if not t.is_contiguous():
+            raise ValueError("flash_attention takes contiguous tensors on CUDA")
+    out = kernel.launch(q, k, v, causal=causal, window=window, scale=scale, logit_softcap=logit_softcap)
+    LAUNCHES += 1
+    return out
+
+
+def _check_grad(q: torch.Tensor, k: torch.Tensor) -> None:
+    """The cases the gradient takes: queries and keys of one length, and on
+    the card bf16 at a head dim the backward kernel is built for."""
+    if q.shape[1] != k.shape[1]:
+        raise ValueError(f"the flash gradient takes queries and keys of one length (training), "
+                         f"not Sq={q.shape[1]} and Sk={k.shape[1]}")
+    if q.device.type == "cuda":
+        if q.dtype != torch.bfloat16:
+            raise TypeError(f"the flash backward kernel is built for bfloat16, not {q.dtype}")
+        if q.shape[3] not in kernel.BWD_HEAD_DIMS:
+            raise ValueError(f"the flash backward kernel is built for head dims {kernel.BWD_HEAD_DIMS}, "
+                             f"not {q.shape[3]}")
+
+
+def _backward(q, k, v, out, dout, causal, window, scale, logit_softcap) -> tuple:
+    global BWD_LAUNCHES, PLAIN_BWD_CALLS
+    kw = dict(causal=causal, window=window, scale=scale, logit_softcap=logit_softcap)
+    if q.device.type == "cpu":
+        PLAIN_BWD_CALLS += 1
+        return flash_attention_bwd_plain(q, k, v, dout, out, **kw)
+    grads = kernel.launch_bwd(q, k, v, out, dout.contiguous(), **kw)
+    BWD_LAUNCHES += 1
+    return grads
+
+
+class FlashAttention(torch.autograd.Function):
+    """Attention with its gradient: the forward kernel (or, on the CPU, its
+    plain version) forward, the backward kernel (on the CPU its plain
+    version) backward.  The output is saved for the backward's delta."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, scale, logit_softcap):
+        out = _forward(q, k, v, causal, window, scale, logit_softcap)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.kw = (causal, window, scale, logit_softcap)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out = ctx.saved_tensors
+        dq, dk, dv = _backward(q, k, v, out, dout, *ctx.kw)
+        return dq, dk, dv, None, None, None, None
+
+
 def flash_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -50,18 +117,10 @@ def flash_attention(
     """Attention of q (B, Sq, H, D) over k, v (B, Sk, Hkv, D): scale, then
     softcap when ``logit_softcap`` > 0, then the mask (causal, and the last
     ``window`` positions when ``window`` > 0, with queries aligned to the end
-    of the keys), online softmax in f32.  Output (B, Sq, H, D) in q's type."""
-    global LAUNCHES
+    of the keys), online softmax in f32.  Output (B, Sq, H, D) in q's type.
+    Differentiable in q, k and v (``FlashAttention``) when Sq == Sk."""
     _check(q, k, v)
-    if q.device.type == "cpu":
-        return flash_attention_plain(
-            q, k, v, causal=causal, window=window, scale=scale, logit_softcap=logit_softcap
-        )
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention runs on the CPU or a CUDA device, not {q.device}")
-    for t in (q, k, v):
-        if not t.is_contiguous():
-            raise ValueError("flash_attention takes contiguous tensors on CUDA")
-    out = kernel.launch(q, k, v, causal=causal, window=window, scale=scale, logit_softcap=logit_softcap)
-    LAUNCHES += 1
-    return out
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        _check_grad(q, k)
+        return FlashAttention.apply(q, k, v, causal, window, scale, logit_softcap)
+    return _forward(q, k, v, causal, window, scale, logit_softcap)

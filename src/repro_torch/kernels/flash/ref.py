@@ -8,8 +8,12 @@
 # p is 0; rows with no unmasked key give 0).  It never materialises Sq x Sk,
 # so it serves at full size, where attention_ref at B=8, S=2048, H=16 would
 # hold 2 GB of f32 scores per layer.  ``agreement`` is the tolerance the
-# kernel is held to against it.
+# kernel is held to against it.  ``flash_attention_bwd_plain`` is the
+# backward kernel's plain version: dq, dk and dv written out (not autograd),
+# and ``bwd_agreement`` its tolerance.
 from __future__ import annotations
+
+from typing import Optional, Tuple
 
 import torch
 
@@ -31,10 +35,55 @@ KERNEL_TOL = {
 }
 
 
+# What the backward kernel's dq, dk and dv (bf16) are held to against
+# flash_attention_bwd_plain run in float64 on the same bf16 inputs and the
+# same forward output (the function the kernel computes: the backward of
+# the attention whose output it is given): the forward's bf16 limits
+# (KERNEL_TOL) per element, |got - want| <= rtol * |want| + atol_frac *
+# rms(want's row) + floor_frac * rms(want over the tensor); and ||got -
+# want|| / ||want|| <= rel.  The kernel rounds p and ds to bf16 as operands
+# of its products (relative 2^-9 each) and its results to bf16.  The floor
+# is for rows that cancel to zero (dq of a query that sees one key: p = 1
+# whatever the score, so ds = dp - delta = 0), where f32 sums may leave a
+# residue far below the tensor's scale.  A sequence of one token has dq
+# and dk zero throughout, where neither form has a scale.
+BWD_TOL = dict(rtol=3e-2, atol_frac=5e-2, floor_frac=1e-3, rel=1e-2)
+# Against the exact gradient (autograd of attention_ref, or the plain
+# version given no output), only the relative norm is held: delta =
+# rowsum(dout * out) comes from the forward's bf16 output, and its
+# rounding moves every ds of a row by the same amount, an error of the
+# row's terms' scale that a row whose gradient cancels (a peaked softmax)
+# does not share; on the card such elements read up to 40x the
+# per-element limit while the relative norm read 0.0025-0.0028 (NVIDIA
+# H100 80GB HBM3, chip_smoke.py phase 14).
+BWD_EXACT_REL = 1e-2
+
+
 def agreement(got: torch.Tensor, want: torch.Tensor) -> dict:
     """The kernel's output ``got`` against the plain version's ``want``
     under KERNEL_TOL for ``want``'s type (``kernels._agreement``)."""
     return _agreement(got, want, KERNEL_TOL[want.dtype])
+
+
+def bwd_agreement(got: tuple, want: tuple) -> dict:
+    """The backward kernel's (dq, dk, dv) against the plain version's under
+    BWD_TOL: ``ok`` when all three agree, the readings the worst of the
+    three."""
+    parts = [_agreement(g, w, BWD_TOL) for g, w in zip(got, want)]
+    return {"ok": all(a["ok"] for a in parts),
+            **{x: max(a[x] for a in parts) for x in ("worst", "rel", "max_abs_err")}}
+
+
+def bwd_exact_agreement(got: tuple, want: tuple) -> dict:
+    """The backward kernel's (dq, dk, dv) against the exact gradient: ``ok``
+    when each relative Frobenius error is at most BWD_EXACT_REL."""
+    rel = 0.0
+    for g, w in zip(got, want):
+        norm_w = float(torch.linalg.vector_norm(w.double()))
+        diff = float(torch.linalg.vector_norm(g.double() - w.double()))
+        rel = max(rel, diff / norm_w if norm_w > 0 else (0.0 if diff == 0 else float("inf")))
+    finite = all(bool(torch.isfinite(g).all()) for g in got)
+    return {"ok": finite and rel <= BWD_EXACT_REL, "rel": rel}
 
 
 def attention_ref(
@@ -131,3 +180,73 @@ def flash_attention_plain(
         o = acc / lsafe[..., None]  # (B, Hkv, G, qb, D)
         out[:, q_lo:q_hi] = o.permute(0, 3, 1, 2, 4).reshape(B, q_hi - q_lo, H, D)
     return out.to(q.dtype)
+
+
+def flash_attention_bwd_plain(
+    q: torch.Tensor,     # (B, S, H, D)
+    k: torch.Tensor,     # (B, S, Hkv, D)
+    v: torch.Tensor,
+    dout: torch.Tensor,  # (B, S, H, D), the output's gradient
+    out: Optional[torch.Tensor] = None,
+    *,
+    causal: bool = True,
+    window: int = 0,
+    scale: float = 1.0,
+    logit_softcap: float = 0.0,
+    q_block: int = 512,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """dq, dk, dv of the forward's attention, written out, in f32 (float64
+    for float64 inputs), cast to q's dtype at the end.  A q tile at a time:
+    each row's softmax over the keys its tile may see, then
+    dv += p^T dout, dp = dout v^T, ds = p (dp - delta) with delta =
+    rowsum(dout * out) (out recomputed here when not given), times the
+    softcap's derivative 1 - (s / c)^2, dq = scale ds k and dk += scale
+    ds^T q; the G query heads of a kv head sum into its dk and dv.  Queries
+    and keys are of one length (training)."""
+    B, S, H, D = q.shape
+    Hkv = k.shape[2]
+    G = H // Hkv
+    if k.shape[1] != S:
+        raise ValueError(f"the backward takes queries and keys of one length, not {S} and {k.shape[1]}")
+    ct = torch.float64 if q.dtype == torch.float64 else torch.float32
+    dev = q.device
+    qf = q.to(ct).reshape(B, S, Hkv, G, D)
+    kf, vf = k.to(ct), v.to(ct)
+    df = dout.to(ct).reshape(B, S, Hkv, G, D)
+    dq = torch.zeros((B, S, Hkv, G, D), dtype=ct, device=dev)
+    dk = torch.zeros((B, S, Hkv, D), dtype=ct, device=dev)
+    dv = torch.zeros_like(dk)
+    for q_lo in range(0, S, q_block):
+        q_hi = min(q_lo + q_block, S)
+        k_lo, k_hi = key_range(q_lo, q_hi, S, S, causal, window)
+        qt, dot = qf[:, q_lo:q_hi], df[:, q_lo:q_hi]
+        kt, vt = kf[:, k_lo:k_hi], vf[:, k_lo:k_hi]
+        s = torch.einsum("bqhgd,bkhd->bhgqk", qt, kt) * scale
+        th = None
+        if logit_softcap > 0:
+            th = torch.tanh(s / logit_softcap)
+            s = logit_softcap * th
+        q_ids = torch.arange(q_lo, q_hi, device=dev)[:, None]
+        k_ids = torch.arange(k_lo, k_hi, device=dev)[None, :]
+        mask = torch.ones((q_hi - q_lo, k_hi - k_lo), dtype=torch.bool, device=dev)
+        if causal:
+            mask &= k_ids <= q_ids
+        if window > 0:
+            mask &= (q_ids - k_ids) < window
+        s = torch.where(mask, s, NEG_INF)
+        p = torch.where(mask, torch.exp(s - s.amax(dim=-1, keepdim=True)), 0.0)
+        l = p.sum(dim=-1, keepdim=True)
+        p = p / torch.where(l == 0, 1.0, l)
+        if out is None:
+            o = torch.einsum("bhgqk,bkhd->bqhgd", p, vt)
+        else:
+            o = out[:, q_lo:q_hi].to(ct).reshape(B, q_hi - q_lo, Hkv, G, D)
+        delta = (dot * o).sum(dim=-1).permute(0, 2, 3, 1)  # (B, Hkv, G, q)
+        dv[:, k_lo:k_hi] += torch.einsum("bhgqk,bqhgd->bkhd", p, dot)
+        dp = torch.einsum("bqhgd,bkhd->bhgqk", dot, vt)
+        ds = p * (dp - delta[..., None])
+        if th is not None:
+            ds = ds * (1 - th * th)
+        dq[:, q_lo:q_hi] = torch.einsum("bhgqk,bkhd->bqhgd", ds, kt) * scale
+        dk[:, k_lo:k_hi] += torch.einsum("bhgqk,bqhgd->bkhd", ds, qt) * scale
+    return dq.reshape(B, S, H, D).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)

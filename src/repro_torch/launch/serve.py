@@ -1,6 +1,7 @@
 # Serving CLI: batched prefill + decode with continuous batching
 # (finished sequences are replaced from the request queue without stopping
-# the decode loop).  Runs on the card unless --device cpu.
+# the decode loop).  Runs on the card, where each decode step replays one
+# CUDA graph (serve/step.make_decode_step), unless --device cpu.
 #
 #   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-9b \
 #       --requests 12 --batch 4 --new 24
@@ -15,7 +16,7 @@ import torch
 
 from repro_torch.configs.base import get_config, reduced_config
 from repro_torch.models.transformer import Model, resolve_device
-from repro_torch.serve.step import make_decode_step, pad_cache
+from repro_torch.serve.step import make_decode_step, pad_cache, reset_lane_
 
 
 def main(argv: Optional[List[str]] = None) -> dict:
@@ -69,8 +70,10 @@ def main(argv: Optional[List[str]] = None) -> dict:
                     done += 1
                     if queue:
                         # continuous batching: swap a fresh request into slot i —
-                        # reset its cache lane and restart its position window
+                        # reset its cache lane in place (on the card the decode
+                        # graph keeps reading the same buffers)
                         queue.pop(0)
+                        reset_lane_(cache, i)
                         remaining[i] = args.new
                         print(f"[serve] slot {i}: finished; admitting new request "
                               f"({len(queue)} queued, {done}/{args.requests} done)")

@@ -174,7 +174,7 @@ def decode_attention(
 class AttnInputs:
     positions: torch.Tensor         # (B, S) int — or (3, B, S) for M-RoPE
     cache: Optional[Dict[str, torch.Tensor]] = None  # decode: {'k','v'} (B,Sc,Hkv,D), written in place
-    cache_pos: Optional[int] = None  # decode: the write position
+    cache_pos: Optional[torch.Tensor] = None  # decode: the write position, a 0-dim int64 device tensor
     collect_kv: bool = False         # prefill: return the built cache
     quantize_collected: bool = False  # prefill: emit the int8 cache layout
 
@@ -195,9 +195,10 @@ def quantize_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return torch.clamp(torch.round(x32 / s), -127, 127).to(torch.int8), s.to(torch.float16)
 
 
-def _valid(pos: int, Sc: int, rolling: bool, B: int, device) -> torch.Tensor:
-    """The cache slots decode may read at position ``pos``: a ring buffer
-    holds the last Sc positions, the others every position up to ``pos``."""
+def _valid(pos: torch.Tensor, Sc: int, rolling: bool, B: int, device) -> torch.Tensor:
+    """The cache slots decode may read at position ``pos`` (a 0-dim device
+    tensor, so no value reaches the host): a ring buffer holds the last Sc
+    positions, the others every position up to ``pos``."""
     idx = torch.arange(Sc, device=device)
     if rolling:
         valid = (idx <= pos % Sc) | (pos >= Sc)
@@ -237,9 +238,9 @@ def attention_block(
         Sc = qc["k_q"].shape[1]
         pos = inputs.cache_pos
         rolling = kind in ("local", "chunked")
-        write = pos % Sc if rolling else pos
-        qc["k_q"][:, write : write + 1], qc["k_s"][:, write : write + 1] = quantize_rows(k)
-        qc["v_q"][:, write : write + 1], qc["v_s"][:, write : write + 1] = quantize_rows(v)
+        write = (pos % Sc if rolling else pos).reshape(1)
+        for name, part in zip(("k_q", "k_s", "v_q", "v_s"), quantize_rows(k) + quantize_rows(v)):
+            qc[name].index_copy_(1, write, part)
         new_cache = qc
         kc = (qc["k_q"].float() * qc["k_s"].float()).to(q.dtype)
         vc = (qc["v_q"].float() * qc["v_s"].float()).to(q.dtype)
@@ -264,14 +265,15 @@ def attention_block(
         else:
             new_cache = {"k": kc.to(torch.bfloat16), "v": vc.to(torch.bfloat16)}
     if inputs.cache is not None:
-        # decode: write k/v at cache_pos in place (rolling for local layers)
+        # decode: write k/v at cache_pos in place (rolling for local layers),
+        # indexed on the device
         kc, vc = inputs.cache["k"], inputs.cache["v"]
         Sc = kc.shape[1]
         pos = inputs.cache_pos
         rolling = kind in ("local", "chunked")  # bounded cache, ring buffer
-        write = pos % Sc if rolling else pos
-        kc[:, write : write + 1] = k.to(kc.dtype)
-        vc[:, write : write + 1] = v.to(vc.dtype)
+        write = (pos % Sc if rolling else pos).reshape(1)
+        kc.index_copy_(1, write, k.to(kc.dtype))
+        vc.index_copy_(1, write, v.to(vc.dtype))
         new_cache = inputs.cache
         valid = _valid(pos, Sc, rolling, B, x.device)
         out = decode_attention(

@@ -33,3 +33,14 @@ def params_from_jax(tree: Any, device: Any = "cpu") -> Dict[str, torch.Tensor]:
 def cache_from_jax(tree: Any, device: Any = "cpu") -> Any:
     """The JAX package's cache tree as the port's (the same nesting)."""
     return tree_map(lambda a: tensor_from_numpy(a, device), tree)
+
+
+def opt_state_from_jax(state: Any, device: Any = "cpu"):
+    """The JAX package's AdamWState (step, master, m, v; numpy leaves, m
+    and v f32 arrays or int8 {'q', 's'} dicts) as the port's AdamWState
+    with the same nesting."""
+    from repro_torch.train.optimizer import AdamWState
+
+    step, master, m, v = state
+    conv = lambda tree: tree_map(lambda a: tensor_from_numpy(a, device), tree)  # noqa: E731
+    return AdamWState(tensor_from_numpy(step, device), conv(master), conv(m), conv(v))

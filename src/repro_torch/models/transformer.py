@@ -15,6 +15,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from .attention import AttnInputs, attention_block, attention_defs, init_cache_shape
@@ -253,8 +254,10 @@ def embed_tokens(params: Dict[str, Any], batch: Dict[str, torch.Tensor], cfg: Ar
         x = torch.where(batch["patch_mask"][..., None], batch["patch_embeds"].to(x.dtype), x)
     if cfg.embed_scale:
         # the JAX package casts sqrt(d) to the embedding's type first
-        # (sqrt(3584) = 59.87 becomes 59.75 in bf16), then multiplies
-        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype, device=x.device)
+        # (sqrt(3584) = 59.87 becomes 59.75 in bf16), then multiplies; the
+        # rounded factor is a host scalar, so a captured decode step copies
+        # nothing from the host
+        x = x * float(torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype))
     return x
 
 
@@ -288,13 +291,26 @@ def forward(
     params: Dict[str, Any],
     batch: Dict[str, torch.Tensor],
     cfg: ArchConfig,
+    remat: bool = False,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Full-sequence forward (train / prefill).  Returns (logits, aux)."""
+    """Full-sequence forward (train / prefill).  Returns (logits, aux).
+    ``remat`` recomputes each repeat of the layer pattern in the backward
+    (torch.utils.checkpoint), as the JAX package checkpoints each step of
+    its scan; the remainder layers are not recomputed, as there."""
     x = embed_tokens(params, batch, cfg)
     B, S, _ = x.shape
     positions = _positions_of(batch, cfg, B, S, x.device)
-    for group, idx, kind in _layers(cfg):
-        x, _, _ = apply_block(_layer_params(params, group, idx), x, cfg, kind, positions)
+    (pattern, repeats), remainder = cfg.scan_groups()
+
+    def repeat(x: torch.Tensor, r: int) -> torch.Tensor:
+        for i, kind in enumerate(pattern):
+            x, _, _ = apply_block(_layer(params["groups"][f"pos{i}"], r), x, cfg, kind, positions)
+        return x
+
+    for r in range(repeats):
+        x = checkpoint(repeat, x, r, use_reentrant=False) if remat else repeat(x, r)
+    for j, kind in enumerate(remainder):
+        x, _, _ = apply_block(params["remainder"][j], x, cfg, kind, positions)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = _project_logits(params, x, cfg)
     aux = {k: torch.zeros((), dtype=torch.float32, device=x.device) for k in AUX_KEYS}
@@ -355,12 +371,14 @@ def decode_step(
     batch: Dict[str, Any],
     cfg: ArchConfig,
 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
-    """batch: {'tokens': (B,1), 'pos': int} -> (logits (B,1,V), cache).
-    The cache is written in place and returned."""
+    """batch: {'tokens': (B,1), 'pos': 0-dim int device tensor (an int is
+    taken too)} -> (logits (B,1,V), cache).  The cache is written in place
+    and returned.  Nothing here reads a value back to the host, so the step
+    can be captured in a CUDA graph (serve/step.py)."""
     x = embed_tokens(params, batch, cfg)
     B = x.shape[0]
-    pos = int(batch["pos"])
-    positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
+    pos = torch.as_tensor(batch["pos"], device=x.device).to(torch.int64)
+    positions = pos.to(torch.int32).reshape(1, 1).expand(B, 1)
     if cfg.m_rope_sections:
         positions = positions[None].expand(3, B, 1)
     for group, idx, kind in _layers(cfg):
@@ -372,14 +390,14 @@ def decode_step(
 
 
 # ---------------------------------------------------------------------------
-# Loss (forward only)
+# Loss (differentiable: the flash kernel carries its gradient)
 # ---------------------------------------------------------------------------
 
 
 def lm_loss(
-    params: Dict[str, Any], batch: Dict[str, torch.Tensor], cfg: ArchConfig
+    params: Dict[str, Any], batch: Dict[str, torch.Tensor], cfg: ArchConfig, *, remat: bool = False
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    logits, aux = forward(params, batch, cfg)
+    logits, aux = forward(params, batch, cfg, remat=remat)
     labels = batch["tokens"][:, 1:].long()
     logits = logits[:, :-1]
     mask = batch.get("loss_mask")
@@ -472,11 +490,12 @@ class Model(nn.Module):
             self.get_parameter(path).copy_(init_param(d, generator, self.device))
         return self
 
-    def forward(self, batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        return forward(self.params, batch, self.cfg)
+    def forward(self, batch: Dict[str, torch.Tensor],
+                remat: bool = False) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        return forward(self.params, batch, self.cfg, remat=remat)
 
-    def loss(self, batch: Dict[str, torch.Tensor]):
-        return lm_loss(self.params, batch, self.cfg)
+    def loss(self, batch: Dict[str, torch.Tensor], remat: bool = False):
+        return lm_loss(self.params, batch, self.cfg, remat=remat)
 
     def prefill(self, batch: Dict[str, torch.Tensor], quantize_cache: bool = False):
         return prefill_forward(self.params, batch, self.cfg, quantize_cache)

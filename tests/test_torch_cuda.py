@@ -7,7 +7,13 @@
 # hand-written WKV6 kernel against its plain version (within
 # ``ref.KERNEL_TOL``, reruns bitwise equal) over decay regimes from weak to
 # the clip's strongest, and a reduced rwkv6 on the card whose prefill runs
-# through it.  This file imports neither jax nor the JAX package, so it runs
+# through it; the hand-written flash backward kernel against its plain
+# version given the same forward output (within ``ref.BWD_TOL``, reruns
+# bitwise equal) and against the exact gradient (``ref.BWD_EXACT_REL``),
+# the decode step replayed as a CUDA graph against the eager step (tokens
+# and logits bitwise equal), the serving CLI refilling slots under the
+# graph, and a reduced starcoder2-3b train step whose attention gradients
+# run the backward kernel.  This file imports neither jax nor the JAX package, so it runs
 # on a machine that has only the port:
 #
 #     PYTHONPATH=src python -m pytest tests/test_torch_cuda.py -q
@@ -23,7 +29,14 @@ from repro_torch import Session
 from repro_torch.configs.base import get_config, reduced_config
 from repro_torch.kernels.flash import kernel as flash_kernel
 from repro_torch.kernels.flash import ops as flash_ops
-from repro_torch.kernels.flash.ref import agreement, flash_attention_plain
+from repro_torch.kernels.flash.ref import (
+    agreement,
+    attention_ref,
+    bwd_agreement,
+    bwd_exact_agreement,
+    flash_attention_bwd_plain,
+    flash_attention_plain,
+)
 from repro_torch.kernels.segreduce import ops
 from repro_torch.kernels.segreduce.ref import fused_segreduce_ref, segreduce_ref
 from repro_torch.kernels.wkv6 import kernel as wkv6_kernel
@@ -651,3 +664,175 @@ def test_negative_group_keys_are_dropped_on_the_card(cuda, method):
     part, _ = _partitioned_rows(q, tables, n_partitions=4, agg_method=method)
     assert rows["cuda"] == rows["cpu"] == sorted(part)
     assert len(rows["cuda"]) == 40 and all(r[0] >= 0 for r in rows["cuda"])
+
+
+# ---------------------------------------------------------------------------
+# the flash backward kernel (csrc/flash_bwd.cu), graph decode, training
+# ---------------------------------------------------------------------------
+
+
+def _bwd_inputs(gen, B, S, Hkv, G, D, device):
+    q = torch.randn(B, S, Hkv * G, D, device=device, generator=gen).to(torch.bfloat16)
+    k, v = (torch.randn(B, S, Hkv, D, device=device, generator=gen).to(torch.bfloat16) for _ in range(2))
+    dout = torch.randn(B, S, Hkv * G, D, device=device, generator=gen).to(torch.bfloat16)
+    return q, k, v, dout
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("S", [2, 77, 128, 300])
+@pytest.mark.parametrize("cap,q_mul", [(0.0, 1), (50.0, 1), (50.0, 32), (50.0, 64)])
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 40), (False, 0), (False, 40)])
+@pytest.mark.parametrize("G", [1, 12])
+@pytest.mark.parametrize("D", [16, 64, 128])
+def test_flash_bwd_kernel_matches_plain(cuda, D, G, causal, window, cap, q_mul, S):
+    """dq, dk, dv of the backward kernel against the plain version in
+    float64 on the same bf16 inputs and forward output, within
+    ref.BWD_TOL, and against the exact gradient within ref.BWD_EXACT_REL;
+    a rerun is bitwise equal.  q scaled by 32 and 64 puts the scores at
+    several times the softcap, where its derivative is far from 1."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(S * 7 + D + G)
+    q, k, v, dout = _bwd_inputs(gen, 2, S, 2, G, D, cuda)
+    q = q * q_mul
+    kw = dict(causal=causal, window=window, scale=D ** -0.5, logit_softcap=cap)
+    out = flash_kernel.launch(q, k, v, **kw)
+    a = flash_kernel.launch_bwd(q, k, v, out, dout, **kw)
+    b = flash_kernel.launch_bwd(q, k, v, out, dout, **kw)
+    want = flash_attention_bwd_plain(q.double(), k.double(), v.double(), dout.double(), out.double(), **kw)
+    exact = flash_attention_bwd_plain(q.double(), k.double(), v.double(), dout.double(), **kw)
+    torch.cuda.synchronize()
+    agree = bwd_agreement(a, want)
+    assert agree["ok"], agree
+    # at q x 32 and 64 the softmax saturates: dq and dk of the exact gradient
+    # cancel to near zero, and the bf16 output that delta reads moves them by
+    # much of their norm (the float64 plain version given that output too, at
+    # S = 2), so there only dv, which delta does not enter, is held to it
+    held = slice(None) if q_mul == 1 else slice(2, 3)
+    assert bwd_exact_agreement(a[held], exact[held])["ok"]
+    assert all(_bitwise(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("G", [1, 12])
+def test_flash_bwd_kernel_on_one_token(cuda, G):
+    """A sequence of one token: p = 1 whatever the score, so dq and dk are
+    zero (ds = dp - delta, delta taken by dp's own products) and dv = dout
+    summed over the group."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(G)
+    q, k, v, dout = _bwd_inputs(gen, 2, 1, 2, G, 128, cuda)
+    kw = dict(causal=True, window=0, scale=128 ** -0.5, logit_softcap=0.0)
+    dq, dk, dv = flash_kernel.launch_bwd(q, k, v, flash_kernel.launch(q, k, v, **kw), dout, **kw)
+    assert float(dq.abs().max()) <= 1e-5 and float(dk.abs().max()) <= 1e-5
+    want = dout.float().reshape(2, 1, 2, G, 128).sum(dim=3)
+    torch.testing.assert_close(dv.float(), want, rtol=2 ** -8, atol=0)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("cap", [0.0, 50.0])
+def test_flash_attention_gradient_on_the_card(cuda, cap):
+    """ops.flash_attention with inputs that require grad: the backward
+    launches the kernel once and never the plain version, and its gradients
+    agree with the plain backward given the same output within ref.BWD_TOL
+    and with autograd of attention_ref in f32 within ref.BWD_EXACT_REL."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(3)
+    q, k, v, dout = _bwd_inputs(gen, 2, 200, 2, 12, 128, cuda)
+    kw = dict(causal=True, window=0, scale=128 ** -0.5, logit_softcap=cap)
+    flash_ops.reset_launches()
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = flash_ops.flash_attention(*leaves, **kw)
+    out.backward(dout)
+    assert (flash_ops.LAUNCHES, flash_ops.BWD_LAUNCHES, flash_ops.PLAIN_BWD_CALLS) == (1, 1, 0)
+    got = [t.grad for t in leaves]
+    want = flash_attention_bwd_plain(q.double(), k.double(), v.double(), dout.double(), out.detach().double(), **kw)
+    agree = bwd_agreement(got, want)
+    assert agree["ok"], agree
+    ref = [t.float().requires_grad_() for t in (q, k, v)]
+    attention_ref(*ref, **kw).backward(dout.float())
+    assert bwd_exact_agreement(got, [t.grad for t in ref])["ok"]
+
+
+@pytest.mark.requires_cuda
+def test_flash_gradient_raises_where_the_kernel_is_not_built(cuda):
+    q = torch.zeros(1, 8, 2, 256, device=cuda, dtype=torch.bfloat16, requires_grad=True)
+    with pytest.raises(ValueError, match="head dims"):
+        flash_ops.flash_attention(q, q.detach()[:, :, :1], q.detach()[:, :, :1])
+    q32 = torch.zeros(1, 8, 2, 64, device=cuda, requires_grad=True)
+    with pytest.raises(TypeError, match="bfloat16"):
+        flash_ops.flash_attention(q32, q32.detach(), q32.detach())
+    qb = torch.zeros(1, 8, 2, 64, device=cuda, dtype=torch.bfloat16, requires_grad=True)
+    kb = torch.zeros(1, 9, 2, 64, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="one length"):
+        flash_ops.flash_attention(qb, kb, kb)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("arch", ["gemma2-9b", "rwkv6-3b", "starcoder2-3b"])
+def test_graph_decode_equals_eager(cuda, arch):
+    """Greedy generation with the decode step replayed as a CUDA graph gives
+    the eager path's tokens and logits, bit for bit."""
+    cfg = reduced_config(get_config(arch))
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(0)
+    model = Model(cfg).init_params(gen)
+    if arch == "rwkv6-3b":
+        model = _spread_rwkv(model, gen)
+    toks = torch.from_numpy(np.random.default_rng(1).integers(4, cfg.vocab_size, (2, 24)).astype(np.int32)).to(cuda)
+    eager = generate(model, toks, 10, keep_logits=True, graph=False)
+    graphed = generate(model, toks, 10, keep_logits=True, graph=True)
+    assert torch.equal(eager.tokens, graphed.tokens)
+    for a, b in zip(eager.logits, graphed.logits):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.requires_cuda
+def test_graph_decode_samples_with_its_generator(cuda):
+    cfg = reduced_config(get_config("starcoder2-3b"))
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(0)
+    model = Model(cfg).init_params(gen)
+    toks = torch.from_numpy(np.random.default_rng(1).integers(4, cfg.vocab_size, (2, 8)).astype(np.int32)).to(cuda)
+    res = generate(model, toks, 12, temperature=1.0, generator=gen)
+    assert res.tokens.shape == (2, 20)
+    assert int(res.tokens.min()) >= 0 and int(res.tokens.max()) < cfg.vocab_size
+
+
+@pytest.mark.requires_cuda
+def test_train_step_on_the_card_runs_the_backward_kernel(cuda):
+    """Reduced starcoder2-3b: one value_and_grad on the card launches the
+    backward kernel once per layer and microbatch (twice the forward with
+    remat), never the plain backward, and its gradients agree with the same
+    weights' on the CPU within the train tests' tolerance."""
+    from repro_torch.train.step import TrainSpec, value_and_grad
+
+    cfg = reduced_config(get_config("starcoder2-3b"))
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(0)
+    card = Model(cfg).init_params(gen)
+    host = Model(cfg, device="cpu")
+    host.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    toks = np.random.default_rng(2).integers(4, cfg.vocab_size, (4, 32)).astype(np.int32)
+    spec = TrainSpec(microbatches=2, remat=True)
+    flash_ops.reset_launches()
+    loss, _, got = value_and_grad(card, card.params, {"tokens": torch.from_numpy(toks).to(cuda)}, spec)
+    assert flash_ops.BWD_LAUNCHES == cfg.n_layers * 2 and flash_ops.PLAIN_BWD_CALLS == 0
+    assert flash_ops.LAUNCHES == 2 * cfg.n_layers * 2
+    want_loss, _, want = value_and_grad(host, host.params, {"tokens": torch.from_numpy(toks)}, spec)
+    assert abs(float(loss) - float(want_loss)) <= 2e-3 * abs(float(want_loss))
+    for path, w in want.items():
+        g = got[path].cpu().double()
+        rel = float((g - w.double()).norm() / w.double().norm())
+        assert rel <= 3e-2, (path, rel)
+
+
+@pytest.mark.requires_cuda
+def test_serve_cli_refills_slots_under_the_graph(cuda):
+    """launch/serve.py on the card: more requests than slots, so the slots
+    that finish are refilled (their cache lane zeroed in place) while each
+    decode step replays the graph.  As in the JAX package's CLI, the loop
+    ends when the shared position reaches prompt + new."""
+    from repro_torch.launch import serve
+
+    out = serve.main(["--requests", "5", "--batch", "2", "--new", "4", "--prompt-len", "20"])
+    assert out["done"] == 2 and out["tokens"] == 2 * 4

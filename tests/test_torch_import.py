@@ -49,6 +49,12 @@ import repro_torch.frontends.export_mr
 import repro_torch.core.lower
 import repro_torch.backends.partitioned
 import repro_torch.engine.server
+import repro_torch.data.pipeline
+import repro_torch.train.optimizer
+import repro_torch.train.grad_compress
+import repro_torch.train.checkpoint
+import repro_torch.train.step
+import repro_torch.launch.train
 from repro_torch import QueryServer
 from repro_torch.configs.base import list_archs
 assert len(list_archs()) == 10

@@ -1,0 +1,401 @@
+# The port's training path on the CPU against the JAX package: AdamW (f32
+# and int8 state) on identical f32 gradients; the clip, the schedule and
+# the gradient compression; checkpoints written by either package restored
+# in the other; one train step of reduced starcoder2-3b with the reference's
+# weights and optimizer state carried across, loss and every leaf's
+# gradient held to jax.value_and_grad; remat on against off; and the
+# system tests of the training loop (the loss drops; a restart resumes
+# exactly) with the launch.train CLI and its --fail-at.
+#
+# Tolerances: AdamW's state within 1e-6 (both run the same f32 operations
+# in the same order; XLA and torch may round a transcendental differently
+# by an ulp); the clip, schedule and int8 round trips exactly.  The train
+# step computes in bf16 in both packages, which round matmul outputs and
+# elementwise results at other places (through three layers the leaves
+# differ by 1.0-1.2% in Frobenius norm, the worst element by 7.5% of
+# |want| + the leaf's rms): the loss within 2e-3 relative, each gradient
+# leaf within GRAD_REL relative (Frobenius) and per element within
+# GRAD_TOL * (|want| + rms).  A gradient scaled by 1.1 (10% off) or one
+# with a layer's slice dropped fails them (tested).
+import dataclasses
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from repro.configs import base as jax_base
+from repro.models.transformer import Model as JaxModel
+from repro.train import grad_compress as jgc
+from repro.train import optimizer as jopt
+from repro.train.checkpoint import CheckpointManager as JaxCheckpointManager
+from repro.train.step import TrainSpec as JaxTrainSpec
+from repro.train.step import make_train_step as jax_make_train_step
+from repro_torch.configs import base
+from repro_torch.models.common import tree_leaves
+from repro_torch.models.convert import opt_state_from_jax, params_from_jax, tensor_from_numpy
+from repro_torch.models.transformer import Model
+from repro_torch.train import grad_compress as tgc
+from repro_torch.train import optimizer as topt
+from repro_torch.train.checkpoint import CheckpointManager
+from repro_torch.train.step import TrainSpec, assign_, make_train_step, value_and_grad
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+STATE_TOL = dict(rtol=1e-6, atol=1e-6)
+LOSS_REL = 2e-3
+GRAD_REL = 3e-2
+GRAD_TOL = 0.15  # per element: |got - want| <= GRAD_TOL * (|want| + rms(want's leaf))
+
+
+def _np(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy() if x.dtype == torch.bfloat16 else x.numpy()
+    return np.asarray(x.astype(jnp.float32) if x.dtype == jnp.bfloat16 else x)
+
+
+def _numpy_tree(tree):
+    return jax.tree.map(np.asarray, tree)
+
+
+def _flat_jax(tree):
+    """{dotted path: leaf} of a JAX tree (the port's path names)."""
+    out = {}
+    for path, leaf in jax.tree_util.tree_flatten_with_path(tree)[0]:
+        out[".".join(str(getattr(p, "key", getattr(p, "idx", p))) for p in path)] = leaf
+    return out
+
+
+# ---------------------------------------------------------------------------
+# AdamW, clip, schedule
+# ---------------------------------------------------------------------------
+
+
+def _small_params(rng):
+    return {
+        "embed": rng.standard_normal((6, 8)).astype(np.float32),
+        "groups": {"pos0": {"w": rng.standard_normal((3, 4, 5)).astype(np.float32)}},
+        "remainder": [{"ln": rng.standard_normal((8,)).astype(np.float32)}],
+        "scalar": np.asarray(rng.standard_normal(), np.float32),
+    }
+
+
+@pytest.mark.parametrize("state_dtype", ["f32", "int8"])
+@pytest.mark.parametrize("scale", [1e-3, 10.0])  # below and above the clip
+def test_adamw_update_matches_reference(state_dtype, scale):
+    rng = np.random.default_rng(0)
+    p_np = _small_params(rng)
+    cfg_j = jopt.AdamWConfig(warmup_steps=2, total_steps=6, state_dtype=state_dtype)
+    cfg_t = topt.AdamWConfig(warmup_steps=2, total_steps=6, state_dtype=state_dtype)
+    jp = jax.tree.map(lambda a: jnp.asarray(a, jnp.bfloat16), p_np)
+    js = jopt.adamw_init(jp, state_dtype)
+    tp = jax.tree.map(lambda a: tensor_from_numpy(np.asarray(a)), _numpy_tree(jp))
+    ts = topt.adamw_init(tp, state_dtype)
+    for step in range(4):
+        g_np = jax.tree.map(lambda a: np.asarray(scale * rng.standard_normal(a.shape), np.float32), p_np)
+        jp, js, jm = jax.jit(jopt.adamw_update, static_argnums=0)(cfg_j, jax.tree.map(jnp.asarray, g_np), js, jp)
+        tp, ts, tm = topt.adamw_update(cfg_t, jax.tree.map(torch.from_numpy, g_np), ts, tp)
+        np.testing.assert_allclose(_np(tm["grad_norm"]), _np(jm["grad_norm"]), **STATE_TOL)
+        np.testing.assert_allclose(_np(tm["lr"]), _np(jm["lr"]), **STATE_TOL)
+        assert int(ts.step) == int(js.step) == step + 1
+        for (path, t), (_, j) in zip(tree_leaves(ts.master), tree_leaves(_numpy_tree(js.master))):
+            np.testing.assert_allclose(_np(t), j, **STATE_TOL, err_msg=path)
+        for tt, jj in ((ts.m, js.m), (ts.v, js.v)):
+            for (path, t), (_, j) in zip(tree_leaves(tt), tree_leaves(_numpy_tree(jj))):
+                np.testing.assert_allclose(_np(t).astype(np.float32), np.asarray(j, np.float32),
+                                           rtol=1e-6, atol=1e-6 if j.dtype != np.int8 else 1, err_msg=path)
+        for (path, t), (_, j) in zip(tree_leaves(tp), tree_leaves(_numpy_tree(jp))):
+            np.testing.assert_allclose(_np(t), _np(j), rtol=2 ** -8, atol=0, err_msg=path)
+
+
+def test_lr_schedule_and_clip_match_reference():
+    cfg_j, cfg_t = jopt.AdamWConfig(warmup_steps=10, total_steps=100), topt.AdamWConfig(warmup_steps=10,
+                                                                                         total_steps=100)
+    for s in (0, 1, 5, 10, 11, 50, 99, 100, 250):
+        want = np.asarray(jopt.lr_schedule(cfg_j, jnp.asarray(s, jnp.int32)))
+        got = topt.lr_schedule(cfg_t, torch.tensor(s, dtype=torch.int32)).numpy()
+        np.testing.assert_array_equal(got, want)
+    rng = np.random.default_rng(1)
+    for scale in (1e-3, 3.0):
+        g = {"a": (scale * rng.standard_normal((7, 9))).astype(np.float32),
+             "b": [(scale * rng.standard_normal(5)).astype(np.float32)]}
+        jg, jn = jopt.clip_by_global_norm(jax.tree.map(jnp.asarray, g), 1.0)
+        tg, tn = topt.clip_by_global_norm(jax.tree.map(torch.from_numpy, g), 1.0)
+        np.testing.assert_array_equal(tn.numpy(), np.asarray(jn))
+        for (_, t), (_, j) in zip(tree_leaves(tg), tree_leaves(_numpy_tree(jg))):
+            np.testing.assert_array_equal(t.numpy(), j)
+
+
+def test_grad_compress_round_trips_match_reference():
+    rng = np.random.default_rng(2)
+    x = (rng.standard_normal((37, 23)) * 3).astype(np.float32)
+    r = (rng.standard_normal((37, 23)) * 0.01).astype(np.float32)
+    jq, js = jgc.quantize_int8(jnp.asarray(x))
+    tq, ts = tgc.quantize_int8(torch.from_numpy(x))
+    np.testing.assert_array_equal(tq.numpy(), np.asarray(jq))
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+    np.testing.assert_array_equal(tgc.dequantize_int8(tq, ts, x.shape, torch.float32).numpy(),
+                                  np.asarray(jgc.dequantize_int8(jq, js, x.shape, jnp.float32)))
+    for t, j in zip(tgc.compress_leaf(torch.from_numpy(x), torch.from_numpy(r)),
+                    jgc.compress_leaf(jnp.asarray(x), jnp.asarray(r))):
+        np.testing.assert_array_equal(t.numpy(), np.asarray(j))
+    grads = {"w": x, "b": [x[0]]}
+    res = {"w": r, "b": [r[0]]}
+    # the reference's sum over a mesh axis of one member: vmap over a unit axis
+    one = jax.vmap(lambda g, rr: jgc.compressed_psum(g, rr, "d"), axis_name="d")
+    jsync, jres = one(jax.tree.map(lambda a: jnp.asarray(a)[None], grads),
+                      jax.tree.map(lambda a: jnp.asarray(a)[None], res))
+    tsync, tres = tgc.compressed_psum(jax.tree.map(torch.from_numpy, grads), jax.tree.map(torch.from_numpy, res))
+    for (_, t), (_, j) in zip(tree_leaves(tsync) + tree_leaves(tres),
+                              tree_leaves(_numpy_tree(jsync)) + tree_leaves(_numpy_tree(jres))):
+        np.testing.assert_array_equal(t.numpy(), j[0])
+    assert tgc.compression_ratio(grads) == jgc.compression_ratio(grads)
+    assert tgc.init_residuals({"w": torch.zeros(3, 2)})["w"].dtype == torch.float32
+
+
+# ---------------------------------------------------------------------------
+# checkpoints across the packages
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def reference():
+    """Reduced starcoder2-3b: the reference's model, weights and an int8
+    and an f32 AdamW state after one update; the port's model with the
+    same weights."""
+    cfg = jax_base.reduced_config(jax_base.get_config("starcoder2-3b"))
+    jm = JaxModel(cfg)
+    params = jax.jit(jm.init_params)(jax.random.PRNGKey(0))
+    model = Model(base.reduced_config(base.get_config("starcoder2-3b")), device="cpu")
+    model.load_state_dict(params_from_jax(_numpy_tree(params)), strict=True)
+    return cfg, jm, params, model
+
+
+def _batch(vocab, B, S, seed):
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(4, vocab, (B, S)).astype(np.int32)
+    mask = np.ones((B, S), bool)
+    mask[0, -3:] = False  # a padded tail, as the packer leaves one
+    return {"tokens": toks, "loss_mask": mask}
+
+
+@pytest.mark.parametrize("state_dtype", ["f32", "int8"])
+def test_checkpoints_restore_across_packages(reference, tmp_path, state_dtype):
+    cfg, jm, params, model = reference
+    g = jax.tree.map(lambda p: jnp.ones(p.shape, jnp.float32) * 1e-2, params)
+    _, js = jopt.adamw_update(jopt.AdamWConfig(state_dtype=state_dtype), g,
+                              jopt.adamw_init(params, state_dtype), params)[:2]
+    # the reference writes, the port restores
+    JaxCheckpointManager(str(tmp_path / "jax")).save(7, (params, js))
+    like = (model.params, topt.adamw_init(model.params, state_dtype))
+    step, (tp, ts) = CheckpointManager(str(tmp_path / "jax")).restore(like)
+    assert step == 7
+    want_p, want_s = params_from_jax(_numpy_tree(params)), opt_state_from_jax(_numpy_tree(js))
+    for path, t in tree_leaves(tp):
+        assert t.dtype == want_p[path].dtype and torch.equal(t, want_p[path]), path
+    for tt, ww in zip(ts, want_s):
+        want_flat = dict(tree_leaves(ww))
+        for path, t in tree_leaves(tt):
+            w = want_flat[path]
+            assert t.dtype == w.dtype and torch.equal(t, w), path
+    # the port writes, the reference restores
+    CheckpointManager(str(tmp_path / "torch")).save(9, (tp, ts))
+    step, (jp2, js2) = JaxCheckpointManager(str(tmp_path / "torch")).restore((params, js))
+    assert step == 9
+    for a, b in zip(jax.tree.leaves((jp2, js2)), jax.tree.leaves((params, js))):
+        assert a.dtype == b.dtype and a.shape == b.shape and np.asarray(a).tobytes() == np.asarray(b).tobytes()
+
+
+def test_checkpoint_keeps_newest_and_ignores_aborted(tmp_path):
+    mgr = CheckpointManager(str(tmp_path), keep=2)
+    tree = {"w": torch.arange(6, dtype=torch.bfloat16).reshape(2, 3), "s": torch.tensor(3, dtype=torch.int32)}
+    for s in (1, 2, 3):
+        mgr.save(s, tree, blocking=False)
+    mgr.wait()
+    os.makedirs(tmp_path / "step_0000000009.tmp")
+    assert mgr.list_steps() == [2, 3]
+    step, back = mgr.restore(tree)
+    assert step == 3 and torch.equal(back["w"], tree["w"]) and back["w"].dtype == torch.bfloat16
+
+
+# ---------------------------------------------------------------------------
+# the train step against jax.value_and_grad
+# ---------------------------------------------------------------------------
+
+
+def _jax_grads(jm, params, batch, n_mb):
+    """The reference's loss and mean gradient over ``n_mb`` microbatches
+    (as its train_step accumulates them: f32 sums divided by n_mb)."""
+    vg = jax.jit(jax.value_and_grad(lambda p, b: jm.loss(p, b, remat=False), has_aux=True))
+    B = batch["tokens"].shape[0]
+    losses, acc = [], None
+    for i in range(n_mb):
+        mb = {k: jnp.asarray(v[i * B // n_mb:(i + 1) * B // n_mb]) for k, v in batch.items()}
+        (loss, _), g = vg(params, mb)
+        g = jax.tree.map(lambda a: a.astype(jnp.float32), g)
+        acc = g if acc is None else jax.tree.map(jnp.add, acc, g)
+        losses.append(float(loss))
+    return float(np.float32(sum(np.float32(x) for x in losses)) / n_mb), jax.tree.map(lambda a: a / n_mb, acc)
+
+
+def _grads_agree(got: dict, want: dict) -> list:
+    """The leaves whose gradient misses GRAD_REL or GRAD_TOL."""
+    bad = []
+    for path, w in want.items():
+        g, w = got[path].double().numpy(), np.asarray(w, np.float64)
+        d = np.abs(g - w)
+        rel = np.linalg.norm(d) / max(np.linalg.norm(w), 1e-30)
+        rms = np.sqrt(np.mean(w ** 2))
+        if rel > GRAD_REL or np.any(d > GRAD_TOL * (np.abs(w) + rms)):
+            bad.append((path, rel))
+    return bad
+
+
+@pytest.mark.parametrize("n_mb", [1, 2])
+def test_train_step_gradients_match_value_and_grad(reference, n_mb):
+    cfg, jm, params, model = reference
+    batch = _batch(cfg.vocab_size, 4, 24, 3)
+    want_loss, want = _jax_grads(jm, params, batch, n_mb)
+    tbatch = {k: torch.from_numpy(v) for k, v in batch.items()}
+    loss, _, got = value_and_grad(model, model.params, tbatch, TrainSpec(microbatches=n_mb, remat=True))
+    assert abs(float(loss) - want_loss) <= LOSS_REL * abs(want_loss)
+    want_flat = {p: np.asarray(w) for p, w in _flat_jax(want).items()}
+    assert set(got) == set(want_flat)
+    assert _grads_agree(got, want_flat) == []
+    # the check fails a gradient scaled by 1.1 and one with a layer dropped
+    path = "groups.pos0.mlp.w_in"
+    scaled = dict(got, **{path: got[path] * 1.1})
+    assert [p for p, _ in _grads_agree(scaled, want_flat)] == [path]
+    dropped = dict(got, **{path: got[path].clone()})
+    dropped[path][1] = 0
+    assert [p for p, _ in _grads_agree(dropped, want_flat)] == [path]
+
+
+@pytest.mark.parametrize("state_dtype", ["f32", "int8"])
+def test_train_step_matches_reference_step(reference, state_dtype):
+    """One make_train_step from the reference's weights and a carried-over
+    optimizer state (one update in): new master weights within the
+    gradient's tolerance scaled by the learning rate, the loss within
+    LOSS_REL."""
+    cfg, jm, params, _ = reference
+    opt_j = jopt.AdamWConfig(lr_peak=1e-3, warmup_steps=1, total_steps=10, state_dtype=state_dtype)
+    opt_t = topt.AdamWConfig(lr_peak=1e-3, warmup_steps=1, total_steps=10, state_dtype=state_dtype)
+    batch = _batch(cfg.vocab_size, 4, 24, 4)
+    g0 = jax.tree.map(lambda p: jnp.full(p.shape, 1e-3, jnp.float32), params)
+    _, js = jopt.adamw_update(opt_j, g0, jopt.adamw_init(params, state_dtype), params)[:2]
+    model = Model(base.reduced_config(base.get_config("starcoder2-3b")), device="cpu")
+    model.load_state_dict(params_from_jax(_numpy_tree(params)), strict=True)
+    ts = opt_state_from_jax(_numpy_tree(js))
+    jstep = jax.jit(jax_make_train_step(jm, opt_j, JaxTrainSpec(microbatches=2, remat=False)))
+    jp2, js2, jmet = jstep(params, js, {k: jnp.asarray(v) for k, v in batch.items()})
+    tstep = make_train_step(model, opt_t, TrainSpec(microbatches=2, remat=False))
+    tp2, ts2, tmet = tstep(model.params, ts, {k: torch.from_numpy(v) for k, v in batch.items()})
+    assert abs(float(tmet["loss"]) - float(jmet["loss"])) <= LOSS_REL * abs(float(jmet["loss"]))
+    assert int(ts2.step) == int(js2.step) == 2
+    # Adam normalizes the gradient, so an element moves by about lr whatever
+    # its size: the masters agree within lr (one step's worth) plus rounding
+    for (path, t), (_, j) in zip(tree_leaves(ts2.master), tree_leaves(_numpy_tree(js2.master))):
+        np.testing.assert_allclose(t.numpy(), j, rtol=1e-5, atol=1.1e-3, err_msg=path)
+    moved = sum(float((t - torch.from_numpy(np.array(w, np.float32))).abs().max())
+                for (_, t), (_, w) in zip(tree_leaves(ts2.master), tree_leaves(_numpy_tree(js.master))))
+    assert moved > 0
+
+
+def test_remat_on_and_off_agree(reference):
+    cfg, _, _, model = reference
+    batch = {k: torch.from_numpy(v) for k, v in _batch(cfg.vocab_size, 2, 20, 5).items()}
+    l1, _, g1 = value_and_grad(model, model.params, batch, TrainSpec(microbatches=1, remat=True))
+    l0, _, g0 = value_and_grad(model, model.params, batch, TrainSpec(microbatches=1, remat=False))
+    assert torch.equal(l1, l0)
+    for path in g0:
+        assert torch.equal(g1[path], g0[path]), path
+
+
+# ---------------------------------------------------------------------------
+# the system tests of the training loop, on the port
+# ---------------------------------------------------------------------------
+
+
+def test_pipeline_to_training_loss_drops():
+    """The reference's system test on the port: the forelem data pipeline
+    feeds the training loop, and the loss decreases."""
+    from repro_torch.data.pipeline import PipelineConfig, ShardedLoader, build_dataset
+
+    rng = np.random.default_rng(0)
+    docs = []
+    for _ in range(200):
+        state = int(rng.integers(0, 64))
+        words = []
+        for _ in range(int(rng.integers(20, 100))):
+            state = (state * 7 + 3) % 64
+            words.append(f"tok{state}")
+        docs.append(" ".join(words))
+    ds = build_dataset(docs, PipelineConfig(seq_len=32, min_doc_tokens=8, vocab_size=128, device="cpu"))
+    cfg = dataclasses.replace(base.reduced_config(base.get_config("starcoder2-3b")), n_layers=2, d_model=64,
+                              vocab_size=ds.vocab.size, window=32, max_seq_len=32)
+    model = Model(cfg, device="cpu").init_params(torch.Generator().manual_seed(0))
+    params = model.params
+    state = topt.adamw_init(params)
+    step = make_train_step(model, topt.AdamWConfig(lr_peak=5e-3, warmup_steps=5, total_steps=30),
+                           TrainSpec(microbatches=2, remat=False))
+    loader = ShardedLoader(ds, global_batch=8)
+    losses = []
+    for s in range(15):
+        batch = {k: torch.from_numpy(v) for k, v in loader.batch(s).items()}
+        params, state, metrics = step(params, state, batch)
+        losses.append(float(metrics["loss"]))
+    assert losses[-1] < losses[0]
+
+
+def test_checkpoint_restart_resumes_exactly(tmp_path):
+    """The reference's system test on the port: a node restored from the
+    checkpoint at step 3 takes step 4 bit for bit as the survivor does."""
+    cfg = dataclasses.replace(base.reduced_config(base.get_config("starcoder2-3b")), n_layers=2, vocab_size=64)
+    model = Model(cfg, device="cpu").init_params(torch.Generator().manual_seed(0))
+    params = model.params
+    state = topt.adamw_init(params)
+    step = make_train_step(model, topt.AdamWConfig(), TrainSpec(microbatches=1, remat=False))
+    batch = {"tokens": torch.from_numpy(np.random.default_rng(0).integers(0, 64, (4, 16)).astype(np.int32))}
+    mgr = CheckpointManager(str(tmp_path))
+    for _ in range(3):
+        params, state, _ = step(params, state, batch)
+    mgr.save(3, (params, state))
+    snapshot = [t.clone() for _, t in tree_leaves((params, state))]
+    p4, s4, _ = step(params, state, batch)  # step 4 on the survivor
+    survivor = [t.clone() for _, t in tree_leaves((p4, s4))]
+    # the failed node restarts: the same buffers, overwritten by the restore
+    _, (rp, rs) = mgr.restore((params, state))
+    assign_(params, rp)
+    state = topt.AdamWState(rs.step, rs.master, rs.m, rs.v)
+    assert all(torch.equal(a, b) for a, (_, b) in zip(snapshot, tree_leaves((params, state))))
+    rp4, rs4, _ = step(params, state, batch)
+    for a, (path, b) in zip(survivor, tree_leaves((rp4, rs4))):
+        assert torch.equal(a, b), path
+
+
+def test_launch_train_cli_resumes_after_fail_at(tmp_path):
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--device", "cpu", "--steps", "20", "--ckpt-every",
+         "5", "--fail-at", "12", "--ckpt-dir", str(tmp_path / "ck")],
+        capture_output=True, text=True, env=env, timeout=300, cwd=str(tmp_path))
+    assert out.returncode == 0, out.stderr
+    assert "resumed from step 10" in out.stdout
+    assert "final checkpoint at step 20 restores bitwise: True" in out.stdout
+    import json
+
+    summary = json.loads(out.stdout.split("[train] summary ")[-1])
+    assert summary["resumed_from"] == [10] and summary["final_step"] == 20
+    assert summary["losses"][-1] < summary["losses"][0]
+
+
+def test_launch_train_takes_no_reduced():
+    from repro_torch.launch.train import parse_args
+
+    assert parse_args([]).reduced is True
+    assert parse_args(["--no-reduced"]).reduced is False
+    assert parse_args([]).device == "cuda"
