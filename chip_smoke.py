@@ -107,7 +107,8 @@ Phases, each of which must pass for the exit code to be 0:
    through one QueryServer (one SharedChunkPool, feedback on), each result
    against the oracle or the serial run; admissions, plan-cache hits,
    splits, re-plans and pool scale events;
-14. the flash backward kernel (dq, dk, dv) against its plain version
+14. the flash backward kernel (dq, dk, dv), given the forward kernel's
+   output and row statistics, against its plain version
    (flash_attention_bwd_plain) in float64 given the forward's output,
    held to ``ref.BWD_TOL``, and against the exact gradient (autograd of
    attention_ref in f32) within ``ref.BWD_EXACT_REL``, on the same bf16
@@ -116,9 +117,11 @@ Phases, each of which must pass for the exit code to be 0:
    1000, 2048} (200 and 1000 ragged against its tiles), each case run
    twice and required to be bitwise equal;
    then the kernel at starcoder2-3b's training shape (a microbatch of 2 x
-   2048 tokens, 24 heads over 2 kv heads of 128, causal): its time, its
-   bound (the gradient's and the statistics pass's FLOPs), the plain
-   version's time and scaled_dot_product_attention's backward;
+   2048 tokens, 24 heads over 2 kv heads of 128, causal): its time and
+   each launch's (dq, dkv, the sum of the heads' partials), its bound (the
+   gradient's five products, 10 D FLOPs a pair), the plain version's time,
+   scaled_dot_product_attention's backward, and the forward's time with
+   and without its statistics;
 15. training starcoder2-3b at its published width and depth (30 layers,
    d_model 3072, vocab 49152, 3.03 B parameters drawn on the card from
    ``--seed``) through launch/train.py's model and train_step: data from
@@ -127,8 +130,8 @@ Phases, each of which must pass for the exit code to be 0:
    launch/train.py AdamWConfig with f32 state; 6 steps, each launching the flash backward
    once per layer and microbatch and the plain backward never; the loss
    finite and falling; per step (under the profiler) its ms, tokens/s,
-   model-FLOP share of the bf16 peak, peak memory, the card's idle share
-   and the flash kernels' share of device time;
+   model-FLOP share of the bf16 peak, peak memory, the card's idle share,
+   the flash kernels' share of device time and the backward's launches';
 16. the training CLI on the card: ``python -m repro_torch.launch.train
    --reduced --steps 40 --ckpt-every 10 --fail-at 25`` in a temporary
    directory resumes from step 20, ends at 40 and restores its final
@@ -700,6 +703,26 @@ def trace_card(torch, fn, reps: int = 1):
 def device_us(ev) -> float:
     us = getattr(ev, "device_time_total", None)
     return us if us is not None else getattr(ev, "cuda_time_total", 0.0)
+
+
+def launch_times(torch, fn, needle: str, reps: int = 5) -> dict:
+    """Device ms per launch of each CUDA kernel whose name holds ``needle``,
+    from the profiler's trace of ``reps`` calls of ``fn`` (empty when the
+    profiler cannot trace the card).  The profiler may miss the launches at
+    the start of its window (on the H100 machine it dropped a backward's
+    first launch, and in a long run all of a call's), so the window opens
+    with a pause of the host and each kernel's time is averaged over the
+    launches it recorded."""
+    def run():
+        time.sleep(0.1)
+        for _ in range(reps):
+            fn()
+
+    events = trace_card(torch, run)
+    if events is None:
+        return {}
+    return {ev.key.split("(")[0].removeprefix("void "): device_us(ev) / 1e3 / ev.count
+            for ev in events if needle in ev.key and ev.count > 0}
 
 
 def kernel_passes(torch, fn, reps: int = 3, prefixes=("seg_", "Memset")) -> dict:
@@ -1614,11 +1637,12 @@ TRAIN_DOCS = 1500
 
 
 def flash_bwd_bound(B: int, S: int, H: int, Hkv: int, D: int, causal: bool, window: int) -> tuple:
-    """(bound_ms, bound_by, flops): the gradient's five products (10 D
-    FLOPs a pair and head) and the statistics pass's q.k^T (2 D) against
-    the bf16 peak; q, k, v, dout, out read and dq, dk, dv written once (bf16)
-    and delta read (f32)."""
-    flops = 12.0 * D * unmasked_pairs(S, S, causal, window) * B * H
+    """(bound_ms, bound_by, flops): the gradient's five products (s, dp,
+    dq, dk, dv: 10 D FLOPs a pair and head) against the bf16 peak; q, k,
+    v, dout, out read and dq, dk, dv written once (bf16) and the forward's
+    lse read (f32).  The kernel's recomputed s and dp and dq's second
+    product (16 D issued a pair) are not counted."""
+    flops = 10.0 * D * unmasked_pairs(S, S, causal, window) * B * H
     nbytes = 2 * (4 * B * S * H * D + 4 * B * S * Hkv * D) + 4 * B * S * H
     t_ops = flops / BF16_OPS_PER_S * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -1628,7 +1652,7 @@ def flash_bwd_bound(B: int, S: int, H: int, Hkv: int, D: int, causal: bool, wind
 def flash_bwd_matrix(torch, flash_kernel, plain_bwd, attention_ref, bwd_agreement, bwd_exact_agreement,
                      fails: Failures, seed: int) -> list:
     """Phase 14: dq, dk, dv of the backward kernel (kernel.launch_bwd, after
-    the forward kernel's output) against flash_attention_bwd_plain in
+    the forward kernel's output and row statistics) against flash_attention_bwd_plain in
     float64 given the same output, within ref.BWD_TOL, and against the
     exact gradient (autograd of attention_ref in f32; dv only where q is
     scaled) within ref.BWD_EXACT_REL, on the same bf16 inputs, over
@@ -1654,9 +1678,9 @@ def flash_bwd_matrix(torch, flash_kernel, plain_bwd, attention_ref, bwd_agreemen
                     for cap, q_mul in FLASH_BWD_CAPS:
                         kw = dict(causal=causal, window=window, scale=D ** -0.5, logit_softcap=cap)
                         q = q0 * q_mul
-                        out = flash_kernel.launch(q, k, v, **kw)
-                        a = flash_kernel.launch_bwd(q, k, v, out, dout, **kw)
-                        b = flash_kernel.launch_bwd(q, k, v, out, dout, **kw)
+                        out, lse = flash_kernel.launch(q, k, v, **kw, with_lse=True)
+                        a = flash_kernel.launch_bwd(q, k, v, out, dout, lse, **kw)
+                        b = flash_kernel.launch_bwd(q, k, v, out, dout, lse, **kw)
                         want = plain_bwd(q.double(), k.double(), v.double(), dout.double(), out.double(), **kw)
                         ref = [t.float().requires_grad_() for t in (q, k, v)]
                         attention_ref(*ref, **kw).backward(dout.float())
@@ -1676,7 +1700,7 @@ def flash_bwd_matrix(torch, flash_kernel, plain_bwd, attention_ref, bwd_agreemen
                             f"flash backward {label}: against float64 worst/limit {agree['worst']:.3g} rel "
                             f"{agree['rel']:.3g}; against autograd of attention_ref rel {agree_ref['rel']:.3g}; "
                             f"reruns bitwise equal: {same}")
-                        del q, out, a, b, want, ref
+                        del q, out, lse, a, b, want, ref
         dt = time.perf_counter() - t0
         rows.append({"S": S, "cases": n_cases, "failed": bad, **worst, "against_autograd": worst_ref,
                      "seconds": dt})
@@ -1690,10 +1714,12 @@ def flash_bwd_matrix(torch, flash_kernel, plain_bwd, attention_ref, bwd_agreemen
 
 def flash_bwd_at_train_shape(torch, flash_kernel, plain_bwd, bwd_agreement, seed: int) -> dict:
     """The backward kernel at starcoder2-3b's training shape (one
-    microbatch of 2048 tokens, causal, no softcap): its time, its bound,
-    the plain version's time (f32, on the card) and SDPA's backward on the
-    same inputs (the library call), with the agreement to the plain
-    version."""
+    microbatch of 2048 tokens, causal, no softcap), given the forward
+    kernel's output and row statistics: its time and each launch's (dq,
+    dkv, the sum of the heads' partials), its bound, the plain version's
+    time (f32, on the card) and SDPA's backward on the same inputs (the
+    library call), with the agreement to the plain version; and the
+    forward's time with and without its statistics."""
     import torch.nn.functional as F
 
     from repro_torch.configs.base import get_config
@@ -1707,26 +1733,34 @@ def flash_bwd_at_train_shape(torch, flash_kernel, plain_bwd, bwd_agreement, seed
     k, v = (torch.randn(B, S, Hkv, D, device="cuda", generator=gen).to(torch.bfloat16) for _ in range(2))
     dout = torch.randn(B, S, H, D, device="cuda", generator=gen).to(torch.bfloat16)
     kw = dict(causal=True, window=0, scale=D ** -0.5, logit_softcap=0.0)
-    out = flash_kernel.launch(q, k, v, **kw)
+    out, lse = flash_kernel.launch(q, k, v, **kw, with_lse=True)
     t_bound, bound_by, flops = flash_bwd_bound(B, S, H, Hkv, D, True, 0)
-    got = flash_kernel.launch_bwd(q, k, v, out, dout, **kw)
+    got = flash_kernel.launch_bwd(q, k, v, out, dout, lse, **kw)
     agree = bwd_agreement(got, plain_bwd(q, k, v, dout, out, **kw))
     row = {"q": [B, S, H, D], "kv_heads": Hkv, "causal": True, "softcap": 0.0,
-           "ms": device_ms(torch, lambda: flash_kernel.launch_bwd(q, k, v, out, dout, **kw), reps=10),
+           "ms": device_ms(torch, lambda: flash_kernel.launch_bwd(q, k, v, out, dout, lse, **kw), reps=10),
            "plain_ms": device_ms(torch, lambda: plain_bwd(q, k, v, dout, out, **kw), reps=1, warmup=1),
-           "bound_ms": t_bound, "bound_by": bound_by, "agreement": agree}
+           "bound_ms": t_bound, "bound_by": bound_by, "agreement": agree,
+           "forward_ms": device_ms(torch, lambda: flash_kernel.launch(q, k, v, **kw), reps=10),
+           "forward_lse_ms": device_ms(torch, lambda: flash_kernel.launch(q, k, v, **kw, with_lse=True), reps=10)}
+    # each launch's device ms: dq, dkv and the sum of the heads' partials
+    row["launch_ms"] = launch_times(torch, lambda: flash_kernel.launch_bwd(q, k, v, out, dout, lse, **kw),
+                                    "flash_bwd")
     qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
     o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, scale=kw["scale"], enable_gqa=True)
     dot = dout.transpose(1, 2)
     row["library_ms"] = device_ms(torch, lambda: torch.autograd.grad(o, (qt, kt, vt), dot, retain_graph=True),
                                   reps=10)
     row["tflops"] = flops / (row["ms"] * 1e9)
+    row["tflops_issued"] = row["tflops"] * 16 / 10  # s and dp in both launches, dq's product twice
     print(f"  flash backward at {TRAIN_ARCH}'s training shape q={row['q']} kv heads {Hkv} causal: kernel "
-          f"{row['ms']:.3f} ms ({row['tflops']:.1f} TFLOP/s of the bound's work)  bound {t_bound:.3f} ms "
-          f"({bound_by}: the gradient's 10 D and the statistics pass's 2 D FLOPs a pair and head)  plain "
+          f"{row['ms']:.3f} ms ({row['tflops']:.1f} TFLOP/s of the bound's work, {row['tflops_issued']:.1f} "
+          f"issued)  bound {t_bound:.3f} ms ({bound_by}: the gradient's 10 D FLOPs a pair and head)  plain "
           f"{row['plain_ms']:.3f} ms  SDPA backward {row['library_ms']:.3f} ms  max_abs_err "
           f"{agree['max_abs_err']:.3g}, worst/limit {agree['worst']:.3g}, rel {agree['rel']:.3g}", flush=True)
-    del q, k, v, dout, out, got, qt, kt, vt, o
+    print("    launches: " + "  ".join(f"{k} {v:.3f} ms" for k, v in row["launch_ms"].items())
+          + f"; forward {row['forward_ms']:.3f} ms, with its statistics {row['forward_lse_ms']:.3f} ms", flush=True)
+    del q, k, v, dout, out, lse, got, qt, kt, vt, o
     torch.cuda.empty_cache()
     return row
 
@@ -1778,8 +1812,8 @@ class BackwardProbe:
         self.held = None
 
     def __enter__(self):
-        def record(q, k, v, out, dout, *kw):
-            grads = self.orig(q, k, v, out, dout, *kw)
+        def record(q, k, v, out, lse, dout, *kw):
+            grads = self.orig(q, k, v, out, lse, dout, *kw)
             if self.calls == self.pick(self.step):
                 self.held = ([t.clone() for t in (q, k, v, out, dout)], kw, [g.clone() for g in grads],
                              self.calls)
@@ -1928,13 +1962,17 @@ def train_path(torch, flash_ops, fails: Failures, seed: int, record: dict) -> di
         if total > 0:
             fwd_ms = sum(device_us(ev) for ev in events if "flash_fwd" in ev.key) / 1e3
             bwd_ms = sum(device_us(ev) for ev in events if "flash_bwd" in ev.key) / 1e3
+            row["flash_bwd_launch_ms"] = {
+                part: sum(device_us(ev) for ev in events if f"flash_bwd_{part}_kernel" in ev.key) / 1e3
+                for part in ("dq", "dkv", "dkv_sum")}
             top = sorted(((device_us(ev) / 1e3, ev.key) for ev in events if device_us(ev) > 0), reverse=True)[:6]
             row.update(device_ms=total, idle_share=max(0.0, 1 - total / row["ms"]), flash_fwd_ms=fwd_ms,
                        flash_bwd_ms=bwd_ms, flash_fwd_share=fwd_ms / total, flash_bwd_share=bwd_ms / total,
                        top=[{"kernel": k[:90], "ms": ms} for ms, k in top])
             line = (f"  device {total:.1f} ms, card idle {100 * row['idle_share']:.1f}%, flash forward "
                     f"{100 * row['flash_fwd_share']:.1f}% and backward {100 * row['flash_bwd_share']:.1f}% of "
-                    f"device time")
+                    f"device time (backward launches: " + ", ".join(
+                        f"{k} {v:.1f} ms" for k, v in row["flash_bwd_launch_ms"].items()) + ")")
         steps.append(row)
         fails.check(bwd == cfg.n_layers * TRAIN_MICROBATCHES,
                     f"train step {s}: {bwd} flash backward launches, not {cfg.n_layers} x {TRAIN_MICROBATCHES}")

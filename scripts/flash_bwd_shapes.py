@@ -12,8 +12,10 @@
 # tokens, 24 query heads over 2 kv heads of 128, bf16, causal; also the
 # same with softcap 50 and with a window of 1024.  Each source is timed
 # twice, in turns (new, old, old, new), with CUDA events, and the profiler's
-# device ms of each of its two launches is read once.  The bound is
-# chip_smoke.py's.
+# device ms of each of its launches is read over 5 calls.  Every source is given
+# the forward kernel's output and row statistics (lse; a source that writes
+# its own statistics into that buffer, as the one before the forward
+# returned them did, gets a copy).  The bound is chip_smoke.py's.
 import argparse
 import json
 import os
@@ -25,7 +27,7 @@ import torch.nn.functional as F
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path[:0] = [ROOT, os.path.join(ROOT, "src")]
 
-from chip_smoke import device_ms, device_us, flash_bwd_bound, nvidia_smi_line, trace_card  # noqa: E402
+from chip_smoke import device_ms, flash_bwd_bound, launch_times, nvidia_smi_line  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash import kernel  # noqa: E402
 from repro_torch.kernels.flash.ref import bwd_agreement, flash_attention_bwd_plain  # noqa: E402
@@ -59,21 +61,21 @@ def main() -> int:
     rows = []
     for name, (window, cap) in CASES.items():
         kw = dict(causal=True, window=window, scale=D ** -0.5, logit_softcap=cap)
-        out = kernel.launch(q, k, v, **kw)
+        out, lse = kernel.launch(q, k, v, **kw, with_lse=True)
+        lses = {n: lse if n == "kernel" else lse.clone() for n in libs}
         want = flash_attention_bwd_plain(q.double(), k.double(), v.double(), dout.double(), out.double(), **kw)
         row = {"case": name, "bound_ms": flash_bwd_bound(B, S, H, HKV, D, True, window)[0]}
         order = list(libs) + list(reversed(libs))
         for lib_name in order:
-            lib = libs[lib_name]
-            ms = device_ms(torch, lambda: kernel.launch_bwd(q, k, v, out, dout, lib=lib, **kw), reps=args.reps)
+            lib, ls = libs[lib_name], lses[lib_name]
+            ms = device_ms(torch, lambda: kernel.launch_bwd(q, k, v, out, dout, ls, lib=lib, **kw), reps=args.reps)
             row.setdefault(f"{lib_name}_ms", []).append(ms)
         for lib_name, lib in libs.items():
-            agree = bwd_agreement(kernel.launch_bwd(q, k, v, out, dout, lib=lib, **kw), want)
+            ls = lses[lib_name]
+            agree = bwd_agreement(kernel.launch_bwd(q, k, v, out, dout, ls, lib=lib, **kw), want)
             row[f"{lib_name}_agreement"] = {x: agree[x] for x in ("ok", "worst", "rel", "max_abs_err")}
-            events = trace_card(torch, lambda: kernel.launch_bwd(q, k, v, out, dout, lib=lib, **kw))
-            if events is not None:
-                row[f"{lib_name}_launch_ms"] = {ev.key.split("(")[0].removeprefix("void "): device_us(ev) / 1e3
-                                                for ev in events if "flash_bwd" in ev.key}
+            row[f"{lib_name}_launch_ms"] = launch_times(
+                torch, lambda: kernel.launch_bwd(q, k, v, out, dout, ls, lib=lib, **kw), "flash_bwd")
         if window == 0 and cap == 0.0:
             qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
             o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, scale=kw["scale"], enable_gqa=True)

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 # Show that chip_smoke.py's softcap cases of the flash backward can see the
 # softcap's derivative.  The script builds, beside the backward kernel, a
-# copy of csrc/flash_bwd.cu with the line `ds *= 1 - th * th` taken out
-# (written to a temporary directory, never into the checkout), and holds
+# copy of csrc/flash_bwd.cu with the lines `ds *= 1 - th * th` taken out
+# (written to a temporary directory beside a copy of the headers it
+# includes, never into the checkout), and holds
 # both against the plain backward in float64 under ref.BWD_TOL on phase
 # 14's softcap cases: q scaled by 1, 32 and 64 at cap 50.  Needs one CUDA
 # card.
@@ -28,7 +29,7 @@ from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash import kernel  # noqa: E402
 from repro_torch.kernels.flash.ref import bwd_agreement, flash_attention_bwd_plain  # noqa: E402
 
-DERIVATIVE = "if (softcap > 0.f) ds *= 1.f - th * th;"
+DERIVATIVE = "if (CAP) ds *= 1.f - th * th;"
 LENGTHS = (200, 2048)
 B, HKV, D = 1, 2, 128
 
@@ -51,6 +52,8 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         cut = Path(tmp) / "flash_bwd_no_softcap_derivative.cu"
         cut.write_text(src.replace(DERIVATIVE, ""))
+        for header in kernel.BWD_SOURCE.parent.glob("*.cuh"):
+            (Path(tmp) / header.name).write_text(header.read_text())
         libs = {"kernel": kernel.BWD_LIBRARY,
                 "without_derivative": _build.variant(kernel.BWD_LIBRARY, "flash_bwd_no_softcap_derivative", cut)}
         for lib in libs.values():
@@ -68,12 +71,12 @@ def main() -> int:
                         continue
                     kw = dict(causal=causal, window=window, scale=D ** -0.5, logit_softcap=cap)
                     q = q0 * q_mul
-                    out = kernel.launch(q, k, v, **kw)
+                    out, lse = kernel.launch(q, k, v, **kw, with_lse=True)
                     want = flash_attention_bwd_plain(q.double(), k.double(), v.double(), dout.double(),
                                                      out.double(), **kw)
                     row = {"S": S, "G": G, "causal": causal, "window": window, "softcap": cap, "q_mul": q_mul}
                     for name, lib in libs.items():
-                        agree = bwd_agreement(kernel.launch_bwd(q, k, v, out, dout, lib=lib, **kw), want)
+                        agree = bwd_agreement(kernel.launch_bwd(q, k, v, out, dout, lse, lib=lib, **kw), want)
                         row[name] = {x: agree[x] for x in ("ok", "worst", "rel", "max_abs_err")}
                     rows.append(row)
                     print(json.dumps(row), flush=True)

@@ -2,9 +2,10 @@
 #
 # Each kernel's source (``csrc/*.cu``) is compiled with nvcc into a shared
 # library with a plain C interface at first use, into ``build/kernels/`` at
-# the repository root, under a name keyed by a hash of the source and the
-# flags, and loaded with ctypes.  Nothing here runs at import time: the CPU
-# tests import the kernel modules on machines that have no nvcc and no card.
+# the repository root, under a name keyed by a hash of the source, the
+# headers beside it and the flags, and loaded with ctypes.  Nothing here
+# runs at import time: the CPU tests import the kernel modules on machines
+# that have no nvcc and no card.
 from __future__ import annotations
 
 import ctypes
@@ -50,8 +51,13 @@ class CudaLibrary:
         self._lib: Optional[ctypes.CDLL] = None
 
     def path(self) -> Path:
-        digest = hashlib.sha256(self.source.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-        return BUILD_DIR / f"{self.name}-{digest}.so"
+        """Keyed by the source, the headers beside it (``*.cuh``, which it
+        may include) and the flags."""
+        h = hashlib.sha256(self.source.read_bytes())
+        for header in sorted(self.source.parent.glob("*.cuh")):
+            h.update(header.name.encode() + header.read_bytes())
+        h.update(" ".join(NVCC_FLAGS).encode())
+        return BUILD_DIR / f"{self.name}-{h.hexdigest()[:16]}.so"
 
     def load(self) -> ctypes.CDLL:
         with self._lock:

@@ -8,559 +8,722 @@
 //
 // What it computes, for q (B, S, H, D) and k, v (B, S, Hkv, D) in bf16, all
 // contiguous, query head h reading kv head h / (H / Hkv), given the
-// forward's output out and its gradient dout (B, S, H, D) bf16:
+// forward's output out, its row statistics lse and the output's gradient
+// dout (B, S, H, D) bf16:
 //   s     = (q . k^T) * scale;  s = c * tanh(s / c) when softcap c > 0
 //   mask  = the forward's (causal, and q - k < window when window > 0;
 //           queries and keys of one length S)
-//   lse   = log(sum over unmasked keys of exp(s))  per (b, query, h)
+//   lse   = log(sum over unmasked keys of exp(s)) per (b, h, query), in
+//           natural-log units, as flash_fwd_wgmma_kernel writes it
 //   p     = exp(s - lse) for unmasked keys, 0 for masked ones
 //   delta = rowsum(dout * out);  dp = dout . v^T
 //   ds    = p * (dp - delta);  ds *= 1 - (s / c)^2 (softcap)
 //   dq    = scale * ds . k;  dk = scale * sum over the G heads of ds^T . q;
 //   dv    = sum over the G heads of p^T . dout
-// lse, p's row statistics, is recomputed here: the forward kernel returns
-// none.  p and ds are rounded to bf16 only as operands of the products; the
-// outputs are cast to bf16 once, at the end.
+// Scores are recomputed exactly as the forward took them: the same wgmma
+// products over D in the same order, then in log2 units scale * log2 e * s,
+// or under a softcap th = tanh.approx(s * scale / c) and c * log2 e * th
+// (capped_log2), so that exp(s - lse) reads the same function the forward
+// normalised and the cap's derivative 1 - th^2 the same th; p = 2^(s2 -
+// lse * log2 e) by ex2.approx.  p and ds are rounded to bf16 only as
+// operands of the products; the outputs are cast to bf16 once, at the end.
 //
 // Rows whose gradient cancels.  In a trained model's layers the keys of a
 // head are close to one vector, so dq = ds . k sums terms that cancel
 // while sum over keys of ds is 0; and a row whose output is one key's value
 // (query 0 under a causal mask; a saturated softmax) has dp - delta = 0 for
-// that key in exact arithmetic.  So delta is taken by the same products as
-// dp (dout times out's rows, where dp is dout times v's), which makes dp -
-// delta exactly 0 there, as in the float64 plain version; and ds enters
-// dq's product as two bf16 parts (its rounding and the rounding's
-// residue), so its rounding does not swamp what survives the cancellation.
-// (With ds rounded once and delta a separate f32 sum, the kernel read up to
+// that key in exact arithmetic.  So delta is taken by the same wgmma as dp
+// (m64n64k16, both operands from shared memory, D in the same 16-wide
+// steps: dout times out's rows where dp is dout times v's), which makes dp
+// - delta exactly 0 there, as in the float64 plain version; and ds enters
+// dq's product as two bf16 parts (its rounding and the rounding's residue),
+// so its rounding does not swamp what survives the cancellation.  (With ds
+// rounded once and delta a separate f32 sum, an earlier form read up to
 // 2.2x the per-element limit of ref.BWD_TOL on starcoder2-3b's layers in
 // chip_smoke.py's phase 15, and SDPA's backward up to 1.9x on the same
-// calls; with both changes the kernel read at most 0.55x, NVIDIA H100 80GB
-// HBM3.)
+// calls.)  The dq launch takes delta and writes it; the dkv launch reads
+// it, and its dp^T = v . dout^T runs the same instruction over the same
+// products (each a product of two bf16 values, exact in f32) in the same
+// order, so there too dp - delta is 0 where out is one key's value.
 //
-// Two launches, neither with atomics, so reruns are bitwise equal:
-//   1. flash_bwd_dq_kernel: one block of 4 warps per (b, h, 64 queries),
-//      16 query rows a warp.  It takes each row's delta (a warp's dout .
-//      out^T over its 16 rows, the diagonal), then pass 1 walks the key
-//      tiles the block's queries may see, 32 keys a tile, and keeps each
-//      row's running max and sum (the statistics pass: one extra q . k^T);
-//      it writes lse and delta.  Pass 2 walks the same tiles again for s,
-//      dp and ds and accumulates dq = ds . k in registers.
-//   2. flash_bwd_dkv_kernel: one block of 8 warps per (b, kv head, 64 keys):
-//      4 slices of 16 keys, each taken by two warps, one for either half of
-//      a 64-query tile.  It walks the G query heads of its kv head and, for
-//      each, the query tiles that may see its keys, computing the tile
-//      transposed (s^T = k . q^T, rows are keys) so that p^T and ds^T are
-//      the A operands of dv += p^T . dout and dk += ds^T . q straight from
-//      the accumulator registers.  dk and dv stay in registers until the
-//      block ends; then the second half's sums go through shared memory to
-//      the first half's warps, which add them in a fixed order.  The
-//      parts are BW_PARTS and the slices BW_SLICES: 4 warps a block (one
-//      part) left the tensor cores waiting, and blocks of 32 keys in 2
-//      slices x 4 parts ran slower, loading each query tile for half the
-//      work (scripts/flash_bwd_shapes.py times another source beside this).
-//   Under a causal mask a warp skips the products of a tile that its rows
-//   cannot see (it still takes its part in the tile's loads).
-// Products are mma.sync m16n8k16 (bf16 in, f32 accumulate); every operand
-// fragment is read from shared memory by ldmatrix, and the tiles read as B
-// of a product along their rows (k for dq; q and dout for dk and dv) by its
-// transposing form, so no tile is kept twice.  Rows are padded by 8
-// elements, so the 8 rows of one 8 x 8 matrix fall in different banks.
+// Design: two launches of one producer and two consumer warpgroups (as the
+// forward: setmaxnreg 24 / 240, tiles brought by TMA through 4-D tensor
+// maps into a ring of stages with full and empty mbarriers, the 128-byte
+// swizzle, 64-byte at D = 32), and for G > 1 a small third launch; none
+// uses atomics, so reruns are bitwise equal.
+//   1. flash_bwd_dq_kernel: one block per (b, h, 128 queries), a consumer
+//      warpgroup per 64 of them.  It loads the block's q, dout and out
+//      tiles once and takes each row's delta (the diagonal of dout . out^T
+//      over the warpgroup's rows); then walks 64-key tiles of k and v
+//      (3 stages): s = q . k^T and dp = dout . v^T are wgmma with both
+//      operands in shared memory, k-major; ds from s, lse and delta; dq +=
+//      ds . k is wgmma with ds as the register A operand (its accumulator
+//      fragment, rounded, is A's fragment) and k as B, MN-major through the
+//      descriptor, issued twice (ds's two bf16 parts).  A tile's s and dp
+//      are issued while the previous tile's dq products run.
+//   2. flash_bwd_dkv_kernel: one block per (b, query head, 128 keys), a
+//      consumer warpgroup per 64 keys, in the transposed form: s^T = k .
+//      q^T and dp^T = v . dout^T (shared-memory operands, k-major on both
+//      sides), then dv += p^T . dout and dk += ds^T . q with p^T and ds^T
+//      from the accumulator as the register A operand and dout and q as B,
+//      MN-major (the forward's p . v).  The k and v tiles load once; the
+//      query tiles (64 queries of q and dout, 3 stages) and their lse and
+//      delta (the producer warp's lanes copy them into the stage) stream
+//      through.  With G > 1 each block writes f32 partial dk and dv for
+//      its query head (B, S, H, D); with G = 1 it writes bf16 dk and dv.
+//   3. flash_bwd_dkv_sum_kernel (G > 1): per kv head, the G partials summed
+//      in head order, dk scaled, each cast to bf16 once.
+//   The grids run longest first: dq's last query tiles (which see the most
+//   keys under the causal mask) of every (b, h) first, dkv's first key
+//   tiles first.  A warpgroup skips the products of a tile none of its rows
+//   sees (it still waits for the tile and releases it); tiles every pair of
+//   which is visible skip the mask arithmetic.
+//   Splitting dkv by query head (one head a block, rather than the G = 12
+//   heads of a kv head a block) makes 768 blocks at starcoder2-3b's
+//   training shape rather than 64 (with 128-key blocks), so the causal tail
+//   is one short block; its price is the partials, 2 x B S H D x 4 bytes
+//   (100 MB a call there) written and read once.  Groups of 2-6 heads a
+//   block would cut that traffic by their size, but at 4 or more the
+//   longest block (key tile 0's, G / 4 heads x 32 query tiles) outlasts the
+//   card's mean share of the work, and 2-3 heads save at most the ~0.03 ms
+//   of half the partials' traffic.
 //
 // Bound.  The gradient is five products of 2 * D FLOPs per unmasked
-// query-key pair and head (s, dp, dq, dk, dv: 10 * D * pairs * B * H), and
-// the statistics pass adds one q . k^T (2 * D * pairs * B * H); against 989
-// TFLOP/s bf16 dense on an H100 SXM the operations bound it (chip_smoke.py
-// states the bound with that pass named).  The kernel also recomputes s and
-// dp in both launches, which the bound does not count.  At starcoder2-3b's
-// training shape it runs at about 6x SDPA's backward and 16x the bound
-// (NVIDIA H100 80GB HBM3, scripts/flash_bwd_shapes.py): mma.sync, no
-// overlap of a tile's loads with its products, and 128 dkv blocks, one an
-// SM.  The redesign (lse from the forward, wgmma fed by TMA, a pipeline of
-// tiles) is later work.
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <math.h>
-#include <stdint.h>
+// query-key pair and head (s, dp, dq, dk, dv: 10 * D * pairs * B * H)
+// against 989 TFLOP/s bf16 dense on an H100 SXM; the operations bound it
+// (chip_smoke.py's flash_bwd_bound).  The two launches recompute s and dp
+// (2 * 2 * D a pair), and dq's product runs twice (ds's two parts): 16 * D
+// FLOPs a pair issued, which the bound does not count.
+//
+// Where the time goes (NVIDIA H100 80GB HBM3, scripts/flash_bwd_shapes.py
+// and chip_smoke.py phase 14 at starcoder2-3b's training shape, 2 x 2048,
+// 24 heads over 2 kv heads of 128, causal): 0.475 ms against a bound of
+// 0.130 ms and SDPA's backward at 0.42 ms: the dq launch 0.220 ms and the
+// dkv launch 0.208 ms, each issuing its products at 470-500 TFLOP/s, and
+// the sum of the 12 heads' partials 0.041 ms (100 MB read at about 2.5
+// TB/s).  The gap to the bound is the work issued beyond it.
+// Forms tried: the first kernel (mma.sync m16n8k16 fed by ldmatrix from
+// tiles loaded between __syncthreads, its own statistics pass in the dq
+// launch, one dkv block of 64 keys walking all 12 query heads of its kv
+// head: 128 blocks) took 2.432 ms, and 2.5-5.7 ms in its earlier variants
+// (4 warps a dkv block; 32-key blocks).
+#include "flash_common.cuh"
 
 typedef __nv_bfloat16 bf16;
 
-#define BW_THREADS 128      // the dq kernel's 4 warps
-#define BW_BLOCK 64         // queries a dq block owns
-#define BW_TILE 32          // keys a step of the dq kernel walks
-#define BW_DKV_THREADS 256  // the dkv kernel's 8 warps: BW_SLICES key slices x BW_PARTS query parts
-#define BW_KEYS 64          // keys a dkv block owns
-#define BW_SLICES 4         // slices of 16 keys
-#define BW_PARTS 2          // parts of a query tile, 32 queries each
-#define BW_QTILE 64         // queries a step of the dkv kernel walks
-#define BW_PAD 8            // elements of padding of a shared-memory row
+template <int D>
+struct BwCfg {
+    static constexpr int ROWE = D < 64 ? D : 64;        // elements of a swizzled row (a TMA box's width)
+    static constexpr int ROWB = ROWE * 2;               // its bytes: the swizzle span
+    static constexpr int NCH = D / ROWE;                // column chunks of a row
+    static constexpr int LAYOUT = ROWB == 128 ? 1 : 2;  // wgmma descriptor: 128- or 64-byte swizzle
+    // dq launch: the block's q, dout and out tiles, a ring of k and v tiles
+    static constexpr int DQ_Q = 128;                    // queries of a block: two warpgroups of 64
+    static constexpr int DQ_K = 64;                     // keys of a tile
+    static constexpr int DQ_ST = 3;                     // k and v tiles in flight
+    static constexpr int DQ_QBYTES = DQ_Q * D * 2;
+    static constexpr int DQ_KBYTES = DQ_K * D * 2;
+    static constexpr int DQ_BAR = 3 * DQ_QBYTES + 2 * DQ_ST * DQ_KBYTES;
+    static constexpr size_t DQ_SMEM = 1024 + DQ_BAR + 8 * (1 + 4 * DQ_ST);
+    // dkv launch: the block's k and v tiles, a ring of q and dout tiles with
+    // their queries' lse (log2 units) and delta
+    static constexpr int KV_K = 128;                    // keys of a block: two warpgroups of 64
+    static constexpr int KV_Q = 64;                     // queries of a tile
+    static constexpr int KV_ST = 3;                     // q and dout tiles in flight
+    static constexpr int KV_KBYTES = KV_K * D * 2;
+    static constexpr int KV_QBYTES = KV_Q * D * 2;
+    static constexpr int KV_STAT = 2 * KV_KBYTES + 2 * KV_ST * KV_QBYTES;
+    static constexpr int KV_BAR = KV_STAT + KV_ST * 2 * KV_Q * 4;
+    static constexpr size_t KV_SMEM = 1024 + KV_BAR + 8 * (1 + 2 * KV_ST);
+    static_assert(DQ_SMEM <= 232448 && KV_SMEM <= 232448, "a block's shared memory is at most 227 KB");
+    static_assert(KV_K % KV_Q == 0, "a causal dkv block's first query tile starts at its first key");
+};
 
-static constexpr float BW_NEG = -2.0e38f;
+struct BwParams {
+    const float* lse;      // (B, H, S), natural log, from the forward
+    float* delta;          // (B, H, S): written by the dq launch, read by the dkv launch
+    bf16* dq;              // (B, S, H, D)
+    bf16* dk;              // (B, S, Hkv, D)
+    bf16* dv;
+    float* dk_part;        // (B, S, H, D) f32 partials when G > 1, else null
+    float* dv_part;
+    int B, S, H, Hkv, causal, window;
+    int n_t;               // the launch's tiles of S: query tiles (dq) or key tiles (dkv)
+    float scale, softcap;
+};
 
-__device__ __forceinline__ uint32_t smem_addr(const bf16* p) {
-    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+__device__ __forceinline__ bool visible(int qi, int kj, const BwParams& p) {
+    return qi < p.S && kj < p.S && (!p.causal || kj <= qi) && (p.window <= 0 || qi - kj < p.window);
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// D = A (16 x 16, row-major) . B (16 x 8, column-major) + D, in f32.
-__device__ __forceinline__ void mma16816(float c[4], const uint32_t a[4], const uint32_t b[2]) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// The A fragment of rows [r0, r0 + 16) and columns [c0, c0 + 16) of a
-// row-major tile M (row stride ld): four 8 x 8 matrices, lanes 0-15 giving
-// the rows of the left two and lanes 16-31 those of the right two.
-__device__ __forceinline__ void frag_a(uint32_t a[4], const bf16* M, int ld, int r0, int c0, int lane) {
-    const uint32_t at = smem_addr(M + (r0 + (lane & 15)) * ld + c0 + (lane >> 4) * 8);
-    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-                 : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3]) : "r"(at));
-}
-
-// The B fragment (16 x 8) whose column n is row n0 + n of the row-major tile
-// N, over N's columns [c0, c0 + 16): B = N[n0 : n0 + 8, c0 : c0 + 16]^T.
-__device__ __forceinline__ void frag_b(uint32_t b[2], const bf16* N, int ld, int n0, int c0, int lane) {
-    const uint32_t at = smem_addr(N + (n0 + (lane & 7)) * ld + c0 + ((lane >> 3) & 1) * 8);
-    asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
-                 : "=r"(b[0]), "=r"(b[1]) : "r"(at));
-}
-
-// The B fragment (16 x 8) of rows [k0, k0 + 16) and columns [n0, n0 + 8)
-// of the row-major tile M itself (B = M[k0 : k0 + 16, n0 : n0 + 8]): the
-// transposing load, so no transposed copy of M is kept.
-__device__ __forceinline__ void frag_bt(uint32_t b[2], const bf16* M, int ld, int k0, int n0, int lane) {
-    const uint32_t at = smem_addr(M + (k0 + (lane & 15)) * ld + n0);
-    asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
-                 : "=r"(b[0]), "=r"(b[1]) : "r"(at));
-}
-
-// The A fragment of a 16 x 16 block held as two 16 x 8 accumulators
-// (columns 0-7 in c0, 8-15 in c1), rounded to bf16.
-__device__ __forceinline__ void acc_to_a(uint32_t a[4], const float c0[4], const float c1[4]) {
-    a[0] = pack_bf16(c0[0], c0[1]);
-    a[1] = pack_bf16(c0[2], c0[3]);
-    a[2] = pack_bf16(c1[0], c1[1]);
-    a[3] = pack_bf16(c1[2], c1[3]);
+// A score accumulator in the forward's log2 units; *th is tanh.approx of
+// the scaled score over the cap (CAP), which the cap's derivative reads.
+template <bool CAP>
+__device__ __forceinline__ float score_log2(float s, float mul, float cap_l2, float* th) {
+    if (CAP) {
+        *th = tanh_approx(s * mul);
+        return *th * cap_l2;
+    }
+    return s * mul;
 }
 
 __device__ __forceinline__ float bf16_residue(float x) {
     return x - __bfloat162float(__float2bfloat16_rn(x));
 }
 
-// The same block's second bf16 part: what its rounding to bf16 left out.
-__device__ __forceinline__ void acc_to_a_residue(uint32_t a[4], const float c0[4], const float c1[4]) {
-    a[0] = pack_bf16(bf16_residue(c0[0]), bf16_residue(c0[1]));
-    a[1] = pack_bf16(bf16_residue(c0[2]), bf16_residue(c0[3]));
-    a[2] = pack_bf16(bf16_residue(c1[0]), bf16_residue(c1[1]));
-    a[3] = pack_bf16(bf16_residue(c1[2]), bf16_residue(c1[3]));
+// An m64n64 accumulator fragment (x[4 i + 2 hh + e]: row r or r + 8,
+// column 8 i + 2 (lane % 4) + e) as the A fragments of four 16-deep steps,
+// rounded to bf16; RESIDUE: what that rounding left out, rounded.
+template <bool RESIDUE>
+__device__ __forceinline__ void pack_a(uint32_t (&a)[4][4], const float (&x)[32]) {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+            const float lo = x[8 * kk + 2 * j], hi = x[8 * kk + 2 * j + 1];
+            a[kk][j] = RESIDUE ? pack_bf16(bf16_residue(lo), bf16_residue(hi)) : pack_bf16(lo, hi);
+        }
 }
 
-__device__ __forceinline__ bool visible(int qi, int kj, int S, int causal, int window) {
-    return qi < S && kj < S && (!causal || kj <= qi) && (window <= 0 || qi - kj < window);
+// dq's ds over a 64 x 64 tile, in place of s: rows q_row + 8 hh, keys
+// k_col + 8 i + e.  Every pair visible when FULL.
+template <bool CAP, bool FULL>
+__device__ __forceinline__ void ds_rows(float (&s)[32], const float (&dp)[32], const float (&lse2)[2],
+                                        const float (&dlt)[2], int q_row, int k_col, const BwParams& p, float mul,
+                                        float cap_l2) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+                const int j = 4 * i + 2 * hh + e;
+                float th;
+                const float x = score_log2<CAP>(s[j], mul, cap_l2, &th);
+                float ds = fast_exp2(x - lse2[hh]) * (dp[j] - dlt[hh]);
+                if (CAP) ds *= 1.f - th * th;
+                if (!FULL && !visible(q_row + 8 * hh, k_col + 8 * i + e, p)) ds = 0.f;
+                s[j] = ds;
+            }
 }
 
-// The score of an accumulated q . k, scaled and softcapped; *th is
-// tanh(s / c) (s / c after the cap), which the cap's derivative reads.
-__device__ __forceinline__ float score(float acc, float scale, float softcap, float* th) {
-    const float s = acc * scale;
-    if (softcap > 0.f) {
-        *th = tanhf(s / softcap);
-        return softcap * *th;
+// dkv's p^T (in place of s^T) and ds^T (in place of dp^T) over a 64 x 64
+// tile: keys k_row + 8 hh, queries q_col + 8 i + e, whose lse (log2 units)
+// and delta are lse2[c] and dlt[c] at the tile's column c = q_col - q0.
+template <bool CAP, bool FULL>
+__device__ __forceinline__ void p_ds_cols(float (&s)[32], float (&dp)[32], const float* lse2, const float* dlt,
+                                          int k_row, int q0, int cq, const BwParams& p, float mul, float cap_l2) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+        const float2 l2 = *reinterpret_cast<const float2*>(lse2 + 8 * i + cq);
+        const float2 dl = *reinterpret_cast<const float2*>(dlt + 8 * i + cq);
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+                const int j = 4 * i + 2 * hh + e;
+                float th;
+                const float x = score_log2<CAP>(s[j], mul, cap_l2, &th);
+                float pv = fast_exp2(x - (e ? l2.y : l2.x));
+                float ds = pv * (dp[j] - (e ? dl.y : dl.x));
+                if (CAP) ds *= 1.f - th * th;
+                if (!FULL && !visible(q0 + 8 * i + cq + e, k_row + 8 * hh, p)) pv = ds = 0.f;
+                s[j] = pv;
+                dp[j] = ds;
+            }
     }
-    *th = 0.f;
-    return s;
 }
 
-// rows x D of src (row stride `stride` elements) into the row-major tile
-// dst (row stride ld), 16 bytes a thread; rows at or past `valid` read
-// zeros.
-template <int D, int THREADS = BW_THREADS>
-__device__ __forceinline__ void load_rows(bf16* dst, int ld, const bf16* src, int64_t stride, int rows,
-                                          int valid) {
-    constexpr int V = D / 8;
-    for (int i = threadIdx.x; i < rows * V; i += THREADS) {
-        const int r = i / V, c = (i - r * V) * 8;
-        uint4 x = make_uint4(0u, 0u, 0u, 0u);
-        if (r < valid) x = *reinterpret_cast<const uint4*>(src + (int64_t)r * stride + c);
-        *reinterpret_cast<uint4*>(dst + r * ld + c) = x;
+__device__ __forceinline__ void release(uint32_t bar, int lane) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bar);
+}
+
+template <int D, bool CAP>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tdo,
+                    const __grid_constant__ CUtensorMap to, const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv, const BwParams p) {
+    using C = BwCfg<D>;
+    constexpr int BQ = C::DQ_Q, BK = C::DQ_K, ST = C::DQ_ST, ROWB = C::ROWB;
+    extern __shared__ uint8_t smem_raw[];
+    const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
+    const uint32_t q_s = base, do_s = q_s + C::DQ_QBYTES, o_s = do_s + C::DQ_QBYTES;
+    const uint32_t k_s = o_s + C::DQ_QBYTES;  // stage st at k_s + st * DQ_KBYTES
+    const uint32_t v_s = k_s + ST * C::DQ_KBYTES;
+    const uint32_t bars = base + C::DQ_BAR;   // q_full, k_full[], v_full[], k_empty[], v_empty[]
+    const uint32_t q_full = bars;
+    auto k_full = [&](int st) { return bars + 8u * (1 + st); };
+    auto v_full = [&](int st) { return bars + 8u * (1 + ST + st); };
+    auto k_empty = [&](int st) { return bars + 8u * (1 + 2 * ST + st); };
+    auto v_empty = [&](int st) { return bars + 8u * (1 + 3 * ST + st); };
+
+    // longest first: the last query tile of every (b, h), then the one before
+    const int bh = blockIdx.x % (p.B * p.H);
+    const int qt = p.n_t - 1 - (int)(blockIdx.x / (p.B * p.H));
+    const int h = bh % p.H, b = bh / p.H, hk = h / (p.H / p.Hkv);
+    const int q0 = qt * BQ;
+    const int q_valid = min(BQ, p.S - q0);
+    // the key tiles some query of the block may see
+    const int k_hi = p.causal ? min(p.S, q0 + q_valid) : p.S;
+    const int k_lo = p.window > 0 ? max(0, q0 - p.window + 1) : 0;
+    const int kt_first = (k_lo / BK) * BK;
+    const int n_tiles = k_hi > kt_first ? (k_hi - kt_first + BK - 1) / BK : 0;
+
+    if (threadIdx.x == 0) {
+        mbar_init(q_full, 1);
+        for (int st = 0; st < ST; ++st) {
+            mbar_init(k_full(st), 1);
+            mbar_init(v_full(st), 1);
+            mbar_init(k_empty(st), 8);  // one arrival per consumer warp
+            mbar_init(v_empty(st), 8);
+        }
+        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     }
-}
-
-template <int D>
-struct BwdSmem {
-    static constexpr int LD = D + BW_PAD;  // a tile's row stride
-    // dq: q, dout and out (64 rows), k and v (32 rows)
-    static constexpr size_t DQ = sizeof(bf16) * ((size_t)3 * BW_BLOCK * LD + (size_t)2 * BW_TILE * LD);
-    // dkv: k and v (BW_KEYS rows), q and dout (64 rows), whose room a query
-    // part's dk and dv sums take at the end; then lse and delta of the 64
-    // queries
-    static constexpr size_t KV = sizeof(bf16) * (size_t)2 * BW_KEYS * LD;
-    static constexpr size_t QTILES = sizeof(bf16) * (size_t)2 * BW_QTILE * LD;
-    static constexpr size_t DKV = KV + QTILES + sizeof(float) * 2 * BW_QTILE;
-    static_assert(KV + QTILES >= sizeof(float) * 2 * BW_KEYS * D, "a part's dk and dv sums fit in the tiles");
-};
-
-template <int D>
-__global__ void __launch_bounds__(BW_THREADS)
-flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-                    const bf16* __restrict__ out, const bf16* __restrict__ dout, float* __restrict__ delta,
-                    float* __restrict__ lse, bf16* __restrict__ dq, int S, int H, int Hkv, int causal, int window,
-                    float scale, float softcap) {
-    using L = BwdSmem<D>;
-    constexpr int LD = L::LD, NT = BW_TILE / 8, ND = D / 8;
-    extern __shared__ __align__(16) unsigned char smem_raw[];
-    bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
-    bf16* dOs = Qs + BW_BLOCK * LD;
-    bf16* Os = dOs + BW_BLOCK * LD;
-    bf16* Ks = Os + BW_BLOCK * LD;
-    bf16* Vs = Ks + BW_TILE * LD;
-
-    const int h = blockIdx.y, b = blockIdx.z, hk = h / (H / Hkv);
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-    const int q0 = blockIdx.x * BW_BLOCK;
-    const int64_t qs = (int64_t)H * D, ks = (int64_t)Hkv * D;
-    const bf16* kb = k + ((int64_t)b * S * Hkv + hk) * D;
-    const bf16* vb = v + ((int64_t)b * S * Hkv + hk) * D;
-    const int64_t row0 = ((int64_t)b * S + q0) * H + h;  // (b, q0, h) in (B, S, H)
-
-    load_rows<D>(Qs, LD, q + row0 * D, qs, BW_BLOCK, S - q0);
-    load_rows<D>(dOs, LD, dout + row0 * D, qs, BW_BLOCK, S - q0);
-    load_rows<D>(Os, LD, out + row0 * D, qs, BW_BLOCK, S - q0);
     __syncthreads();
 
-    // delta of this warp's 16 rows: the diagonal of dout . out^T over them,
-    // by the products (and in the order over D) that give dp in pass 2.
-    // Row g's and row g + 8's entries sit with lane 4 g + g / 2.
-    float dacc[2][4] = {};
-#pragma unroll
-    for (int c = 0; c < D; c += 16) {
-        uint32_t ao[4];
-        frag_a(ao, dOs, LD, warp * 16, c, lane);
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-            uint32_t bb[2];
-            frag_b(bb, Os, LD, warp * 16 + j * 8, c, lane);
-            mma16816(dacc[j], ao, bb);
+    const int wg = threadIdx.x / 128;
+    if (wg == 0) {
+        // ---- producer: one thread keeps the TMA loads in flight ----
+        asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(WG_PRODUCER_REGS));
+        if (threadIdx.x == 0 && n_tiles > 0) {
+            mbar_expect_tx(q_full, 3 * C::DQ_QBYTES);
+            for (int c = 0; c < C::NCH; ++c) {
+                tma_load(q_s + c * BQ * ROWB, &tq, q_full, c * C::ROWE, h, q0, b);
+                tma_load(do_s + c * BQ * ROWB, &tdo, q_full, c * C::ROWE, h, q0, b);
+                tma_load(o_s + c * BQ * ROWB, &to, q_full, c * C::ROWE, h, q0, b);
+            }
+            for (int t = 0; t < n_tiles; ++t) {
+                const int st = t % ST;
+                const uint32_t ph = (t / ST) & 1;
+                const int kt0 = kt_first + t * BK;
+                mbar_wait(k_empty(st), ph ^ 1);
+                mbar_expect_tx(k_full(st), C::DQ_KBYTES);
+                for (int c = 0; c < C::NCH; ++c)
+                    tma_load(k_s + st * C::DQ_KBYTES + c * BK * ROWB, &tk, k_full(st), c * C::ROWE, hk, kt0, b);
+                mbar_wait(v_empty(st), ph ^ 1);
+                mbar_expect_tx(v_full(st), C::DQ_KBYTES);
+                for (int c = 0; c < C::NCH; ++c)
+                    tma_load(v_s + st * C::DQ_KBYTES + c * BK * ROWB, &tv, v_full(st), c * C::ROWE, hk, kt0, b);
+            }
         }
+        return;
     }
-    const int diag = g * 4 + (g >> 1);
-    float row_delta[2];
-    row_delta[0] = __shfl_sync(0xffffffffu, (g & 1) ? dacc[0][1] : dacc[0][0], diag);
-    row_delta[1] = __shfl_sync(0xffffffffu, (g & 1) ? dacc[1][3] : dacc[1][2], diag);
+    // ---- consumers: warpgroup w owns query rows 64 w .. 64 w + 63 ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(WG_CONSUMER_REGS));
+    const int w = wg - 1;
+    const int tw = threadIdx.x - 128 * wg;
+    const int warp = tw >> 5, lane = tw & 31, g = lane >> 2;
+    const int cq = 2 * (lane & 3);
+    const int row0 = 64 * w + 16 * warp + g;  // this thread's rows: row0 and row0 + 8
+    const int qrow = q0 + row0;
 
-    const int k_hi = causal ? min(S, q0 + BW_BLOCK) : S;
-    const int k_lo = window > 0 ? (max(0, q0 - window + 1) / BW_TILE) * BW_TILE : 0;
-    const int r_base = warp * 16 + g;  // this thread's rows: r_base and r_base + 8 of the block
+    float dq[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+    if (n_tiles > 0) {
+        const uint32_t qa = q_s + 64 * w * ROWB, da = do_s + 64 * w * ROWB;
+        mbar_wait(q_full, 0);
 
-    // pass 1: each row's max and sum over the keys it sees
-    float m[2] = {BW_NEG, BW_NEG}, l[2] = {0.f, 0.f};
-    for (int k0 = k_lo; k0 < k_hi; k0 += BW_TILE) {
-        __syncthreads();
-        load_rows<D>(Ks, LD, kb + (int64_t)k0 * ks, ks, BW_TILE, S - k0);
-        __syncthreads();
-        // a causal tile whose keys all follow this warp's queries adds nothing
-        if (causal && k0 > q0 + warp * 16 + 15) continue;
-        float sacc[NT][4] = {};
+        // delta: the diagonal of dout . out^T over the warpgroup's rows, by
+        // the instruction (and the steps over D) that gives dp below.  Row
+        // r's entry sits with lane 4 (r % 8) + (r % 8) / 2 of warp r / 16.
+        float dlt[2], lse2[2];
+        {
+            float dd[32];
+            wgmma_fence();
 #pragma unroll
-        for (int c = 0; c < D; c += 16) {
-            uint32_t a[4];
-            frag_a(a, Qs, LD, warp * 16, c, lane);
-#pragma unroll
-            for (int j = 0; j < NT; ++j) {
-                uint32_t bb[2];
-                frag_b(bb, Ks, LD, j * 8, c, lane);
-                mma16816(sacc[j], a, bb);
+            for (int kk = 0; kk < D / 16; ++kk) {
+                const uint32_t chunk = kk / (C::ROWE / 16), step = (kk % (C::ROWE / 16)) * 32;
+                wgmma_ss(dd, wg_desc(da + chunk * BQ * ROWB + step, 16, 8 * ROWB, C::LAYOUT),
+                         wg_desc(o_s + chunk * BQ * ROWB + 64 * w * ROWB + step, 16, 8 * ROWB, C::LAYOUT), kk > 0);
             }
-        }
-        float tmax[2] = {BW_NEG, BW_NEG};
+            wgmma_commit();
+            wgmma_wait<0>();
+            fence_regs(dd);
 #pragma unroll
-        for (int j = 0; j < NT; ++j) {
+            for (int hh = 0; hh < 2; ++hh) {
+                float x = 0.f;
 #pragma unroll
-            for (int e = 0; e < 4; ++e) {
-                const int qi = q0 + r_base + 8 * (e >> 1), kj = k0 + j * 8 + 2 * t + (e & 1);
-                float th;
-                const float s = score(sacc[j][e], scale, softcap, &th);
-                sacc[j][e] = visible(qi, kj, S, causal, window) ? s : BW_NEG;
-                tmax[e >> 1] = fmaxf(tmax[e >> 1], sacc[j][e]);
-            }
-        }
-        float tsum[2] = {0.f, 0.f};
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-            tmax[i] = fmaxf(tmax[i], __shfl_xor_sync(0xffffffffu, tmax[i], 1));
-            tmax[i] = fmaxf(tmax[i], __shfl_xor_sync(0xffffffffu, tmax[i], 2));
-            const float m_new = fmaxf(m[i], tmax[i]);
-            l[i] *= __expf(m[i] - m_new);
-            m[i] = m_new;
-        }
-#pragma unroll
-        for (int j = 0; j < NT; ++j) {
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-                const int qi = q0 + r_base + 8 * (e >> 1), kj = k0 + j * 8 + 2 * t + (e & 1);
-                if (visible(qi, kj, S, causal, window)) tsum[e >> 1] += __expf(sacc[j][e] - m[e >> 1]);
+                for (int wv = 0; wv < 4; ++wv)
+                    if (warp == wv) x = (g & 1) ? dd[4 * (2 * wv + hh) + 2 * hh + 1] : dd[4 * (2 * wv + hh) + 2 * hh];
+                dlt[hh] = __shfl_sync(0xffffffffu, x, 4 * g + (g >> 1));
             }
         }
 #pragma unroll
-        for (int i = 0; i < 2; ++i) {
-            tsum[i] += __shfl_xor_sync(0xffffffffu, tsum[i], 1);
-            tsum[i] += __shfl_xor_sync(0xffffffffu, tsum[i], 2);
-            l[i] += tsum[i];
+        for (int hh = 0; hh < 2; ++hh) {
+            const int qi = qrow + 8 * hh;
+            const int64_t at = ((int64_t)b * p.H + h) * p.S + qi;
+            lse2[hh] = qi < p.S ? p.lse[at] * LOG2E : 0.f;
+            if (qi < p.S && cq == 0) p.delta[at] = dlt[hh];
         }
-    }
-    float row_lse[2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-        const int qi = q0 + r_base + 8 * i;
-        row_lse[i] = l[i] > 0.f ? m[i] + logf(l[i]) : INFINITY;  // a row that sees no key: p = 0
-        if (qi < S && t == 0) {
-            const int64_t at = ((int64_t)b * S + qi) * H + h;
-            lse[at] = row_lse[i];
-            delta[at] = row_delta[i];
-        }
-    }
 
-    // pass 2: dq = scale * ds . k, ds in two bf16 parts
-    float dqacc[ND][4] = {};
-    for (int k0 = k_lo; k0 < k_hi; k0 += BW_TILE) {
-        __syncthreads();
-        load_rows<D>(Ks, LD, kb + (int64_t)k0 * ks, ks, BW_TILE, S - k0);
-        load_rows<D>(Vs, LD, vb + (int64_t)k0 * ks, ks, BW_TILE, S - k0);
-        __syncthreads();
-        if (causal && k0 > q0 + warp * 16 + 15) continue;
-        float sacc[NT][4] = {}, pacc[NT][4] = {};
-#pragma unroll
-        for (int c = 0; c < D; c += 16) {
-            uint32_t a[4], ao[4];
-            frag_a(a, Qs, LD, warp * 16, c, lane);
-            frag_a(ao, dOs, LD, warp * 16, c, lane);
-#pragma unroll
-            for (int j = 0; j < NT; ++j) {
-                uint32_t bb[2];
-                frag_b(bb, Ks, LD, j * 8, c, lane);
-                mma16816(sacc[j], a, bb);
-                frag_b(bb, Vs, LD, j * 8, c, lane);
-                mma16816(pacc[j], ao, bb);
-            }
-        }
-#pragma unroll
-        for (int j = 0; j < NT; ++j) {
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-                const int i = e >> 1;
-                const int qi = q0 + r_base + 8 * i, kj = k0 + j * 8 + 2 * t + (e & 1);
-                float th;
-                const float s = score(sacc[j][e], scale, softcap, &th);
-                float ds = 0.f;
-                if (visible(qi, kj, S, causal, window)) {
-                    ds = __expf(s - row_lse[i]) * (pacc[j][e] - row_delta[i]);
-                    if (softcap > 0.f) ds *= 1.f - th * th;
+        const float mul = CAP ? p.scale / p.softcap : p.scale * LOG2E;
+        const float cap_l2 = p.softcap * LOG2E;
+        const int w_first = q0 + 64 * w, w_last = min(q0 + 64 * w + 63, p.S - 1);
+        float s[32], dp[32];
+        uint32_t hi[4][4], lo[4][4];
+        int pend = -1;  // the stage whose k tile the last dq products read
+        for (int t = 0; t < n_tiles; ++t) {
+            const int st = t % ST;
+            const uint32_t ph = (t / ST) & 1;
+            const int kt0 = kt_first + t * BK;
+            mbar_wait(k_full(st), ph);
+            mbar_wait(v_full(st), ph);
+            if (w_first > w_last || (p.causal && kt0 > w_last) ||
+                (p.window > 0 && w_first - (kt0 + BK - 1) >= p.window)) {  // no row of the warpgroup sees a key
+                if (pend >= 0) {
+                    wgmma_wait<0>();
+                    fence_regs(dq);
+                    fence_regs(hi);
+                    fence_regs(lo);
+                    release(k_empty(pend), lane);
+                    pend = -1;
                 }
-                sacc[j][e] = ds;
+                release(v_empty(st), lane);
+                release(k_empty(st), lane);
+                continue;
             }
-        }
+            // s = q . k^T and dp = dout . v^T, both operands k-major; a
+            // 16-deep step moves 32 bytes along a swizzled row, or to the
+            // next column chunk
+            const uint32_t kb = k_s + st * C::DQ_KBYTES, vb = v_s + st * C::DQ_KBYTES;
+            wgmma_fence();
 #pragma unroll
-        for (int kc = 0; kc < NT / 2; ++kc) {
-            uint32_t a[4], ar[4];
-            acc_to_a(a, sacc[2 * kc], sacc[2 * kc + 1]);
-            acc_to_a_residue(ar, sacc[2 * kc], sacc[2 * kc + 1]);
-#pragma unroll
-            for (int n = 0; n < ND; ++n) {
-                uint32_t bb[2];
-                frag_bt(bb, Ks, LD, kc * 16, n * 8, lane);
-                mma16816(dqacc[n], a, bb);
-                mma16816(dqacc[n], ar, bb);
+            for (int kk = 0; kk < D / 16; ++kk) {
+                const uint32_t chunk = kk / (C::ROWE / 16), step = (kk % (C::ROWE / 16)) * 32;
+                wgmma_ss(s, wg_desc(qa + chunk * BQ * ROWB + step, 16, 8 * ROWB, C::LAYOUT),
+                         wg_desc(kb + chunk * BK * ROWB + step, 16, 8 * ROWB, C::LAYOUT), kk > 0);
             }
+#pragma unroll
+            for (int kk = 0; kk < D / 16; ++kk) {
+                const uint32_t chunk = kk / (C::ROWE / 16), step = (kk % (C::ROWE / 16)) * 32;
+                wgmma_ss(dp, wg_desc(da + chunk * BQ * ROWB + step, 16, 8 * ROWB, C::LAYOUT),
+                         wg_desc(vb + chunk * BK * ROWB + step, 16, 8 * ROWB, C::LAYOUT), kk > 0);
+            }
+            wgmma_commit();
+            wgmma_wait<0>();  // also the last tile's dq products
+            fence_regs(s);
+            fence_regs(dp);
+            fence_regs(dq);
+            fence_regs(hi);
+            fence_regs(lo);
+            release(v_empty(st), lane);
+            if (pend >= 0) release(k_empty(pend), lane);
+            const bool full = kt0 + BK <= p.S && w_last - w_first == 63 && (!p.causal || kt0 + BK - 1 <= w_first) &&
+                              (p.window <= 0 || w_last - kt0 < p.window);
+            if (full)
+                ds_rows<CAP, true>(s, dp, lse2, dlt, qrow, kt0 + cq, p, mul, cap_l2);
+            else
+                ds_rows<CAP, false>(s, dp, lse2, dlt, qrow, kt0 + cq, p, mul, cap_l2);
+            pack_a<false>(hi, s);
+            pack_a<true>(lo, s);
+            // dq += ds . k: A is ds in registers (two bf16 parts), B the k
+            // tile, MN-major (the leading offset steps over column chunks,
+            // the stride offset over 8 keys); a 16-deep step moves 16 keys
+            wgmma_fence();
+#pragma unroll
+            for (int kk = 0; kk < BK / 16; ++kk) {
+                const uint64_t db = wg_desc(kb + kk * 16 * ROWB, BK * ROWB, 8 * ROWB, C::LAYOUT);
+                wgmma_rs(dq, hi[kk], db);
+                wgmma_rs(dq, lo[kk], db);
+            }
+            wgmma_commit();
+            pend = st;
         }
+        wgmma_wait<0>();
+        fence_regs(dq);
+        fence_regs(hi);
+        fence_regs(lo);
     }
+    // dq = scale * (ds . k), rounded to bf16 once
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-        const int qi = q0 + r_base + 8 * i;
-        if (qi >= S) continue;
-        bf16* dst = dq + (((int64_t)b * S + qi) * H + h) * D;
+    for (int hh = 0; hh < 2; ++hh) {
+        const int qi = qrow + 8 * hh;
+        if (qi >= p.S) continue;
+        bf16* dst = p.dq + (((int64_t)b * p.S + qi) * p.H + h) * D + cq;
 #pragma unroll
-        for (int n = 0; n < ND; ++n) {
-            *reinterpret_cast<uint32_t*>(dst + n * 8 + 2 * t) =
-                pack_bf16(dqacc[n][2 * i] * scale, dqacc[n][2 * i + 1] * scale);
-        }
+        for (int i = 0; i < D / 8; ++i)
+            *reinterpret_cast<__nv_bfloat162*>(dst + 8 * i) =
+                __floats2bfloat162_rn(dq[4 * i + 2 * hh] * p.scale, dq[4 * i + 2 * hh + 1] * p.scale);
     }
 }
 
-template <int D>
-__global__ void __launch_bounds__(BW_DKV_THREADS)
-flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-                     const bf16* __restrict__ dout, const float* __restrict__ delta,
-                     const float* __restrict__ lse, bf16* __restrict__ dk, bf16* __restrict__ dv, int S, int H,
-                     int Hkv, int causal, int window, float scale, float softcap) {
-    using L = BwdSmem<D>;
-    constexpr int LD = L::LD, QW = BW_QTILE / BW_PARTS, NT = QW / 8, ND = D / 8;
-    extern __shared__ __align__(16) unsigned char smem_raw[];
-    bf16* Ks = reinterpret_cast<bf16*>(smem_raw);
-    bf16* Vs = Ks + BW_KEYS * LD;
-    bf16* Qs = Vs + BW_KEYS * LD;
-    bf16* dOs = Qs + BW_QTILE * LD;
-    float* lse_s = reinterpret_cast<float*>(smem_raw + L::KV + L::QTILES);
-    float* del_s = lse_s + BW_QTILE;
-    float* sums = reinterpret_cast<float*>(smem_raw);  // a query part's dk and dv, at the end
+template <int D, bool CAP>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
+                     const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tdo,
+                     const BwParams p) {
+    using C = BwCfg<D>;
+    constexpr int BK = C::KV_K, BQ = C::KV_Q, ST = C::KV_ST, ROWB = C::ROWB;
+    extern __shared__ uint8_t smem_raw[];
+    const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
+    const uint32_t k_s = base, v_s = k_s + C::KV_KBYTES;
+    const uint32_t q_s = v_s + C::KV_KBYTES;  // stage st at q_s + st * KV_QBYTES
+    const uint32_t do_s = q_s + ST * C::KV_QBYTES;
+    // stage st's lse (log2 units) at stats + 2 st BQ, its delta BQ floats on
+    float* stats = reinterpret_cast<float*>(smem_raw + (base - smem_addr(smem_raw)) + C::KV_STAT);
+    const uint32_t bars = base + C::KV_BAR;   // kv_full, full[], empty[]
+    const uint32_t kv_full = bars;
+    auto full = [&](int st) { return bars + 8u * (1 + st); };
+    auto empty = [&](int st) { return bars + 8u * (1 + ST + st); };
 
-    const int hk = blockIdx.y, b = blockIdx.z, G = H / Hkv;
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-    const int slice = warp % BW_SLICES, part = warp / BW_SLICES;  // this warp's 16 keys and 16 queries a tile
-    const int k0 = blockIdx.x * BW_KEYS;
-    const int64_t qs = (int64_t)H * D, ks = (int64_t)Hkv * D;
-    const int64_t krow0 = ((int64_t)b * S + k0) * Hkv + hk;
+    // longest first: the first key tile of every (b, h), then the next
+    const int bh = blockIdx.x % (p.B * p.H);
+    const int kt = blockIdx.x / (p.B * p.H);
+    const int h = bh % p.H, b = bh / p.H, hk = h / (p.H / p.Hkv);
+    const int k0 = kt * BK;
+    // the query tiles that may see a key of the block
+    const int q_lo = p.causal ? k0 : 0;
+    const int q_hi = p.window > 0 ? min(p.S, k0 + BK - 1 + p.window) : p.S;
+    const int n_tiles = q_hi > q_lo ? (q_hi - q_lo + BQ - 1) / BQ : 0;
 
-    load_rows<D, BW_DKV_THREADS>(Ks, LD, k + krow0 * D, ks, BW_KEYS, S - k0);
-    load_rows<D, BW_DKV_THREADS>(Vs, LD, v + krow0 * D, ks, BW_KEYS, S - k0);
+    if (threadIdx.x == 0) {
+        mbar_init(kv_full, 1);
+        for (int st = 0; st < ST; ++st) {
+            mbar_init(full(st), 32);  // the producer warp's lanes, one with the TMA's bytes
+            mbar_init(empty(st), 8);  // one arrival per consumer warp
+        }
+        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();
 
-    // the queries that may see a key of [k0, k0 + 32)
-    const int q_lo = causal ? (k0 / BW_QTILE) * BW_QTILE : 0;
-    const int q_hi = window > 0 ? min(S, k0 + BW_KEYS - 1 + window) : S;
-    const int r_base = slice * 16 + g;  // this thread's keys: r_base and r_base + 8 of the block
-    const int qoff = part * QW;         // this warp's queries in the tile
-
-    float dkacc[ND][4] = {}, dvacc[ND][4] = {};
-    for (int hh = 0; hh < G; ++hh) {
-        const int h = hk * G + hh;
-        for (int q0 = q_lo; q0 < q_hi; q0 += BW_QTILE) {
-            __syncthreads();
-            const int64_t row0 = ((int64_t)b * S + q0) * H + h;
-            load_rows<D, BW_DKV_THREADS>(Qs, LD, q + row0 * D, qs, BW_QTILE, S - q0);
-            load_rows<D, BW_DKV_THREADS>(dOs, LD, dout + row0 * D, qs, BW_QTILE, S - q0);
-            if (threadIdx.x < BW_QTILE) {
-                const int qi = q0 + threadIdx.x;
-                const int64_t at = ((int64_t)b * S + qi) * H + h;
-                lse_s[threadIdx.x] = qi < S ? lse[at] : INFINITY;
-                del_s[threadIdx.x] = qi < S ? delta[at] : 0.f;
-            }
-            __syncthreads();
-            // a causal tile whose queries all precede this warp's keys adds nothing
-            if (causal && q0 + qoff + QW - 1 < k0 + slice * 16) continue;
-            // s^T = k . q^T and dp^T = v . dout^T: rows are this warp's keys
-            float sacc[NT][4] = {}, pacc[NT][4] = {};
-#pragma unroll
-            for (int c = 0; c < D; c += 16) {
-                uint32_t a[4], av[4];
-                frag_a(a, Ks, LD, slice * 16, c, lane);
-                frag_a(av, Vs, LD, slice * 16, c, lane);
-#pragma unroll
-                for (int j = 0; j < NT; ++j) {
-                    uint32_t bb[2];
-                    frag_b(bb, Qs, LD, qoff + j * 8, c, lane);
-                    mma16816(sacc[j], a, bb);
-                    frag_b(bb, dOs, LD, qoff + j * 8, c, lane);
-                    mma16816(pacc[j], av, bb);
+    const int wg = threadIdx.x / 128;
+    if (wg == 0) {
+        // ---- producer: warp 0 copies each query tile's lse and delta, its
+        // lane 0 keeps the TMA loads in flight ----
+        asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(WG_PRODUCER_REGS));
+        if (threadIdx.x < 32 && n_tiles > 0) {
+            const int lane = threadIdx.x;
+            if (lane == 0) {
+                mbar_expect_tx(kv_full, 2 * C::KV_KBYTES);
+                for (int c = 0; c < C::NCH; ++c) {
+                    tma_load(k_s + c * BK * ROWB, &tk, kv_full, c * C::ROWE, hk, k0, b);
+                    tma_load(v_s + c * BK * ROWB, &tv, kv_full, c * C::ROWE, hk, k0, b);
                 }
             }
-#pragma unroll
-            for (int j = 0; j < NT; ++j) {
-#pragma unroll
-                for (int e = 0; e < 4; ++e) {
-                    const int kj = k0 + r_base + 8 * (e >> 1), qc = qoff + j * 8 + 2 * t + (e & 1), qi = q0 + qc;
-                    float th;
-                    const float s = score(sacc[j][e], scale, softcap, &th);
-                    float p = 0.f, ds = 0.f;
-                    if (visible(qi, kj, S, causal, window)) {
-                        p = __expf(s - lse_s[qc]);
-                        ds = p * (pacc[j][e] - del_s[qc]);
-                        if (softcap > 0.f) ds *= 1.f - th * th;
+            const int64_t row = ((int64_t)b * p.H + h) * p.S;
+            for (int t = 0; t < n_tiles; ++t) {
+                const int st = t % ST;
+                const uint32_t ph = (t / ST) & 1;
+                const int q0 = q_lo + t * BQ;
+                mbar_wait(empty(st), ph ^ 1);
+                float* l2 = stats + 2 * st * BQ;
+                for (int i = lane; i < BQ; i += 32) {
+                    const int qi = q0 + i;
+                    l2[i] = qi < p.S ? p.lse[row + qi] * LOG2E : 0.f;
+                    l2[BQ + i] = qi < p.S ? p.delta[row + qi] : 0.f;
+                }
+                if (lane == 0) {
+                    mbar_expect_tx(full(st), 2 * C::KV_QBYTES);
+                    for (int c = 0; c < C::NCH; ++c) {
+                        tma_load(q_s + st * C::KV_QBYTES + c * BQ * ROWB, &tq, full(st), c * C::ROWE, h, q0, b);
+                        tma_load(do_s + st * C::KV_QBYTES + c * BQ * ROWB, &tdo, full(st), c * C::ROWE, h, q0, b);
                     }
-                    sacc[j][e] = p;
-                    pacc[j][e] = ds;
+                } else {
+                    mbar_arrive(full(st));
                 }
             }
-            // dv += p^T . dout and dk += ds^T . q, 16 queries a step
+        }
+        return;
+    }
+    // ---- consumers: warpgroup w owns keys 64 w .. 64 w + 63 ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(WG_CONSUMER_REGS));
+    const int w = wg - 1;
+    const int tw = threadIdx.x - 128 * wg;
+    const int warp = tw >> 5, lane = tw & 31, g = lane >> 2;
+    const int cq = 2 * (lane & 3);
+    const int krow = k0 + 64 * w + 16 * warp + g;  // this thread's keys: krow and krow + 8
+
+    float dk[D / 2], dv[D / 2];
 #pragma unroll
-            for (int kc = 0; kc < NT / 2; ++kc) {
-                uint32_t ap[4], as[4];
-                acc_to_a(ap, sacc[2 * kc], sacc[2 * kc + 1]);
-                acc_to_a(as, pacc[2 * kc], pacc[2 * kc + 1]);
-#pragma unroll
-                for (int n = 0; n < ND; ++n) {
-                    uint32_t bb[2];
-                    frag_bt(bb, dOs, LD, qoff + kc * 16, n * 8, lane);
-                    mma16816(dvacc[n], ap, bb);
-                    frag_bt(bb, Qs, LD, qoff + kc * 16, n * 8, lane);
-                    mma16816(dkacc[n], as, bb);
-                }
+    for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+    if (n_tiles > 0) {
+        const float mul = CAP ? p.scale / p.softcap : p.scale * LOG2E;
+        const float cap_l2 = p.softcap * LOG2E;
+        const int w_first = k0 + 64 * w, w_last = min(k0 + 64 * w + 63, p.S - 1);
+        const uint32_t ka = k_s + 64 * w * ROWB, va = v_s + 64 * w * ROWB;
+        mbar_wait(kv_full, 0);
+        float s[32], dp[32];
+        uint32_t pa[4][4], dsa[4][4];
+        for (int t = 0; t < n_tiles; ++t) {
+            const int st = t % ST;
+            const uint32_t ph = (t / ST) & 1;
+            const int q0 = q_lo + t * BQ;
+            const int q_last = min(q0 + BQ - 1, p.S - 1);
+            mbar_wait(full(st), ph);
+            if (w_first > w_last || (p.causal && q_last < w_first) ||
+                (p.window > 0 && q0 - w_last >= p.window)) {  // no key of the warpgroup is seen
+                release(empty(st), lane);
+                continue;
             }
+            // s^T = k . q^T and dp^T = v . dout^T, both operands k-major
+            const uint32_t qb = q_s + st * C::KV_QBYTES, dob = do_s + st * C::KV_QBYTES;
+            wgmma_fence();
+#pragma unroll
+            for (int kk = 0; kk < D / 16; ++kk) {
+                const uint32_t chunk = kk / (C::ROWE / 16), step = (kk % (C::ROWE / 16)) * 32;
+                wgmma_ss(s, wg_desc(ka + chunk * BK * ROWB + step, 16, 8 * ROWB, C::LAYOUT),
+                         wg_desc(qb + chunk * BQ * ROWB + step, 16, 8 * ROWB, C::LAYOUT), kk > 0);
+            }
+#pragma unroll
+            for (int kk = 0; kk < D / 16; ++kk) {
+                const uint32_t chunk = kk / (C::ROWE / 16), step = (kk % (C::ROWE / 16)) * 32;
+                wgmma_ss(dp, wg_desc(va + chunk * BK * ROWB + step, 16, 8 * ROWB, C::LAYOUT),
+                         wg_desc(dob + chunk * BQ * ROWB + step, 16, 8 * ROWB, C::LAYOUT), kk > 0);
+            }
+            wgmma_commit();
+            wgmma_wait<0>();
+            fence_regs(s);
+            fence_regs(dp);
+            fence_regs(dk);
+            fence_regs(dv);
+            const float* l2 = stats + 2 * st * BQ;
+            const bool all = w_last - w_first == 63 && q_last - q0 == BQ - 1 && (!p.causal || q0 >= w_last) &&
+                             (p.window <= 0 || q_last - w_first < p.window);
+            if (all)
+                p_ds_cols<CAP, true>(s, dp, l2, l2 + BQ, krow, q0, cq, p, mul, cap_l2);
+            else
+                p_ds_cols<CAP, false>(s, dp, l2, l2 + BQ, krow, q0, cq, p, mul, cap_l2);
+            pack_a<false>(pa, s);
+            pack_a<false>(dsa, dp);
+            // dv += p^T . dout and dk += ds^T . q: A in registers, B the
+            // query tile, MN-major; a 16-deep step moves 16 queries
+            wgmma_fence();
+#pragma unroll
+            for (int kk = 0; kk < BQ / 16; ++kk)
+                wgmma_rs(dv, pa[kk], wg_desc(dob + kk * 16 * ROWB, BQ * ROWB, 8 * ROWB, C::LAYOUT));
+#pragma unroll
+            for (int kk = 0; kk < BQ / 16; ++kk)
+                wgmma_rs(dk, dsa[kk], wg_desc(qb + kk * 16 * ROWB, BQ * ROWB, 8 * ROWB, C::LAYOUT));
+            wgmma_commit();
+            wgmma_wait<0>();
+            fence_regs(dk);
+            fence_regs(dv);
+            fence_regs(pa);
+            fence_regs(dsa);
+            release(empty(st), lane);
         }
     }
-    // parts 1, 2, 3 in turn hand their sums through shared memory to part
-    // 0's warps of the same keys, which add them in that order and write
-    constexpr int SLOT = BW_SLICES * 32;  // one accumulator element of every (slice, lane)
-    const int me = slice * 32 + lane;
-    for (int p = 1; p < BW_PARTS; ++p) {
-        __syncthreads();
-        if (part == p) {
+    // G = 1: dk = scale * (ds^T . q) and dv in bf16; else this head's f32
+    // partials, which flash_bwd_dkv_sum_kernel adds
 #pragma unroll
-            for (int n = 0; n < ND; ++n) {
+    for (int hh = 0; hh < 2; ++hh) {
+        const int kj = krow + 8 * hh;
+        if (kj >= p.S) continue;
+        if (p.dk_part == nullptr) {
+            const int64_t at = (((int64_t)b * p.S + kj) * p.Hkv + hk) * D + cq;
 #pragma unroll
-                for (int e = 0; e < 4; ++e) {
-                    sums[(n * 4 + e) * SLOT + me] = dkacc[n][e];
-                    sums[(ND * 4 + n * 4 + e) * SLOT + me] = dvacc[n][e];
-                }
+            for (int i = 0; i < D / 8; ++i) {
+                *reinterpret_cast<__nv_bfloat162*>(p.dk + at + 8 * i) =
+                    __floats2bfloat162_rn(dk[4 * i + 2 * hh] * p.scale, dk[4 * i + 2 * hh + 1] * p.scale);
+                *reinterpret_cast<__nv_bfloat162*>(p.dv + at + 8 * i) =
+                    __floats2bfloat162_rn(dv[4 * i + 2 * hh], dv[4 * i + 2 * hh + 1]);
             }
-        }
-        __syncthreads();
-        if (part == 0) {
+        } else {
+            const int64_t at = (((int64_t)b * p.S + kj) * p.H + h) * D + cq;
 #pragma unroll
-            for (int n = 0; n < ND; ++n) {
-#pragma unroll
-                for (int e = 0; e < 4; ++e) {
-                    dkacc[n][e] += sums[(n * 4 + e) * SLOT + me];
-                    dvacc[n][e] += sums[(ND * 4 + n * 4 + e) * SLOT + me];
-                }
+            for (int i = 0; i < D / 8; ++i) {
+                *reinterpret_cast<float2*>(p.dk_part + at + 8 * i) = make_float2(dk[4 * i + 2 * hh], dk[4 * i + 2 * hh + 1]);
+                *reinterpret_cast<float2*>(p.dv_part + at + 8 * i) = make_float2(dv[4 * i + 2 * hh], dv[4 * i + 2 * hh + 1]);
             }
-        }
-    }
-    if (part != 0) return;
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-        const int kj = k0 + r_base + 8 * i;
-        if (kj >= S) continue;
-        const int64_t at = (((int64_t)b * S + kj) * Hkv + hk) * D;
-#pragma unroll
-        for (int n = 0; n < ND; ++n) {
-            *reinterpret_cast<uint32_t*>(dk + at + n * 8 + 2 * t) =
-                pack_bf16(dkacc[n][2 * i] * scale, dkacc[n][2 * i + 1] * scale);
-            *reinterpret_cast<uint32_t*>(dv + at + n * 8 + 2 * t) =
-                pack_bf16(dvacc[n][2 * i], dvacc[n][2 * i + 1]);
         }
     }
 }
 
-template <int D>
-static int launch_bwd(const bf16* q, const bf16* k, const bf16* v, const bf16* out, const bf16* dout,
-                      float* delta, float* lse, bf16* dq, bf16* dk, bf16* dv, int B, int S, int H, int Hkv,
-                      int causal, int window, float scale, float softcap, cudaStream_t stream) {
-    using L = BwdSmem<D>;
-    cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           (int)L::DQ);
+// dk and dv of each (b, key, kv head): the partials of its G query heads
+// summed in head order, dk scaled, each cast to bf16 once; four features a
+// thread.
+__global__ void flash_bwd_dkv_sum_kernel(const float* __restrict__ dk_part, const float* __restrict__ dv_part,
+                                         bf16* __restrict__ dk, bf16* __restrict__ dv, int64_t n4, int G, int D,
+                                         float scale) {
+    const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= n4) return;
+    const int64_t row = i * 4 / D;  // (b S + key) Hkv + kv head
+    const int d = (int)(i * 4 - row * D);
+    const int64_t src = row * G * D + d;
+    float4 sk = make_float4(0.f, 0.f, 0.f, 0.f), sv = sk;
+    for (int j = 0; j < G; ++j) {
+        const float4 a = *reinterpret_cast<const float4*>(dk_part + src + (int64_t)j * D);
+        const float4 c = *reinterpret_cast<const float4*>(dv_part + src + (int64_t)j * D);
+        sk.x += a.x, sk.y += a.y, sk.z += a.z, sk.w += a.w;
+        sv.x += c.x, sv.y += c.y, sv.z += c.z, sv.w += c.w;
+    }
+    __nv_bfloat162* k2 = reinterpret_cast<__nv_bfloat162*>(dk + i * 4);
+    __nv_bfloat162* v2 = reinterpret_cast<__nv_bfloat162*>(dv + i * 4);
+    k2[0] = __floats2bfloat162_rn(sk.x * scale, sk.y * scale);
+    k2[1] = __floats2bfloat162_rn(sk.z * scale, sk.w * scale);
+    v2[0] = __floats2bfloat162_rn(sv.x, sv.y);
+    v2[1] = __floats2bfloat162_rn(sv.z, sv.w);
+}
+
+// floats of the work buffer before the partials: delta, rounded up to 16 bytes
+static int64_t delta_floats(int B, int S, int H) { return ((int64_t)B * H * S + 3) / 4 * 4; }
+
+template <int D, bool CAP>
+static int launch_cap(const CUtensorMap (&m)[9], BwParams p, int n_qt, int n_kt, cudaStream_t stream) {
+    using C = BwCfg<D>;
+    cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_kernel<D, CAP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)C::DQ_SMEM);
     if (err != cudaSuccess) return (int)err;
-    err = cudaFuncSetAttribute(flash_bwd_dkv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::DKV);
+    err = cudaFuncSetAttribute(flash_bwd_dkv_kernel<D, CAP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)C::KV_SMEM);
     if (err != cudaSuccess) return (int)err;
-    const int q_tiles = (S + BW_BLOCK - 1) / BW_BLOCK, k_tiles = (S + BW_KEYS - 1) / BW_KEYS;
-    flash_bwd_dq_kernel<D><<<dim3(q_tiles, H, B), BW_THREADS, L::DQ, stream>>>(
-        q, k, v, out, dout, delta, lse, dq, S, H, Hkv, causal, window, scale, softcap);
+    p.n_t = n_qt;
+    flash_bwd_dq_kernel<D, CAP><<<n_qt * p.B * p.H, WG_THREADS, C::DQ_SMEM, stream>>>(m[0], m[1], m[2], m[3], m[4], p);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
-    flash_bwd_dkv_kernel<D><<<dim3(k_tiles, Hkv, B), BW_DKV_THREADS, L::DKV, stream>>>(
-        q, k, v, dout, delta, lse, dk, dv, S, H, Hkv, causal, window, scale, softcap);
+    p.n_t = n_kt;
+    flash_bwd_dkv_kernel<D, CAP><<<n_kt * p.B * p.H, WG_THREADS, C::KV_SMEM, stream>>>(m[5], m[6], m[7], m[8], p);
+    err = cudaGetLastError();
+    if (err != cudaSuccess || p.dk_part == nullptr) return (int)err;
+    const int64_t n4 = (int64_t)p.B * p.S * p.Hkv * D / 4;
+    flash_bwd_dkv_sum_kernel<<<(unsigned)((n4 + 255) / 256), 256, 0, stream>>>(
+        p.dk_part, p.dv_part, p.dk, p.dv, n4, p.H / p.Hkv, D, p.scale);
     return (int)cudaGetLastError();
 }
 
-// dq, dk, dv (and delta and lse, scratch of B * S * H floats each) from q,
-// k, v, out and dout as the header states.  Returns 0, a cudaError_t, or
+template <int D>
+static int launch_bwd(const void* q, const void* k, const void* v, const void* out, const void* dout, float* work,
+                      const float* lse, void* dq, void* dk, void* dv, int B, int S, int H, int Hkv, int causal,
+                      int window, float scale, float softcap, cudaStream_t stream) {
+    using C = BwCfg<D>;
+    // dq launch: q, dout, out (128-query boxes), k, v (64-key boxes); dkv
+    // launch: k, v (128-key boxes), q, dout (64-query boxes)
+    CUtensorMap m[9];
+    int rc = make_map(&m[0], q, B, S, H, D, C::ROWE, C::DQ_Q);
+    if (rc == 0) rc = make_map(&m[1], dout, B, S, H, D, C::ROWE, C::DQ_Q);
+    if (rc == 0) rc = make_map(&m[2], out, B, S, H, D, C::ROWE, C::DQ_Q);
+    if (rc == 0) rc = make_map(&m[3], k, B, S, Hkv, D, C::ROWE, C::DQ_K);
+    if (rc == 0) rc = make_map(&m[4], v, B, S, Hkv, D, C::ROWE, C::DQ_K);
+    if (rc == 0) rc = make_map(&m[5], k, B, S, Hkv, D, C::ROWE, C::KV_K);
+    if (rc == 0) rc = make_map(&m[6], v, B, S, Hkv, D, C::ROWE, C::KV_K);
+    if (rc == 0) rc = make_map(&m[7], q, B, S, H, D, C::ROWE, C::KV_Q);
+    if (rc == 0) rc = make_map(&m[8], dout, B, S, H, D, C::ROWE, C::KV_Q);
+    if (rc != 0) return rc;
+    BwParams p;
+    p.lse = lse;
+    p.delta = work;
+    p.dq = static_cast<bf16*>(dq), p.dk = static_cast<bf16*>(dk), p.dv = static_cast<bf16*>(dv);
+    const int64_t part = (int64_t)B * S * H * D;
+    p.dk_part = H == Hkv ? nullptr : work + delta_floats(B, S, H);
+    p.dv_part = H == Hkv ? nullptr : p.dk_part + part;
+    p.B = B, p.S = S, p.H = H, p.Hkv = Hkv, p.causal = causal, p.window = window;
+    p.scale = scale, p.softcap = softcap;
+    const int n_qt = (S + C::DQ_Q - 1) / C::DQ_Q, n_kt = (S + C::KV_K - 1) / C::KV_K;
+    return softcap > 0.f ? launch_cap<D, true>(m, p, n_qt, n_kt, stream)
+                         : launch_cap<D, false>(m, p, n_qt, n_kt, stream);
+}
+
+// dq, dk, dv from q, k, v, out, dout and the forward's lse (B, H, S f32,
+// natural log: flash_fwd_lse_launch's) as the header states.  `work` is f32
+// scratch: delta (B * H * S floats, rounded up to a multiple of 4), then,
+// when H > Hkv, the partial dk and dv (B * S * H * D floats each).  D is
+// 32, 64 or 128 (the wrapper pads 16 to 32).  Returns 0, a cudaError_t,
+// FA_MAP_ERROR + the CUresult of a tensor map's encoding, or
 // cudaErrorInvalidValue for a head dim the library is not built for.
 extern "C" int flash_bwd_launch(const void* q, const void* k, const void* v, const void* out,
-                                const void* dout, void* delta, void* lse, void* dq, void* dk, void* dv, int B,
+                                const void* dout, void* work, void* lse, void* dq, void* dk, void* dv, int B,
                                 int S, int H, int Hkv, int D, int causal, int window, float scale,
                                 float softcap, int device, void* stream) {
     cudaError_t err = cudaSetDevice(device);
@@ -568,14 +731,9 @@ extern "C" int flash_bwd_launch(const void* q, const void* k, const void* v, con
     if (Hkv <= 0 || H % Hkv != 0) return (int)cudaErrorInvalidValue;
     if (B == 0 || S == 0 || H == 0) return 0;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define BW_ARGS                                                                                             \
-    static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),                  \
-        static_cast<const bf16*>(out), static_cast<const bf16*>(dout), static_cast<float*>(delta),          \
-        static_cast<float*>(lse),                                                                            \
-        static_cast<bf16*>(dq), static_cast<bf16*>(dk), static_cast<bf16*>(dv), B, S, H, Hkv, causal, window, \
-        scale, softcap, s
+#define BW_ARGS q, k, v, out, dout, static_cast<float*>(work), static_cast<const float*>(lse), dq, dk, dv, B, S, H, \
+                Hkv, causal, window, scale, softcap, s
     switch (D) {
-        case 16: return launch_bwd<16>(BW_ARGS);
         case 32: return launch_bwd<32>(BW_ARGS);
         case 64: return launch_bwd<64>(BW_ARGS);
         case 128: return launch_bwd<128>(BW_ARGS);

@@ -61,6 +61,12 @@
 //     combined across the quad of lanes that holds a row in a fixed order.
 //   * Grid: one block per (b, h, q tile), the tiles of one (b, h) in a row,
 //     longest first, so the causal tail is short and k and v stay in L2.
+//   * Row statistics for the backward (flash_fwd_lse_launch; the serving
+//     path's flash_fwd_launch passes none): the epilogue writes each row's
+//     log-sum-exp lse = ln 2 * (m + log2 l) from the log2-unit running max
+//     m and sum l it already holds, in natural-log units, (B, H, Sq) f32,
+//     +inf for a row that sees no key.  flash_bwd.cu reads it and rescores
+//     exactly as this kernel scored (capped_log2 under a softcap).
 //   Where the time goes: the products, at 500-560 TFLOP/s of the 989 peak at
 //   gemma2-9b's prefill shapes; the rest is each block's start (barriers, the
 //   q tile and the first k tile in flight before any product) and its
@@ -71,11 +77,7 @@
 //   and k rows padded by 4 floats so that the lanes' 16-byte reads of 32
 //   different k rows hit 32 different banks, an 8 x (D / 32) accumulator
 //   slice in each lane's registers.
-#include <cuda.h>
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <math.h>
-#include <stdint.h>
+#include "flash_common.cuh"
 
 #define FA_BQ 64                     // query rows of a block
 #define FA_BK 64                     // keys of a tile
@@ -290,265 +292,13 @@ struct WgCfg {
     static_assert(SMEM <= 232448, "a block's shared memory is at most 227 KB");
 };
 
-#define WG_THREADS 384        // warpgroup 0 loads, warpgroups 1 and 2 compute
-#define WG_PRODUCER_REGS 24   // setmaxnreg: 24 * 128 + 2 * 240 * 128 <= 65,536
-#define WG_CONSUMER_REGS 240
-
-static constexpr float LOG2E = 1.4426950408889634f;
-
 struct WgParams {
     __nv_bfloat16* o;
     int Sq, Sk, H, Hkv, n_qt, causal, window;
     float scale, softcap;
+    float* lse;  // (B, H, Sq) row statistics for the backward, or null (serving)
 };
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-// until the phase of parity `parity` has completed
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-    uint32_t done;
-    do {
-        asm volatile(
-            "{\n.reg .pred p;\n"
-            "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-            "selp.u32 %0, 1, 0, p;\n}\n"
-            : "=r"(done)
-            : "r"(bar), "r"(parity)
-            : "memory");
-    } while (!done);
-}
-
-// one box of a 4-D tensor map (D, heads, S, B) into shared memory
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c, int h,
-                                         int s, int b) {
-    asm volatile(
-        "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
-        "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-        "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c), "r"(h), "r"(s), "r"(b)
-        : "memory");
-}
-
-__device__ __forceinline__ void named_sync(int id) {
-    asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory");
-}
-
-__device__ __forceinline__ void named_arrive(int id) {
-    asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
-template <int N>
-__device__ __forceinline__ void wgmma_wait() { asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory"); }
-
-// Keep the compiler from moving reads or writes of registers that an
-// asynchronous wgmma reads or writes across the wait that covers it.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-    for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-template <int N>
-__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
-#pragma unroll
-    for (int i = 0; i < N; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
-}
-
-// A wgmma shared-memory descriptor: start address, leading and stride byte
-// offsets (16-byte units), swizzle layout (1 = 128 B, 2 = 64 B).
-__device__ __forceinline__ uint64_t wg_desc(uint32_t addr, uint32_t lbo, uint32_t sbo, int layout) {
-    return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
-           ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | ((uint64_t)layout << 62);
-}
-
-__device__ __forceinline__ float fast_exp2(float x) {
-    float y;
-    asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-    return y;
-}
-
-// A softcapped score in log2 units, softcap * tanh(y / softcap) * log2 e
-// for y = s * scale, on the special-function units: `mul` is scale /
-// softcap and `cap_l2` softcap * log2 e.  One tanh.approx.f32 (relative
-// error at most 2^-11).
-__device__ __forceinline__ float capped_log2(float s, float mul, float cap_l2) {
-    float t;
-    asm("tanh.approx.f32 %0, %1;\n" : "=f"(t) : "f"(s * mul));
-    return t * cap_l2;
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-    return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-    x += __shfl_xor_sync(0xffffffffu, x, 1);
-    return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-    const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the low half
-    return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// wgmma with f32 accumulators: S = A . B from shared memory (m64n80, m64n128),
-// and O += A . B with A in registers and B MN-major (m64n{32,64,128,256}).
-__device__ __forceinline__ void wgmma_ss(float (&d)[40], uint64_t da, uint64_t db, int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %42, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, "
-        "%8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, "
-        "%24, %25, %26, %27, %28, %29, %30, %31, "
-        "%32, %33, %34, %35, %36, %37, %38, %39"
-        "}, %40, %41, p, 1, 1, 0, 0;\n}\n"
-        :
-          "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
-        : "l"(da), "l"(db), "r"(scale_d));
-}
-
-__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da, uint64_t db, int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, "
-        "%8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, "
-        "%24, %25, %26, %27, %28, %29, %30, %31, "
-        "%32, %33, %34, %35, %36, %37, %38, %39, "
-        "%40, %41, %42, %43, %44, %45, %46, %47, "
-        "%48, %49, %50, %51, %52, %53, %54, %55, "
-        "%56, %57, %58, %59, %60, %61, %62, %63"
-        "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-        :
-          "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "l"(da), "l"(db), "r"(scale_d));
-}
-
-__device__ __forceinline__ void wgmma_rs(float (&d)[16], const uint32_t (&a)[4], uint64_t db) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, "
-        "%8, %9, %10, %11, %12, %13, %14, %15"
-        "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-        :
-          "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, "
-        "%8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, "
-        "%24, %25, %26, %27, %28, %29, %30, %31"
-        "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-        :
-          "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, "
-        "%8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, "
-        "%24, %25, %26, %27, %28, %29, %30, %31, "
-        "%32, %33, %34, %35, %36, %37, %38, %39, "
-        "%40, %41, %42, %43, %44, %45, %46, %47, "
-        "%48, %49, %50, %51, %52, %53, %54, %55, "
-        "%56, %57, %58, %59, %60, %61, %62, %63"
-        "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-        :
-          "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_rs(float (&d)[128], const uint32_t (&a)[4], uint64_t db) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, "
-        "%8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, "
-        "%24, %25, %26, %27, %28, %29, %30, %31, "
-        "%32, %33, %34, %35, %36, %37, %38, %39, "
-        "%40, %41, %42, %43, %44, %45, %46, %47, "
-        "%48, %49, %50, %51, %52, %53, %54, %55, "
-        "%56, %57, %58, %59, %60, %61, %62, %63, "
-        "%64, %65, %66, %67, %68, %69, %70, %71, "
-        "%72, %73, %74, %75, %76, %77, %78, %79, "
-        "%80, %81, %82, %83, %84, %85, %86, %87, "
-        "%88, %89, %90, %91, %92, %93, %94, %95, "
-        "%96, %97, %98, %99, %100, %101, %102, %103, "
-        "%104, %105, %106, %107, %108, %109, %110, %111, "
-        "%112, %113, %114, %115, %116, %117, %118, %119, "
-        "%120, %121, %122, %123, %124, %125, %126, %127"
-        "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
-        :
-          "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
-          "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
-          "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
-          "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
-          "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
-          "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
-          "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
-          "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
-          "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
 
 // The online softmax over one key tile of a consumer thread's two rows, in
 // log2 units (exp(x - m) = 2^(x log2 e - m log2 e)).  s[4 i + 2 hh + e] is
@@ -807,12 +557,17 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_cons
             fence_regs(pa);
         }
 
-        // out = o / l, rounded to bf16 once; rows with no visible key give 0
+        // out = o / l, rounded to bf16 once; rows with no visible key give 0.
+        // With p.lse, each row's log-sum-exp of its scaled (and capped)
+        // scores in natural-log units, ln 2 * (m + log2 l) from the log2
+        // running max m and sum l; +inf for a row with no visible key.
 #pragma unroll
         for (int hh = 0; hh < 2; ++hh) {
             const int row = row0 + 8 * hh;
             const float lsum = quad_sum(l[hh]);
             if (row >= q_valid) continue;
+            if (p.lse != nullptr && cq == 0)
+                p.lse[((int64_t)b * p.H + h) * p.Sq + q0 + row] = lsum == 0.f ? INFINITY : (m[hh] + log2f(lsum)) * LN2;
             const float inv = lsum == 0.f ? 0.f : 1.f / lsum;
             __nv_bfloat16* out = p.o + (((int64_t)b * p.Sq + q0 + row) * p.H + h) * D + cq;
 #pragma unroll
@@ -823,48 +578,6 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_cons
     }
 }
 
-// cuTensorMapEncodeTiled lives in libcuda, not in the runtime: it is reached
-// through the runtime's entry-point query, so the library links nothing more.
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-                                  const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
-                                  CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-static EncodeTiledFn encode_tiled() {
-    static EncodeTiledFn fn = nullptr;
-    if (fn == nullptr) {
-        void* ptr = nullptr;
-        cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-        cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
-                                                           cudaEnableDefault, &found);
-#else
-        cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
-#endif
-        if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiledFn>(ptr);
-    }
-    return fn;
-}
-
-// The tensor map of a (B, S, heads, D) bf16 tensor as 4-D (D, heads, S, B),
-// so that a box never runs from one sequence into the next: rows past S
-// read as zeros.  A box is ROWE features of one head over `rows` positions.
-// Returns 0, or FA_MAP_ERROR + the CUresult.
-#define FA_MAP_ERROR 1000
-template <int D>
-static int make_map(CUtensorMap* map, const void* ptr, int B, int S, int heads, int rows) {
-    EncodeTiledFn encode = encode_tiled();
-    if (encode == nullptr) return FA_MAP_ERROR;
-    using C = WgCfg<D>;
-    const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads, (cuuint64_t)S, (cuuint64_t)B};
-    const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)heads * D * 2, (cuuint64_t)S * heads * D * 2};
-    const cuuint32_t box[4] = {(cuuint32_t)C::ROWE, 1, (cuuint32_t)rows, 1};
-    const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
-    const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box,
-                              elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                              C::ROWB == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
-                              CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-    return r == CUDA_SUCCESS ? 0 : FA_MAP_ERROR + (int)r;
-}
 
 template <int D, bool CAP>
 static int launch_wgmma_cap(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
@@ -877,21 +590,33 @@ static int launch_wgmma_cap(const CUtensorMap& tq, const CUtensorMap& tk, const 
     return (int)cudaGetLastError();
 }
 
+__global__ void fill_inf(float* x, int64_t n) {
+    const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+    if (i < n) x[i] = INFINITY;
+}
+
 template <int D>
-static int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B, int Sq, int Sk, int H,
-                        int Hkv, int causal, int window, float scale, float softcap, cudaStream_t stream) {
-    if (Sk == 0)  // no row sees a key
-        return (int)cudaMemsetAsync(o, 0, (size_t)B * Sq * H * D * 2, stream);
+static int launch_wgmma(const void* q, const void* k, const void* v, void* o, float* lse, int B, int Sq, int Sk,
+                        int H, int Hkv, int causal, int window, float scale, float softcap, cudaStream_t stream) {
+    if (Sk == 0) {  // no row sees a key
+        cudaError_t err = cudaMemsetAsync(o, 0, (size_t)B * Sq * H * D * 2, stream);
+        if (err != cudaSuccess || lse == nullptr) return (int)err;
+        const int64_t n = (int64_t)B * H * Sq;
+        fill_inf<<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(lse, n);
+        return (int)cudaGetLastError();
+    }
     CUtensorMap tq, tk, tv;
-    int rc = make_map<D>(&tq, q, B, Sq, H, WgCfg<D>::BQ);
-    if (rc == 0) rc = make_map<D>(&tk, k, B, Sk, Hkv, WgCfg<D>::BK);
-    if (rc == 0) rc = make_map<D>(&tv, v, B, Sk, Hkv, WgCfg<D>::BK);
+    using C = WgCfg<D>;
+    int rc = make_map(&tq, q, B, Sq, H, D, C::ROWE, C::BQ);
+    if (rc == 0) rc = make_map(&tk, k, B, Sk, Hkv, D, C::ROWE, C::BK);
+    if (rc == 0) rc = make_map(&tv, v, B, Sk, Hkv, D, C::ROWE, C::BK);
     if (rc != 0) return rc;
     WgParams p;
     p.o = static_cast<__nv_bfloat16*>(o);
     p.Sq = Sq, p.Sk = Sk, p.H = H, p.Hkv = Hkv, p.causal = causal, p.window = window;
     p.n_qt = (Sq + WgCfg<D>::BQ - 1) / WgCfg<D>::BQ;
     p.scale = scale, p.softcap = softcap;
+    p.lse = lse;
     const int grid = p.n_qt * H * B;
     return softcap > 0.f ? launch_wgmma_cap<D, true>(tq, tk, tv, p, grid, stream)
                          : launch_wgmma_cap<D, false>(tq, tk, tv, p, grid, stream);
@@ -914,14 +639,17 @@ static int launch_f32(const void* q, const void* k, const void* v, void* o, int 
 
 // One launch on `stream` of the device `device` (this library carries its
 // own CUDA runtime, so the launch names its device).  D is one of 32, 64,
-// 128, 256; dtype is DT_F32 or DT_BF16.  Returns 0 on success, a
-// cudaError_t, or FA_MAP_ERROR + the CUresult of a tensor map's encoding.
-extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v, void* o, int dtype,
-                                int B, int Sq, int Sk, int H, int Hkv, int D, int causal,
-                                int window, float scale, float softcap, int device, void* stream) {
+// 128, 256; dtype is DT_F32 or DT_BF16.  lse, when not null, takes each
+// row's log-sum-exp (B, H, Sq) f32 for the backward; only the bf16 kernel
+// writes it.  Returns 0 on success, a cudaError_t, or FA_MAP_ERROR + the
+// CUresult of a tensor map's encoding.
+static int launch_any(const void* q, const void* k, const void* v, void* o, float* lse, int dtype, int B, int Sq,
+                      int Sk, int H, int Hkv, int D, int causal, int window, float scale, float softcap, int device,
+                      void* stream) {
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return (int)err;
     if (Hkv <= 0 || H % Hkv != 0) return (int)cudaErrorInvalidValue;
+    if (lse != nullptr && dtype != DT_BF16) return (int)cudaErrorInvalidValue;
     if (B == 0 || Sq == 0 || H == 0) return 0;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define FA_ARGS q, k, v, o, B, Sq, Sk, H, Hkv, causal, window, scale, softcap, s
@@ -932,7 +660,10 @@ extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v, voi
             case 128: return launch_f32<128>(FA_ARGS);
             case 256: return launch_f32<256>(FA_ARGS);
         }
-    } else if (dtype == DT_BF16) {
+    }
+#undef FA_ARGS
+#define FA_ARGS q, k, v, o, lse, B, Sq, Sk, H, Hkv, causal, window, scale, softcap, s
+    if (dtype == DT_BF16) {
         switch (D) {
             case 32: return launch_wgmma<32>(FA_ARGS);
             case 64: return launch_wgmma<64>(FA_ARGS);
@@ -942,6 +673,24 @@ extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v, voi
     }
 #undef FA_ARGS
     return (int)cudaErrorInvalidValue;
+}
+
+// The serving path's launch: no row statistics.
+extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v, void* o, int dtype,
+                                int B, int Sq, int Sk, int H, int Hkv, int D, int causal,
+                                int window, float scale, float softcap, int device, void* stream) {
+    return launch_any(q, k, v, o, nullptr, dtype, B, Sq, Sk, H, Hkv, D, causal, window, scale, softcap, device,
+                      stream);
+}
+
+// The training path's launch (bf16 only): the output and each row's
+// log-sum-exp, which the backward (flash_bwd.cu) reads.
+extern "C" int flash_fwd_lse_launch(const void* q, const void* k, const void* v, void* o, void* lse, int dtype,
+                                    int B, int Sq, int Sk, int H, int Hkv, int D, int causal, int window,
+                                    float scale, float softcap, int device, void* stream) {
+    if (lse == nullptr) return (int)cudaErrorInvalidValue;
+    return launch_any(q, k, v, o, static_cast<float*>(lse), dtype, B, Sq, Sk, H, Hkv, D, causal, window, scale,
+                      softcap, device, stream);
 }
 
 template <int D>

@@ -1,10 +1,12 @@
 # The hand-written CUDA flash-attention kernels: the forward
-# (csrc/flash_fwd.cu), its ctypes binding, one launch, and the bf16 kernel's
-# tile configuration (``TILES``, the source's ``WgCfg``; the library reports
-# its own through ``library_config``); and the backward (csrc/flash_bwd.cu),
-# its binding and one launch (``launch_bwd``).  The build (nvcc at first
-# use into ``build/kernels/``, keyed by a hash of the source) is the shared
-# helper in ``kernels/_build.py``.  Nothing here runs at import time.
+# (csrc/flash_fwd.cu), its ctypes binding, one launch (with each row's
+# log-sum-exp when a gradient will need it), and the bf16 kernel's tile
+# configuration (``TILES``, the source's ``WgCfg``; the library reports its
+# own through ``library_config``); and the backward (csrc/flash_bwd.cu),
+# its binding and one launch (``launch_bwd``).  Both sources include
+# csrc/flash_common.cuh.  The build (nvcc at first use into
+# ``build/kernels/``, keyed by a hash of the source and its headers) is the
+# shared helper in ``kernels/_build.py``.  Nothing here runs at import time.
 from __future__ import annotations
 
 import ctypes
@@ -19,7 +21,8 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_fwd.cu"
 BWD_SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_bwd.cu"
 
 HEAD_DIMS = (32, 64, 128, 256)  # the head dims the kernel is built for
-BWD_HEAD_DIMS = (16, 32, 64, 128)  # the head dims the backward kernel is built for
+BWD_HEAD_DIMS = (16, 32, 64, 128)  # the head dims the backward takes (16 padded to 32)
+_BWD_BUILT = (32, 64, 128)  # the head dims the backward library is built for
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -63,6 +66,9 @@ def configure_launch(lib: ctypes.CDLL) -> None:
 
 def _configure(lib: ctypes.CDLL) -> None:
     configure_launch(lib)
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.flash_fwd_lse_launch.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i, i, f, f, i, p]
+    lib.flash_fwd_lse_launch.restype = ctypes.c_int
     lib.flash_fwd_config.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
     lib.flash_fwd_config.restype = ctypes.c_int
 
@@ -109,16 +115,22 @@ def padded_head_dim(d: int) -> int:
 def launch(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     causal: bool, window: int, scale: float, logit_softcap: float, lib: CudaLibrary = LIBRARY,
-) -> torch.Tensor:
+    with_lse: bool = False,
+):
     """One launch on CUDA tensors the caller has checked: q (B, Sq, H, D),
     k and v (B, Sk, Hkv, D), contiguous, of one type of ``_DTYPES``, on one
     device.  A head dim the kernel is not built for is zero-padded up to the
     next one (the padded features add exact zeros to every score) and the
     output cut back.  The output is allocated here; the kernel runs on the
     current stream.  ``lib`` is the library that launches it (a ``variant``
-    when timing one)."""
+    when timing one).  With ``with_lse`` (bf16 only) it returns (out, lse):
+    lse (B, H, Sq) f32 is each row's log-sum-exp of its scaled (and capped)
+    scores in natural-log units, +inf for a row that sees no key, which the
+    backward reads."""
     if q.dtype not in _DTYPES:
         raise TypeError(f"the flash kernel takes float32 or bfloat16, not {q.dtype}")
+    if with_lse and q.dtype != torch.bfloat16:
+        raise TypeError(f"the flash kernel returns row statistics in bfloat16 only, not {q.dtype}")
     B, Sq, H, D = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
     Dp = padded_head_dim(D)
@@ -130,15 +142,19 @@ def launch(
     out = torch.empty((B, Sq, H, Dp), dtype=q.dtype, device=q.device)
     device = q.device.index if q.device.index is not None else torch.cuda.current_device()
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    rc = lib.load().flash_fwd_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _DTYPES[q.dtype],
-        B, Sq, Sk, H, Hkv, Dp, int(causal), int(window), float(scale), float(logit_softcap),
-        device, stream,
-    )
+    args = (B, Sq, Sk, H, Hkv, Dp, int(causal), int(window), float(scale), float(logit_softcap), device, stream)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
+    lse = None
+    if with_lse:
+        lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+        rc = lib.load().flash_fwd_lse_launch(*ptrs, lse.data_ptr(), _DTYPES[q.dtype], *args)
+    else:
+        rc = lib.load().flash_fwd_launch(*ptrs, _DTYPES[q.dtype], *args)
     if rc != 0:
         what = f"CUresult {rc - 1000} encoding a tensor map" if rc >= 1000 else f"cudaError {rc}"
         raise RuntimeError(f"flash kernel launch failed with {what}")
-    return out if Dp == D else out[..., :D]
+    out = out if Dp == D else out[..., :D]
+    return (out, lse) if with_lse else out
 
 
 def _configure_bwd(lib: ctypes.CDLL) -> None:
@@ -150,28 +166,49 @@ def _configure_bwd(lib: ctypes.CDLL) -> None:
 BWD_LIBRARY = CudaLibrary("flash_bwd", BWD_SOURCE, _configure_bwd)
 
 
+def bwd_work_floats(B: int, S: int, H: int, Hkv: int, D: int) -> int:
+    """f32 scratch of one backward launch (csrc/flash_bwd.cu's ``work``):
+    delta (B * H * S, rounded up to a multiple of 4), then, when the G =
+    H / Hkv query heads of a kv head are more than one, their partial dk
+    and dv (B * S * H * D each), which the dkv launch writes and a third
+    launch sums."""
+    return -(-B * H * S // 4) * 4 + (2 * B * S * H * D if H != Hkv else 0)
+
+
 def launch_bwd(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor, dout: torch.Tensor, *,
-    causal: bool, window: int, scale: float, logit_softcap: float, lib: CudaLibrary = BWD_LIBRARY,
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor, dout: torch.Tensor,
+    lse: torch.Tensor, *, causal: bool, window: int, scale: float, logit_softcap: float,
+    lib: CudaLibrary = BWD_LIBRARY,
 ) -> tuple:
-    """One launch of the backward on CUDA tensors the caller has checked:
-    bf16 q, out, dout (B, S, H, D) and k, v (B, S, Hkv, D), contiguous, on
-    one device, D in BWD_HEAD_DIMS.  dq, dk, dv and the scratch of the row
-    statistics and of delta = rowsum(dout * out) (which the kernel takes)
-    are allocated here; the kernels run on the current stream.  Returns
-    (dq, dk, dv) in bf16."""
+    """One backward on CUDA tensors the caller has checked: bf16 q, out,
+    dout (B, S, H, D) and k, v (B, S, Hkv, D), contiguous, on one device, D
+    in BWD_HEAD_DIMS, and the forward's lse (B, H, S) f32 (``launch(...,
+    with_lse=True)``).  A head dim the library is not built for (16) is
+    zero-padded to 32 (the padded features add zeros to every score, to
+    delta and to dq, dk, dv's padded columns) and cut back.  dq, dk, dv and
+    the scratch (``bwd_work_floats``) are allocated here; the kernels run on
+    the current stream.  Returns (dq, dk, dv) in bf16."""
     B, S, H, D = q.shape
     Hkv = k.shape[2]
-    out = out.contiguous()  # the forward's output at a head dim it pads (16) is a view
-    delta, lse = torch.empty((2, B, S, H), dtype=torch.float32, device=q.device)
+    if lse.shape != (B, H, S) or lse.dtype != torch.float32 or not lse.is_contiguous():
+        raise ValueError(f"the flash backward takes the forward's lse ({B}, {H}, {S}) f32, not "
+                         f"{tuple(lse.shape)} {lse.dtype}")
+    Dp = next(d for d in _BWD_BUILT if d >= D)
+    if Dp != D:
+        q, k, v, out, dout = (F.pad(t, (0, Dp - D)) for t in (q, k, v, out, dout))
+    out = out.contiguous()  # a caller's view of the forward's output (as its head-dim slice) is copied
+    work = torch.empty(bwd_work_floats(B, S, H, Hkv, Dp), dtype=torch.float32, device=q.device)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     device = q.device.index if q.device.index is not None else torch.cuda.current_device()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = lib.load().flash_bwd_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(), delta.data_ptr(),
-        lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, S, H, Hkv, D, int(causal), int(window),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(), work.data_ptr(),
+        lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, S, H, Hkv, Dp, int(causal), int(window),
         float(scale), float(logit_softcap), device, stream,
     )
     if rc != 0:
-        raise RuntimeError(f"flash backward kernel launch failed with cudaError {rc}")
+        what = f"CUresult {rc - 1000} encoding a tensor map" if rc >= 1000 else f"cudaError {rc}"
+        raise RuntimeError(f"flash backward kernel launch failed with {what}")
+    if Dp != D:
+        return tuple(t[..., :D].contiguous() for t in (dq, dk, dv))
     return dq, dk, dv

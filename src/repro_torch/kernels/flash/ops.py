@@ -4,8 +4,9 @@
 # goes to the hand-written CUDA kernels (kernel.py, csrc/flash_fwd.cu and
 # csrc/flash_bwd.cu) or raises.  There is no fallback from the card to the
 # plain versions.  When q, k or v requires grad, the call goes through the
-# autograd Function ``FlashAttention``, whose backward is the backward
-# kernel.
+# autograd Function ``FlashAttention``: its forward kernel also returns each
+# row's log-sum-exp, which its backward kernel reads.  Without a gradient
+# (serving) the forward launches without it.
 from __future__ import annotations
 
 import torch
@@ -44,20 +45,25 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError(f"q, k and v lie on {q.device}, {k.device} and {v.device}")
 
 
-def _forward(q, k, v, causal, window, scale, logit_softcap) -> torch.Tensor:
+def _forward(q, k, v, causal, window, scale, logit_softcap, with_lse: bool = False):
+    """The output, or with ``with_lse`` (out, lse): on the card lse is the
+    kernel's (B, H, Sq) row statistics; on the CPU None, since the plain
+    backward recomputes them."""
     global LAUNCHES
     if q.device.type == "cpu":
-        return flash_attention_plain(
+        out = flash_attention_plain(
             q, k, v, causal=causal, window=window, scale=scale, logit_softcap=logit_softcap
         )
+        return (out, None) if with_lse else out
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on the CPU or a CUDA device, not {q.device}")
     for t in (q, k, v):
         if not t.is_contiguous():
             raise ValueError("flash_attention takes contiguous tensors on CUDA")
-    out = kernel.launch(q, k, v, causal=causal, window=window, scale=scale, logit_softcap=logit_softcap)
+    res = kernel.launch(q, k, v, causal=causal, window=window, scale=scale, logit_softcap=logit_softcap,
+                        with_lse=with_lse)
     LAUNCHES += 1
-    return out
+    return res
 
 
 def _check_grad(q: torch.Tensor, k: torch.Tensor) -> None:
@@ -74,13 +80,13 @@ def _check_grad(q: torch.Tensor, k: torch.Tensor) -> None:
                              f"not {q.shape[3]}")
 
 
-def _backward(q, k, v, out, dout, causal, window, scale, logit_softcap) -> tuple:
+def _backward(q, k, v, out, lse, dout, causal, window, scale, logit_softcap) -> tuple:
     global BWD_LAUNCHES, PLAIN_BWD_CALLS
     kw = dict(causal=causal, window=window, scale=scale, logit_softcap=logit_softcap)
     if q.device.type == "cpu":
         PLAIN_BWD_CALLS += 1
         return flash_attention_bwd_plain(q, k, v, dout, out, **kw)
-    grads = kernel.launch_bwd(q, k, v, out, dout.contiguous(), **kw)
+    grads = kernel.launch_bwd(q, k, v, out, dout.contiguous(), lse, **kw)
     BWD_LAUNCHES += 1
     return grads
 
@@ -88,19 +94,21 @@ def _backward(q, k, v, out, dout, causal, window, scale, logit_softcap) -> tuple
 class FlashAttention(torch.autograd.Function):
     """Attention with its gradient: the forward kernel (or, on the CPU, its
     plain version) forward, the backward kernel (on the CPU its plain
-    version) backward.  The output is saved for the backward's delta."""
+    version) backward.  The output is saved for the backward's delta, and
+    on the card the forward's row statistics (lse) for its p; under remat
+    the recomputed forward takes both anew."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, scale, logit_softcap):
-        out = _forward(q, k, v, causal, window, scale, logit_softcap)
-        ctx.save_for_backward(q, k, v, out)
+        out, lse = _forward(q, k, v, causal, window, scale, logit_softcap, with_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
         ctx.kw = (causal, window, scale, logit_softcap)
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, out = ctx.saved_tensors
-        dq, dk, dv = _backward(q, k, v, out, dout, *ctx.kw)
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = _backward(q, k, v, out, lse, dout, *ctx.kw)
         return dq, dk, dv, None, None, None, None
 
 

@@ -8,9 +8,11 @@
 # p is 0; rows with no unmasked key give 0).  It never materialises Sq x Sk,
 # so it serves at full size, where attention_ref at B=8, S=2048, H=16 would
 # hold 2 GB of f32 scores per layer.  ``agreement`` is the tolerance the
-# kernel is held to against it.  ``flash_attention_bwd_plain`` is the
-# backward kernel's plain version: dq, dk and dv written out (not autograd),
-# and ``bwd_agreement`` its tolerance.
+# kernel is held to against it.  ``flash_attention_lse_plain`` is each
+# row's log-sum-exp, which the forward kernel returns for the backward.
+# ``flash_attention_bwd_plain`` is the backward kernel's plain version: dq,
+# dk and dv written out (not autograd), and ``bwd_agreement`` its
+# tolerance.
 from __future__ import annotations
 
 from typing import Optional, Tuple
@@ -182,6 +184,48 @@ def flash_attention_plain(
     return out.to(q.dtype)
 
 
+def flash_attention_lse_plain(
+    q: torch.Tensor,  # (B, Sq, H, D)
+    k: torch.Tensor,  # (B, Sk, Hkv, D)
+    *,
+    causal: bool = True,
+    window: int = 0,
+    scale: float = 1.0,
+    logit_softcap: float = 0.0,
+    q_block: int = 512,
+) -> torch.Tensor:
+    """(B, H, Sq): log of the sum over each row's unmasked keys of
+    exp(score), the scores scaled, then softcapped, then masked as in
+    flash_attention_plain; natural-log units, f32 (float64 for float64
+    inputs); +inf for a row that sees no key (its p is 0 in the backward)."""
+    B, Sq, H, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    G = H // Hkv
+    ct = torch.float64 if q.dtype == torch.float64 else torch.float32
+    dev = q.device
+    kf = k.to(ct)
+    lse = torch.full((B, Hkv, G, Sq), float("inf"), dtype=ct, device=dev)
+    for q_lo in range(0, Sq, q_block):
+        q_hi = min(q_lo + q_block, Sq)
+        k_lo, k_hi = key_range(q_lo, q_hi, Sq, Sk, causal, window)
+        if k_hi <= k_lo:
+            continue
+        qt = q[:, q_lo:q_hi].to(ct).reshape(B, q_hi - q_lo, Hkv, G, D)
+        s = torch.einsum("bqhgd,bkhd->bhgqk", qt, kf[:, k_lo:k_hi]) * scale
+        if logit_softcap > 0:
+            s = logit_softcap * torch.tanh(s / logit_softcap)
+        q_ids = torch.arange(q_lo, q_hi, device=dev)[:, None] + (Sk - Sq)
+        k_ids = torch.arange(k_lo, k_hi, device=dev)[None, :]
+        mask = torch.ones((q_hi - q_lo, k_hi - k_lo), dtype=torch.bool, device=dev)
+        if causal:
+            mask &= k_ids <= q_ids
+        if window > 0:
+            mask &= (q_ids - k_ids) < window
+        l = torch.logsumexp(s.masked_fill(~mask, float("-inf")), dim=-1)
+        lse[..., q_lo:q_hi] = torch.where(torch.isneginf(l), float("inf"), l)
+    return lse.reshape(B, H, Sq)
+
+
 def flash_attention_bwd_plain(
     q: torch.Tensor,     # (B, S, H, D)
     k: torch.Tensor,     # (B, S, Hkv, D)
@@ -194,10 +238,12 @@ def flash_attention_bwd_plain(
     scale: float = 1.0,
     logit_softcap: float = 0.0,
     q_block: int = 512,
+    lse: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """dq, dk, dv of the forward's attention, written out, in f32 (float64
     for float64 inputs), cast to q's dtype at the end.  A q tile at a time:
-    each row's softmax over the keys its tile may see, then
+    each row's softmax over the keys its tile may see (p = exp(s - lse)
+    when the rows' log-sum-exp ``lse`` (B, H, S) is given), then
     dv += p^T dout, dp = dout v^T, ds = p (dp - delta) with delta =
     rowsum(dout * out) (out recomputed here when not given), times the
     softcap's derivative 1 - (s / c)^2, dq = scale ds k and dk += scale
@@ -234,9 +280,13 @@ def flash_attention_bwd_plain(
         if window > 0:
             mask &= (q_ids - k_ids) < window
         s = torch.where(mask, s, NEG_INF)
-        p = torch.where(mask, torch.exp(s - s.amax(dim=-1, keepdim=True)), 0.0)
-        l = p.sum(dim=-1, keepdim=True)
-        p = p / torch.where(l == 0, 1.0, l)
+        if lse is None:
+            p = torch.where(mask, torch.exp(s - s.amax(dim=-1, keepdim=True)), 0.0)
+            l = p.sum(dim=-1, keepdim=True)
+            p = p / torch.where(l == 0, 1.0, l)
+        else:
+            lt = lse[:, :, q_lo:q_hi].to(ct).reshape(B, Hkv, G, q_hi - q_lo, 1)
+            p = torch.where(mask, torch.exp(s - lt), 0.0)
         if out is None:
             o = torch.einsum("bhgqk,bkhd->bqhgd", p, vt)
         else:

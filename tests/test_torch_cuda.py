@@ -9,7 +9,10 @@
 # the clip's strongest, and a reduced rwkv6 on the card whose prefill runs
 # through it; the hand-written flash backward kernel against its plain
 # version given the same forward output (within ``ref.BWD_TOL``, reruns
-# bitwise equal) and against the exact gradient (``ref.BWD_EXACT_REL``),
+# bitwise equal, also where the dk and dv partials of 12 query heads are
+# summed) and against the exact gradient (``ref.BWD_EXACT_REL``), the
+# forward kernel's row statistics (its lse) against the plain lse, and
+# serving calls without a gradient launching the forward without them,
 # the decode step replayed as a CUDA graph against the eager step (tokens
 # and logits bitwise equal), the serving CLI refilling slots under the
 # graph, and a reduced starcoder2-3b train step whose attention gradients
@@ -35,6 +38,7 @@ from repro_torch.kernels.flash.ref import (
     bwd_agreement,
     bwd_exact_agreement,
     flash_attention_bwd_plain,
+    flash_attention_lse_plain,
     flash_attention_plain,
 )
 from repro_torch.kernels.segreduce import ops
@@ -695,9 +699,9 @@ def test_flash_bwd_kernel_matches_plain(cuda, D, G, causal, window, cap, q_mul, 
     q, k, v, dout = _bwd_inputs(gen, 2, S, 2, G, D, cuda)
     q = q * q_mul
     kw = dict(causal=causal, window=window, scale=D ** -0.5, logit_softcap=cap)
-    out = flash_kernel.launch(q, k, v, **kw)
-    a = flash_kernel.launch_bwd(q, k, v, out, dout, **kw)
-    b = flash_kernel.launch_bwd(q, k, v, out, dout, **kw)
+    out, lse = flash_kernel.launch(q, k, v, **kw, with_lse=True)
+    a = flash_kernel.launch_bwd(q, k, v, out, dout, lse, **kw)
+    b = flash_kernel.launch_bwd(q, k, v, out, dout, lse, **kw)
     want = flash_attention_bwd_plain(q.double(), k.double(), v.double(), dout.double(), out.double(), **kw)
     exact = flash_attention_bwd_plain(q.double(), k.double(), v.double(), dout.double(), **kw)
     torch.cuda.synchronize()
@@ -722,10 +726,84 @@ def test_flash_bwd_kernel_on_one_token(cuda, G):
     gen.manual_seed(G)
     q, k, v, dout = _bwd_inputs(gen, 2, 1, 2, G, 128, cuda)
     kw = dict(causal=True, window=0, scale=128 ** -0.5, logit_softcap=0.0)
-    dq, dk, dv = flash_kernel.launch_bwd(q, k, v, flash_kernel.launch(q, k, v, **kw), dout, **kw)
+    out, lse = flash_kernel.launch(q, k, v, **kw, with_lse=True)
+    dq, dk, dv = flash_kernel.launch_bwd(q, k, v, out, dout, lse, **kw)
     assert float(dq.abs().max()) <= 1e-5 and float(dk.abs().max()) <= 1e-5
     want = dout.float().reshape(2, 1, 2, G, 128).sum(dim=3)
     torch.testing.assert_close(dv.float(), want, rtol=2 ** -8, atol=0)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("cap", [0.0, 50.0])
+def test_flash_bwd_partials_of_twelve_heads_rerun_bitwise(cuda, cap):
+    """G = 12 query heads a kv head at S = 2048 (starcoder2-3b's grouping
+    and length): each dkv block writes one head's f32 partials and a third
+    launch sums them in head order, so a rerun is bitwise equal; the result
+    agrees with the plain backward within ref.BWD_TOL."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(12)
+    q, k, v, dout = _bwd_inputs(gen, 1, 2048, 2, 12, 128, cuda)
+    kw = dict(causal=True, window=0, scale=128 ** -0.5, logit_softcap=cap)
+    out, lse = flash_kernel.launch(q, k, v, **kw, with_lse=True)
+    a = flash_kernel.launch_bwd(q, k, v, out, dout, lse, **kw)
+    b = flash_kernel.launch_bwd(q, k, v, out, dout, lse, **kw)
+    want = flash_attention_bwd_plain(q.double(), k.double(), v.double(), dout.double(), out.double(), **kw)
+    torch.cuda.synchronize()
+    assert all(_bitwise(x, y) for x, y in zip(a, b))
+    agree = bwd_agreement(a, want)
+    assert agree["ok"], agree
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("G", [1, 12])
+@pytest.mark.parametrize("causal,window", [(True, 0), (False, 0), (True, 32), (False, 32)])
+@pytest.mark.parametrize("cap,q_mul", [(0.0, 1), (50.0, 1), (50.0, 32)])
+@pytest.mark.parametrize("Sq,Sk", [(130, 257), (200, 200), (300, 100)])
+def test_flash_forward_lse_matches_plain(cuda, D, G, causal, window, cap, q_mul, Sq, Sk):
+    """The bf16 kernel's row statistics against flash_attention_lse_plain in
+    float64 on the same inputs, over phase 6's masks, caps and GQA groups,
+    rows with no key (Sq > Sk, causal) at +inf; the output is bitwise the
+    one the launch without statistics gives.  Tolerance: 1e-4 (1 + |lse|)
+    for the f32 sums and ex2.approx, plus, under a cap c, c * 2^-11: the
+    kernel's tanh.approx (relative error at most 2^-11) moves a capped
+    score by up to that, and lse by no more."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(D * 1000 + G * 10 + Sq)
+    q = torch.randn(2, Sq, 2 * G, D, device=cuda, generator=gen).bfloat16() * q_mul
+    k, v = (torch.randn(2, Sk, 2, D, device=cuda, generator=gen).bfloat16() for _ in range(2))
+    kw = dict(causal=causal, window=window, scale=D ** -0.5, logit_softcap=cap)
+    out, lse = flash_kernel.launch(q, k, v, **kw, with_lse=True)
+    want = flash_attention_lse_plain(q.double(), k.double(), **kw)
+    torch.cuda.synchronize()
+    assert lse.shape == (2, 2 * G, Sq) and lse.dtype == torch.float32
+    assert _bitwise(out, flash_kernel.launch(q, k, v, **kw))
+    assert torch.equal(torch.isinf(lse), torch.isinf(want))
+    fin = torch.isfinite(want)
+    err = (lse.double()[fin] - want[fin]).abs()
+    limit = 1e-4 * (1 + want[fin].abs()) + (cap * 2 ** -11 if cap > 0 else 0.0)
+    assert bool((err <= limit).all()), float((err / limit).max())
+
+
+@pytest.mark.requires_cuda
+def test_flash_serving_calls_launch_without_statistics(cuda, monkeypatch):
+    """Without a gradient (serving: prefill, decode) the wrapper launches the
+    forward without row statistics, as before; under a gradient with
+    them, and the backward reads them."""
+    seen = []
+    launch = flash_kernel.launch
+    monkeypatch.setattr(flash_kernel, "launch", lambda *a, **kw: seen.append(kw["with_lse"]) or launch(*a, **kw))
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(1)
+    q, k, v, dout = _bwd_inputs(gen, 1, 70, 2, 2, 64, cuda)
+    with torch.no_grad():
+        flash_ops.flash_attention(q, k, v, scale=0.125)
+    flash_ops.flash_attention(q, k, v, scale=0.125)
+    flash_ops.flash_attention(q[:, -1:], k, v, scale=0.125)  # a decode-shaped call
+    assert seen == [False, False, False]
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    flash_ops.flash_attention(*leaves, scale=0.125).backward(dout)
+    assert seen[-1] is True
 
 
 @pytest.mark.requires_cuda

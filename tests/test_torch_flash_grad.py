@@ -5,10 +5,15 @@
 # the reference's attention_ref, since flash_attention_jnp takes none), and
 # against torch autograd of the port's attention_ref; over causal or not,
 # sliding window, softcap and GQA groups, with ragged tiles.  The wrapper's
-# CPU gradient (ops.FlashAttention) is the plain backward, exactly.  Inputs
-# come from numpy with a seed.  Tolerance: 1e-4 (rtol and atol) in f32
-# against JAX (both sum in f32, in other orders and tilings), 1e-5 against
-# torch autograd of the materialised softmax.
+# CPU gradient (ops.FlashAttention) is the plain backward, exactly.  The
+# rows' log-sum-exp that the forward kernel returns for the backward has a
+# plain version, flash_attention_lse_plain, held against logsumexp of the
+# scores the JAX package's attention_ref takes; the plain backward given it
+# agrees with its own recomputation.  Inputs come from numpy with a seed.
+# Tolerance: 1e-4 (rtol and atol) in f32 against JAX's gradients (both sum
+# in f32, in other orders and tilings), 1e-5 against torch autograd of the
+# materialised softmax, against JAX's logsumexp and between the plain
+# backward's two forms (f32 sums of a few dozen terms).
 import numpy as np
 import pytest
 import torch
@@ -19,7 +24,12 @@ import jax.numpy as jnp
 from repro.kernels.flash.ref import attention_ref as jax_attention_ref
 from repro.models.attention import flash_attention_jnp
 from repro_torch.kernels.flash import ops
-from repro_torch.kernels.flash.ref import attention_ref, flash_attention_bwd_plain
+from repro_torch.kernels.flash.ref import (
+    attention_ref,
+    flash_attention_bwd_plain,
+    flash_attention_lse_plain,
+    flash_attention_plain,
+)
 
 JAX_TOL = dict(rtol=1e-4, atol=1e-4)
 TORCH_TOL = dict(rtol=1e-5, atol=1e-5)
@@ -99,3 +109,66 @@ def test_plain_backward_in_float64_and_bf16_inputs():
     g32 = flash_attention_bwd_plain(*(torch.from_numpy(a) for a in (q, k, v, dout)), **kw)
     for a, b in zip(g64, g32):
         torch.testing.assert_close(a.float(), b, **TORCH_TOL)
+
+
+def _jax_lse(q, k, causal, window, scale, cap):
+    """logsumexp over each row of the scores of the JAX package's
+    attention_ref (repro.kernels.flash.ref; its lines up to the softmax:
+    scale, softcap, the mask with queries aligned to the end of the keys),
+    +inf where a row sees no key; (B, H, Sq)."""
+    B, Sq, H, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    qg = jnp.asarray(q).reshape(B, Sq, Hkv, H // Hkv, D)
+    s = jnp.einsum("bqhgd,bkhd->bhgqk", qg, jnp.asarray(k)) * scale
+    if cap > 0:
+        s = cap * jnp.tanh(s / cap)
+    q_ids = jnp.arange(Sq)[:, None] + (Sk - Sq)
+    k_ids = jnp.arange(Sk)[None, :]
+    mask = jnp.ones((Sq, Sk), bool)
+    if causal:
+        mask &= k_ids <= q_ids
+    if window > 0:
+        mask &= (q_ids - k_ids) < window
+    lse = np.asarray(jax.nn.logsumexp(jnp.where(mask[None, None, None], s, -jnp.inf), axis=-1))
+    return np.where(np.isneginf(lse), np.inf, lse).reshape(B, H, Sq)
+
+
+@pytest.mark.parametrize("Sq,Sk", [(13, 13), (40, 40), (5, 21), (21, 5)])
+@pytest.mark.parametrize("G", [1, 3])
+@pytest.mark.parametrize("causal,window,cap", CASES)
+def test_plain_lse_matches_jax_scores(causal, window, cap, G, Sq, Sk):
+    """Over masks, caps and GQA groups, decode-style (Sq < Sk) and with rows
+    that see no key (Sq > Sk, causal), which take +inf."""
+    rng = np.random.default_rng(Sq * 100 + Sk + G)
+    q = rng.normal(size=(2, Sq, 2 * G, 16)).astype(np.float32)
+    k = rng.normal(size=(2, Sk, 2, 16)).astype(np.float32)
+    kw = dict(causal=causal, window=window, scale=0.3, logit_softcap=cap)
+    got = flash_attention_lse_plain(torch.from_numpy(q), torch.from_numpy(k), **kw, q_block=8)
+    want = _jax_lse(q, k, causal, window, 0.3, cap)
+    assert got.shape == (2, 2 * G, Sq) and got.dtype == torch.float32
+    np.testing.assert_array_equal(np.isinf(got.numpy()), np.isinf(want))
+    np.testing.assert_allclose(got.numpy(), want, **TORCH_TOL)
+
+
+@pytest.mark.parametrize("G", [1, 3])
+@pytest.mark.parametrize("causal,window,cap", CASES)
+def test_plain_backward_given_lse_matches_its_recomputation(causal, window, cap, G):
+    q, k, v, dout = (torch.from_numpy(a) for a in _inputs(G + 31, 2, 29, 2, G, 16))
+    kw = dict(causal=causal, window=window, scale=0.3, logit_softcap=cap)
+    out = flash_attention_plain(q, k, v, **kw)
+    lse = flash_attention_lse_plain(q, k, **kw)
+    got = flash_attention_bwd_plain(q, k, v, dout, out, **kw, q_block=8, lse=lse)
+    want = flash_attention_bwd_plain(q, k, v, dout, out, **kw, q_block=8)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, **TORCH_TOL)
+
+
+def test_cpu_forward_leaves_the_statistics_to_the_plain_backward():
+    """On the CPU the forward under a gradient is the plain forward and
+    saves no lse: the plain backward recomputes its statistics."""
+    q, k, v, _ = (torch.from_numpy(a) for a in _inputs(4, 1, 12, 2, 2, 8))
+    kw = dict(causal=True, window=0, scale=0.4, logit_softcap=0.0)
+    ops.reset_launches()
+    out, lse = ops._forward(q, k, v, *kw.values(), with_lse=True)
+    assert lse is None and ops.LAUNCHES == 0
+    assert torch.equal(out, flash_attention_plain(q, k, v, **kw))
