@@ -74,6 +74,9 @@ Phases, each of which must pass for the exit code to be 0:
    final state held to ``ref.KERNEL_TOL``, each case run twice and required
    to be bitwise equal; where the launch cuts the sequence into segments,
    the plain form of its passes (wkv6_segmented_plain) held against both;
+   then what each instance of the chunked kernel takes (chunk length L,
+   registers, shared bytes, blocks an SM, spills: the scan and the states
+   pass) and each pass's device ms a launch at 8 x 2048 and 1 x 16385;
 10. the LM serving path at rwkv6-3b's full published width (32 layers,
    d_model 2560, 40 heads of 64, 3.07 B parameters drawn on the card from
    ``--seed``, with the tensors the model initialises to zeros drawn too, so
@@ -82,7 +85,8 @@ Phases, each of which must pass for the exit code to be 0:
    and 16 new ones, with 32 wkv6 launches per prefill and every wkv6 call
    of the prefills held against the plain version (y and the final state);
    (b)'s consistency prefill of 16385 tokens runs the ragged tail;
-11. the WKV6 kernel at the serving path's shapes: its time, its bound and
+11. the WKV6 kernel at the serving path's shapes: its time, each pass's
+   device ms a launch with its L, blocks an SM and registers, its bound and
    what bounds it, the plain version's time (no PyTorch call computes the
    recurrence, so there is no library time), and on the inputs of the
    serving call that read worst, the kernel's and the plain version's
@@ -168,6 +172,7 @@ SRC = os.path.join(ROOT, "src")
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 F32_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
 BF16_OPS_PER_S = 989e12     # H100 SXM bf16 tensor cores, dense
+TF32_OPS_PER_S = 495e12     # H100 SXM tf32 tensor cores, dense
 DECODE_TOL = 0.15           # the JAX package's decode-consistency tolerance
 # the first decode step's largest logit error over its largest |logit|, as
 # read on sound runs: 0.0122 / 0.539 = 0.023 (gemma2-9b, scenario (b), seed 0,
@@ -583,7 +588,7 @@ def kernel_regime(torch, kern, keys, values, op_names, num_keys: int, with_prese
     return lay.regime
 
 
-def time_call(torch, ops, ref, name: str, args, kw, passes: bool = True) -> dict:
+def time_call(torch, ops, ref, name: str, args, kw) -> dict:
     """Kernel, plain version and library calls on one captured input."""
     from repro_torch.kernels.segreduce import kernel as kern
 
@@ -648,7 +653,7 @@ def time_call(torch, ops, ref, name: str, args, kw, passes: bool = True) -> dict
         return [call() for call in scatters]
 
     n = int(keys.shape[0])
-    passes = kernel_passes(torch, kernel) if passes else {}
+    passes = kernel_passes(torch, kernel)
     t_bound, bound_by = bound(
         n, num_keys, sum(v.element_size() for v in values),
         len(values) + (1 if with_presence else 0), mask is not None,
@@ -705,14 +710,14 @@ def device_us(ev) -> float:
     return us if us is not None else getattr(ev, "cuda_time_total", 0.0)
 
 
-def launch_times(torch, fn, needle: str, reps: int = 5) -> dict:
-    """Device ms per launch of each CUDA kernel whose name holds ``needle``,
-    from the profiler's trace of ``reps`` calls of ``fn`` (empty when the
-    profiler cannot trace the card).  The profiler may miss the launches at
-    the start of its window (on the H100 machine it dropped a backward's
-    first launch, and in a long run all of a call's), so the window opens
-    with a pause of the host and each kernel's time is averaged over the
-    launches it recorded."""
+def traced_launches(torch, fn, needle: str, reps: int) -> dict:
+    """{name: (device ms a launch, launches recorded)} of each CUDA kernel
+    whose name holds ``needle``, from the profiler's trace of ``reps`` calls
+    of ``fn`` (empty when the profiler cannot trace the card).  The profiler
+    may miss the launches at the start of its window (on the H100 machine it
+    dropped a backward's first launch, and in a long run all of a call's),
+    so the window opens with a pause of the host and each kernel's time is
+    averaged over the launches it recorded."""
     def run():
         time.sleep(0.1)
         for _ in range(reps):
@@ -721,24 +726,52 @@ def launch_times(torch, fn, needle: str, reps: int = 5) -> dict:
     events = trace_card(torch, run)
     if events is None:
         return {}
-    return {ev.key.split("(")[0].removeprefix("void "): device_us(ev) / 1e3 / ev.count
+    return {ev.key.split("(")[0].removeprefix("void "): (device_us(ev) / 1e3 / ev.count, ev.count)
             for ev in events if needle in ev.key and ev.count > 0}
 
 
-def kernel_passes(torch, fn, reps: int = 3, prefixes=("seg_", "Memset")) -> dict:
-    """Device ms per call of each CUDA kernel (and memset) ``fn`` launches
-    whose name starts with one of ``prefixes``, from the profiler's trace of
-    the card (empty when the profiler cannot trace it)."""
+def launch_times(torch, fn, needle: str, reps: int = 5) -> dict:
+    """Device ms a launch of each CUDA kernel whose name holds ``needle``
+    (``traced_launches``)."""
+    return {name: ms for name, (ms, _) in traced_launches(torch, fn, needle, reps).items()}
+
+
+def kernel_passes(torch, fn, reps: int = 20, prefixes=("seg_", "Memset")) -> dict:
+    """{name: {"ms": device ms a launch, "per_call": launches a call}} of each
+    CUDA kernel (and memset) ``fn`` launches whose name starts with one of
+    ``prefixes``, after one warm call, from ``traced_launches`` over
+    ``reps`` calls, each after one launch of a marker kernel (an in-place
+    bitwise not of one int16).  The time is over the launches the trace
+    recorded, and launches a call are those recorded over the markers
+    recorded, not over the calls made: late in a long run the profiler kept
+    35-80% of the launches of a 20-call window (and none of a 3-call one).
+    ``per_call`` is None where no marker was recorded; empty when the
+    profiler cannot trace the card or recorded nothing."""
+    flag = torch.zeros(1, dtype=torch.int16, device="cuda")
+
+    def call():
+        flag.bitwise_not_()
+        fn()
+
     fn()
-    events = trace_card(torch, fn, reps)
-    if events is None:
-        return {}
-    out = {}
-    for ev in events:
-        name = ev.key.removeprefix("void ").split("(")[0]
-        if device_us(ev) > 0 and name.startswith(prefixes):
-            out[name] = device_us(ev) / 1e3 / reps
-    return out
+    traced = traced_launches(torch, call, "", reps)
+    calls = sum(count for name, (_, count) in traced.items() if "bitwise_not" in name)
+    return {name: {"ms": ms, "per_call": count / calls if calls else None}
+            for name, (ms, count) in traced.items() if ms > 0 and name.startswith(prefixes)}
+
+
+def passes_text(passes: dict, digits: int = 4) -> str:
+    """``kernel_passes``' reading as 'name ms-a-launch x launches-a-call',
+    then the call's device ms, the sum of ms x launches (left out where the
+    launches a call are not known)."""
+    if not passes:
+        return "(the profiler recorded no launch)"
+    known = all(p["per_call"] is not None for p in passes.values())
+    text = "  ".join(f"{name.split('<')[0]} {p['ms']:.{digits}f} x"
+                     + (f"{p['per_call']:.3g}" if p["per_call"] is not None else "?") for name, p in passes.items())
+    if known:
+        text += f"; {sum(p['ms'] * p['per_call'] for p in passes.values()):.{digits}f} ms a call"
+    return text
 
 
 # ---------------------------------------------------------------------------
@@ -834,16 +867,19 @@ def partitioned_path(torch, repro_torch, ops, tables: dict, want: dict, main_row
 def chunk_shapes(torch, ops, ref, recorders, fails: Failures) -> list:
     """The segreduce launches of the chunk kernels, one per label and chunk
     shape: the first chunk's inputs held against the plain version, and the
-    kernel's regime, time, bound and one library call's time there."""
+    kernel's regime, time (events around eager calls, which at a small chunk
+    may read the host's launch time), each pass's device ms a launch from
+    the profiler's trace, bound and one library call's time there."""
     rows = []
     for rec in recorders:
         for label, cargs, ckw in rec.calls:
-            t = time_call(torch, ops, ref, rec.name, cargs, ckw, passes=False)
+            t = time_call(torch, ops, ref, rec.name, cargs, ckw)
             fails.check(t["ok"], f"{rec.name} at chunk {label} disagrees with its plain version")
             rows.append({"name": rec.name, "query": label, **t})
             print(f"  {rec.name:<16} {label:<26} N={t['n']:>8} K={t['num_keys']:>8} regime {t['regime']} "
                   f"kernel {t['ms']:.4f} ms  bound {t['bound_ms']:.4f} ms  plain {t['plain_ms']:.3f} ms  "
                   f"library {t['library_ms']:.3f} ms (every table {t['library_all_ms']:.3f} ms)", flush=True)
+            print("    passes (ms a launch x launches a call) " + passes_text(t["passes_ms"]), flush=True)
         rec.calls.clear()
     return rows
 
@@ -1472,17 +1508,46 @@ def flash_at_shapes(torch, flash_ops, plain, agreement, rec, fails: Failures) ->
 # ---------------------------------------------------------------------------
 
 
-def wkv6_bound(B: int, S: int, H: int, K: int, elem: int, u_elem: int, with_state: bool) -> tuple:
-    """(bound_ms, bound_by): the scan's 5 K V f32 operations per token and
-    head (V = K; for each state element, y += r S is one FMA and S = w S +
-    k v a multiply and an FMA; the bonus, (sum_k r u k) v, is O(K + V))
-    against the card's f32 rate, and r, k, v (``elem`` bytes),
-    log_w and y (f32), u, S0 (when given) and S_out each moved once."""
-    n = B * S * H * K
-    t_ops = 5.0 * n * K / F32_OPS_PER_S * 1e3
-    nbytes = n * (3 * elem + 4 + 4) + H * K * u_elem + B * H * K * K * 4 * (2 if with_state else 1)
+def wkv6_bound(B: int, S: int, H: int, K: int, elem: int, u_elem: int, with_state: bool, chunk: int) -> tuple:
+    """(bound_ms, bound_by): the larger of the time the operations of the
+    chunked form take and the time its bytes take.  Operations, per token
+    and head (V = K): the two K x V products (the state's share of y and the
+    state's update, 4 K V FLOPs) on the tensor cores in split TF32, three
+    products each, at the TF32 rate; then, on the CUDA cores at the f32
+    rate, the weights within a chunk of L tokens ((L - 1) / 2 pairs of K
+    terms, each a difference, an exp, a product and an FMA: 5 operations),
+    the bonus and the decayed operands (7 K) and the state's decay once a
+    chunk (2 K V / L).  Bytes: r, k, v (``elem`` bytes), log_w and y (f32),
+    u, S0 (when given) and S_out each moved once.  (The per-token scan's
+    count, 5 K V f32 operations a token, read 0.200 ms at 8 x 2048 x 40 x
+    64.)"""
+    n = B * S * H
+    t_tensor = n * 3 * 4 * K * K / TF32_OPS_PER_S * 1e3
+    t_cuda = n * ((chunk - 1) / 2 * K * 5 + 7 * K + 2 * K * K / chunk) / F32_OPS_PER_S * 1e3
+    t_ops = t_tensor + t_cuda
+    nbytes = n * K * (3 * elem + 4 + 4) + H * K * u_elem + B * H * K * K * 4 * (2 if with_state else 1)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def wkv6_passes(torch, kern, args) -> dict:
+    """Each pass of one launch (device ms a launch, ``kernel_passes``) with
+    the chunk length, segments and what each kernel instance takes on the
+    card (registers, blocks an SM)."""
+    r = args[0]
+    B, S, H, K = r.shape
+    sms = torch.cuda.get_device_properties(r.device).multi_processor_count
+    passes = kernel_passes(torch, lambda: kern.launch(*args), prefixes=("wkv6_",))
+    info = {name: kern.library_info(r.dtype, K, with_y)
+            for name, with_y in (("scan", True), ("states", False))}
+    return {"chunk": kern.CHUNK, "segments": kern.segments(B, H, S, K, sms), "passes_ms": passes, "info": info}
+
+
+def passes_line(p: dict) -> str:
+    info = p["info"]
+    return ("L=" + str(p["chunk"]) + f", {p['segments']} segment(s); passes (ms a launch x launches a call) "
+            + passes_text(p["passes_ms"]) + "; "
+            + ", ".join(f"{k} {v['registers']} registers, {v['blocks_per_sm']} blocks an SM" for k, v in info.items()))
 
 
 def wkv6_matrix(torch, wkv6_ops, plain, agreement, fails: Failures, seed: int) -> list:
@@ -1554,6 +1619,27 @@ def wkv6_matrix(torch, wkv6_ops, plain, agreement, fails: Failures, seed: int) -
     return results
 
 
+def wkv6_pass_report(torch, seed: int) -> dict:
+    """Phase 9's last part: each pass of the launch (L, segments, device ms
+    a launch, registers and blocks an SM of the scan and the states pass)
+    at rwkv6-3b's two serving shapes, K = 64, bf16."""
+    from repro_torch.kernels.wkv6 import kernel as kern
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    out = {}
+    for B, S in ((8, 2048), (1, 16385)):
+        r, k, v = ((0.5 * torch.randn(B, S, 40, 64, device="cuda", generator=gen)).bfloat16() for _ in range(3))
+        lw = -torch.exp(torch.randn(B, S, 40, 64, device="cuda", generator=gen))
+        u = 0.3 * torch.randn(40, 64, device="cuda", generator=gen)
+        p = wkv6_passes(torch, kern, (r, k, v, lw, u, None))
+        out[f"{B}x{S}"] = p
+        print(f"  wkv6 passes at {B} x {S} x 40 x 64: " + passes_line(p), flush=True)
+        del r, k, v, lw
+    torch.cuda.empty_cache()
+    return out
+
+
 # ---------------------------------------------------------------------------
 # phase 11: the wkv6 kernel at the serving path's shapes
 # ---------------------------------------------------------------------------
@@ -1585,7 +1671,7 @@ def wkv6_at_shapes(torch, wkv6_ops, plain, scan, agreement, rec: CallRecorder) -
         r, k, v, lw, u, s0 = args
         B, S, H, K = shape
         n_seg = kern.segments(B, H, S, K, sms)
-        t_bound, bound_by = wkv6_bound(B, S, H, K, r.element_size(), u.element_size(), s0 is not None)
+        t_bound, bound_by = wkv6_bound(B, S, H, K, r.element_size(), u.element_size(), s0 is not None, kern.CHUNK)
         st = rec.stats[key]
         row = {
             "scenario": label, "shape": list(shape), "dtype": dname, "calls": st["calls"], "segments": n_seg,
@@ -1596,6 +1682,7 @@ def wkv6_at_shapes(torch, wkv6_ops, plain, scan, agreement, rec: CallRecorder) -
             "library_ms": None,
             "max_abs_err": st["max_abs_err"], "worst": st["worst"], "rel": st["rel"],
             "witness_f64": wkv6_witness(torch, wkv6_ops, plain, scan, agreement, args),
+            "passes": wkv6_passes(torch, kern, args),
         }
         rows.append(row)
         print(f"  wkv6 ({label}) B={B} S={S} H={H} K={K} {dname} calls {st['calls']} segments {n_seg}: "
@@ -1603,6 +1690,7 @@ def wkv6_at_shapes(torch, wkv6_ops, plain, scan, agreement, rec: CallRecorder) -
               f"bound {t_bound:.3f} ms ({bound_by})  plain {row['plain_ms']:.3f} ms  library n/a  "
               f"max_abs_err {st['max_abs_err']:.3g}, worst/limit {st['worst']:.3g}, rel {st['rel']:.3g}",
               flush=True)
+        print("    " + passes_line(row["passes"]), flush=True)
         wit = row["witness_f64"]
         print(f"    that call against the f64 scan: kernel worst/limit {wit['kernel']['worst']:.3g}, "
               f"rel {wit['kernel']['rel']:.3g}; plain worst/limit {wit['plain']['worst']:.3g}, "
@@ -2149,7 +2237,7 @@ def main(argv=None) -> int:
                   f"kernel {t['ms']:.3f} ms  bound {t['bound_ms']:.3f} ms  plain {t['plain_ms']:.3f} ms  "
                   f"library {t['library_ms']:.3f} ms (every table {t['library_all_ms']:.3f} ms)  "
                   f"max_abs_err {t['max_abs_err']:.3g}", flush=True)
-            print("    passes " + "  ".join(f"{k} {v:.3f}" for k, v in t["passes_ms"].items()), flush=True)
+            print("    passes (ms a launch x launches a call) " + passes_text(t["passes_ms"], 3), flush=True)
         rec.calls.clear()
     record["shapes"] = shapes
     torch.cuda.empty_cache()
@@ -2184,6 +2272,7 @@ def main(argv=None) -> int:
     # 9. wkv6 against its plain version
     print("wkv6 kernel against its plain version:", flush=True)
     record["wkv6_matrix"] = wkv6_matrix(torch, wkv6_ops, wkv6_plain, wkv6_agreement, fails, args.seed)
+    record["wkv6_passes"] = wkv6_pass_report(torch, args.seed)
 
     # 10. the rwkv6 serving path at full width
     print(f"serving path: {RWKV_ARCH} at full width:", flush=True)

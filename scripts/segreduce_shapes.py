@@ -31,7 +31,7 @@ import torch
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path[:0] = [ROOT, os.path.join(ROOT, "src")]
 
-from chip_smoke import Failures, device_ms, kernel_passes, main_path, time_call, tpch_tables  # noqa: E402
+from chip_smoke import Failures, device_ms, kernel_passes, main_path, passes_text, time_call, tpch_tables  # noqa: E402
 import repro_torch  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.segreduce import kernel, ops, ref  # noqa: E402
@@ -102,7 +102,7 @@ def report(label: str, row: dict) -> None:
             line += f" | {key[:-3]} {row[key]:.3f}"
     print(line, flush=True)
     for name, passes in row["turns"]["passes_ms"].items():
-        print(f"    {name} passes " + "  ".join(f"{k} {v:.3f}" for k, v in passes.items()), flush=True)
+        print(f"    {name} passes (ms a launch x launches a call) " + passes_text(passes, 3), flush=True)
 
 
 def main(argv=None) -> int:

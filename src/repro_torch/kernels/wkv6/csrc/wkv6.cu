@@ -1,4 +1,5 @@
-// WKV6 recurrence (RWKV6 "Finch" time-mix) for Hopper (sm_90a).
+// WKV6 recurrence (RWKV6 "Finch" time-mix) for Hopper (sm_90a), as the
+// chunked recurrence with its state products on the tensor cores.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/wkv6/kernel.py::
 // wkv6_pallas (its body _kernel), and returns the final state as well, which
@@ -10,391 +11,810 @@
 // (zeros when null), with V = K:
 //   y_t[v] = sum_k r_t[k] * (S[k][v] + u[k] * k_t[k] * v_t[v])
 //   S[k][v] <- exp(log_w_t[k]) * S[k][v] + k_t[k] * v_t[v]
-// Outputs: y (B, S, H, K) f32 and the final S (B, H, K, K) f32.  Every
-// exponent is a log_w_t <= 0, so a strong decay underflows to an exact 0 and
-// nothing overflows.  All arithmetic is f32 on the CUDA cores: TF32 keeps
-// about three digits and would not hold the reference's 2e-3 (1e-4 under
-// strong decay).
+// Outputs: y (B, S, H, K) f32 and the final S (B, H, K, K) f32.
 //
-// Bound.  Operations: 5 * K * V per token and head (for each state element,
-// y += r * S is one FMA and S = w * S + k * v a multiply and an FMA; the
-// bonus, (sum_k r u k) * v, is O(K + V)), over 67 TFLOP/s of f32 on an H100
-// SXM.  Bytes: r, k, v, log_w and y each moved once, and S0 and S_out, over
-// 3.35 TB/s.  At rwkv6-3b's prefill shapes (K = V = 64, r/k/v in bf16) the
-// operations bound it, narrowly: 5 * 64 = 320 operations per 14 bytes of
-// each (token, head, k), 23 per byte against the card's 20.
+// The chunked form (the Pallas kernel's algebra, and ref.wkv6_plain's).  Per
+// chunk of L = 16 tokens, with cum the inclusive running sum of log_w inside
+// the chunk, cumq the exclusive one and tot its last value:
+//   A[i][j] = sum_k r_i[k] k_j[k] e^{cumq_i[k] - cum_j[k]}   (j < i)
+//   A[i][i] = sum_k r_i[k] u[k] k_i[k]                        (the bonus)
+//   y       = A v + (r . e^{cumq}) S
+//   S      <- e^{tot} . S + (k . e^{tot - cum})^T v
+// Every exponent is <= 0, so a strong decay underflows to an exact 0 and
+// nothing overflows: no factor e^{-cum} is ever formed.  Exponents are taken
+// in log2 units (log_w * log2(e), summed), by ex2.approx.
+//
+// Bound.  The function needs, per token and head, two K x V products (the
+// state's contribution to y and the state's update: 4 K V FLOPs), which run
+// on the tensor cores in split TF32 (three products each, at 495 / 3
+// TFLOP/s), and the within-chunk weights on the CUDA cores (about L K / 2
+// exps and a few f32 operations each).  The bytes: r, k, v, log_w and y
+// each moved once, S0 and S_out, over 3.35 TB/s.  At rwkv6-3b's shapes
+// (K = 64, r/k/v in bf16) the bytes bound it: 0.175 ms at 8 x 2048 x 40
+// heads against about 0.1 ms of operations (chip_smoke.wkv6_bound).  The
+// per-token scan this kernel replaced was bound by its 5 K V f32 operations
+// a token on the CUDA cores (0.200 ms) and took 1.25-1.29 ms.
+//
+// Measured on an H100 (scripts/wkv6_splits.py, in turns with the per-token
+// scan; PERF.md §6): 0.42 ms at 8 x 2048 x 40 heads against the scan's
+// 1.27, 0.54 ms at 1 x 16384 (27 segments) against 1.02.  What decided the
+// design, one step at a time at 8 x 2048: split TF32 held the tolerance
+// (worst/limit 0.027 where the scan read 0.026); L = 32 lost to L = 16
+// (1.65 against 1.03 ms, then 1.13 against 0.69); masking the split where
+// cvt.rna stood took 0.65 to 0.53 ms; wgmma in place of mma.sync cut the
+// products' cycles a chunk from 2,620 to 1,620 once the registers were cut
+// back to three blocks an SM; factoring A's off-diagonal block took 0.54
+// to 0.44 ms; the backwards states pass took 0.196 to 0.116 ms at 1 x
+// 16384.
 //
 // Design, and what it does about that bound.
-//   * The chunked algebra of the Pallas kernel exists to feed the TPU's
-//     matrix unit.  In f32 on CUDA cores it would cost more operations than
-//     the scan (the pairwise decay alone is L/2 exps per token and k), so
-//     this kernel runs the exact per-token scan, which is also the
-//     reference's oracle.  The state never leaves registers: the TPU's
-//     sequential chunk axis becomes a loop over tokens inside the block.
-//   * Columns of the state are independent (y[:, v] reads only S[:, v] and
-//     v[:, v]), so a block of 64 threads owns one (b, h) and VB of its
-//     columns, and the grid (K / VB, H, B) fills the card without any
-//     cross-block reduction.  Each thread holds R = K / KS rows of C
-//     columns in registers.
-//   * What bounds a scan like this on the CUDA cores is shared memory: a
-//     thread reads r, k and w of each row for every token.  With one column
-//     a thread (C = 1), those reads cost as much shared-memory bandwidth as
-//     the three f32 instructions they feed (two FMAs and a multiply) cost
-//     issue slots, and the first version was bound by them; with C = 4 each
-//     read feeds four columns.  K = 16 keeps C = 1 (its row slices would
-//     otherwise be one row).
-//   * KS, the number of row slices, sets how many blocks there are: the
-//     fewest built split that gives two blocks per SM (KS = 4 for a batch
-//     of 8 x 40 heads at K = 64, 320 blocks).  Where B * H cannot give that
-//     (one long prompt of 40 heads), the sequence is cut into segments,
-//     each scanned at KS = 4 by its own blocks from the state the segments
-//     before it leave (the sequence-parallel passes below): 13 segments of
-//     40 blocks fill the card's 132 SMs with four blocks each, where one
-//     pass at KS = 16 had 160 thin blocks whose thread each holds 4 rows.
-//   * TT tokens at a time are staged in shared memory: r, k and exp(log_w)
-//     (one exp per element and block), v of the block's columns, and the
-//     products r u k, whose sum over k (the bonus of each token) four
-//     groups of threads take in parts.  The row slice of each KS group is
-//     padded by 4 floats, so that the groups' 16-byte reads of one token fall
-//     on different banks.  The ragged tail is padded with k = v = 0 and
-//     log_w = 0, which leaves the state as it is.  The next TT tokens are
-//     loaded into registers before the current ones are scanned, so that
-//     the loads' latency hides behind the scan (a first version that loaded
-//     each chunk only when it was needed spent most of its time waiting).
-//   * Each thread's partial sums of y for each token go to shared memory;
-//     after the TT tokens, the KS partials of each (token, column) are added
-//     in row-slice order, the bonus is added, and y is written.  Every sum
-//     has a fixed order, so results are bitwise deterministic.
+//   * One block of four warps (one warpgroup) walks the chunks of one
+//     (b, h), or of one segment of it, in order.  What the block issues a
+//     chunk is what bounds it: at 8 x 2048 three blocks share an SM and its
+//     issue slots are nearly full, so the design counts instructions.
+//   * Split TF32.  A TF32 product keeps 11 significant bits, which fails the
+//     kernel's tolerance; x = hi + lo with hi = x's top 19 bits (what the
+//     tensor cores read of x) and lo = x - hi (exact; the MMA reads its top
+//     19 bits), and a b ~ hi hi + hi lo + lo hi, each an MMA with f32
+//     accumulation, comes within about 2^-20 of a b (ref.
+//     wkv6_chunked_split_plain is this arithmetic on the CPU).  Masking
+//     takes two instructions where cvt.rna.tf32.f32 took several.  bf16 r,
+//     k and v are exact in TF32, so a product with v as a factor takes two
+//     MMAs.
+//   * The products are wgmma m64nNk8 .tf32 on the warpgroup, all of a chunk
+//     in flight at once: y^T = S^T (r . 2^{cumq})^T + v^T A^T and the
+//     chunk's state product from zero, E^T = v^T (k . 2^{tot - cum}).  The
+//     state is held in registers as its two TF32 parts, which are the A
+//     operands as they stand: an accumulator fragment of S^T holds keys 2q
+//     and 2q + 1 of its 8-wide tile where the A operand wants columns q and
+//     q + 4, and summing over the keys in another order is the same sum, so
+//     the B operand (r . 2^{cumq}) is laid out in that order.  The decayed
+//     state is added on the CUDA cores, S = 2^{tot} S + E, so the tensor
+//     cores never round the carried state.  (mma.sync m16n8k8 took 88
+//     instructions a warp a chunk, with every B fragment loaded and split
+//     by every warp.)
+//   * The within-chunk weights: the two diagonal 8 x 8 blocks of A
+//     directly (28 pairs of K exps each), the rows of each pair of a block
+//     (p, 7 - p) in one thread so that all do the same work, the slices'
+//     partials meeting in a reduce-scatter of shuffles; the block below them
+//     factored at its corner m = 7, 2^{cumq_i - cum_j} = 2^{cumq_i - cum_m}
+//     2^{cum_m - cum_j} with both exponents <= 0 (a term lost to underflow is
+//     below 2^-126), as a small product on the CUDA cores.  That halves the
+//     per-element work the direct form took.
+//   * Inputs come through a two-stage ring in shared memory filled by
+//     cp.async (16-byte pieces, zero-filled past the segment's end, which
+//     leaves the state as it is: k = v = 0, log_w = 0), one chunk ahead of
+//     the chunk being computed; nothing is prefetched into registers.
+//   * Every phase issues its shared-memory loads before its stores: a load
+//     after a store to shared memory waits for it (the compiler cannot tell
+//     the arrays apart), and chains of such pairs are what the first version
+//     of this kernel spent most of its time on.
+//   * One long prompt (B * H too small to fill the card) is cut into
+//     segments: wkv6_states gives each segment's state from zero, E = sum_j
+//     (k_j . 2^{tot - cum_j}) v_j^T with cum running over the segment, and
+//     its decay, walking the segment backwards so that the decay of a chunk
+//     is the sum of the chunks after it, with E accumulated by the tensor
+//     cores over the whole segment (no state to carry, so only the next
+//     chunk's stores wait on the products); wkv6_carry chains them; and
+//     wkv6_chunks runs each segment from its start.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
-#define WKV_THREADS 64
-#define WKV_TT 16                          // tokens staged at a time
-#define WKV_PARTS (WKV_THREADS / WKV_TT)   // parts of a token's bonus sum
+#define WKV_THREADS 128
+#define WKV_STAGES 2
+#define WKV_CARRY_STEP 8
+#define WKV_LOG2E 1.4426950408889634f
 
 enum { DT_F32 = 0, DT_BF16 = 1 };
 
 __device__ __forceinline__ float widen(float x) { return x; }
 __device__ __forceinline__ float widen(__nv_bfloat16 x) { return __bfloat162float(x); }
 
-template <int K, int KS, int C>
-struct WkvShape {
-    static constexpr int R = K / KS;                        // state rows of a thread
-    static constexpr int VB = WKV_THREADS * C / KS;         // state columns of a block
-    static constexpr int CG = VB / C;                       // column groups of a block
-    static constexpr int RP = R + 4;                        // padded row slice
-    static constexpr int KP = KS * RP;                      // padded token row
-    static_assert(R % 4 == 0, "a thread's row slice is read as float4");
-    static_assert(VB <= K && K % VB == 0, "a block's columns tile K");
-    static_assert(K % WKV_PARTS == 0, "the bonus sum splits K in parts");
+// 2^x for x <= 0, flushed to 0 below 2^-126 (whose product with anything
+// the kernel adds is far under its tolerance).
+__device__ __forceinline__ float ex2(float x) {
+    float y;
+    asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+    return y;
+}
+
+// Split TF32: x = hi + lo, hi = x with its low 13 bits cleared (the TF32
+// value the tensor cores read from x) and lo = x - hi, exact in f32; an MMA
+// reads lo to TF32's 10 mantissa bits in turn, so hi + lo stands for x
+// within 2^-20 of |x|.
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+    hi = __float_as_uint(x) & 0xffffe000u;
+    lo = __float_as_uint(x - __uint_as_float(hi));
+}
+__device__ __forceinline__ void split_to(float x, float* hi, float* lo) {
+    const float h = __uint_as_float(__float_as_uint(x) & 0xffffe000u);
+    *hi = h;
+    *lo = x - h;
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory"); }
+__device__ __forceinline__ void wgmma_wait_all() { asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory"); }
+// Shared memory written by the threads, read next by wgmma (the async proxy).
+__device__ __forceinline__ void fence_async_smem() { asm volatile("fence.proxy.async.shared::cta;" ::: "memory"); }
+
+// Keep the compiler from reusing or moving registers that an asynchronous
+// wgmma reads or writes before the wait that covers it.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
+#pragma unroll
+    for (int i = 0; i < N; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
+// A wgmma shared-memory descriptor without swizzle: the operand is made of
+// core matrices of 8 rows of 16 bytes (8 x 4 TF32 values, K-major), `lbo`
+// bytes apart along K and `sbo` bytes apart along M or N.
+__device__ __forceinline__ uint64_t smem_desc(const void* p, uint32_t lbo, uint32_t sbo) {
+    const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+    return (uint64_t)((a & 0x3FFFF) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+           ((uint64_t)((sbo >> 4) & 0x3FFF) << 32);
+}
+
+// d (+)= a b on one warpgroup: A (64 x 8) from registers, as mma.sync's
+// m16n8k8 fragment in each warp's 16 rows; B (8 x N) from shared memory;
+// TF32 operands, f32 accumulators laid out as mma.sync's, 8 columns a tile.
+// ACC false overwrites d (which is then not read).
+#define WKV_D8(o) "=f"(d[o]), "=f"(d[o + 1]), "=f"(d[o + 2]), "=f"(d[o + 3]), "=f"(d[o + 4]), "=f"(d[o + 5]), "=f"(d[o + 6]), "=f"(d[o + 7])
+#define WKV_A8(o) "+f"(d[o]), "+f"(d[o + 1]), "+f"(d[o + 2]), "+f"(d[o + 3]), "+f"(d[o + 4]), "+f"(d[o + 5]), "+f"(d[o + 6]), "+f"(d[o + 7])
+#define WKV_N16 "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n" \
+                "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 {%0, %1, %2, %3, %4, %5, %6, %7}, " \
+                "{%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+#define WKV_N64 "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n" \
+                "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {%0, %1, %2, %3, %4, %5, %6, %7, " \
+                "%8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, " \
+                "%24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+template <bool ACC>
+__device__ __forceinline__ void wgmma_tf32(float (&d)[8], const uint32_t (&a)[4], uint64_t db) {
+    if constexpr (ACC)
+        asm volatile(WKV_N16 : WKV_A8(0) : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+    else
+        asm volatile(WKV_N16 : WKV_D8(0) : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(0));
+}
+template <bool ACC>
+__device__ __forceinline__ void wgmma_tf32(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+    if constexpr (ACC)
+        asm volatile(WKV_N64 : WKV_A8(0), WKV_A8(8), WKV_A8(16), WKV_A8(24)
+                     : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+    else
+        asm volatile(WKV_N64 : WKV_D8(0), WKV_D8(8), WKV_D8(16), WKV_D8(24)
+                     : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(0));
+}
+#undef WKV_D8
+#undef WKV_A8
+#undef WKV_N16
+#undef WKV_N64
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool full) {
+    const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(s), "l"(src), "r"(full ? 16 : 0) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;" ::: "memory"); }
+__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;" ::: "memory"); }
+
+// N consecutive values from shared memory, widened to f32 (p aligned to the
+// vector it is read as).
+template <int N>
+__device__ __forceinline__ void load_row(const float* p, float (&o)[N]) {
+    if constexpr (N % 4 == 0) {
+#pragma unroll
+        for (int i = 0; i < N / 4; ++i) {
+            const float4 x = reinterpret_cast<const float4*>(p)[i];
+            o[4 * i] = x.x; o[4 * i + 1] = x.y; o[4 * i + 2] = x.z; o[4 * i + 3] = x.w;
+        }
+    } else if constexpr (N == 2) {
+        const float2 x = *reinterpret_cast<const float2*>(p);
+        o[0] = x.x; o[1] = x.y;
+    } else {
+#pragma unroll
+        for (int i = 0; i < N; ++i) o[i] = p[i];
+    }
+}
+__device__ __forceinline__ void unpack2(uint32_t x, float* o) {
+    o[0] = __uint_as_float(x << 16);
+    o[1] = __uint_as_float(x & 0xffff0000u);
+}
+template <int N>
+__device__ __forceinline__ void load_row(const __nv_bfloat16* p, float (&o)[N]) {
+    if constexpr (N % 8 == 0) {
+#pragma unroll
+        for (int i = 0; i < N / 8; ++i) {
+            const uint4 x = reinterpret_cast<const uint4*>(p)[i];
+            unpack2(x.x, o + 8 * i); unpack2(x.y, o + 8 * i + 2); unpack2(x.z, o + 8 * i + 4); unpack2(x.w, o + 8 * i + 6);
+        }
+    } else if constexpr (N == 4) {
+        const uint2 x = *reinterpret_cast<const uint2*>(p);
+        unpack2(x.x, o); unpack2(x.y, o + 2);
+    } else if constexpr (N == 2) {
+        unpack2(*reinterpret_cast<const uint32_t*>(p), o);
+    } else {
+        o[0] = __bfloat162float(p[0]);
+    }
+}
+
+// Lane sl of each group of CNT lanes (CNT <= 32, consecutive) ends with
+// part[0] = the group's sum of part[sl]: at each level a lane keeps the half
+// of its values its lane bit names and adds its partner's copy of them.
+template <int CNT, int N>
+__device__ __forceinline__ void reduce_scatter(float (&part)[N], int sl) {
+    if constexpr (CNT > 1) {
+        constexpr int HALF = CNT / 2;
+        const bool upper = sl & HALF;
+#pragma unroll
+        for (int x = 0; x < HALF; ++x) {
+            const float send = upper ? part[x] : part[x + HALF];
+            const float keep = upper ? part[x + HALF] : part[x];
+            part[x] = keep + __shfl_xor_sync(0xffffffffu, send, HALF);
+        }
+        reduce_scatter<HALF>(part, sl);
+    }
+}
+
+// The layout of the scan's block: a two-stage ring of raw inputs (r, k, v
+// of type T and log_w, L rows of K each), then the chunk's operands.  The
+// three that wgmma reads as B are split into TF32 parts (hi, lo) and laid
+// out as its core matrices (8 rows of 16 bytes, K-major, no swizzle):
+//   q~ = r . 2^{cumq}: rows the chunk's tokens, K the keys, each 8 keys in
+//        the order 0 2 4 6 1 3 5 7 (the order in which the state's
+//        accumulators hold them, so that they are its A operand as they
+//        stand);
+//   k~ = k . 2^{tot - cum}: rows the keys, K the tokens;
+//   A: rows i, K the j (zero above the diagonal);
+// core matrices Q_LBO / K_LBO / A_LBO bytes apart along K and Q_SBO /
+// K_SBO / A_SBO along the rows, spaced so that the threads' stores fall
+// on different banks.  Then v (hi; lo for f32 inputs) in [token][key] rows
+// K + 8 floats apart, which each warp reads as its A operand, cum for A,
+// the factors of A's off-diagonal block (R~, K~; see wkv6_chunks), and
+// 2^{tot}.
+template <typename T, int K, int L>
+struct Wkv {
+    static constexpr int PAD = K + 8;
+    static constexpr int HALF = L / 2;                     // A's diagonal blocks
+    static constexpr int NSL = WKV_THREADS / HALF;         // key slices of a row pair of a diagonal block
+    static constexpr int CW = K / NSL;                     // keys of a slice
+    static constexpr int CWO = K / 8;                      // keys of a slice of the off-diagonal block
+    static constexpr int MW = K / 16;                      // warps that hold state columns
+    static constexpr int NK = K / 8;                       // 8-wide tiles of the key index
+    static constexpr int NL = L / 8;                       // 8-wide tiles of the chunk's tokens
+    static constexpr bool EXACT_V = sizeof(T) == 2;        // bf16 is exact in TF32
+    static constexpr int STAGE = 3 * L * K * (int)sizeof(T) + L * K * 4;
+    static constexpr int Q_LBO = 144, Q_SBO = (K / 4) * Q_LBO, Q_BYTES = (L / 8) * Q_SBO;
+    static constexpr int K_LBO = 128, K_SBO = (L / 4) * K_LBO + 16, K_BYTES = (K / 8) * K_SBO;
+    static constexpr int A_LBO = 128, A_SBO = (L / 4) * A_LBO, A_BYTES = (L / 8) * A_SBO;
+    static constexpr int ROWS = L * PAD * 4;               // bytes of v's [token][key] array
+    static constexpr int OFF_QH = WKV_STAGES * STAGE;
+    static constexpr int OFF_QL = OFF_QH + Q_BYTES;
+    static constexpr int OFF_KH = OFF_QL + Q_BYTES;
+    static constexpr int OFF_KL = OFF_KH + K_BYTES;
+    static constexpr int OFF_AH = OFF_KL + K_BYTES;
+    static constexpr int OFF_AL = OFF_AH + A_BYTES;
+    static constexpr int OFF_VH = OFF_AL + A_BYTES;
+    static constexpr int OFF_VL = OFF_VH + ROWS;
+    static constexpr int OFF_CUM = OFF_VL + (EXACT_V ? 0 : ROWS);
+    static constexpr int OFF_X = OFF_CUM + L * K * 4;      // R~, then K~: HALF rows of K each
+    static constexpr int OFF_E = OFF_X + 2 * HALF * K * 4;
+    static constexpr int SMEM = OFF_E + K * 4;
+    static_assert(L == 16 && K % 16 == 0 && K <= 64, "chunks of 16 tokens, tiles of 16 state columns");
+    static_assert(NSL == 16 && CW * NSL == K && CWO * 8 == K, "the weights' threads tile the keys");
+    static_assert(2 * K <= WKV_THREADS, "the operand pass takes two threads a key");
+    static_assert(STAGE % 16 == 0 && ROWS % 16 == 0 && Q_BYTES % 16 == 0 && K_BYTES % 16 == 0, "16-byte aligned");
+
+    // byte offsets of one element in the wgmma operands
+    __device__ static int q_at(int t, int key) {  // key 8 b + e sits at position e / 2 of quad 2 b + (e & 1)
+        return (t / 8) * Q_SBO + (2 * (key / 8) + (key & 1)) * Q_LBO + (t % 8) * 16 + ((key % 8) / 2) * 4;
+    }
+    __device__ static int k_at(int key, int t) { return (key / 8) * K_SBO + (t / 4) * K_LBO + (key % 8) * 16 + (t % 4) * 4; }
+    __device__ static int a_at(int i, int j) { return (i / 8) * A_SBO + (j / 4) * A_LBO + (i % 8) * 16 + (j % 4) * 4; }
 };
 
-// Position of key row j in a padded token row (row slices of R, each
-// followed by 4 floats of padding).
-template <int R>
-__device__ __forceinline__ int padded(int j) {
-    return (j / R) * (R + 4) + j % R;
-}
+// The states pass's block: a two-stage ring of k, v and log_w, then k~
+// (as the scan's) and v.
+template <typename T, int K, int L>
+struct WkvStates {
+    using W = Wkv<T, K, L>;
+    static constexpr int STAGE = 2 * L * K * (int)sizeof(T) + L * K * 4;
+    static constexpr int OFF_KH = WKV_STAGES * STAGE;
+    static constexpr int OFF_KL = OFF_KH + W::K_BYTES;
+    static constexpr int OFF_VH = OFF_KL + W::K_BYTES;
+    static constexpr int OFF_VL = OFF_VH + W::ROWS;
+    static constexpr int SMEM = OFF_VL + (W::EXACT_V ? 0 : W::ROWS);
+};
 
-template <typename T, int K, int KS, int C>
-__global__ void __launch_bounds__(WKV_THREADS)
-wkv6_kernel(const T* __restrict__ r, const T* __restrict__ k, const T* __restrict__ v,
-            const float* __restrict__ log_w, const float* __restrict__ u,
-            const float* __restrict__ s0, float* __restrict__ y, float* __restrict__ s_out,
-            int S, int H, int n_seg, int seg_len) {
-    using Sh = WkvShape<K, KS, C>;
-    constexpr int R = Sh::R, VB = Sh::VB, CG = Sh::CG, RP = Sh::RP, KP = Sh::KP;
-    __shared__ __align__(16) float sr[WKV_TT][KP];
-    __shared__ __align__(16) float sk[WKV_TT][KP];
-    __shared__ __align__(16) float sw[WKV_TT][KP];
-    __shared__ __align__(16) float sv[WKV_TT][VB];
-    __shared__ __align__(16) float sy[WKV_TT][KS * VB];  // partial y of each row slice
-    __shared__ float sp[WKV_TT][K + 1];                  // r u k, per token and key row
-    __shared__ float sb[WKV_PARTS][WKV_TT];              // the bonus of each token, in parts
-    __shared__ float su[K];
-
-    const int tid = threadIdx.x;
-    const int cg = tid % CG;            // which group of C columns
-    const int ks = tid / CG;            // which row slice
-    const int col0 = blockIdx.x * VB;
-    const int h = blockIdx.y, b = blockIdx.z / n_seg, seg = blockIdx.z % n_seg;
-    const int t_begin = seg * seg_len, t_end = min(S, t_begin + seg_len);
-    const int64_t stride_t = (int64_t)H * K;                 // one token of (B, S, H, K)
-    const int64_t base = ((int64_t)b * S * H + h) * K;       // token 0 of (b, h)
-    const int64_t sbase = ((int64_t)b * H + h) * K * K;      // (b, h) of the final state
-    const int64_t start = (((int64_t)b * H + h) * n_seg + seg) * K * K;  // the segment's first state
-
-    for (int j = tid; j < K; j += WKV_THREADS) su[j] = u[h * K + j];
-    float st[R][C];
+// Issue the cp.async copies of the chunk whose first token is at element
+// offset row0 (tokens stride_t apart) into one ring stage: r (when WITH_R),
+// k, v, log_w, L rows each.  Rows past the n_in tokens of the chunk inside
+// its segment are zero-filled (their source address is the chunk's first
+// row, which is never read for them).
+template <typename T, int K, int L, bool WITH_R>
+__device__ __forceinline__ void stage_chunk(char* stage, const T* r, const T* k, const T* v, const float* lw,
+                                            int64_t row0, int64_t stride_t, int n_in) {
+    constexpr int TP = K * (int)sizeof(T) / 16;   // 16-byte pieces of a row of T
+    constexpr int WP = K / 4;                     // of a row of log_w
+    constexpr int TE = 16 / (int)sizeof(T);       // elements of T in a piece
+    T* sr = reinterpret_cast<T*>(stage);
+    T* sk = sr + (WITH_R ? L * K : 0);
+    T* sv = sk + L * K;
+    float* sw = reinterpret_cast<float*>(sv + L * K);
 #pragma unroll
-    for (int i = 0; i < R; ++i)
-#pragma unroll
-        for (int c = 0; c < C; ++c)
-            st[i][c] = s0 ? s0[start + (int64_t)(ks * R + i) * K + col0 + cg * C + c] : 0.f;
-
-    // The next chunk's inputs wait in registers while the current chunk is
-    // scanned, so that their loads are in flight during the scan.
-    constexpr int PER = WKV_TT * K / WKV_THREADS;            // r/k/log_w elements a thread stages
-    constexpr int PER_V = (WKV_TT * VB + WKV_THREADS - 1) / WKV_THREADS;
-    T nr[PER], nk[PER], nv[PER_V];
-    float nw[PER];
-    auto fetch = [&](int t0) {
-#pragma unroll
-        for (int m = 0; m < PER; ++m) {
-            const int idx = tid + m * WKV_THREADS, t = idx / K, j = idx - t * K;
-            if (t0 + t < t_end) {
-                const int64_t o = base + (int64_t)(t0 + t) * stride_t + j;
-                nr[m] = r[o];
-                nk[m] = k[o];
-                nw[m] = log_w[o];
-            }
+    for (int m = 0; m < (L * TP + WKV_THREADS - 1) / WKV_THREADS; ++m) {
+        const int idx = threadIdx.x + m * WKV_THREADS;
+        if ((L * TP) % WKV_THREADS == 0 || idx < L * TP) {
+            const int t = idx / TP, e = (idx % TP) * TE;
+            const bool in = t < n_in;
+            const int64_t o = row0 + (in ? t : 0) * stride_t + e;
+            if constexpr (WITH_R) cp_async16(sr + t * K + e, r + o, in);
+            cp_async16(sk + t * K + e, k + o, in);
+            cp_async16(sv + t * K + e, v + o, in);
         }
-#pragma unroll
-        for (int m = 0; m < PER_V; ++m) {
-            const int idx = tid + m * WKV_THREADS, t = idx / VB, cc = idx - t * VB;
-            if (idx < WKV_TT * VB && t0 + t < t_end) nv[m] = v[base + (int64_t)(t0 + t) * stride_t + col0 + cc];
-        }
-    };
-    // stage a fetched chunk; tokens past the segment get k = v = 0 and log_w = 0
-    auto stage = [&](int t0) {
-#pragma unroll
-        for (int m = 0; m < PER; ++m) {
-            const int idx = tid + m * WKV_THREADS, t = idx / K, j = idx - t * K, p = padded<R>(j);
-            const bool in = t0 + t < t_end;
-            const float rv = in ? widen(nr[m]) : 0.f, kv = in ? widen(nk[m]) : 0.f;
-            sr[t][p] = rv;
-            sk[t][p] = kv;
-            sw[t][p] = in ? expf(nw[m]) : 1.f;
-            sp[t][j] = rv * su[j] * kv;
-        }
-#pragma unroll
-        for (int m = 0; m < PER_V; ++m) {
-            const int idx = tid + m * WKV_THREADS, t = idx / VB, cc = idx - t * VB;
-            if (idx < WKV_TT * VB) sv[t][cc] = t0 + t < t_end ? widen(nv[m]) : 0.f;
-        }
-    };
-    fetch(t_begin);
-    __syncthreads();
-
-    for (int t0 = t_begin; t0 < t_end; t0 += WKV_TT) {
-        stage(t0);
-        __syncthreads();
-        if (t0 + WKV_TT < t_end) fetch(t0 + WKV_TT);
-
-        // the bonus sum_k r u k of each token, in WKV_PARTS parts of K /
-        // WKV_PARTS rows (read after the next barrier)
-        {
-            const int t = tid % WKV_TT, part = tid / WKV_TT;
-            constexpr int PK = K / WKV_PARTS;
-            float a = 0.f;
-#pragma unroll
-            for (int j = 0; j < PK; ++j) a += sp[t][part * PK + j];
-            sb[part][t] = a;
-        }
-        // the scan over the staged tokens: each r, k, w read feeds C columns
-#pragma unroll
-        for (int t = 0; t < WKV_TT; ++t) {
-            float vv[C], yp[C];
-#pragma unroll
-            for (int c = 0; c < C; ++c) {
-                vv[c] = sv[t][cg * C + c];
-                yp[c] = 0.f;
-            }
-            const float* pr = &sr[t][ks * RP];
-            const float* pk = &sk[t][ks * RP];
-            const float* pw = &sw[t][ks * RP];
-#pragma unroll
-            for (int q = 0; q < R; q += 4) {
-                const float4 r4 = *reinterpret_cast<const float4*>(pr + q);
-                const float4 k4 = *reinterpret_cast<const float4*>(pk + q);
-                const float4 w4 = *reinterpret_cast<const float4*>(pw + q);
-                const float rr[4] = {r4.x, r4.y, r4.z, r4.w};
-                const float kk[4] = {k4.x, k4.y, k4.z, k4.w};
-                const float ww[4] = {w4.x, w4.y, w4.z, w4.w};
-#pragma unroll
-                for (int i = 0; i < 4; ++i)
-#pragma unroll
-                    for (int c = 0; c < C; ++c) {
-                        yp[c] = fmaf(rr[i], st[q + i][c], yp[c]);
-                        st[q + i][c] = fmaf(st[q + i][c], ww[i], kk[i] * vv[c]);
-                    }
-            }
-            if constexpr (C == 4) {  // one 16-byte store: the lanes' column groups are adjacent
-                *reinterpret_cast<float4*>(&sy[t][ks * VB + cg * C]) = make_float4(yp[0], yp[1], yp[2], yp[3]);
-            } else {
-#pragma unroll
-                for (int c = 0; c < C; ++c) sy[t][ks * VB + cg * C + c] = yp[c];
-            }
-        }
-        __syncthreads();
-
-        // y = the KS partials in row-slice order, plus the bonus
-        for (int idx = tid; idx < WKV_TT * VB; idx += WKV_THREADS) {
-            const int t = idx / VB, cc = idx - t * VB;
-            if (t0 + t < t_end) {
-                float acc = 0.f;
-#pragma unroll
-                for (int q = 0; q < KS; ++q) acc += sy[t][q * VB + cc];
-                float a = 0.f;
-#pragma unroll
-                for (int q = 0; q < WKV_PARTS; ++q) a += sb[q][t];
-                acc = fmaf(sv[t][cc], a, acc);
-                y[base + (int64_t)(t0 + t) * stride_t + col0 + cc] = acc;
-            }
-        }
-        __syncthreads();
     }
-    if (seg != n_seg - 1) return;  // the last segment leaves the final state
 #pragma unroll
-    for (int i = 0; i < R; ++i)
-#pragma unroll
-        for (int c = 0; c < C; ++c) s_out[sbase + (int64_t)(ks * R + i) * K + col0 + cg * C + c] = st[i][c];
+    for (int m = 0; m < (L * WP + WKV_THREADS - 1) / WKV_THREADS; ++m) {
+        const int idx = threadIdx.x + m * WKV_THREADS;
+        if ((L * WP) % WKV_THREADS == 0 || idx < L * WP) {
+            const int t = idx / WP, e = (idx % WP) * 4;
+            const bool in = t < n_in;
+            cp_async16(sw + t * K + e, lw + row0 + (in ? t : 0) * stride_t + e, in);
+        }
+    }
 }
 
-// ---------------------------------------------------------------------------
-// Sequence-parallel passes, for when B * H cannot fill the card (one long
-// prompt): the S tokens of each (b, h) are cut into n_seg segments of
-// seg_len tokens.
-//   1. wkv6_states: per (b, h, segment but the last), in parallel, the state
-//      the segment leaves from zero, E = sum_j (k_j * exp(tot - cum_j)) v_j^T,
-//      and its decay D = exp(tot), where cum is the running sum of log_w
-//      within the segment and tot its last value (every exponent <= 0).
-//   2. wkv6_carry: per (b, h) and state element, in order over segments,
-//      start[0] = S0 (or 0) and start[s + 1] = D_s * start[s] + E_s, in
-//      place of E.
-//   3. wkv6_kernel (the scan above) per (b, h, segment) from start[s]; the
-//      last segment writes the final state.
-// ---------------------------------------------------------------------------
+// One block per (segment, h, b): y over the segment from the state `start`
+// (its segment's, (B, H, n_seg, K, K), or S0 when n_seg is 1; zeros when
+// null), and the last segment writes the final state to s_out (B, H, K, K).
+template <typename T, int K, int L>
+__global__ void __launch_bounds__(WKV_THREADS, sizeof(T) == 2 ? 3 : 2)
+wkv6_chunks(const T* __restrict__ r, const T* __restrict__ k, const T* __restrict__ v,
+            const float* __restrict__ log_w, const float* __restrict__ u, const float* __restrict__ start,
+            float* __restrict__ y, float* __restrict__ s_out, int S, int H, int n_seg, int seg_len) {
+    using W = Wkv<T, K, L>;
+    constexpr int PAD = W::PAD, HALF = W::HALF, NSL = W::NSL, CW = W::CW, CWO = W::CWO, NK = W::NK, NL = W::NL;
+    extern __shared__ __align__(128) char smem[];
+    char* qh = smem + W::OFF_QH;
+    char* ql = smem + W::OFF_QL;
+    char* kh = smem + W::OFF_KH;
+    char* kl = smem + W::OFF_KL;
+    char* ah = smem + W::OFF_AH;
+    char* al = smem + W::OFF_AL;
+    float* vh = reinterpret_cast<float*>(smem + W::OFF_VH);
+    float* vl = reinterpret_cast<float*>(smem + W::OFF_VL);
+    float* cs = reinterpret_cast<float*>(smem + W::OFF_CUM);
+    float* xr = reinterpret_cast<float*>(smem + W::OFF_X);   // R~ (rows i = HALF + x)
+    float* xk = xr + HALF * K;                                 // K~ (rows j)
+    float* es = reinterpret_cast<float*>(smem + W::OFF_E);
+    auto at = [](char* base, int off) -> float* { return reinterpret_cast<float*>(base + off); };
 
-#define WKV_ST_THREADS 256
-#define WKV_ST_TT 32                       // tokens staged at a time
-#define WKV_CARRY_STEP 8
-
-// One block of 256 threads per (segment, h, b): each thread owns a
-// (K / 16) x (K / 16) tile of E and adds k~_j v_j^T token by token (K / 16
-// squared FMAs per two 16-byte shared reads at K = 64), where k~_j = k_j *
-// exp(sum of log_w after j in the segment).  Those suffix sums are taken
-// walking the segment from its end, WKV_ST_TT tokens at a time, split over
-// the threads of each key row in WKV_ST_THREADS / K groups.
-template <typename T, int K>
-__global__ void __launch_bounds__(WKV_ST_THREADS)
-wkv6_states(const T* __restrict__ k, const T* __restrict__ v, const float* __restrict__ log_w,
-            float* __restrict__ e_out, float* __restrict__ d_out, int S, int H, int n_seg, int seg_len) {
-    constexpr int TR = K / 16;                          // rows and columns of a thread's tile
-    constexpr int G = WKV_ST_THREADS / K;               // groups of a key row's threads
-    constexpr int TPG = WKV_ST_TT / G;                  // tokens of a group
-    static_assert(WKV_ST_TT % G == 0, "the staged tokens split over the groups");
-    __shared__ __align__(16) float sk[WKV_ST_TT][K];    // k, then k~
-    __shared__ __align__(16) float sv[WKV_ST_TT][K];
-    __shared__ float sw[WKV_ST_TT][K];                  // log_w
-    __shared__ float gsum[G][K];                        // each group's sum of log_w
-    __shared__ float suf[K];                            // log_w summed after the staged tokens
-
-    const int tid = threadIdx.x;
+    const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane / 4, q = lane % 4;
     const int seg = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
     const int t_begin = seg * seg_len, t_end = min(S, t_begin + seg_len);
-    const int64_t stride_t = (int64_t)H * K;
-    const int64_t base = ((int64_t)b * S * H + h) * K;
-    const int ti = tid / 16, tj = tid % 16;             // the thread's tile of E
-    const int kr = tid % K, g = tid / K;                // the thread's key row and group
-    float e[TR][TR];
-#pragma unroll
-    for (int i = 0; i < TR; ++i)
-#pragma unroll
-        for (int j = 0; j < TR; ++j) e[i][j] = 0.f;
-    if (tid < K) suf[tid] = 0.f;
+    const int n_chunks = t_end > t_begin ? (t_end - t_begin + L - 1) / L : 0;
+    const int64_t stride_t = (int64_t)H * K;                  // one token of (B, S, H, K)
+    const int64_t base = ((int64_t)b * S * H + h) * K;        // token 0 of (b, h)
+    const int64_t cell = ((int64_t)b * H + h) * n_seg + seg;  // this segment's state
+    const int v0 = 16 * warp + g;                             // the thread's first state column
+    const bool holds = warp < W::MW;
 
-    // The next chunk's inputs wait in registers while the current chunk is
-    // folded, as in the scan.
-    constexpr int PER = WKV_ST_TT * K / WKV_ST_THREADS;     // elements of each input a thread stages
-    T nk[PER], nv[PER];
-    float nw[PER];
-    auto fetch = [&](int c0) {
+    // The state in its TF32 parts, as the A operands of y's product:
+    // sh[n][x], sl[n][x] hold S[8 n + 2 q + (x >> 1)][v0 + 8 (x & 1)] (the
+    // accumulator of tile n with its two middle values swapped); zeros in
+    // warps without state columns (K = 16).
+    uint32_t sh[NK][4], sl[NK][4];
 #pragma unroll
-        for (int m = 0; m < PER; ++m) {
-            const int idx = tid + m * WKV_ST_THREADS, t = idx / K, j = idx - t * K;
-            if (c0 + t < t_end) {
-                const int64_t o = base + (int64_t)(c0 + t) * stride_t + j;
-                nk[m] = k[o];
-                nv[m] = v[o];
-                nw[m] = log_w[o];
+    for (int n = 0; n < NK; ++n)
+#pragma unroll
+        for (int x = 0; x < 4; ++x) {
+            const int kk = 8 * n + 2 * q + (x >> 1), vv = v0 + 8 * (x & 1);
+            split((start && holds) ? start[cell * K * K + (int64_t)kk * K + vv] : 0.f, sh[n][x], sl[n][x]);
+        }
+
+    // the operand pass: key pc, all tokens; k~, v, cum and K~ by the first K
+    // threads, q~ and R~ by the next K
+    const int pc = tid % K;
+    const bool role_k = tid < K, role_q = tid >= K && tid < 2 * K;
+    // A's diagonal blocks: rows ra_i and rb_i of block blk, keys [c0, c0 + CW)
+    const int unit = tid / NSL, sl_ = tid % NSL, c0 = sl_ * CW;
+    const int blk = unit / (HALF / 2), pp = unit % (HALF / 2);
+    const int ra_i = HALF * blk + pp, rb_i = HALF * blk + HALF - 1 - pp;
+    // A's off-diagonal block: rows HALF + oi, HALF + oi + 1, columns oj, oj + 1, keys [co, co + CWO)
+    const int tile = tid / 8, s8 = tid % 8, oi = 2 * (tile / 4), oj = 2 * (tile % 4), co = s8 * CWO;
+    float uu[CW];
+#pragma unroll
+    for (int x = 0; x < CW; ++x) uu[x] = u[h * K + c0 + x];
+    // A above the diagonal stays 0
+    for (int idx = tid; idx < W::A_BYTES / 4; idx += WKV_THREADS)
+        reinterpret_cast<float*>(ah)[idx] = reinterpret_cast<float*>(al)[idx] = 0.f;
+    // the wgmma descriptors of the first k-step of each operand; a later step
+    // adds its byte offset / 16 to the start address field (no carry: shared
+    // addresses are below 2^18)
+    const uint64_t d_qh = smem_desc(qh, W::Q_LBO, W::Q_SBO), d_ql = smem_desc(ql, W::Q_LBO, W::Q_SBO);
+    const uint64_t d_ah = smem_desc(ah, W::A_LBO, W::A_SBO), d_al = smem_desc(al, W::A_LBO, W::A_SBO);
+    const uint64_t d_kh = smem_desc(kh, W::K_LBO, W::K_SBO), d_kl = smem_desc(kl, W::K_LBO, W::K_SBO);
+
+    if (n_chunks > 0)
+        stage_chunk<T, K, L, true>(smem, r, k, v, log_w, base + t_begin * stride_t, stride_t, t_end - t_begin);
+    cp_async_commit();
+    for (int ci = 0; ci < n_chunks; ++ci) {
+        const int tc = t_begin + ci * L;
+        cp_async_wait_all();
+        __syncthreads();  // this chunk has landed, and the last chunk's products are done
+        if (ci + 1 < n_chunks)
+            stage_chunk<T, K, L, true>(smem + ((ci + 1) % WKV_STAGES) * W::STAGE, r, k, v, log_w,
+                                       base + (tc + L) * stride_t, stride_t, t_end - tc - L);
+        cp_async_commit();
+        const char* stage = smem + (ci % WKV_STAGES) * W::STAGE;
+        const T* rr = reinterpret_cast<const T*>(stage);
+        const T* kr = rr + L * K;
+        const T* vr = kr + L * K;
+        const float* lwr = reinterpret_cast<const float*>(vr + L * K);
+
+        // 1. the decayed operands, split: each of the first 2 K threads sums
+        //    the log2 decays of its key over the chunk (cum, inclusive) and
+        //    writes its half of the key's operands
+        if (role_k || role_q) {
+            float cum[L];
+            float acc = 0.f;
+#pragma unroll
+            for (int t = 0; t < L; ++t) {
+                acc = fmaf(lwr[t * K + pc], WKV_LOG2E, acc);
+                cum[t] = acc;
+            }
+            if (role_k) {
+                float kv[L], vv[L];
+#pragma unroll
+                for (int t = 0; t < L; ++t) {
+                    kv[t] = widen(kr[t * K + pc]);
+                    vv[t] = widen(vr[t * K + pc]);
+                }
+#pragma unroll
+                for (int t = 0; t < L; t += 4) {  // 4 tokens of a key are one 16-byte row of k~
+                    float4 hi, lo;
+                    split_to(kv[t] * ex2(acc - cum[t]), &hi.x, &lo.x);
+                    split_to(kv[t + 1] * ex2(acc - cum[t + 1]), &hi.y, &lo.y);
+                    split_to(kv[t + 2] * ex2(acc - cum[t + 2]), &hi.z, &lo.z);
+                    split_to(kv[t + 3] * ex2(acc - cum[t + 3]), &hi.w, &lo.w);
+                    *reinterpret_cast<float4*>(at(kh, W::k_at(pc, t))) = hi;
+                    *reinterpret_cast<float4*>(at(kl, W::k_at(pc, t))) = lo;
+                }
+#pragma unroll
+                for (int t = 0; t < L; ++t) {
+                    if constexpr (W::EXACT_V) {
+                        vh[t * PAD + pc] = vv[t];
+                    } else {
+                        split_to(vv[t], vh + t * PAD + pc, vl + t * PAD + pc);
+                    }
+                }
+#pragma unroll
+                for (int j = 0; j < HALF; ++j) xk[j * K + pc] = kv[j] * ex2(cum[HALF - 1] - cum[j]);
+#pragma unroll
+                for (int t = 0; t < L; ++t) cs[t * K + pc] = cum[t];
+                es[pc] = ex2(acc);
+            } else {
+                float rv[L];
+#pragma unroll
+                for (int t = 0; t < L; ++t) rv[t] = widen(rr[t * K + pc]);
+#pragma unroll
+                for (int t = 0; t < L; ++t)
+                    split_to(rv[t] * ex2(t > 0 ? cum[t - 1] : 0.f), at(qh, W::q_at(t, pc)), at(ql, W::q_at(t, pc)));
+#pragma unroll
+                for (int i = HALF; i < L; ++i) xr[(i - HALF) * K + pc] = rv[i] * ex2(cum[i - 1] - cum[HALF - 1]);
             }
         }
-    };
-    // tokens past the segment get k = v = 0 and log_w = 0, which add nothing
-    auto stage = [&](int c0) {
-#pragma unroll
-        for (int m = 0; m < PER; ++m) {
-            const int idx = tid + m * WKV_ST_THREADS, t = idx / K, j = idx - t * K;
-            const bool in = c0 + t < t_end;
-            sk[t][j] = in ? widen(nk[m]) : 0.f;
-            sv[t][j] = in ? widen(nv[m]) : 0.f;
-            sw[t][j] = in ? nw[m] : 0.f;
-        }
-    };
-    const int n_chunks = (t_end - t_begin + WKV_ST_TT - 1) / WKV_ST_TT;
-    if (n_chunks > 0) fetch(t_begin + (n_chunks - 1) * WKV_ST_TT);
-    for (int c = n_chunks - 1; c >= 0; --c) {
-        const int c0 = t_begin + c * WKV_ST_TT;
-        stage(c0);
-        __syncthreads();
-        if (c > 0) fetch(c0 - WKV_ST_TT);
+        __syncthreads();  // cum and R~, K~, for A
+
+        // 2. A.  Its diagonal blocks (HALF x HALF) directly: rows ra_i
+        //    (entries j < ra_i in the block) and rb_i, HALF - 1 entries and
+        //    two diagonals a thread over its CW keys, the 16 slices' partials
+        //    meeting in a reduce-scatter over 8 lanes (lane sl_ % 8 ends with
+        //    value sl_ % 8) and one more level.  Its off-diagonal block,
+        //    A[i][j] for i >= HALF > j, factored at the block's corner m =
+        //    HALF - 1: 2^{cumq_i - cum_j} = 2^{cumq_i - cum_m} 2^{cum_m - cum_j},
+        //    both exponents <= 0, so A_off = R~ K~^T with R~_i = r_i .
+        //    2^{cumq_i - cum_m} and K~_j = k_j . 2^{cum_m - cum_j} (a term
+        //    lost to underflow is below 2^-126): 2 x 2 entries a thread over
+        //    CWO keys, 8 slices.  Every sum has one order.
         {
-            float part = 0.f;
-#pragma unroll
-            for (int q = 0; q < TPG; ++q) part += sw[g * TPG + q][kr];
-            gsum[g][kr] = part;
-        }
-        __syncthreads();
-        {
-            float acc = suf[kr];
-            for (int q = G - 1; q > g; --q) acc += gsum[q][kr];
-#pragma unroll
-            for (int q = TPG - 1; q >= 0; --q) {
-                const int t = g * TPG + q;
-                sk[t][kr] *= expf(acc);
-                acc += sw[t][kr];
-            }
-        }
-        __syncthreads();
-        if (g == 0) {
-            float acc = suf[kr];
-            for (int q = G - 1; q >= 0; --q) acc += gsum[q][kr];
-            suf[kr] = acc;
-        }
-#pragma unroll 4
-        for (int t = 0; t < WKV_ST_TT; ++t) {
-            float kk[TR], vv[TR];
-            if constexpr (TR == 4) {
-                const float4 k4 = *reinterpret_cast<const float4*>(&sk[t][ti * 4]);
-                const float4 v4 = *reinterpret_cast<const float4*>(&sv[t][tj * 4]);
-                kk[0] = k4.x; kk[1] = k4.y; kk[2] = k4.z; kk[3] = k4.w;
-                vv[0] = v4.x; vv[1] = v4.y; vv[2] = v4.z; vv[3] = v4.w;
+            float ra[CW], rb[CW], qa[CW], qb[CW], ka[CW], kb[CW];
+            load_row(rr + ra_i * K + c0, ra);
+            load_row(rr + rb_i * K + c0, rb);
+            load_row(kr + ra_i * K + c0, ka);
+            load_row(kr + rb_i * K + c0, kb);
+            load_row(cs + (rb_i - 1) * K + c0, qb);
+            if (ra_i > 0) {
+                load_row(cs + (ra_i - 1) * K + c0, qa);
             } else {
 #pragma unroll
-                for (int i = 0; i < TR; ++i) {
-                    kk[i] = sk[t][ti * TR + i];
-                    vv[i] = sv[t][tj * TR + i];
-                }
+                for (int x = 0; x < CW; ++x) qa[x] = 0.f;
+            }
+            float ri[2][CWO], kj2[2][CWO];
+            load_row(xr + oi * K + co, ri[0]);
+            load_row(xr + (oi + 1) * K + co, ri[1]);
+            load_row(xk + oj * K + co, kj2[0]);
+            load_row(xk + (oj + 1) * K + co, kj2[1]);
+            float part[HALF];  // [s < HALF - 1]: the step's entry; [HALF - 1]: row ra_i's diagonal
+            float diag_b = 0.f;
+            part[HALF - 1] = 0.f;
+#pragma unroll
+            for (int x = 0; x < CW; ++x) {
+                part[HALF - 1] = fmaf(ra[x] * uu[x], ka[x], part[HALF - 1]);
+                diag_b = fmaf(rb[x] * uu[x], kb[x], diag_b);
             }
 #pragma unroll
-            for (int i = 0; i < TR; ++i)
+            for (int st = 0; st < HALF - 1; ++st) {
+                const bool first = st < pp;
+                const int j = HALF * blk + (first ? st : st - pp);
+                float kj[CW], cj[CW];
+                load_row(kr + j * K + c0, kj);
+                load_row(cs + j * K + c0, cj);
+                float a = 0.f;
 #pragma unroll
-                for (int j = 0; j < TR; ++j) e[i][j] = fmaf(kk[i], vv[j], e[i][j]);
+                for (int x = 0; x < CW; ++x)
+                    a = fmaf((first ? ra[x] : rb[x]) * kj[x], ex2((first ? qa[x] : qb[x]) - cj[x]), a);
+                part[st] = a;
+            }
+            float off[4] = {0.f, 0.f, 0.f, 0.f};  // (oi, oj), (oi, oj + 1), (oi + 1, oj), (oi + 1, oj + 1)
+#pragma unroll
+            for (int x = 0; x < CWO; ++x) {
+                off[0] = fmaf(ri[0][x], kj2[0][x], off[0]);
+                off[1] = fmaf(ri[0][x], kj2[1][x], off[1]);
+                off[2] = fmaf(ri[1][x], kj2[0][x], off[2]);
+                off[3] = fmaf(ri[1][x], kj2[1][x], off[3]);
+            }
+            reduce_scatter<HALF>(part, sl_ % HALF);
+            part[0] += __shfl_xor_sync(0xffffffffu, part[0], HALF);
+#pragma unroll
+            for (int o = NSL / 2; o >= 1; o /= 2) diag_b += __shfl_xor_sync(0xffffffffu, diag_b, o);
+            reduce_scatter<4>(off, s8 % 4);
+            off[0] += __shfl_xor_sync(0xffffffffu, off[0], 4);
+            if (sl_ < HALF) {
+                const bool first = sl_ < pp;
+                const int o = sl_ == HALF - 1 ? W::a_at(ra_i, ra_i)
+                                               : W::a_at(first ? ra_i : rb_i, HALF * blk + (first ? sl_ : sl_ - pp));
+                split_to(part[0], at(ah, o), at(al, o));
+            }
+            if (sl_ == 0) split_to(diag_b, at(ah, W::a_at(rb_i, rb_i)), at(al, W::a_at(rb_i, rb_i)));
+            if (s8 < 4) {
+                const int o = W::a_at(HALF + oi + (s8 >> 1), oj + (s8 & 1));
+                split_to(off[0], at(ah, o), at(al, o));
+            }
         }
+        fence_async_smem();
         __syncthreads();
+
+        // 3. the products, one warpgroup, all in flight at once: y^T = S^T
+        //    q~^T + v^T A^T (rows v, columns the chunk's tokens) and the
+        //    chunk's state product from zero, E^T = v^T k~; then S <- 2^{tot}
+        //    . S + E on the CUDA cores.  The three products of a split take
+        //    two accumulators (hi hi; hi lo + lo hi).  v^T as A operands:
+        //    vf[kt][x] is v[8 kt + q + 4 (x >> 1)][v0 + 8 (x & 1)].
+        {
+            uint32_t vfh[NL][4], vfl[NL][4];
+#pragma unroll
+            for (int kt = 0; kt < NL; ++kt)
+#pragma unroll
+                for (int x = 0; x < 4; ++x) {
+                    const int o = (8 * kt + q + 4 * (x >> 1)) * PAD + v0 + 8 * (x & 1);
+                    vfh[kt][x] = holds ? __float_as_uint(vh[o]) : 0u;
+                    vfl[kt][x] = (W::EXACT_V || !holds) ? 0u : __float_as_uint(vl[o]);
+                }
+            float yhh[8], ylo[8], ex[NK * 4];
+            wgmma_fence();
+#pragma unroll
+            for (int kb2 = 0; kb2 < NK; ++kb2) {
+                const uint64_t dh = d_qh + 2 * kb2 * W::Q_LBO / 16, dl = d_ql + 2 * kb2 * W::Q_LBO / 16;
+                if (kb2 == 0) {
+                    wgmma_tf32<false>(yhh, sh[kb2], dh);
+                    wgmma_tf32<false>(ylo, sh[kb2], dl);
+                } else {
+                    wgmma_tf32<true>(yhh, sh[kb2], dh);
+                    wgmma_tf32<true>(ylo, sh[kb2], dl);
+                }
+                wgmma_tf32<true>(ylo, sl[kb2], dh);
+            }
+#pragma unroll
+            for (int kt = 0; kt < NL; ++kt) {
+                const uint64_t dh = d_ah + 2 * kt * W::A_LBO / 16, dl = d_al + 2 * kt * W::A_LBO / 16;
+                wgmma_tf32<true>(yhh, vfh[kt], dh);
+                wgmma_tf32<true>(ylo, vfh[kt], dl);
+                if constexpr (!W::EXACT_V) wgmma_tf32<true>(ylo, vfl[kt], dh);
+            }
+#pragma unroll
+            for (int kt = 0; kt < NL; ++kt) {
+                const uint64_t dh = d_kh + 2 * kt * W::K_LBO / 16, dl = d_kl + 2 * kt * W::K_LBO / 16;
+                if (kt == 0)
+                    wgmma_tf32<false>(ex, vfh[kt], dh);
+                else
+                    wgmma_tf32<true>(ex, vfh[kt], dh);
+                wgmma_tf32<true>(ex, vfh[kt], dl);
+                if constexpr (!W::EXACT_V) wgmma_tf32<true>(ex, vfl[kt], dh);
+            }
+            wgmma_commit();
+            wgmma_wait_all();
+            fence_regs(yhh);
+            fence_regs(ylo);
+            fence_regs(ex);
+            fence_regs(vfh);
+            if constexpr (!W::EXACT_V) fence_regs(vfl);
+            fence_regs(sh);
+            fence_regs(sl);
+            if (holds) {
+#pragma unroll
+                for (int i = 0; i < 8; ++i) {
+                    const int t = 8 * (i >> 2) + 2 * q + (i & 1);
+                    if (tc + t < t_end)
+                        y[base + (int64_t)(tc + t) * stride_t + v0 + 8 * ((i >> 1) & 1)] = yhh[i] + ylo[i];
+                }
+#pragma unroll
+                for (int n = 0; n < NK; ++n) {
+                    const float2 d = *reinterpret_cast<const float2*>(es + 8 * n + 2 * q);
+#pragma unroll
+                    for (int x = 0; x < 4; ++x) {  // ex[4 n + e] is S[8 n + 2 q + (e & 1)][v0 + 8 (e >> 1)]
+                        const float s_old = __uint_as_float(sh[n][x]) + __uint_as_float(sl[n][x]);
+                        split(fmaf(s_old, (x >> 1) ? d.y : d.x, ex[4 * n + ((x & 1) << 1) + (x >> 1)]), sh[n][x], sl[n][x]);
+                    }
+                }
+            }
+        }
     }
+
+    if (holds && seg == n_seg - 1) {
+        const int64_t out = ((int64_t)b * H + h) * K * K;
+#pragma unroll
+        for (int n = 0; n < NK; ++n)
+#pragma unroll
+            for (int x = 0; x < 4; ++x)
+                s_out[out + (int64_t)(8 * n + 2 * q + (x >> 1)) * K + v0 + 8 * (x & 1)] =
+                    __uint_as_float(sh[n][x]) + __uint_as_float(sl[n][x]);
+    }
+}
+
+// One block per (segment but the last, h, b): the state the segment leaves
+// from zero, E = sum_j (k_j . 2^{tot - cum_j}) v_j^T with cum the running
+// sum of the log2 decays over the segment and tot its total, to e_out (B,
+// H, n_seg, K, K), and its decay 2^{tot} to d_out (B, H, n_seg, K).  The
+// chunks are walked from the last: suf, the log2 decay of the chunks after
+// the current one, makes a token's factor 2^{suf + tot_c - cum_c} (c the
+// chunk's own sums; every exponent <= 0), and the tensor cores add each
+// chunk's v^T k~ to E^T over the whole segment.  A chunk waits for the last
+// chunk's products (every warp's share, behind a barrier) only before it
+// overwrites their operands; the first K threads take the first half of a
+// chunk's tokens, the next K the second.
+template <typename T, int K, int L>
+__global__ void __launch_bounds__(WKV_THREADS)
+wkv6_states(const T* __restrict__ k, const T* __restrict__ v, const float* __restrict__ log_w,
+            float* __restrict__ e_out, float* __restrict__ d_out, int S, int H, int n_seg, int seg_len) {
+    using W = Wkv<T, K, L>;
+    using SL = WkvStates<T, K, L>;
+    constexpr int PAD = W::PAD, NK = W::NK, NL = W::NL, HT = L / 2;
+    extern __shared__ __align__(128) char smem[];
+    char* kh = smem + SL::OFF_KH;
+    char* kl = smem + SL::OFF_KL;
+    float* vh = reinterpret_cast<float*>(smem + SL::OFF_VH);
+    float* vl = reinterpret_cast<float*>(smem + SL::OFF_VL);
+    auto at = [](char* base, int off) -> float* { return reinterpret_cast<float*>(base + off); };
+
+    const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane / 4, q = lane % 4;
+    const int seg = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+    const int t_begin = seg * seg_len, t_end = min(S, t_begin + seg_len);
+    const int n_chunks = t_end > t_begin ? (t_end - t_begin + L - 1) / L : 0;
+    const int64_t stride_t = (int64_t)H * K;
+    const int64_t base = ((int64_t)b * S * H + h) * K;
     const int64_t cell = ((int64_t)b * H + h) * n_seg + seg;
+    const int v0 = 16 * warp + g;
+    const bool holds = warp < W::MW;
+    const int pc = tid % K, half = tid / K, t0 = half * HT;  // half 0 or 1: tokens [t0, t0 + HT)
+    const uint64_t d_kh = smem_desc(kh, W::K_LBO, W::K_SBO), d_kl = smem_desc(kl, W::K_LBO, W::K_SBO);
+
+    float ex[NK * 4];
 #pragma unroll
-    for (int i = 0; i < TR; ++i)
+    for (int i = 0; i < NK * 4; ++i) ex[i] = 0.f;
+    uint32_t vfh[NL][4] = {}, vfl[NL][4] = {};
+    float suf = 0.f;
+    if (n_chunks > 0)
+        stage_chunk<T, K, L, false>(smem, nullptr, k, v, log_w, base + (t_begin + (n_chunks - 1) * L) * stride_t,
+                                    stride_t, t_end - t_begin - (n_chunks - 1) * L);
+    cp_async_commit();
+    for (int ci = n_chunks - 1; ci >= 0; --ci) {
+        const int slot = (n_chunks - 1 - ci) % WKV_STAGES;
+        cp_async_wait_all();
+        __syncthreads();  // this chunk has landed
+        if (ci > 0)
+            stage_chunk<T, K, L, false>(smem + (1 - slot) * SL::STAGE, nullptr, k, v, log_w,
+                                        base + (t_begin + (ci - 1) * L) * stride_t, stride_t, L);
+        cp_async_commit();
+        const char* stage = smem + slot * SL::STAGE;
+        const T* kr = reinterpret_cast<const T*>(stage);
+        const T* vr = kr + L * K;
+        const float* lwr = reinterpret_cast<const float*>(vr + L * K);
+        float kd[HT], vv[HT];
+        if (half < 2) {
+            float cum[L];
+            float acc = 0.f;
 #pragma unroll
-        for (int j = 0; j < TR; ++j) e_out[cell * K * K + (int64_t)(ti * TR + i) * K + tj * TR + j] = e[i][j];
-    if (tid < K) d_out[cell * K + tid] = expf(suf[tid]);
+            for (int t = 0; t < L; ++t) {
+                acc = fmaf(lwr[t * K + pc], WKV_LOG2E, acc);
+                cum[t] = acc;
+            }
+#pragma unroll
+            for (int m = 0; m < HT; ++m) {
+                // cum[t0 + m] for the thread's half, without indexing registers by t0
+                const float c = half ? cum[HT + m] : cum[m];
+                kd[m] = widen(kr[(t0 + m) * K + pc]) * ex2(suf + (acc - c));
+                vv[m] = widen(vr[(t0 + m) * K + pc]);
+            }
+            suf += acc;
+        }
+        wgmma_wait_all();
+        fence_regs(ex);
+        fence_regs(vfh);
+        if constexpr (!W::EXACT_V) fence_regs(vfl);
+        __syncthreads();  // every warp's share of the last chunk's products has read k~ and v
+        if (half < 2) {
+#pragma unroll
+            for (int m = 0; m < HT; m += 4) {
+                float4 hi, lo;
+                split_to(kd[m], &hi.x, &lo.x);
+                split_to(kd[m + 1], &hi.y, &lo.y);
+                split_to(kd[m + 2], &hi.z, &lo.z);
+                split_to(kd[m + 3], &hi.w, &lo.w);
+                *reinterpret_cast<float4*>(at(kh, W::k_at(pc, t0 + m))) = hi;
+                *reinterpret_cast<float4*>(at(kl, W::k_at(pc, t0 + m))) = lo;
+            }
+#pragma unroll
+            for (int m = 0; m < HT; ++m) {
+                const int o = (t0 + m) * PAD + pc;
+                if constexpr (W::EXACT_V) {
+                    vh[o] = vv[m];
+                } else {
+                    split_to(vv[m], vh + o, vl + o);
+                }
+            }
+        }
+        fence_async_smem();
+        __syncthreads();
+#pragma unroll
+        for (int kt = 0; kt < NL; ++kt)
+#pragma unroll
+            for (int x = 0; x < 4; ++x) {
+                const int o = (8 * kt + q + 4 * (x >> 1)) * PAD + v0 + 8 * (x & 1);
+                vfh[kt][x] = holds ? __float_as_uint(vh[o]) : 0u;
+                vfl[kt][x] = (W::EXACT_V || !holds) ? 0u : __float_as_uint(vl[o]);
+            }
+        wgmma_fence();
+#pragma unroll
+        for (int kt = 0; kt < NL; ++kt) {
+            const uint64_t dh = d_kh + 2 * kt * W::K_LBO / 16, dl = d_kl + 2 * kt * W::K_LBO / 16;
+            wgmma_tf32<true>(ex, vfh[kt], dh);
+            wgmma_tf32<true>(ex, vfh[kt], dl);
+            if constexpr (!W::EXACT_V) wgmma_tf32<true>(ex, vfl[kt], dh);
+        }
+        wgmma_commit();
+    }
+    wgmma_wait_all();
+    fence_regs(ex);
+    if (holds) {
+#pragma unroll
+        for (int n = 0; n < NK; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+                e_out[cell * K * K + (int64_t)(8 * n + 2 * q + (e & 1)) * K + v0 + 8 * (e >> 1)] = ex[4 * n + e];
+    }
+    if (half == 0) d_out[cell * K + pc] = ex2(suf);
 }
 
 // One thread per (b, h, row, column) of the state: the segments' first
-// states, in place of their E (the last segment's E is never made).
+// states, in place of their E (the last segment's E is never made):
+// start[0] = S0 (or 0), start[s + 1] = D_s . start[s] + E_s.
 __global__ void wkv6_carry(float* __restrict__ states, const float* __restrict__ decay,
                            const float* __restrict__ s0, int BH, int K, int n_seg) {
     const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
@@ -421,17 +841,21 @@ __global__ void wkv6_carry(float* __restrict__ states, const float* __restrict__
     }
 }
 
-template <typename T, int K, int KS, int C>
+template <typename T, int K, int L>
 static int launch(const void* r, const void* k, const void* v, const float* log_w, const float* u,
-                  const float* s0, float* y, float* s_out, int B, int S, int H, int n_seg,
-                  int seg_len, float* states, float* decay, cudaStream_t stream) {
+                  const float* s0, float* y, float* s_out, int B, int S, int H, int n_seg, int seg_len,
+                  float* states, float* decay, cudaStream_t stream) {
+    const T* rt = static_cast<const T*>(r);
     const T* kt = static_cast<const T*>(k);
     const T* vt = static_cast<const T*>(v);
     const float* starts = s0;
     if (n_seg > 1) {
-        wkv6_states<T, K><<<dim3(n_seg - 1, H, B), WKV_ST_THREADS, 0, stream>>>(
-            kt, vt, log_w, states, decay, S, H, n_seg, seg_len);
-        cudaError_t e = cudaGetLastError();
+        constexpr int smem = WkvStates<T, K, L>::SMEM;
+        cudaError_t e = cudaFuncSetAttribute(wkv6_states<T, K, L>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        if (e != cudaSuccess) return (int)e;
+        wkv6_states<T, K, L><<<dim3(n_seg - 1, H, B), WKV_THREADS, smem, stream>>>(kt, vt, log_w, states, decay, S, H,
+                                                                                   n_seg, seg_len);
+        e = cudaGetLastError();
         if (e != cudaSuccess) return (int)e;
         const int64_t cells = (int64_t)B * H * K * K;
         wkv6_carry<<<(int)((cells + 255) / 256), 256, 0, stream>>>(states, decay, s0, B * H, K, n_seg);
@@ -439,32 +863,33 @@ static int launch(const void* r, const void* k, const void* v, const float* log_
         if (e != cudaSuccess) return (int)e;
         starts = states;
     }
-    const dim3 grid(K / WkvShape<K, KS, C>::VB, H, B * n_seg);
-    wkv6_kernel<T, K, KS, C><<<grid, WKV_THREADS, 0, stream>>>(
-        static_cast<const T*>(r), kt, vt, log_w, u, starts, y, s_out, S, H, n_seg, seg_len);
+    constexpr int smem = Wkv<T, K, L>::SMEM;
+    cudaError_t e = cudaFuncSetAttribute(wkv6_chunks<T, K, L>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+    wkv6_chunks<T, K, L><<<dim3(n_seg, H, B), WKV_THREADS, smem, stream>>>(rt, kt, vt, log_w, u, starts, y, s_out, S,
+                                                                           H, n_seg, seg_len);
     return (int)cudaGetLastError();
 }
 
 template <typename T>
 static int dispatch(const void* r, const void* k, const void* v, const float* log_w, const float* u,
-                    const float* s0, float* y, float* s_out, int B, int S, int H, int K, int ks,
-                    int n_seg, int seg_len, float* states, float* decay, cudaStream_t stream) {
+                    const float* s0, float* y, float* s_out, int B, int S, int H, int K, int chunk, int n_seg,
+                    int seg_len, float* states, float* decay, cudaStream_t stream) {
 #define WKV_ARGS r, k, v, log_w, u, s0, y, s_out, B, S, H, n_seg, seg_len, states, decay, stream
-    if (K == 16 && ks == 4) return launch<T, 16, 4, 1>(WKV_ARGS);
-    if (K == 64 && ks == 4) return launch<T, 64, 4, 4>(WKV_ARGS);
-    if (K == 64 && ks == 8) return launch<T, 64, 8, 4>(WKV_ARGS);
-    if (K == 64 && ks == 16) return launch<T, 64, 16, 4>(WKV_ARGS);
+    if (K == 16 && chunk == 16) return launch<T, 16, 16>(WKV_ARGS);
+    if (K == 64 && chunk == 16) return launch<T, 64, 16>(WKV_ARGS);
 #undef WKV_ARGS
     return (int)cudaErrorInvalidValue;
 }
 
 static int run(const void* r, const void* k, const void* v, const void* log_w, const void* u,
-               const void* s0, void* y, void* s_out, int dtype, int B, int S, int H, int K, int ks,
+               const void* s0, void* y, void* s_out, int dtype, int B, int S, int H, int K, int chunk,
                int n_seg, int seg_len, void* states, void* decay, int device, void* stream) {
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return (int)err;
     if (B == 0 || H == 0) return 0;
-    if (n_seg < 1 || (n_seg > 1 && (states == nullptr || decay == nullptr))) return (int)cudaErrorInvalidValue;
+    if (n_seg < 1 || (n_seg > 1 && (states == nullptr || decay == nullptr || seg_len % chunk != 0)))
+        return (int)cudaErrorInvalidValue;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     const float* lw = static_cast<const float*>(log_w);
     const float* uu = static_cast<const float*>(u);
@@ -473,30 +898,71 @@ static int run(const void* r, const void* k, const void* v, const void* log_w, c
     float* so = static_cast<float*>(s_out);
     float* ws = static_cast<float*>(states);
     float* wd = static_cast<float*>(decay);
-    if (dtype == DT_F32) return dispatch<float>(r, k, v, lw, uu, st, yo, so, B, S, H, K, ks, n_seg, seg_len, ws, wd, s);
+    if (dtype == DT_F32)
+        return dispatch<float>(r, k, v, lw, uu, st, yo, so, B, S, H, K, chunk, n_seg, seg_len, ws, wd, s);
     if (dtype == DT_BF16)
-        return dispatch<__nv_bfloat16>(r, k, v, lw, uu, st, yo, so, B, S, H, K, ks, n_seg, seg_len, ws, wd, s);
+        return dispatch<__nv_bfloat16>(r, k, v, lw, uu, st, yo, so, B, S, H, K, chunk, n_seg, seg_len, ws, wd, s);
     return (int)cudaErrorInvalidValue;
 }
 
 // One launch on `stream` of the device `device` (this library carries its
 // own CUDA runtime, so the launch names its device), in one pass over the
-// sequence.  (K, ks) is one of (16, 4), (64, 4), (64, 8), (64, 16); dtype is
-// DT_F32 or DT_BF16 for r, k and v; s0 may be null.  Returns a cudaError_t,
-// 0 on success.
+// sequence, in chunks of `chunk` tokens.  (K, chunk) is (16, 16) or (64,
+// 16); dtype is DT_F32 or DT_BF16 for r, k and v; s0 may be null; every
+// pointer 16-byte aligned.  Returns a cudaError_t, 0 on success.  (An
+// earlier version of this source took a row split where `chunk` is; the C
+// signature is the same.)
 extern "C" int wkv6_launch(const void* r, const void* k, const void* v, const void* log_w,
                            const void* u, const void* s0, void* y, void* s_out, int dtype, int B,
-                           int S, int H, int K, int ks, int device, void* stream) {
-    return run(r, k, v, log_w, u, s0, y, s_out, dtype, B, S, H, K, ks, 1, S, nullptr, nullptr, device, stream);
+                           int S, int H, int K, int chunk, int device, void* stream) {
+    return run(r, k, v, log_w, u, s0, y, s_out, dtype, B, S, H, K, chunk, 1, S, nullptr, nullptr, device, stream);
 }
 
-// The same over n_seg segments of seg_len tokens (the last may be shorter;
-// none empty), with workspace states (B, H, n_seg, K, K) and decay (B, H,
-// n_seg, K), both f32.
+// The same over n_seg segments of seg_len tokens (a multiple of chunk; the
+// last segment may be shorter; none empty), with workspace states (B, H,
+// n_seg, K, K) and decay (B, H, n_seg, K), both f32.
 extern "C" int wkv6_launch_segmented(const void* r, const void* k, const void* v, const void* log_w,
                                      const void* u, const void* s0, void* y, void* s_out, int dtype,
-                                     int B, int S, int H, int K, int ks, int n_seg, int seg_len,
+                                     int B, int S, int H, int K, int chunk, int n_seg, int seg_len,
                                      void* states, void* decay, int device, void* stream) {
-    return run(r, k, v, log_w, u, s0, y, s_out, dtype, B, S, H, K, ks, n_seg, seg_len, states, decay,
+    return run(r, k, v, log_w, u, s0, y, s_out, dtype, B, S, H, K, chunk, n_seg, seg_len, states, decay,
                device, stream);
+}
+
+template <typename F>
+static int info_of(F fn, int smem, int* out) {
+    cudaError_t e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+    cudaFuncAttributes a;
+    e = cudaFuncGetAttributes(&a, fn);
+    if (e != cudaSuccess) return (int)e;
+    int blocks = 0;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, WKV_THREADS, smem);
+    if (e != cudaSuccess) return (int)e;
+    out[0] = a.numRegs;
+    out[1] = smem;
+    out[2] = blocks;
+    out[3] = (int)a.localSizeBytes;
+    return 0;
+}
+
+template <typename T, int K, int L>
+static int info_kernel(int with_y, int* out) {
+    return with_y ? info_of(wkv6_chunks<T, K, L>, Wkv<T, K, L>::SMEM, out)
+                  : info_of(wkv6_states<T, K, L>, WkvStates<T, K, L>::SMEM, out);
+}
+
+// What one kernel takes on `device`: out[0] registers a thread, out[1]
+// dynamic shared bytes a block, out[2] blocks resident on an SM, out[3]
+// local (spilled) bytes a thread; with_y 1 is the scan (wkv6_chunks), 0 the
+// states pass.
+extern "C" int wkv6_info(int dtype, int K, int chunk, int with_y, int device, int* out) {
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return (int)err;
+    if (chunk != 16) return (int)cudaErrorInvalidValue;
+    if (dtype == DT_F32 && K == 16) return info_kernel<float, 16, 16>(with_y, out);
+    if (dtype == DT_F32 && K == 64) return info_kernel<float, 64, 16>(with_y, out);
+    if (dtype == DT_BF16 && K == 16) return info_kernel<__nv_bfloat16, 16, 16>(with_y, out);
+    if (dtype == DT_BF16 && K == 64) return info_kernel<__nv_bfloat16, 64, 16>(with_y, out);
+    return (int)cudaErrorInvalidValue;
 }

@@ -1,7 +1,7 @@
 # The hand-written CUDA WKV6 kernel (csrc/wkv6.cu): its ctypes binding, the
-# split of the work (row split and sequence segments) and one launch.  The
-# build (nvcc at first use into ``build/kernels/``, keyed by a hash of the
-# source) is the shared helper in ``kernels/_build.py``.
+# split of the work (chunk length and sequence segments) and one launch.
+# The build (nvcc at first use into ``build/kernels/``, keyed by a hash of
+# the source) is the shared helper in ``kernels/_build.py``.
 # Nothing here runs at import time.
 from __future__ import annotations
 
@@ -12,33 +12,44 @@ from typing import Optional, Tuple
 import torch
 
 from .._build import CudaLibrary
+from .ref import CHUNK
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "wkv6.cu"
 
 # The head sizes the kernel is built for (rwkv6's 64, its reduced configs'
-# 16) and the row splits (KS in the source) built for each, fewest first.
-ROW_SPLITS = {16: (4,), 64: (4, 8, 16)}
+# 16).  Its chunk length (L in the source) is ref.CHUNK, which the plain twin
+# of its arithmetic shares: L = 32 lost to L = 16 in both of the chunked
+# kernel's first designs at rwkv6-3b's shapes (twice the within-chunk exps a
+# token, half the blocks an SM; PERF.md §6) and is not built.
+HEAD_SIZES = (16, 64)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
+# The segment rule: one segment wherever the heads give every SM
+# FILL_ONE_PASS blocks (a serving batch: cutting 8 x 40 heads in two lost
+# 11% to the states pass; the card holds three blocks of the scan an SM at
+# K = 64 in bf16, ``library_info``), else segments until they give FILL
+# blocks an SM (one long prompt: 26-33 segments of 1 x 16384 were the
+# fastest; PERF.md §6), none shorter than MIN_SEGMENT_CHUNKS chunks.
+FILL_ONE_PASS = 2
+FILL = 8
+MIN_SEGMENT_CHUNKS = 8
 
-TOKENS_STAGED = 16  # WKV_TT in the source: a segment is a multiple of it
-# Blocks of 64 threads an SM holds at K = 64: a thread of the scan needs
-# 200-255 registers.
-BLOCKS_PER_SM = 4
 
-
-def configure_single(lib: ctypes.CDLL) -> None:
-    """Binds the one-pass launch (every build of the source has it)."""
+def configure_launches(lib: ctypes.CDLL) -> None:
+    """Binds the one-pass and the segmented launch, which this source and
+    the per-token scan before it both have with these C signatures."""
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.wkv6_launch.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, p]
     lib.wkv6_launch.restype = ctypes.c_int
+    lib.wkv6_launch_segmented.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, p, p, i, p]
+    lib.wkv6_launch_segmented.restype = ctypes.c_int
 
 
 def _configure(lib: ctypes.CDLL) -> None:
-    configure_single(lib)
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.wkv6_launch_segmented.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, p, p, i, p]
-    lib.wkv6_launch_segmented.restype = ctypes.c_int
+    configure_launches(lib)
+    i = ctypes.c_int
+    lib.wkv6_info.argtypes = [i, i, i, i, i, ctypes.POINTER(ctypes.c_int)]
+    lib.wkv6_info.restype = ctypes.c_int
 
 
 LIBRARY = CudaLibrary("wkv6", SOURCE, _configure)
@@ -49,52 +60,45 @@ def library() -> ctypes.CDLL:
     return LIBRARY.load()
 
 
-def columns_per_thread(K: int) -> int:
-    """C in the source: 4, so that each read of r, k and w feeds four state
-    columns; 1 at K = 16, whose row slices would otherwise be one row."""
-    return 1 if K == 16 else 4
-
-
-def _blocks(B: int, H: int, K: int, ks: int) -> int:
-    """Blocks of one pass of the scan over B * H heads at row split ks."""
-    return B * H * K * ks // (64 * columns_per_thread(K))
-
-
-def row_split(B: int, H: int, K: int, sms: int) -> int:
-    """Threads that share the columns of a head's state, each with K / KS of
-    its rows (KS in the source).  A block of 64 threads owns 64 C / KS
-    columns, so a larger KS gives more, thinner blocks: the fewest built
-    split that gives two blocks for each of the card's ``sms`` SMs, else the
-    most (one long prompt, where B * H is small).  At K = 64 a thread needs
-    200-255 registers, so four blocks fill an SM, and a grid of more than
-    four blocks per SM runs in two waves."""
-    splits = ROW_SPLITS[K]
-    for ks in splits:
-        if _blocks(B, H, K, ks) >= 2 * sms:
-            return ks
-    return splits[-1]
+def library_info(dtype: torch.dtype, K: int, with_y: bool = True, device: int = 0) -> dict:
+    """What one instance of the chunked kernel takes on the card, read back
+    from the library: registers a thread, dynamic shared bytes a block,
+    blocks resident on an SM, spilled bytes a thread.  ``with_y`` False is
+    the states pass."""
+    out = (ctypes.c_int * 4)()
+    rc = library().wkv6_info(_DTYPES[dtype], K, CHUNK, int(with_y), device, out)
+    if rc != 0:
+        raise RuntimeError(f"wkv6_info failed with cudaError {rc}")
+    return {"registers": out[0], "smem": out[1], "blocks_per_sm": out[2], "spill_bytes": out[3]}
 
 
 def segment_length(S: int, n_seg: int) -> int:
     """Tokens of each of ``n_seg`` segments of S (the last may be shorter):
-    a multiple of the tokens the scan stages at a time."""
+    a multiple of the chunk length."""
     per = -(-max(S, 1) // n_seg)
-    return -(-per // TOKENS_STAGED) * TOKENS_STAGED
+    return -(-per // CHUNK) * CHUNK
 
 
 def segments(B: int, H: int, S: int, K: int, sms: int) -> int:
-    """How many segments the sequence is cut into, each scanned by its own
-    blocks from the state the segments before it leave (see the source).
-    One wherever the heads give the card's ``sms`` SMs two blocks each at
-    the fewest row split (a batch of prompts); otherwise (one long prompt)
-    as many as fill the card in one wave, BLOCKS_PER_SM blocks an SM.  No
-    segment is empty: the count is that of segments of
-    ``segment_length`` tokens."""
-    per_seg = _blocks(B, H, K, ROW_SPLITS[K][0])
-    if per_seg >= 2 * sms:
+    """How many segments the sequence is cut into, each run by its own
+    blocks from the state the segments before it leave (see the source):
+    one wherever the B * H heads give each of the card's ``sms`` SMs
+    FILL_ONE_PASS blocks; otherwise as many as give each FILL, but no
+    segment shorter than MIN_SEGMENT_CHUNKS chunks and none empty (the count
+    is that of segments of ``segment_length`` tokens)."""
+    del K  # the rule is the same for both head sizes
+    heads = max(B * H, 1)
+    if heads >= FILL_ONE_PASS * sms:
         return 1
-    n = max(1, BLOCKS_PER_SM * sms // per_seg)
+    want = -(-FILL * sms // heads)
+    most = max(S, 1) // (MIN_SEGMENT_CHUNKS * CHUNK)
+    n = max(1, min(want, most))
     return -(-max(S, 1) // segment_length(S, n))
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """The kernel copies its inputs in 16-byte pieces."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def launch(
@@ -106,13 +110,13 @@ def launch(
     f32 or None, all contiguous on one device.  u is taken in f32.  The
     outputs and the segments' workspace are allocated here; the kernels run
     on the current stream.  ``lib`` and ``n_seg`` name another build and a
-    segment count (an earlier source, timed beside this one, takes
-    ``n_seg=1``); by default this source and ``segments``."""
+    segment count; by default this source and ``segments``."""
     if r.dtype not in _DTYPES:
         raise TypeError(f"the wkv6 kernel takes float32 or bfloat16 r, k and v, not {r.dtype}")
     B, S, H, K = r.shape
-    if K not in ROW_SPLITS:
-        raise ValueError(f"head size {K} is not one of the wkv6 kernel's {tuple(ROW_SPLITS)}")
+    if K not in HEAD_SIZES:
+        raise ValueError(f"head size {K} is not one of the wkv6 kernel's {HEAD_SIZES}")
+    r, k, v, log_w = (_aligned(t) for t in (r, k, v, log_w))
     u32 = u.to(torch.float32).contiguous()
     y = torch.empty((B, S, H, K), dtype=torch.float32, device=r.device)
     s_out = torch.empty((B, H, K, K), dtype=torch.float32, device=r.device)
@@ -122,15 +126,14 @@ def launch(
     n_seg = segments(B, H, S, K, sms) if n_seg is None else n_seg
     args = (r.data_ptr(), k.data_ptr(), v.data_ptr(), log_w.data_ptr(), u32.data_ptr(),
             None if S0 is None else S0.data_ptr(), y.data_ptr(), s_out.data_ptr(), _DTYPES[r.dtype],
-            B, S, H, K)
+            B, S, H, K, CHUNK)
     if n_seg == 1:
-        rc = lib.load().wkv6_launch(*args, row_split(B, H, K, sms), device, stream)
+        rc = lib.load().wkv6_launch(*args, device, stream)
     else:
         states = torch.empty((B, H, n_seg, K, K), dtype=torch.float32, device=r.device)
         decay = torch.empty((B, H, n_seg, K), dtype=torch.float32, device=r.device)
         rc = lib.load().wkv6_launch_segmented(
-            *args, ROW_SPLITS[K][0], n_seg, segment_length(S, n_seg), states.data_ptr(), decay.data_ptr(),
-            device, stream,
+            *args, n_seg, segment_length(S, n_seg), states.data_ptr(), decay.data_ptr(), device, stream,
         )
     if rc != 0:
         raise RuntimeError(f"wkv6 kernel launch failed with cudaError {rc}")

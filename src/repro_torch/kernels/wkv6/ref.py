@@ -7,8 +7,13 @@
 # the carried state: the CUDA kernel's plain version, which the ``ops``
 # wrapper takes for a tensor on the CPU.  ``wkv6_segmented_plain`` is the
 # kernel's sequence-parallel algebra (segment states, carry, rescan) written
-# plainly, so that the decomposition can be checked without a card.  ``agreement`` is the tolerance the
-# kernel is held to against it.
+# plainly, so that the decomposition can be checked without a card.
+# ``wkv6_chunked_split_plain`` is the CUDA kernel's own arithmetic on the CPU:
+# the chunked form in log2 units, chunks of CHUNK tokens, with its products
+# taken in split TF32 (``split_tf32``: three products of TF32 parts, cut as
+# the tensor cores read them), over segments as the kernel cuts them.
+# ``tf32_round`` is cvt.rna.tf32.f32's rounding, for comparison.
+# ``agreement`` is the tolerance the kernel is held to against wkv6_plain.
 #
 # Recurrence, per head (k, r in R^K, v in R^V, w_t = e^{log_w_t} in (0, 1]^K,
 # u in R^K):
@@ -112,6 +117,152 @@ def wkv6_plain(
         ys.append(y)
     y = torch.stack(ys, dim=1).reshape(B, n * L, H, K)[:, :S]
     return y, state
+
+
+LOG2E = 1.4426950408889634
+CHUNK = 16  # the CUDA kernel's chunk length (L in csrc/wkv6.cu)
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """x (f32) rounded to TF32 as ``cvt.rna.tf32.f32`` does: to nearest,
+    ties away from zero, keeping 10 explicit mantissa bits (the low 13 bits
+    of the result are zero).  Subnormals round alike; +-inf stay; a NaN
+    stays a NaN.  Adding half a unit of the kept bits to the bit pattern and
+    clearing the rest rounds the magnitude half-up whatever the sign, since
+    f32 is sign and magnitude."""
+    x = x.to(torch.float32).contiguous()
+    bits = (x.view(torch.int32) + 0x1000) & -0x2000
+    return torch.where(torch.isnan(x), x, bits.view(torch.float32))
+
+
+def tf32_truncate(x: torch.Tensor) -> torch.Tensor:
+    """x (f32) as a tensor core reads an f32 register in a TF32 product: its
+    top 19 bits (sign, exponent, 10 mantissa bits), the low 13 cleared."""
+    x = x.to(torch.float32).contiguous()
+    return torch.where(torch.isnan(x), x, (x.view(torch.int32) & -0x2000).view(torch.float32))
+
+
+def split_tf32(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x = hi + lo in TF32 parts, as the CUDA kernel splits: hi = x's top 19
+    bits and lo = x - hi (exact in f32), as the tensor core reads it (its
+    top 19 bits), so hi + lo is x within 2^-20 of |x|."""
+    hi = tf32_truncate(x)
+    return hi, tf32_truncate(x.float() - hi)
+
+
+def _split_product(eq: str, a: torch.Tensor, b: torch.Tensor, exact_b: bool = False) -> torch.Tensor:
+    """``torch.einsum(eq, a, b)`` as the kernel's tensor cores take it: hi
+    hi + (hi lo + lo hi) over the TF32 parts (``split_tf32``), each product
+    in f32 (a product of two TF32 values is exact in f32).  ``exact_b``: b
+    is exact in TF32 (widened bf16), so its lo is 0 and two products do."""
+    ah, al = split_tf32(a)
+    if exact_b:
+        return torch.einsum(eq, ah, b) + torch.einsum(eq, al, b)
+    bh, bl = split_tf32(b)
+    return torch.einsum(eq, ah, bh) + (torch.einsum(eq, ah, bl) + torch.einsum(eq, al, bh))
+
+
+def _segment_state(k, v, log_w, exact_v: bool):
+    """The state one segment (B, n, H, K) leaves from zero and its log2
+    decay, as the kernel's states pass takes them: chunks from the last,
+    E += (k . 2^{suf + tot_c - cum_c})^T v with suf the log2 decay of the
+    chunks after chunk c (every exponent <= 0)."""
+    B, S, H, K = k.shape
+    pad = (-S) % CHUNK
+    n = (S + pad) // CHUNK
+
+    def prep(t):
+        return F.pad(t.float(), (0, 0, 0, 0, 0, pad)).reshape(B, n, CHUNK, H, K)
+
+    k_, v_ = prep(k), prep(v)
+    cum = torch.cumsum(prep(log_w) * LOG2E, dim=2)
+    e = _zero_state(k)
+    suf = torch.zeros((B, H, K), dtype=torch.float32, device=k.device)
+    for c in reversed(range(n)):
+        tot = cum[:, c, -1]
+        k_dec = k_[:, c] * torch.exp2(suf[:, None] + (tot[:, None] - cum[:, c]))
+        e = e + _split_product("bjhk,bjhv->bhkv", k_dec, v_[:, c], exact_b=exact_v)
+        suf = suf + tot
+    return e, suf
+
+
+def _chunk_steps(r, k, v, log_w, u, state, exact_v: bool):
+    """The kernel's chunks over one stretch of tokens (B, n, H, K), from
+    ``state``: y and the state it leaves, as wkv6_chunks computes them (see
+    ``wkv6_chunked_split_plain``)."""
+    B, S, H, K = r.shape
+    L = CHUNK
+    pad = (-S) % L
+    n = (S + pad) // L
+
+    def prep(t):
+        return F.pad(t.float(), (0, 0, 0, 0, 0, pad)).reshape(B, n, L, H, K)
+
+    r_, k_, v_ = prep(r), prep(k), prep(v)
+    cum = torch.cumsum(prep(log_w) * LOG2E, dim=2)                   # log2 units, inclusive, <= 0
+    cum_q = torch.cat([torch.zeros_like(cum[:, :, :1]), cum[:, :, :-1]], dim=2)
+    total = cum[:, :, -1]
+    idx = torch.arange(L, device=r.device)
+    lower = (idx[None, :] < idx[:, None])[None, :, :, None, None]
+    diag = (idx[None, :] == idx[:, None])[None, :, :, None]
+    half = L // 2
+    same_half = ((idx[:, None] // half) == (idx[None, :] // half))[None, :, :, None, None]
+    u32 = u.float()
+    ys = []
+    for c in range(n):
+        rc, kc, vc = r_[:, c], k_[:, c], v_[:, c]
+        cumc, cumqc, totc = cum[:, c], cum_q[:, c], total[:, c]
+        # A: the diagonal blocks directly, the block below them factored at m
+        ld = cumqc[:, :, None] - cumc[:, None, :]
+        D = torch.where(lower & same_half, torch.exp2(torch.where(lower, ld, 0.0)), 0.0)
+        A = (rc[:, :, None] * kc[:, None] * D).sum(-1)               # (B, i, j, H)
+        r_f = rc[:, half:] * torch.exp2(cumqc[:, half:] - cumc[:, half - 1:half])
+        k_f = kc[:, :half] * torch.exp2(cumc[:, half - 1:half] - cumc[:, :half])
+        A[:, half:, :half] = torch.einsum("bihk,bjhk->bijh", r_f, k_f)
+        A = torch.where(diag, (rc * u32 * kc).sum(-1)[:, :, None], A)  # the bonus on the diagonal
+        y = _split_product("bihk,bhkv->bihv", rc * torch.exp2(cumqc), state)
+        ys.append(y + _split_product("bijh,bjhv->bihv", A, vc, exact_b=exact_v))
+        E = _split_product("bjhk,bjhv->bhkv", kc * torch.exp2(totc[:, None] - cumc), vc, exact_b=exact_v)
+        state = torch.exp2(totc)[..., None] * state + E
+    return torch.stack(ys, dim=1).reshape(B, n * L, H, K)[:, :S], state
+
+
+def wkv6_chunked_split_plain(
+    r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, log_w: torch.Tensor, u: torch.Tensor,
+    S0: Optional[torch.Tensor] = None, seg_len: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The CUDA kernel's arithmetic on the CPU (csrc/wkv6.cu).  Per chunk of
+    CHUNK tokens, in log2 units (cum the inclusive running sum of log_w *
+    log2(e), cumq the exclusive one, tot the last; every exponent <= 0):
+    A[i][j] = sum_k r_i k_j 2^{cumq_i - cum_j} (j < i) with the bonus
+    sum_k r_i u k_i on its diagonal, taken directly within the two diagonal
+    blocks of CHUNK / 2 tokens and, for the block below them, as R~ K~^T
+    with R~_i = r_i . 2^{cumq_i - cum_m} and K~_j = k_j . 2^{cum_m - cum_j}
+    (m = CHUNK / 2 - 1; both exponents <= 0); y = (r . 2^{cumq}) S + A v; S
+    <- 2^{tot} . S + E with E = (k . 2^{tot - cum})^T v.  The three products
+    go through the tensor cores' split TF32 (``_split_product``; v is exact
+    when r, k and v are bf16), the decay of S on the CUDA cores.  With
+    ``seg_len`` (a multiple of CHUNK), over segments as the kernel's
+    sequence-parallel passes: each segment but the last from a zero state
+    (its E, summed from its last chunk back, and its decay 2^{sum of its
+    log2 decays}; ``_segment_state``), the carry, and each segment from its
+    start.  Returns y (B, S, H, K) and the final state, both f32."""
+    B, S, H, K = r.shape
+    state = _zero_state(r) if S0 is None else S0.float()
+    if S == 0:
+        return torch.zeros((B, 0, H, K), dtype=torch.float32, device=r.device), state
+    exact_v = r.dtype == torch.bfloat16
+    seg_len = S if seg_len is None else seg_len
+    bounds = [(a, min(S, a + seg_len)) for a in range(0, S, seg_len)]
+    starts = [state]
+    for a, b in bounds[:-1]:
+        e, tot = _segment_state(k[:, a:b], v[:, a:b], log_w[:, a:b], exact_v)
+        starts.append(torch.exp2(tot)[..., None] * starts[-1] + e)
+    ys = []
+    for (a, b), start in zip(bounds, starts):
+        y, state = _chunk_steps(r[:, a:b], k[:, a:b], v[:, a:b], log_w[:, a:b], u, start, exact_v)
+        ys.append(y)
+    return torch.cat(ys, dim=1), state
 
 
 def wkv6_segmented_plain(

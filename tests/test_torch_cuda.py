@@ -46,7 +46,7 @@ from repro_torch.kernels.segreduce.ref import fused_segreduce_ref, segreduce_ref
 from repro_torch.kernels.wkv6 import kernel as wkv6_kernel
 from repro_torch.kernels.wkv6 import ops as wkv6_ops
 from repro_torch.kernels.wkv6.ref import agreement as wkv6_agreement
-from repro_torch.kernels.wkv6.ref import wkv6_plain
+from repro_torch.kernels.wkv6.ref import wkv6_plain, wkv6_scan
 from repro_torch.models.transformer import Model
 from repro_torch.serve.step import generate
 
@@ -380,20 +380,37 @@ def test_wkv6_kernel_matches_plain(cuda, K, S, B, H, decay, with_state):
         assert agree["ok"], agree
 
 
+# (B, H, S) and the segments the rule cuts them into on an H100 (132 SMs):
+# one where the heads give every SM two blocks, several for fewer heads, a
+# count capped by the shortest segment for a short sequence
+_WKV_RULE_SHAPES = {(8, 40, 300): 1, (4, 40, 300): 2, (1, 40, 2100): 15, (2, 3, 1000): 7, (1, 1, 77): 1}
+
+
+def _wkv_rule_cases():
+    """(K, B, H, S): each head size the kernel is built for at the shapes of
+    _WKV_RULE_SHAPES."""
+    return [(K, B, H, S) for K in wkv6_kernel.HEAD_SIZES for B, H, S in _WKV_RULE_SHAPES]
+
+
 @pytest.mark.requires_cuda
 @pytest.mark.parametrize("with_state", [False, True], ids=["zero", "S0"])
 @pytest.mark.parametrize("decay", ["random", "-54.6", "-3.4e-4"])
-@pytest.mark.parametrize("split", ["rule", "two", "every-16"])
-@pytest.mark.parametrize("S", [63, 64, 65, 197], ids=["4L-1", "4L", "4L+1", "12L+5"])
+@pytest.mark.parametrize("split", ["rule", "two", "every-chunk"])
+@pytest.mark.parametrize("at", ["4L-1", "4L", "4L+1", "12L+5"])
 @pytest.mark.parametrize("B,H", [(1, 40), (2, 3)])
-def test_wkv6_kernel_at_segment_boundaries(cuda, B, H, S, split, decay, with_state):
-    """The sequence-parallel passes where segments begin and end: the
-    launch's own segment count, two segments, and one segment per 16 tokens
-    (L = 16, so S is a multiple of L, one less or one more, or 12 L + 5),
-    with and without S0, over the clip's decays; y and the final state
-    within KERNEL_TOL of the plain version, reruns bitwise equal."""
-    r, k, v, lw, u, s0 = _wkv_inputs(S * 3 + H, B, S, H, 64, decay, torch.bfloat16, cuda, with_state)
-    n_seg = {"rule": None, "two": 2, "every-16": -(-S // 16)}[split]
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("K", wkv6_kernel.HEAD_SIZES)
+def test_wkv6_kernel_at_segment_boundaries(cuda, K, dtype, B, H, at, split, decay, with_state):
+    """The sequence-parallel passes where chunks and segments begin and end,
+    at each head size, in bf16 and f32: the rule's own segment count, two
+    segments, and one segment per chunk (S a multiple of the chunk length
+    L, one less or one more, or 12 L + 5), with and without S0, over the
+    clip's decays; y and the final state within KERNEL_TOL of the plain
+    version, reruns bitwise equal."""
+    chunk = wkv6_kernel.CHUNK
+    S = {"4L-1": 4 * chunk - 1, "4L": 4 * chunk, "4L+1": 4 * chunk + 1, "12L+5": 12 * chunk + 5}[at]
+    r, k, v, lw, u, s0 = _wkv_inputs(S * 3 + H + K, B, S, H, K, decay, dtype, cuda, with_state)
+    n_seg = {"rule": None, "two": 2, "every-chunk": -(-S // chunk)}[split]
     y1, s1 = wkv6_kernel.launch(r, k, v, lw, u, s0, n_seg=n_seg)
     y2, s2 = wkv6_kernel.launch(r, k, v, lw, u, s0, n_seg=n_seg)
     want_y, want_s = wkv6_plain(r, k, v, lw, u, s0)
@@ -405,17 +422,57 @@ def test_wkv6_kernel_at_segment_boundaries(cuda, B, H, S, split, decay, with_sta
 
 
 @pytest.mark.requires_cuda
-@pytest.mark.parametrize("K,B,H", [(64, 8, 40), (64, 4, 40), (64, 2, 3), (16, 1, 1)])
-def test_wkv6_kernel_f32_and_every_row_split(cuda, K, B, H):
-    """f32 inputs, with K = 64 at each of its row splits on an H100 (4 for
-    8 x 40 heads, 8 for 4 x 40, 16 for 2 x 3)."""
-    r, k, v, lw, u, s0 = _wkv_inputs(K, B, 77, H, K, "random", torch.float32, cuda, True)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("K,B,H,S", _wkv_rule_cases())
+def test_wkv6_kernel_f32_and_every_row_split(cuda, K, B, H, S, dtype):
+    """f32 and bf16 inputs at each head size, where the rule cuts the
+    sequence into the segment counts it chooses on an H100 (the row splits
+    of the per-token scan this kernel replaced are gone: the work is split
+    by segments alone); reruns bitwise equal, and S = 0 returns the state it
+    was given.  Every call goes through the model's entry, ops.wkv6, and
+    counts one launch."""
+    r, k, v, lw, u, s0 = _wkv_inputs(K + S, B, S, H, K, "random", dtype, cuda, True)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    if sms == 132:
+        assert wkv6_kernel.segments(B, H, S, K, sms) == _WKV_RULE_SHAPES[(B, H, S)]
+    before = wkv6_ops.LAUNCHES
     got_y, got_s = wkv6_ops.wkv6(r, k, v, lw, u, s0)
+    again_y, again_s = wkv6_ops.wkv6(r, k, v, lw, u, s0)
     want_y, want_s = wkv6_plain(r, k, v, lw, u, s0)
     assert wkv6_agreement(got_y, want_y)["ok"] and wkv6_agreement(got_s, want_s)["ok"]
-    # S = 0 returns the state it was given
+    assert _bitwise(got_y, again_y) and _bitwise(got_s, again_s)
     y0, st = wkv6_ops.wkv6(r[:, :0], k[:, :0], v[:, :0], lw[:, :0], u, s0)
     assert y0.shape == (B, 0, H, K) and torch.equal(st, s0)
+    assert wkv6_ops.LAUNCHES == before + 3
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("n_seg", [1, 3])
+def test_wkv6_kernel_strong_decay_state_against_the_f64_scan(cuda, n_seg):
+    """The clip's strongest decay (-54.6 a token, chunk exponents far below
+    f32's) from a carried state: the final state, which then holds only the
+    last token's k v^T, within KERNEL_TOL of the exact scan in f64, and y
+    too."""
+    r, k, v, lw, u, s0 = _wkv_inputs(54, 2, 197, 3, 64, "-54.6", torch.bfloat16, cuda, True)
+    got_y, got_s = wkv6_kernel.launch(r, k, v, lw, u, s0, n_seg=n_seg)
+    want_y, want_s = wkv6_scan(r, k, v, lw, u, s0, dtype=torch.float64)
+    assert bool(torch.isfinite(got_s).all())
+    assert wkv6_agreement(got_s, want_s)["ok"], wkv6_agreement(got_s, want_s)
+    assert wkv6_agreement(got_y, want_y)["ok"], wkv6_agreement(got_y, want_y)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("K", wkv6_kernel.HEAD_SIZES)
+def test_wkv6_library_residency(cuda, K, dtype):
+    """Every instance builds without spills, and at rwkv6's shapes (K = 64,
+    bf16) the card holds at once the FILL_ONE_PASS blocks an SM that the
+    segment rule runs in one pass (three, as measured on an H100)."""
+    for with_y in (True, False):
+        info = wkv6_kernel.library_info(dtype, K, with_y)
+        assert info["spill_bytes"] == 0 and info["blocks_per_sm"] >= 1, info
+    if (K, dtype) == (64, torch.bfloat16):
+        assert wkv6_kernel.library_info(dtype, K)["blocks_per_sm"] >= wkv6_kernel.FILL_ONE_PASS
 
 
 def _spread_rwkv(model, generator):

@@ -7,7 +7,9 @@
 # final state.  Inputs come from numpy with a seed.
 #
 # Tolerances: 2e-3 over the reference's matrix and 1e-4 under strong decay,
-# the reference's own (tests/test_kernels.py); all forms run in f32.
+# the reference's own (tests/test_kernels.py); all forms run in f32, the
+# CUDA kernel's plain twin (wkv6_chunked_split_plain) with its products in
+# split TF32.
 import numpy as np
 import pytest
 import torch
@@ -18,7 +20,16 @@ from repro.kernels.wkv6.kernel import wkv6_pallas
 from repro.kernels.wkv6.ref import wkv6_ref
 from repro.models.rwkv6 import _wkv_chunked, _wkv_chunked_factorized, _wkv_scan
 from repro_torch.kernels.wkv6 import kernel, ops
-from repro_torch.kernels.wkv6.ref import KERNEL_TOL, agreement, wkv6_plain, wkv6_scan, wkv6_segmented_plain
+from repro_torch.kernels.wkv6.ref import (
+    KERNEL_TOL,
+    agreement,
+    split_tf32,
+    tf32_round,
+    wkv6_chunked_split_plain,
+    wkv6_plain,
+    wkv6_scan,
+    wkv6_segmented_plain,
+)
 from repro_torch.models import rwkv6 as port_rwkv6
 
 TOL = dict(rtol=2e-3, atol=2e-3)
@@ -179,31 +190,47 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
 
 
 def test_row_split_fills_the_card():
-    """The fewest threads to a state column that give two blocks per SM,
-    more (thinner blocks) when B * H is small; K = 16 is built for one
-    split."""
+    """The chunked kernel splits the work across blocks by heads and
+    sequence segments alone (the per-token scan's row split is gone): one
+    block per (b, h, segment) of K = 16 or 64, chunks of CHUNK = 16 tokens.
+    A serving batch (8 x 40 heads) gives an H100's 132 SMs two blocks each in
+    one pass; one long prompt of 40 heads is cut until every SM has FILL
+    blocks; the rule does not read K.  (The card test holds the library's
+    residency at K = 64 to FILL_ONE_PASS blocks an SM.)"""
     sms = 132  # an H100 SXM
-    assert kernel.row_split(8, 40, 64, sms) == 4     # serving batch: 320 blocks of 64 columns
-    assert kernel.row_split(4, 40, 64, sms) == 8     # 320 blocks of 32 columns
-    assert kernel.row_split(1, 40, 64, sms) == 16    # one long prompt: 160 blocks of 16 columns
-    assert kernel.row_split(1, 40, 16, sms) == 4
-    assert tuple(kernel.ROW_SPLITS) == (16, 64)
+
+    def blocks(B, H, S, K):
+        return B * H * kernel.segments(B, H, S, K, sms)
+
+    assert kernel.CHUNK == 16 and kernel.HEAD_SIZES == (16, 64)
+    assert blocks(8, 40, 2048, 64) == 320           # one pass: 2.4 blocks an SM
+    assert blocks(1, 40, 16384, 64) >= kernel.FILL * sms
+    assert blocks(1, 40, 16384, 16) == blocks(1, 40, 16384, 64)
+    assert kernel.FILL_ONE_PASS <= kernel.FILL
 
 
-def test_segments_split_only_one_long_prompt():
-    """One segment wherever the heads already give two blocks per SM (a
-    serving batch); more for one long prompt; never an empty segment, and
-    every token in one."""
+@pytest.mark.parametrize("B,H,S,want", [
+    (8, 40, 2048, 1), (8, 40, 300, 1), (1, 40, 16384, 27), (1, 40, 16385, 27), (4, 40, 300, 2),
+    (1, 40, 2100, 15), (2, 3, 1000, 7), (1, 1, 77, 1)])
+def test_segments_split_only_one_long_prompt(B, H, S, want):
+    """One segment wherever the heads give every SM FILL_ONE_PASS blocks (a
+    serving batch); otherwise enough for FILL blocks an SM, but no segment
+    shorter than MIN_SEGMENT_CHUNKS chunks (1 x 16384: 27 segments of 608
+    tokens; 2 x 3 heads of 1000 tokens: 7 of 144)."""
+    assert kernel.segments(B, H, S, 64, 132) == want
+
+
+def test_segments_cover_every_token_without_an_empty_one():
+    """Never an empty segment, every token in one, and segments a multiple
+    of the chunk."""
     sms = 132
-    assert kernel.segments(8, 40, 2048, 64, sms) == 1
-    assert kernel.segments(1, 40, 16384, 64, sms) > 1
-    assert kernel.segments(1, 40, 16385, 64, sms) > 1
-    for B, H, K in ((1, 40, 64), (2, 3, 64), (2, 3, 16), (1, 1, 16), (8, 40, 64)):
-        for S in (0, 1, 15, 16, 17, 100, 1263, 1264, 1265, 16384, 16385):
+    for B, H, K in ((1, 40, 64), (2, 3, 64), (2, 3, 16), (1, 1, 16), (8, 40, 64), (4, 40, 64)):
+        for S in (0, 1, 15, 16, 17, 100, 127, 128, 129, 1263, 1264, 1265, 2048, 16384, 16385):
             n = kernel.segments(B, H, S, K, sms)
             L = kernel.segment_length(S, n)
-            assert n >= 1 and L % kernel.TOKENS_STAGED == 0
+            assert n >= 1 and L % kernel.CHUNK == 0
             assert (n - 1) * L < max(S, 1) <= n * L, (B, H, K, S, n, L)
+            assert n == 1 or L >= kernel.MIN_SEGMENT_CHUNKS * kernel.CHUNK
 
 
 @pytest.mark.parametrize("S,seg_len", [(12, 16), (15, 16), (16, 16), (17, 16), (53, 16), (100, 32)],
@@ -284,3 +311,127 @@ def test_scan_in_f64_is_a_witness_for_both_f32_forms():
     for y, st in (wkv6_scan(r, k, v, lw, u, s0), wkv6_plain(r, k, v, lw, u, s0)):
         assert y.dtype == torch.float32
         assert agreement(y, want_y)["ok"] and agreement(st, want_s)["ok"]
+
+
+def _bits(*words):
+    return torch.from_numpy(np.array(words, np.uint32).view(np.float32))
+
+
+def _words(t):
+    return [int(w) for w in t.numpy().view(np.uint32)]
+
+
+@pytest.mark.parametrize("word,want", [
+    (0x3F801000, 0x3F802000),
+    (0x3F803000, 0x3F804000),
+    (0xBF801000, 0xBF802000),
+    (0x3F800FFF, 0x3F800000),
+    (0x3F801001, 0x3F802000),
+    (0xBF800FFF, 0xBF800000),
+    (0x00001000, 0x00002000),
+    (0x80000FFF, 0x80000000),
+    (0x007FF000, 0x00800000),
+    (0x7F800000, 0x7F800000),
+    (0xFF800000, 0xFF800000),
+    (0x7F7FFFFF, 0x7F800000),
+    (0x00000000, 0x00000000),
+], ids=["tie-up", "odd-tie-away-not-even", "negative-tie-away", "below-tie", "above-tie", "negative-below-tie",
+        "subnormal-tie", "negative-subnormal-to-minus-0", "largest-subnormal-to-normal", "inf", "minus-inf",
+        "largest-finite-to-inf", "zero"])
+def test_tf32_round_on_crafted_bit_patterns(word, want):
+    """cvt.rna.tf32.f32: to nearest, ties away from zero (never to even),
+    whatever the sign, on subnormals alike; infinities stay and a value past
+    the largest TF32 number becomes one."""
+    assert _words(tf32_round(_bits(word))) == [want]
+
+
+def test_tf32_split_keeps_nans_and_recovers_the_value():
+    """A NaN stays a NaN; hi and lo have TF32's low 13 bits clear, and hi +
+    lo is x within 2^-21 of |x| over normal magnitudes from 2^-100 to
+    2^100."""
+    assert bool(torch.isnan(tf32_round(torch.tensor([float("nan")]))).all())
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy((rng.normal(size=4096) * np.exp2(rng.integers(-100, 100, 4096))).astype(np.float32))
+    hi, lo = split_tf32(x)
+    assert all(w & 0x1FFF == 0 for w in _words(hi) + _words(lo))
+    err = (hi.double() + lo.double() - x.double()).abs()
+    assert bool((err <= x.double().abs() * 2.0**-21).all())
+    assert not bool((hi == x).all())  # the split is not the identity: most x need lo
+
+
+def _boundary(at):
+    chunk = kernel.CHUNK
+    return {"L-1": chunk - 1, "L": chunk, "L+1": chunk + 1, "3L+5": 3 * chunk + 5}[at]
+
+
+@pytest.mark.parametrize("decay", ["random", "-54.6", "-5", "-3.4e-4"])
+@pytest.mark.parametrize("with_state", [False, True], ids=["zero", "S0"])
+@pytest.mark.parametrize("at", ["L-1", "L", "L+1", "3L+5"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_split_tf32_plain_matches_the_reference_at_chunk_boundaries(dtype, at, with_state, decay):
+    """The gate of the tensor-core kernel: its arithmetic with the products
+    in split TF32 (wkv6_chunked_split_plain; the parts cut as the tensor
+    cores read them), in one pass and over segments as the kernel cuts
+    them, against wkv6_ref (y and the final state) and the Pallas kernel in
+    interpret mode (at the kernel's chunk length L), at chunk boundaries and
+    over the clip's decays: 2e-3, and 1e-4 under the strong decay (u = 0,
+    as the reference's test).  With bf16 r, k and v (every operand split
+    but v, which is exact in TF32) the references take the same values in
+    f32."""
+    chunk = kernel.CHUNK
+    S = _boundary(at)
+    lw = None if decay == "random" else float(decay)
+    arrays = _inputs(S * 7 + chunk, 2, S, 3, 16, log_w=lw, with_state=with_state)
+    tol = STRONG_TOL if decay == "-5" else TOL
+    if decay == "-5":
+        arrays[4] = np.zeros_like(arrays[4])
+    arrays[:3] = [torch.from_numpy(a).to(dtype).float().numpy() for a in arrays[:3]]
+    jr, jk, jv, jlw, ju, js0 = _jax(arrays)
+    r, k, v, lw_, u, s0 = _torch(arrays)
+    r, k, v = (t.to(dtype) for t in (r, k, v))
+    oracle, oracle_s = wkv6_ref(jr, jk, jv, jlw, ju, js0)
+    pallas = None if with_state else wkv6_pallas(jr, jk, jv, jlw, ju, chunk=chunk, interpret=True)
+    for seg_len in (None, chunk):
+        got, got_s = wkv6_chunked_split_plain(r, k, v, lw_, u, s0, seg_len=seg_len)
+        assert bool(torch.isfinite(got).all()) and bool(torch.isfinite(got_s).all())
+        _close(got, oracle, tol)
+        _close(got_s, oracle_s, tol)
+        if pallas is not None:
+            _close(got, pallas, tol)
+
+
+@pytest.mark.parametrize("with_state", [False, True], ids=["zero", "S0"])
+@pytest.mark.parametrize("S", [1, 16385])
+def test_split_tf32_plain_at_one_and_16385_tokens(S, with_state):
+    """One token, and the consistency prefill's 16385 (a ragged last chunk
+    after 1024 whole ones), in one pass and in 13 segments, against
+    wkv6_ref and (from zero) the Pallas kernel in interpret mode."""
+    chunk = kernel.CHUNK
+    arrays = _inputs(S + chunk, 1, S, 1, 16, with_state=with_state)
+    jr, jk, jv, jlw, ju, js0 = _jax(arrays)
+    r, k, v, lw, u, s0 = _torch(arrays)
+    oracle, oracle_s = wkv6_ref(jr, jk, jv, jlw, ju, js0)
+    seg_len = -(-(-(-S // 13)) // chunk) * chunk
+    for got, got_s in (wkv6_chunked_split_plain(r, k, v, lw, u, s0),
+                       wkv6_chunked_split_plain(r, k, v, lw, u, s0, seg_len=seg_len)):
+        _close(got, oracle, TOL)
+        _close(got_s, oracle_s, TOL)
+        if not with_state:
+            _close(got, wkv6_pallas(jr, jk, jv, jlw, ju, chunk=chunk, interpret=True), TOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_split_tf32_plain_at_rwkv6_head_size_holds_the_kernel_tolerance(dtype):
+    """At rwkv6's head size (64) with r, k, v in f32 (every operand split)
+    or bf16 (v exact in TF32, two products), the split form holds
+    KERNEL_TOL against the f32 plain version and against the f64 scan, as
+    closely as the f32 plain version does."""
+    arrays = _inputs(64, 2, 77, 2, 64, with_state=True)
+    r, k, v, lw, u, s0 = _torch(arrays)
+    r, k, v = (t.to(dtype) for t in (r, k, v))
+    want_y, want_s = wkv6_scan(r, k, v, lw, u, s0, dtype=torch.float64)
+    plain_y, plain_s = wkv6_plain(r, k, v, lw, u, s0)
+    got_y, got_s = wkv6_chunked_split_plain(r, k, v, lw, u, s0, seg_len=32)
+    for got, plain, want in ((got_y, plain_y, want_y), (got_s, plain_s, want_s)):
+        assert agreement(got, plain)["ok"]
+        assert agreement(got, want)["worst"] <= max(2 * agreement(plain, want)["worst"], 0.05)
