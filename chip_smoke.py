@@ -14,9 +14,12 @@ Phases, each of which must pass for the exit code to be 0:
    N in {0, 1, 5000, 60M} and K in {1, 100, 100001, 2000001}, plus whole
    groups of those columns in one launch, each case run twice and required
    to be bitwise equal; each (N, K) prints the regime its launches took
-   (without a float sum: K = 1 and 100 in per-block tables, larger K with
-   one table or fewer rows than keys straight into the outputs, else after
-   a partition by key range).  Integers, min/max and presence
+   (with a float sum: K = 1 and 100 in per-warp tables, larger K after a
+   partition by key range, or in one launch where N times its key ranges
+   is at most kernel.SMALL_READS;
+   without one: K = 1 and 100 in per-block tables, larger K with one table
+   or fewer rows than keys straight into the outputs, else after a
+   partition by key range).  Integers, min/max and presence
    must match exactly; bf16 within rtol 1e-2 after its f32 accumulation; f32
    sums within rtol 1e-5 of the plain version run on the same values in
    float64 (at 60M rows in one key the plain version's own f32 atomic sum
@@ -578,14 +581,15 @@ def shape_key(name: str, args, kw) -> tuple:
     return (int(args[0].shape[0]), args[2])
 
 
-def kernel_regime(torch, kern, keys, values, op_names, num_keys: int, with_presence: bool) -> int:
-    """The regime (``kernel.table_layout``) a launch on these inputs takes."""
+def kernel_regime(torch, kern, keys, values, op_names, num_keys: int, with_presence: bool) -> str:
+    """The regime (``kernel.table_layout``) a launch on these inputs takes,
+    '1s' for regime 1's one-launch path."""
     index = keys.device.index if keys.device.index is not None else torch.cuda.current_device()
     float_sum = any(op == "sum" and v.dtype.is_floating_point for v, op in zip(values, op_names))
     lay = kern.table_layout(int(keys.shape[0]), num_keys, len(values) + int(with_presence),
                             kern.library().segreduce_smem_limit(index),
                             torch.cuda.get_device_properties(index).multi_processor_count, float_sum)
-    return lay.regime
+    return f"{lay.regime}{'s' if lay.small else ''}"
 
 
 def time_call(torch, ops, ref, name: str, args, kw) -> dict:

@@ -20,10 +20,26 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "segreduce.cu"
 
 MAX_AGGS = 16            # SEG_MAX_AGGS in the source: aggregates per launch
 WARPS_PER_BLOCK = 8      # SEG_WARPS_PER_BLOCK in the source
-TILE_ROWS = 8192         # SEG_TILE_ROWS in the source: rows a partition warp takes
+TILE_ROWS = 4096         # SEG_ORD_TILE in the source: rows of a regime-1 histogram or scatter block
+ORD_WARPS = 8            # SEG_ORD_THREADS / 32 in the source: warps of those blocks
 PART_TILE = 8192         # SEG_PART_TILE in the source: rows of a regime-3 scatter block
 ROWS_PER_WARP_MIN = 1024  # fewer rows per warp buy nothing but table traffic
 BLOCKS_PER_SM = 4
+GROUP = 32               # SEG_GROUP in the source: children of a node of regime 1's prefix tree
+# Regime 1: the most rows one fold block takes at once (a longer key range
+# is cut into pieces, joined by a tree), so that no skew of the keys makes
+# one block fold more.
+PIECE_ROWS = 16384
+# Regime 1: where N rows times R key ranges is at most this many, the call
+# is one launch in which every range's block reads all N rows
+# (seg_ordered_small), and not the three passes of the partition: the one
+# launch costs about what the rows its blocks read do, the partition a
+# fixed few microseconds more.  scripts/segreduce_shapes.py on an NVIDIA
+# H100 80GB HBM3 (700 W), device ms from a CUDA graph: the two tie at 1,954
+# ranges x 2,048 rows (0.0508 each); at 98 ranges the one launch leads at
+# 32,768 rows (0.0256 against 0.0293) and trails at 65,536 (0.0414 against
+# 0.0301).
+SMALL_READS = 4_000_000
 
 _VTYPES = {torch.int32: 0, torch.float32: 1, torch.bfloat16: 2, torch.float16: 3}
 _OPCODES = {op: i for i, op in enumerate(OPS)}  # sum 0, max 1, min 2
@@ -62,6 +78,10 @@ class _SegParams(ctypes.Structure):
         ("part_off", ctypes.c_void_p),
         ("part_ranges", ctypes.c_void_p),
         ("bucket_shift", ctypes.c_int32),
+        ("tile_prefix", ctypes.c_void_p),
+        ("partials", ctypes.c_void_p),
+        ("piece_rows", ctypes.c_int32),
+        ("small_n", ctypes.c_int32),
     ]
 
 
@@ -91,9 +111,12 @@ class Layout:
     regime 0 (a float sum, small K): ``n_warps`` warps (whole blocks), each
     reducing ``rows_per_warp`` rows into a table of all K keys in shared
     memory.
-    regime 1 (a float sum, large K): ``n_tiles`` tiles of TILE_ROWS rows
-    partitioned into ``n_buckets`` key ranges of ``keys_per_bucket`` keys,
-    one block of ``reduce_warps`` warps a range.
+    regime 1 (a float sum, large K): ``n_buckets`` key ranges of
+    2^``bucket_shift`` keys, folded by blocks of ``reduce_warps`` warps;
+    with ``small`` (N at most ``small_limit(n_buckets)``), one launch of one
+    block a range over every row; else a histogram and a scatter of
+    ``n_tiles`` tiles of TILE_ROWS rows partition the rows by range, and
+    ``n_blocks`` fold blocks take pieces of at most ``piece_rows`` rows.
     regime 2 (no float sum: small K, one table, or fewer rows than keys):
     ``n_blocks`` blocks of atomics, into a table of all K keys in shared
     memory each, added into the outputs, when ``atomic_smem``, else straight
@@ -116,6 +139,8 @@ class Layout:
     atomic_smem: bool = False
     bucket_shift: int = 0
     scratch_words: int = 0
+    piece_rows: int = 0
+    small: bool = False
 
 
 def table_layout(
@@ -142,22 +167,103 @@ def table_layout(
         rows_per_warp = 32 * max(1, _ceil_div(_ceil_div(max(n, 1), n_warps), 32))
         return Layout(0, n_warps=n_warps, rows_per_warp=rows_per_warp,
                       scratch_words=n_blocks * n_tables * num_keys)
-    # key ranges as wide as shared memory allows, but narrow enough to give
-    # every SM two ranges to reduce; fewer warps a range (wider tables) only
-    # when the ranges would be too many for the scatter's shared memory
-    for warps in (WARPS_PER_BLOCK, 4, 2, 1):
-        widest = smem_limit // (warps * n_tables * 4)
-        keys_per_bucket = max(32, min(widest, _ceil_div(num_keys, 2 * n_sms)))
-        n_buckets = _ceil_div(num_keys, keys_per_bucket)
-        if scatter_smem_bytes(n_buckets) <= smem_limit:
+    return ordered_layout(n, num_keys, n_tables, smem_limit, n_sms)
+
+
+def small_limit(n_buckets: int) -> int:
+    """The most rows regime 1 takes in one launch over ``n_buckets`` ranges."""
+    return SMALL_READS // n_buckets
+
+
+def ordered_layout(n: int, num_keys: int, n_tables: int, smem_limit: int, n_sms: int) -> Layout:
+    """Regime 1: ranges of a power of two of keys (at most 2^16, the 16-bit
+    key offsets), the widest whose per-warp tables (and the fold's copy of
+    where the ranges and their pieces start) leave room for two fold blocks
+    of eight warps an SM; wider (one block, then fewer warps) only when the
+    ranges would be too many for the scatter's shared memory.  At most
+    ``small_limit`` rows take the one-launch path.  The fold's grid is what
+    fits on the card at once, and no more than there can be pieces."""
+    for warps, room in ((WARPS_PER_BLOCK, smem_limit // 2), (WARPS_PER_BLOCK, smem_limit),
+                        (4, smem_limit), (2, smem_limit), (1, smem_limit)):
+        widest = min(1 << 16, room // (warps * n_tables * 4))
+        if widest < 1:
+            continue
+        shift = widest.bit_length() - 1
+        n_buckets = _ceil_div(num_keys, 1 << shift)
+        fold_bytes = ordered_fold_smem_bytes(warps, n_tables, shift, n_buckets)
+        if (n_buckets < 1 << 16 and fold_bytes <= room
+                and ordered_scatter_smem_bytes(n_buckets) <= smem_limit):
+            fold_blocks = n_sms * max(1, min(2048 // (32 * warps), smem_limit // fold_bytes))
             return Layout(
-                1, n_buckets=n_buckets, keys_per_bucket=keys_per_bucket,
+                1, n_buckets=n_buckets, keys_per_bucket=1 << shift, bucket_shift=shift,
                 n_tiles=max(1, _ceil_div(n, TILE_ROWS)), reduce_warps=warps,
+                n_blocks=min(fold_blocks, max_pieces(n, n_buckets)), piece_rows=PIECE_ROWS,
+                small=n <= small_limit(n_buckets),
             )
     raise ValueError(
         f"num_keys={num_keys} with {n_tables} accumulator columns is beyond the "
         "segreduce kernel's key ranges"
     )
+
+
+def max_pieces(n: int, n_buckets: int) -> int:
+    """The most pieces regime 1's fold can cut ``n`` rows over ``n_buckets``
+    ranges into: every range a piece of fewer than PIECE_ROWS rows, and the
+    rest whole pieces."""
+    return _ceil_div(n, PIECE_ROWS) + n_buckets
+
+
+def piece_cuts(counts: Sequence[int], piece_rows: int = PIECE_ROWS) -> list:
+    """Regime 1's pieces, as the source's histogram cuts them: range b's
+    c = counts[b] rows (placed after the rows of ranges before it) make
+    max(1, ceil(c / piece_rows)) pieces, piece i of np holding its rows
+    [c i // np, c (i + 1) // np).  A list of (range, first row, end row)
+    in piece order: fixed by the counts alone."""
+    cuts, start = [], 0
+    for b, c in enumerate(counts):
+        np_ = max(1, _ceil_div(c, piece_rows))
+        cuts.extend((b, start + c * i // np_, start + c * (i + 1) // np_) for i in range(np_))
+        start += c
+    return cuts
+
+
+def tile_levels(n_tiles: int) -> list:
+    """Nodes a level of regime 1's prefix tree over ``n_tiles`` tiles: a
+    node a tile, then a node a GROUP nodes of the level below, up to one."""
+    levels = [n_tiles]
+    while levels[-1] > 1:
+        levels.append(_ceil_div(levels[-1], GROUP))
+    return levels
+
+
+def scratch(lay: Layout, n: int, n_values: int, n_tables: int) -> dict:
+    """{SegParams field: (elements, torch dtype)} of the scratch a launch of
+    ``lay`` allocates: regime 0's per-block tables; regime 1's counters
+    (part_ranges: range and piece starts, the fold's ticket, a counter a
+    node of the prefix tree above the tiles, a counter a piece), the
+    prefix tree (a row of ranges a node), 16-bit key offsets and value
+    words of the partitioned rows, and a folded table a piece; regime 3's
+    counters, key offsets and value words.  Regime 1's one-launch path and
+    regime 2 take none."""
+    if lay.regime == 0:
+        return {"scratch": (lay.scratch_words, torch.int32)}
+    if lay.regime == 3:
+        return {
+            "part_ranges": (2 * lay.n_buckets + 2, torch.int32),
+            "part_off": (n, torch.int16),
+            "part_vals": (n_values * n, torch.int32),
+        }
+    if lay.regime == 1 and not lay.small:
+        pieces = max_pieces(n, lay.n_buckets)
+        levels = tile_levels(lay.n_tiles)
+        return {
+            "part_ranges": (2 * lay.n_buckets + 3 + sum(levels[1:]) + pieces, torch.int32),
+            "tile_prefix": (sum(levels) * lay.n_buckets, torch.int32),
+            "part_off": (n, torch.int16),
+            "part_vals": (n_values * n, torch.int32),
+            "partials": (pieces * n_tables * lay.keys_per_bucket, torch.int32),
+        }
+    return {}
 
 
 def direct_layout(n: int, n_sms: int, atomic_smem: bool) -> Layout:
@@ -196,11 +302,20 @@ def part_scatter_smem_bytes(n_buckets: int) -> int:
     return 2 * n_buckets * 4 + 5 * PART_TILE * 2 + 256
 
 
-def scatter_smem_bytes(n_buckets: int) -> int:
-    """Shared memory of the partition scatter: per-warp bucket counts, two
-    bucket arrays, a count, the tile's row order, and the scan's own
-    (static) shared arrays."""
-    return (WARPS_PER_BLOCK * n_buckets + 2 * n_buckets + 1) * 4 + TILE_ROWS * 2 + 256
+def ordered_scatter_smem_bytes(n_buckets: int) -> int:
+    """Shared memory of regime 1's scatter: every warp's rows a range, and
+    two arrays of the ranges; for every row of its tile, a listed key (later
+    a value column's staged word), its row, its place, and a place's range
+    and key offset (16 bits each); and the static shared words (the scan's
+    among them)."""
+    return (ORD_WARPS + 2) * n_buckets * 4 + TILE_ROWS * (4 + 4 * 2) + 256
+
+
+def ordered_fold_smem_bytes(warps: int, n_tables: int, shift: int, n_buckets: int) -> int:
+    """Shared memory of regime 1's fold (and one-launch) block: a table of
+    2^shift keys a warp and table, where each range and its pieces start,
+    and the static shared words."""
+    return (warps * n_tables * 4 << shift) + 2 * (n_buckets + 1) * 4 + 64
 
 
 def launch(
@@ -212,14 +327,16 @@ def launch(
     with_presence: bool,
     lib: CudaLibrary = LIBRARY,
     layout: Optional[Layout] = None,
+    scratch_spec: Optional[dict] = None,
 ) -> Tuple[Tuple[torch.Tensor, ...], Optional[torch.Tensor]]:
     """One launch of the kernel on CUDA tensors the caller has checked:
     keys int32 (N,), mask bool (N,) or None, at most MAX_AGGS value columns
     of (N,) in the types of ``_VTYPES``, all contiguous on one device.
     Outputs and scratch are allocated here; the kernel runs on the
-    device's current stream.  ``lib`` and ``layout`` name another build and
-    its layout (an earlier source, timed beside this one); by default this
-    source and ``table_layout``."""
+    device's current stream.  ``lib``, ``layout`` and ``scratch_spec`` (as
+    ``scratch`` returns it) name another build, its layout and its scratch
+    (an earlier source, timed beside this one); by default this source,
+    ``table_layout`` and ``scratch``."""
     lib = lib.load()
     device = keys.device
     index = device.index if device.index is not None else torch.cuda.current_device()
@@ -234,23 +351,9 @@ def launch(
     outs = tuple(torch.empty((num_keys,), dtype=v.dtype, device=device) for v in values)
     pres = torch.empty((num_keys,), dtype=torch.int32, device=device) if with_presence else None
 
-    def words(count: int) -> torch.Tensor:
-        return torch.empty((count,), dtype=torch.int32, device=device)
-
-    scratch = {"scratch": words(lay.scratch_words)} if lay.scratch_words else {}
-    if lay.regime == 3:
-        scratch.update({
-            "part_ranges": words(2 * lay.n_buckets + 2),
-            "part_off": torch.empty((n,), dtype=torch.int16, device=device),
-            "part_vals": words(len(values) * n),
-        })
-    elif lay.regime == 1:
-        scratch.update({
-            "counts": words(lay.n_tiles * lay.n_buckets),
-            "bucket_start": words(lay.n_buckets + 1),
-            "part_keys": words(n),
-            "part_vals": words(len(values) * n),
-        })
+    spec = scratch(lay, n, len(values), n_tables) if scratch_spec is None else scratch_spec
+    buffers = {field: torch.empty((count,), dtype=dtype, device=device)
+               for field, (count, dtype) in spec.items() if count}
 
     p = _SegParams()
     p.keys = keys.data_ptr()
@@ -261,7 +364,7 @@ def launch(
         p.vtype[i] = _VTYPES[v.dtype]
         p.op[i] = _OPCODES[op]
     p.presence = pres.data_ptr() if pres is not None else None
-    for field, t in scratch.items():
+    for field, t in buffers.items():
         setattr(p, field, t.data_ptr())
     p.n_rows = n
     p.rows_per_warp = lay.rows_per_warp
@@ -278,6 +381,8 @@ def launch(
     p.n_blocks = lay.n_blocks
     p.atomic_smem = int(lay.atomic_smem)
     p.bucket_shift = lay.bucket_shift
+    p.piece_rows = lay.piece_rows
+    p.small_n = int(lay.small)
     stream = torch.cuda.current_stream(device).cuda_stream
     rc = lib.segreduce_launch(ctypes.byref(p), stream)
     if rc != 0:

@@ -24,6 +24,8 @@
 # Without a card every test skips.  Integers, min/max and presence must
 # match exactly; f32 sums within rtol 1e-5 of the plain version, which sums
 # in another order.
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -41,6 +43,7 @@ from repro_torch.kernels.flash.ref import (
     flash_attention_lse_plain,
     flash_attention_plain,
 )
+from repro_torch.kernels.segreduce import kernel as seg_kernel
 from repro_torch.kernels.segreduce import ops
 from repro_torch.kernels.segreduce.ref import fused_segreduce_ref, segreduce_ref
 from repro_torch.kernels.wkv6 import kernel as wkv6_kernel
@@ -86,12 +89,16 @@ def test_kernel_matches_plain_and_is_deterministic(cuda, num_keys, float_sum):
         cols, ops_ = (vi, vi, vf, vf), ("sum", "max", "max", "min")
     a1, p1 = ops.fused_segreduce(keys, cols, ops_, num_keys, mask=mask)
     a2, p2 = ops.fused_segreduce(keys, cols, ops_, num_keys, mask=mask)
-    want, want_pres = fused_segreduce_ref(keys, cols, ops_, num_keys, mask=mask)
+    # the f32 sum's yardstick is the plain version in float64: its own f32
+    # atomic sum of K = 1's 150,000 rows drifts by up to ~1.2e-5 between
+    # runs, more than the tolerance (chip_smoke.py phase 3 does the same)
+    plain = tuple(c.double() if op == "sum" and c.dtype.is_floating_point else c for c, op in zip(cols, ops_))
+    want, want_pres = fused_segreduce_ref(keys, plain, ops_, num_keys, mask=mask)
     torch.cuda.synchronize()
     assert torch.equal(p1, want_pres) and torch.equal(p1, p2)
     for x, y, w in zip(a1, a2, want):
         assert torch.equal(x.view(torch.int32), y.view(torch.int32))  # bitwise
-        _same(x, w)
+        _same(x.double() if w.dtype == torch.float64 else x, w)
 
 
 def _exact(got, want):
@@ -209,6 +216,278 @@ def test_default_session_runs_the_kernel_on_the_card(cuda):
 def _bitwise(a, b):
     return torch.equal(a.view(torch.int16 if a.element_size() == 2 else torch.int32),
                        b.view(torch.int16 if b.element_size() == 2 else torch.int32))
+
+
+# Regime 1 (a float sum over a large key space).  Each launch carries a
+# float sum of values in [-1, 1), an int32 sum that wraps, float max and min
+# over values with -0.0, +0.0 and NaN, and presence: the sum within 1e-5
+# (f32) or 1e-2 (bf16 and f16, rounded once from the f32 sum) of the sum of
+# |value| over the key's rows, plus as much absolutely, from the plain
+# version in float64 (the rounding of any order of an f32 sum grows with
+# that sum of magnitudes, not with the sum, which cancels); everything else
+# exactly, so that a row lost or counted twice shows; and both paths, the
+# one the layout rule takes and the other one (one launch or the
+# partition), reruns bitwise equal.
+_ORD_TABLES = 5  # the four columns of _ordered_columns and presence
+_PAST_REGIME0 = 232_448 // (4 * 8 * _ORD_TABLES) + 1  # the first K past regime 0 on an H100
+_ORD_TILE = seg_kernel.TILE_ROWS
+# row counts: fixed, or (the one-launch limit at the case's key space, an offset)
+_ORD_LENGTHS = (0, 1, 1023, 1024, ("limit", -1), ("limit", 0), ("limit", 1), _ORD_TILE - 1, _ORD_TILE + 1,
+                5 * _ORD_TILE - 1, 5 * _ORD_TILE + 1, 200_003, 2_000_003)
+
+
+def _ordered_columns(rng, n, dtype, cuda):
+    vf = rng.uniform(-1, 1, n).astype(np.float32)
+    special = rng.integers(0, max(n, 1), min(n, 64))
+    vf_mm = vf.copy()
+    vf_mm[special] = np.array([-0.0, 0.0, np.nan, -0.0], np.float32)[special % 4]
+    vi = rng.integers(2**29, 2**31 - 1, n).astype(np.int32)  # sums wrap
+    cols = (torch.from_numpy(vf).to(cuda).to(dtype), torch.from_numpy(vi).to(cuda),
+            torch.from_numpy(vf_mm).to(cuda), torch.from_numpy(vf_mm).to(cuda))
+    return cols, ("sum", "sum", "max", "min")
+
+
+def _layout(keys, values, ops_, num_keys, with_presence=True):
+    index = keys.device.index or 0
+    nt = len(values) + int(with_presence)
+    return seg_kernel.table_layout(int(keys.shape[0]), num_keys, nt,
+                                   seg_kernel.library().segreduce_smem_limit(index),
+                                   torch.cuda.get_device_properties(index).multi_processor_count)
+
+
+def _check_ordered(got, want_f64, cols, ops_):
+    """The float sum against the plain version in float64, within its
+    tolerance of the key's sum of magnitudes; the rest exactly, and float
+    max/min bit for bit (``_minmax_bits``)."""
+    accs, pres = got
+    want, want_pres, magnitude, minmax = want_f64
+    assert torch.equal(pres, want_pres)
+    for x, w, m, b, v, op in zip(accs, want, magnitude, minmax, cols, ops_):
+        assert x.dtype == v.dtype
+        if op == "sum" and v.dtype.is_floating_point:
+            tol = 1e-5 if v.dtype == torch.float32 else 1e-2
+            err = (x.double() - w).abs()
+            assert bool((err <= tol * (m + 1)).all()), float((err / (m + 1)).max())
+        else:
+            _exact(x, w.to(x.dtype))
+        if b is not None:
+            nan = torch.isnan(b)
+            assert torch.equal(torch.isnan(x), nan)
+            assert _bitwise(x[~nan], b[~nan])  # -0.0 and +0.0 apart
+
+
+def _minmax_bits(keys, v, op, num_keys, mask):
+    """Float max or min over each key's counted rows as IEEE 754-2019's
+    maximum and minimum fold them, whatever the rows' order: a NaN wins (as
+    in torch.maximum) and -0.0 is below +0.0 (by an order-preserving map of
+    the f32 bits to int32, as the source's flip32); -inf/+inf for an empty
+    key; in v's dtype."""
+    keep = (keys >= 0) & (keys < num_keys)
+    if mask is not None:
+        keep &= mask
+    k, x = keys[keep].long(), v[keep].float()
+    w = x.view(torch.int32)
+    flip = torch.where(w >= 0, w, w ^ 0x7FFFFFFF)
+    empty = torch.tensor([-np.inf if op == "max" else np.inf], dtype=torch.float32, device=v.device).view(torch.int32)
+    start = torch.where(empty >= 0, empty, empty ^ 0x7FFFFFFF).expand(num_keys).clone()
+    out = start.scatter_reduce_(0, k, flip, "amax" if op == "max" else "amin", include_self=True)
+    out = torch.where(out >= 0, out, out ^ 0x7FFFFFFF).view(torch.float32)
+    has_nan = torch.zeros(num_keys, dtype=torch.bool, device=v.device).index_fill_(0, k[torch.isnan(x)], True)
+    return out.masked_fill(has_nan, float("nan")).to(v.dtype)
+
+
+def _plain_f64(keys, cols, ops_, num_keys, mask):
+    """The plain version's outputs, float sums in float64; each float sum's
+    sum of magnitudes and each float max/min's bits (``_minmax_bits``), None
+    for the other columns."""
+    sums = [op == "sum" and v.dtype.is_floating_point for v, op in zip(cols, ops_)]
+    plain = tuple(v.double() if s else v for v, s in zip(cols, sums))
+    want, want_pres = fused_segreduce_ref(keys, plain, ops_, num_keys, mask=mask)
+    mags = fused_segreduce_ref(keys, tuple(v.abs() for v, s in zip(plain, sums) if s),
+                               ("sum",) * sum(sums), num_keys, mask=mask, with_presence=False)[0]
+    mags = iter(mags)
+    minmax = tuple(_minmax_bits(keys, v, op, num_keys, mask) if op != "sum" and v.dtype.is_floating_point
+                   else None for v, op in zip(cols, ops_))
+    return want, want_pres, tuple(next(mags) if s else None for s in sums), minmax
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16], ids=["f32", "bf16", "f16"])
+@pytest.mark.parametrize("rows", ["all", "masked", "none", "outside"])
+@pytest.mark.parametrize("num_keys", [_PAST_REGIME0, 100_001, 2_000_001])
+@pytest.mark.parametrize("n", _ORD_LENGTHS, ids=str)
+def test_ordered_regime_matches_plain(cuda, n, num_keys, rows, dtype):
+    """Regime 1 at row counts on both sides of the one-launch limit and of
+    the partition's tiles, every row counted, a quarter masked, none counted
+    (all masked), and keys outside [0, K) (negative ones, the int32
+    extremes) dropped."""
+    if isinstance(n, tuple):
+        lay = _layout(torch.zeros(0, dtype=torch.int32, device=cuda), (None,) * 4, None, num_keys)
+        n = seg_kernel.small_limit(lay.n_buckets) + n[1]
+    rng = np.random.default_rng(n + num_keys)
+    keys_np = rng.integers(0, num_keys, n).astype(np.int64)
+    mask = None
+    if rows == "masked":
+        mask = torch.from_numpy(rng.integers(0, 4, n) > 0).to(cuda)
+    elif rows == "none":
+        mask = torch.zeros(n, dtype=torch.bool, device=cuda)
+    elif rows == "outside":
+        keys_np = rng.integers(-1000, num_keys + 1000, n)
+        keys_np[rng.integers(0, max(n, 1), min(n, 8))] = np.array([2**31 - 1, -(2**31)] * 4)[: min(n, 8)]
+    keys = torch.from_numpy(keys_np.astype(np.int32)).to(cuda)
+    cols, ops_ = _ordered_columns(rng, n, dtype, cuda)
+    lay = _layout(keys, cols, ops_, num_keys)
+    assert lay.regime == 1 and lay.small == (n <= seg_kernel.small_limit(lay.n_buckets))
+    want = _plain_f64(keys, cols, ops_, num_keys, mask)
+    runs = [[ops.fused_segreduce(keys, cols, ops_, num_keys, mask=mask) for _ in range(2)]]
+    if lay.small or n * lay.n_buckets <= 500_000_000:  # the one-launch path reads N rows a range
+        other = dataclasses.replace(lay, small=not lay.small)
+        runs.append([seg_kernel.launch(keys, cols, ops_, num_keys, mask, True, layout=other) for _ in range(2)])
+    torch.cuda.synchronize()
+    for a, b in runs:
+        _check_ordered(a, want, cols, ops_)
+        assert all(_bitwise(x, y) for x, y in zip((*a[0], a[1]), (*b[0], b[1])))  # reruns bitwise
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("masked", [False, True], ids=["all", "masked"])
+@pytest.mark.parametrize("num_keys", [1, 100, _PAST_REGIME0 - 1])
+@pytest.mark.parametrize("n", [0, 5000, 300_003])
+def test_small_key_float_sum_regime_matches_plain(cuda, n, num_keys, masked, dtype):
+    """Regime 0 (a float sum, K up to its limit) under the checks of regime
+    1: the float sum against float64, the int32 sum and presence exactly,
+    float max/min over -0.0, +0.0 and NaN bit for bit, reruns bitwise."""
+    rng = np.random.default_rng(n + num_keys + masked)
+    keys = torch.from_numpy(rng.integers(0, num_keys, n).astype(np.int32)).to(cuda)
+    mask = torch.from_numpy(rng.integers(0, 4, n) > 0).to(cuda) if masked else None
+    cols, ops_ = _ordered_columns(rng, n, dtype, cuda)
+    assert _layout(keys, cols, ops_, num_keys).regime == 0
+    want = _plain_f64(keys, cols, ops_, num_keys, mask)
+    a = ops.fused_segreduce(keys, cols, ops_, num_keys, mask=mask)
+    b = ops.fused_segreduce(keys, cols, ops_, num_keys, mask=mask)
+    torch.cuda.synchronize()
+    _check_ordered(a, want, cols, ops_)
+    assert all(_bitwise(x, y) for x, y in zip((*a[0], a[1]), (*b[0], b[1])))
+
+
+def _zipf_keys(rng, n, num_keys, s=1.1):
+    """Ranks drawn by the inverse CDF of a Zipf law over ``num_keys`` keys,
+    given shuffled key ids (chip_smoke.py's Zipf table)."""
+    w = 1.0 / np.arange(1, num_keys + 1, dtype=np.float64) ** s
+    ranks = np.minimum(np.searchsorted(np.cumsum(w / w.sum()), rng.random(n)), num_keys - 1)
+    return rng.permutation(num_keys).astype(np.int32)[ranks]
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("masked", [False, True], ids=["all", "masked"])
+@pytest.mark.parametrize("order", ["sorted", "one_key", "zipf"])
+@pytest.mark.parametrize("n", [200_003, 2_000_003])
+def test_ordered_regime_key_orders_and_pieces(cuda, n, order, masked):
+    """Sorted keys, every row in one key, and Zipf keys (s = 1.1 over
+    100,000 keys): at 2M rows one key range holds more than PIECE_ROWS
+    rows, so the fold cuts it into pieces joined by its tree."""
+    num_keys = 100_000
+    rng = np.random.default_rng(n + len(order))
+    keys_np = {"sorted": np.sort(rng.integers(0, num_keys, n)).astype(np.int32),
+               "one_key": np.full(n, 77_777, np.int32),
+               "zipf": _zipf_keys(rng, n, num_keys)}[order]
+    keys = torch.from_numpy(keys_np).to(cuda)
+    mask = torch.from_numpy(rng.integers(0, 4, n) > 0).to(cuda) if masked else None
+    cols, ops_ = _ordered_columns(rng, n, torch.float32, cuda)
+    lay = _layout(keys, cols, ops_, num_keys)
+    counted = keys_np if mask is None else keys_np[mask.cpu().numpy()]
+    per_range = np.bincount(counted >> lay.bucket_shift, minlength=lay.n_buckets)
+    cuts = seg_kernel.piece_cuts(per_range.tolist())
+    assert max(hi - lo for _, lo, hi in cuts) <= seg_kernel.PIECE_ROWS
+    if n > 1_000_000 and order != "sorted":
+        assert per_range.max() > seg_kernel.PIECE_ROWS  # pieces are forced
+    want = _plain_f64(keys, cols, ops_, num_keys, mask)
+    a = ops.fused_segreduce(keys, cols, ops_, num_keys, mask=mask)
+    b = ops.fused_segreduce(keys, cols, ops_, num_keys, mask=mask)
+    torch.cuda.synchronize()
+    _check_ordered(a, want, cols, ops_)
+    assert all(_bitwise(x, y) for x, y in zip((*a[0], a[1]), (*b[0], b[1])))
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("n_cols", [16, 17])
+@pytest.mark.parametrize("n", [5000, 300_000])
+def test_ordered_regime_sixteen_and_seventeen_columns(cuda, n, n_cols):
+    """MAX_AGGS columns and presence in one launch, and one column more (a
+    second launch), masked, over 100,001 keys."""
+    num_keys = 100_001
+    rng = np.random.default_rng(n + n_cols)
+    keys = torch.from_numpy(rng.integers(0, num_keys, n).astype(np.int32)).to(cuda)
+    mask = torch.from_numpy(rng.integers(0, 4, n) > 0).to(cuda)
+    base, base_ops = _ordered_columns(rng, n, torch.float32, cuda)
+    dtypes = (torch.float32, torch.bfloat16, torch.float16)
+    cols = tuple(base[i % 4] if i % 4 else base[0].to(dtypes[(i // 4) % 3]) for i in range(n_cols))
+    ops_ = tuple(base_ops[i % 4] for i in range(n_cols))
+    want = _plain_f64(keys, cols, ops_, num_keys, mask)
+    a = ops.fused_segreduce(keys, cols, ops_, num_keys, mask=mask)
+    b = ops.fused_segreduce(keys, cols, ops_, num_keys, mask=mask)
+    torch.cuda.synchronize()
+    _check_ordered(a, want, cols, ops_)
+    assert all(_bitwise(x, y) for x, y in zip((*a[0], a[1]), (*b[0], b[1])))
+
+
+def _ordered_inputs(seed, n, num_keys, cuda):
+    rng = np.random.default_rng(seed)
+    keys = torch.from_numpy(_zipf_keys(rng, n, num_keys)).to(cuda)
+    mask = torch.from_numpy(rng.integers(0, 4, n) > 0).to(cuda)
+    cols, ops_ = _ordered_columns(rng, n, torch.float32, cuda)
+    return keys, cols, ops_, mask
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("n", [3000, 2_000_003])
+def test_ordered_regime_two_streams_at_once(cuda, n):
+    """Two launches on two streams at once give each the bits it gives
+    alone: their fold tickets, prefix-tree counters and piece counters are
+    their own scratch."""
+    num_keys = 100_001
+    inputs = [_ordered_inputs(40 + i, n, num_keys, cuda) for i in range(2)]
+    serial = [ops.fused_segreduce(k, c, o, num_keys, mask=m) for k, c, o, m in inputs]
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream() for _ in inputs]
+    for _ in range(3):
+        got = [None, None]
+        for i, ((k, c, o, m), st) in enumerate(zip(inputs, streams)):
+            st.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(st):
+                got[i] = ops.fused_segreduce(k, c, o, num_keys, mask=m)
+        torch.cuda.synchronize()
+        for g, w in zip(got, serial):
+            assert all(_bitwise(x, y) for x, y in zip((*g[0], g[1]), (*w[0], w[1])))
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("n", [3000, 2_000_003])
+def test_ordered_regime_graph_replay_matches_eager(cuda, n):
+    """A captured call replayed over new inputs copied into its buffers
+    gives the eager call's bits on those inputs, replay after replay."""
+    num_keys = 100_001
+    first = _ordered_inputs(50, n, num_keys, cuda)
+    keys, cols, ops_, mask = (first[0].clone(), tuple(c.clone() for c in first[1]), first[2], first[3].clone())
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ops.fused_segreduce(keys, cols, ops_, num_keys, mask=mask)  # builds and warms outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        out = ops.fused_segreduce(keys, cols, ops_, num_keys, mask=mask)
+    for seed in (50, 51, 52, 51):
+        k, c, _, m = _ordered_inputs(seed, n, num_keys, cuda)
+        keys.copy_(k)
+        mask.copy_(m)
+        for dst, src in zip(cols, c):
+            dst.copy_(src)
+        graph.replay()
+        eager = ops.fused_segreduce(k, c, ops_, num_keys, mask=m)
+        torch.cuda.synchronize()
+        assert all(_bitwise(x, y) for x, y in zip((*out[0], out[1]), (*eager[0], eager[1])))
 
 
 @pytest.mark.requires_cuda

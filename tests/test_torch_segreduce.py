@@ -195,17 +195,29 @@ def test_cpu_tensors_launch_nothing():
 
 def test_table_layout_regimes():
     """With a float sum, small key spaces keep W per-warp tables of every key
-    in shared memory; large ones are cut into key ranges whose tables fit
-    there, with every key in some range and every row in some tile."""
+    in shared memory; large ones are cut into key ranges of a power of two
+    of keys (16-bit key offsets) whose tables fit there, with every key in
+    some range and every row in some tile."""
     smem, n_sms = 232_448, 132
     lay = cuda_kernel.table_layout(5000, 100, 2, smem, n_sms)
     assert lay.regime == 0 and lay.n_warps * lay.rows_per_warp >= 5000 and lay.rows_per_warp % 32 == 0
     assert lay.n_warps % cuda_kernel.WARPS_PER_BLOCK == 0
-    for n, k, tables in [(60_000_000, 100_001, 2), (8_000_000, 2_000_001, 2), (1, 5000, 17)]:
+    for n, k, tables in [(60_000_000, 100_001, 2), (8_000_000, 2_000_001, 2), (1, 5000, 17),
+                         (3_000_000, 2_000_001, 17)]:
         lay = cuda_kernel.table_layout(n, k, tables, smem, n_sms)
-        assert lay.regime == 1 and lay.n_buckets * lay.keys_per_bucket >= k
-        assert cuda_kernel.WARPS_PER_BLOCK * tables * lay.keys_per_bucket * 4 <= smem
-        assert lay.n_tiles * cuda_kernel.TILE_ROWS >= n
+        assert lay.regime == 1 and lay.keys_per_bucket == 1 << lay.bucket_shift <= 1 << 16
+        assert (lay.n_buckets - 1) * lay.keys_per_bucket < k <= lay.n_buckets * lay.keys_per_bucket
+        assert lay.reduce_warps * tables * lay.keys_per_bucket * 4 <= smem       # the fold's tables
+        assert cuda_kernel.ordered_scatter_smem_bytes(lay.n_buckets) <= smem  # the scatter's arrays
+        assert lay.n_buckets < 1 << 16                                         # 16-bit range ids
+        assert lay.n_tiles * cuda_kernel.TILE_ROWS >= n and lay.piece_rows == cuda_kernel.PIECE_ROWS
+        assert 1 <= lay.n_blocks <= cuda_kernel.max_pieces(n, lay.n_buckets)
+        assert lay.small == (n * lay.n_buckets <= cuda_kernel.SMALL_READS) and lay.scratch_words == 0
+        assert cuda_kernel.ordered_fold_smem_bytes(lay.reduce_warps, tables, lay.bucket_shift,
+                                                   lay.n_buckets) <= smem
+    # two fold blocks of eight warps an SM while the ranges fit the scatter
+    lay = cuda_kernel.table_layout(60_000_000, 100_001, 2, smem, n_sms)
+    assert (lay.reduce_warps, lay.keys_per_bucket, lay.n_buckets) == (8, 1024, 98)
     assert cuda_kernel.table_layout(0, 1, 2, smem, n_sms).n_warps == cuda_kernel.WARPS_PER_BLOCK
     # without a float sum every op is exact in any order: tables of every
     # key in shared memory for small K, a partition by key range past them
@@ -247,3 +259,87 @@ def test_variant_builds_another_source_behind_the_same_binding(tmp_path):
     assert not lib.path().exists()
     bind_less = _build.variant(cuda_kernel.LIBRARY, "segreduce_older", older, configure=print)
     assert bind_less.configure is print
+
+
+def test_ordered_layout_takes_one_launch_up_to_small_limit():
+    """Regime 1 takes its one-launch path while N rows times R ranges is at
+    most SMALL_READS (N = 0 included) and the partition past it, for every
+    key space it serves."""
+    smem, n_sms = 232_448, 132
+    for k, tables in [(3633, 2), (100_001, 2), (100_001, 17), (2_000_001, 2)]:
+        n_buckets = cuda_kernel.table_layout(0, k, tables, smem, n_sms).n_buckets
+        limit = cuda_kernel.small_limit(n_buckets)
+        assert limit * n_buckets <= cuda_kernel.SMALL_READS < (limit + 1) * n_buckets
+        for n in (0, 1, limit - 1, limit):
+            lay = cuda_kernel.table_layout(n, k, tables, smem, n_sms)
+            assert lay.regime == 1 and lay.small and lay.n_buckets == n_buckets
+            assert cuda_kernel.scratch(lay, n, tables - 1, tables) == {}
+        for n in (limit + 1, 60_000_000):
+            lay = cuda_kernel.table_layout(n, k, tables, smem, n_sms)
+            assert lay.regime == 1 and not lay.small
+    assert cuda_kernel.table_layout(1, 3632, 2, smem, n_sms).regime == 0  # the last K of regime 0 at two tables
+
+
+def test_ordered_scratch_words():
+    """Regime 1's scratch for N rows over R ranges: the counters (range and
+    piece starts, the fold's ticket, a counter a node of the tiles' prefix
+    tree above its leaves, a counter a piece), the prefix tree (R words a
+    node), a 16-bit key offset a row, a word a row and value column, and a
+    folded table a piece; sized by N, never by the rows the mask keeps,
+    since a captured graph cannot learn those."""
+    import torch
+
+    smem, n_sms = 232_448, 132
+    n, k, n_values = 59_996_105, 100_001, 1
+    lay = cuda_kernel.table_layout(n, k, n_values + 1, smem, n_sms)
+    pieces = -(-n // cuda_kernel.PIECE_ROWS) + lay.n_buckets
+    assert cuda_kernel.max_pieces(n, lay.n_buckets) == pieces
+    levels = cuda_kernel.tile_levels(lay.n_tiles)
+    assert levels == [14648, 458, 15, 1]  # tiles of 4096 rows, 32 children a node
+    assert cuda_kernel.tile_levels(1) == [1] and cuda_kernel.tile_levels(33) == [33, 2, 1]
+    assert cuda_kernel.scratch(lay, n, n_values, n_values + 1) == {
+        "part_ranges": (2 * lay.n_buckets + 3 + 458 + 15 + 1 + pieces, torch.int32),
+        "tile_prefix": (sum(levels) * lay.n_buckets, torch.int32),
+        "part_off": (n, torch.int16),
+        "part_vals": (n_values * n, torch.int32),
+        "partials": (pieces * (n_values + 1) * lay.keys_per_bucket, torch.int32),
+    }
+    # the key words are 16-bit: 2 + 4 bytes a row for one value column, where
+    # the partition of earlier sources kept 4 + 4
+    words = cuda_kernel.scratch(lay, n, n_values, n_values + 1)
+    per_row = sum(c * d.itemsize for f, (c, d) in words.items() if f in ("part_off", "part_vals")) / n
+    assert per_row == 6
+    # regimes 2 and 0 as before: none, and regime 0's per-block tables
+    assert cuda_kernel.scratch(cuda_kernel.table_layout(100, 100, 2, smem, n_sms, float_sum=False), 100, 1, 2) == {}
+    lay0 = cuda_kernel.table_layout(5000, 100, 2, smem, n_sms)
+    assert cuda_kernel.scratch(lay0, 5000, 1, 2) == {"scratch": (lay0.scratch_words, torch.int32)}
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_ordered_piece_cuts_of_skewed_counts(seed):
+    """The fold's pieces over a Zipf-skewed count vector (s = 1.1 over
+    100,000 keys, 60M rows, ranges of 1024 keys): each holds at most
+    PIECE_ROWS rows, together they cover every row once in order, an empty
+    range still gets one piece (for its identities), the count of pieces
+    stays under max_pieces, and the cuts depend on the counts alone."""
+    rng = np.random.default_rng(seed)
+    n, n_keys, width = 60_000_000, 100_000, 1024
+    w = 1.0 / np.arange(1, n_keys + 1) ** 1.1
+    per_key = rng.multinomial(n, w / w.sum())[rng.permutation(n_keys)]
+    per_range = np.add.reduceat(per_key, np.arange(0, n_keys, width)).tolist()
+    per_range[3] = 0  # an empty range
+    cuts = cuda_kernel.piece_cuts(per_range)
+    rows = sum(per_range)
+    assert max(per_range) > 10 * cuda_kernel.PIECE_ROWS  # the skew forces pieces
+    assert all(hi - lo <= cuda_kernel.PIECE_ROWS for _, lo, hi in cuts)
+    assert [lo for _, lo, _ in cuts[1:]] == [hi for _, _, hi in cuts[:-1]]  # contiguous
+    assert cuts[0][1] == 0 and cuts[-1][2] == rows                       # every row once
+    assert [b for b, _, _ in cuts] == sorted(b for b, _, _ in cuts)      # range by range
+    assert sum(1 for b, _, _ in cuts if b == 3) == 1
+    assert len(cuts) <= cuda_kernel.max_pieces(rows, len(per_range))
+    assert cuda_kernel.piece_cuts(list(per_range)) == cuts
+    # a range's pieces differ by at most one row
+    for b in set(b for b, _, _ in cuts):
+        sizes = [hi - lo for bb, lo, hi in cuts if bb == b]
+        assert max(sizes) - min(sizes) <= 1
+
