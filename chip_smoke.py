@@ -7,8 +7,8 @@ Phases, each of which must pass for the exit code to be 0:
 
 1. environment: torch and CUDA versions, the card's name and power limit;
 2. build: the segreduce, flash-attention forward and backward and WKV6
-   CUDA kernels from their sources under src/repro_torch/kernels/*/csrc,
-   one nvcc each, started together;
+   forward and backward CUDA kernels from their sources under
+   src/repro_torch/kernels/*/csrc, one nvcc each, started together;
 3. kernel against its plain PyTorch version on the card: fused_segreduce
    and segreduce for sum/max/min over int32/f32/bf16, masked and unmasked,
    N in {0, 1, 5000, 60M} and K in {1, 100, 100001, 2000001}, plus whole
@@ -141,11 +141,37 @@ Phases, each of which must pass for the exit code to be 0:
    the flash kernels' share of device time and the backward's launches';
 16. the training CLI on the card: ``python -m repro_torch.launch.train
    --reduced --steps 40 --ckpt-every 10 --fail-at 25`` in a temporary
-   directory resumes from step 20, ends at 40 and restores its final
-   checkpoint bitwise equal to the state in memory.
+   directory, for starcoder2-3b and for rwkv6-3b, resumes from step 20,
+   ends at 40 and restores its final checkpoint bitwise equal to the state
+   in memory;
+17. the WKV6 backward kernel (dr, dk, dv, dlog_w, du, dS0) against its
+   plain version (wkv6_bwd_plain) in float64, held to ``ref.BWD_TOL`` with
+   each element's terms' magnitudes, and against torch autograd of
+   wkv6_scan in float64 within each output's ``BWD_TOL["rel"]`` up to S =
+   208, on bf16 r, k, v and u: head size 16/64, S in {1, 16, 53, 208,
+   2048, 16385}, (B, H) in {(2, 3), (2, 40), (1, 40)}, log_w = -exp(N(0,
+   1)), -5, -54.6 and -3.4e-4, S0 and dS_out zero or random
+   (all (B, H) at each S but 16385, which runs (1, 40);
+   ``wkv6_bwd_cases``), each case run twice and
+   required to be bitwise equal; then the kernel at rwkv6-3b's training
+   microbatch (2 x 2048, 40 heads of 64): its time and each launch's (the
+   walk, the partials' sum, du's sum), its bound, the plain version's
+   time and the forward's (no PyTorch call computes this gradient);
+18. training rwkv6-3b at its published width and depth (32 layers,
+   d_model 2560, 40 heads of 64, vocab 65536, 3.07 B parameters drawn on
+   the card from ``--seed``, its zero-initialised tensors drawn too) as
+   phase 15 trains starcoder2-3b: every wkv6 call through the autograd
+   Function, the backward kernel once per layer and microbatch (128 a
+   step), the plain backward never, every leaf of every layer a finite,
+   nonzero gradient each step, one real layer's backward call a step
+   within ``ref.BWD_TOL`` of the plain backward in float64; per step its
+   ms, tokens/s, model-FLOP share (6 per parameter and token and the WKV's
+   12 K^2 a token, head and layer), peak memory, idle share and the
+   backward's share of device time.
 
 Phases 12 and 13 count their own segreduce launches (a CUDA graph's replay
-counts the launches it captured); the kernels' line adds them to phase 4's.
+counts the launches it captured); the kernels' line adds them to phase 4's,
+and phase 18's wkv6 forward launches to phase 10's.
 
 What is cut from TPC-H: Q15 keeps only its revenue view (no outer max or
 supplier join); Q13 keeps its inner aggregate (no outer join's zero-count
@@ -1708,6 +1734,165 @@ def wkv6_at_shapes(torch, wkv6_ops, plain, scan, agreement, rec: CallRecorder) -
 
 
 # ---------------------------------------------------------------------------
+# phase 17: the WKV6 backward kernel against its plain version
+# ---------------------------------------------------------------------------
+
+# S of phase 17's cases (1 and 16 one stage or less, 53 and 208 ragged and
+# whole against the 16-token chunk, 2048 the training length, 16385 one
+# long sequence with a ragged tail).  Every (B, H), decay and state runs at
+# each S but the longest, which runs one sequence of 40 heads (each (B, H)
+# is a grid of the same blocks, which 2048 covers; the plain version's
+# walk in f64 takes ~4 s a case there, whatever B and H)
+WKV6_BWD_LENGTHS = (1, 16, 53, 208, 2048, 16385)
+WKV6_BWD_LONG = 16385
+WKV6_BWD_SHAPES = ((2, 3), (2, 40), (1, 40))
+
+
+def wkv6_bwd_cases(S: int) -> tuple:
+    """The (B, H) pairs phase 17 runs at length S."""
+    return ((1, 40),) if S == WKV6_BWD_LONG else WKV6_BWD_SHAPES
+
+
+# the f64 autograd of wkv6_scan keeps every step's state: only up to this S;
+# each output is held there within its type's ref.BWD_TOL["rel"] (relative
+# Frobenius): the kernel's f32 walk, and the bf16 outputs' one rounding
+WKV6_BWD_AUTOGRAD_MAX_S = 208
+
+
+def wkv6_bwd_bound(B: int, S: int, H: int, K: int, elem: int, u_elem: int, with_state: bool) -> tuple:
+    """(bound_ms, bound_by): the larger of the operations' time and the
+    bytes' time of the gradient.  Operations: about six K x K products a
+    token and head (the two walks of the state it needs, dS's decay and
+    update, and dS against v, k and the state: 12 K^2 FLOPs), f32 on the
+    CUDA cores.  Bytes: r, k, v (``elem``) and log_w, dy (f32) read once;
+    dr, dk, dv (``elem``) and dlog_w (f32) written once; u read and du
+    written (``u_elem``); S0, dS_out read and dS0 written when a state is
+    given (f32)."""
+    n = B * S * H
+    t_ops = n * 12.0 * K * K / F32_OPS_PER_S * 1e3
+    nbytes = n * K * (6 * elem + 3 * 4) + 2 * H * K * u_elem + (3 * B * H * K * K * 4 if with_state else 0)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def wkv6_bwd_inputs(torch, gen, B: int, S: int, H: int, K: int, decay, with_state: bool, dtype) -> list:
+    """r, k, v 0.5 N(0, 1) in ``dtype``, log_w -exp(N(0, 1)) or the
+    constant ``decay``, u 0.3 N(0, 1) in ``dtype``, S0 N(0, 1) or None, dy
+    N(0, 1), dS_out N(0, 1) or None (f32), on the card from ``gen``."""
+    dev = torch.device("cuda")
+
+    def n(*shape):
+        return torch.randn(*shape, device=dev, generator=gen)
+
+    r, k, v = ((0.5 * n(B, S, H, K)).to(dtype) for _ in range(3))
+    lw = -torch.exp(n(B, S, H, K)) if decay is None else torch.full((B, S, H, K), decay, device=dev)
+    u = (0.3 * n(H, K)).to(dtype)
+    s0 = n(B, H, K, K) if with_state else None
+    dy = n(B, S, H, K)
+    ds = n(B, H, K, K) if with_state else None
+    return [r, k, v, lw, u, s0, dy, ds]
+
+
+def wkv6_bwd_matrix(torch, wkv6_kernel, plain_bwd, scan, bwd_agreement, fails: Failures, seed: int) -> list:
+    """Phase 17.  The backward kernel (kernel.launch_bwd) against
+    wkv6_bwd_plain in float64 under ref.BWD_TOL, every output, bf16 r, k, v
+    and u: K 16 and 64; S in WKV6_BWD_LENGTHS; (B, H) (2, 3), (2, 40) and
+    (1, 40); log_w -exp(N(0, 1)), -5, -54.6 and -3.4e-4; S0 and dS_out zero
+    or random (``wkv6_bwd_cases`` says which (B, H) each S runs).
+    Each case runs twice, bitwise equal.  Up to WKV6_BWD_AUTOGRAD_MAX_S the
+    kernel is also held against torch autograd of wkv6_scan in float64,
+    each output within its type's BWD_TOL["rel"] (Frobenius)."""
+    from repro_torch.kernels.wkv6.ref import BWD_TOL
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed + 17)
+    rows = []
+    for K in WKV6_HEAD_SIZES:
+        for S in WKV6_BWD_LENGTHS:
+            for B, H in wkv6_bwd_cases(S):
+                t0 = time.perf_counter()
+                n_cases = bad = 0
+                worst = {"max_abs_err": 0.0, "worst": 0.0, "rel": 0.0, "autograd_rel": 0.0}
+                for dname, value in WKV6_DECAYS.items():
+                    for with_state in (False, True):
+                        args = wkv6_bwd_inputs(torch, gen, B, S, H, K, value, with_state, torch.bfloat16)
+                        got = wkv6_kernel.launch_bwd(*args)
+                        again = wkv6_kernel.launch_bwd(*args)
+                        want, scales = plain_bwd(*args, dtype=torch.float64, with_scales=True)
+                        torch.cuda.synchronize()
+                        agree = bwd_agreement(got, want, scales)
+                        same = all(bitwise_equal(torch, a, b) for a, b in zip(got, again))
+                        what = (f"wkv6 backward K={K} S={S} B={B} H={H} log_w={dname} state={with_state}: "
+                                f"worst/limit {agree['worst']:.3g} rel {agree['rel']:.3g}, reruns bitwise {same}")
+                        ok = agree["ok"] and same
+                        if S <= WKV6_BWD_AUTOGRAD_MAX_S:
+                            r, k, v, lw, u, s0, dy, ds = args
+                            leaves = [t.double().requires_grad_() for t in (r, k, v, lw, u)]
+                            s64 = None if s0 is None else s0.double().requires_grad_()
+                            y, s_out = scan(*leaves, s64, dtype=torch.float64)
+                            loss = (y * dy.double()).sum() + (0.0 if ds is None else (s_out * ds.double()).sum())
+                            wrt = leaves + ([] if s64 is None else [s64])
+                            exact = [torch.zeros_like(x) if g is None else g for g, x in zip(
+                                torch.autograd.grad(loss, wrt, allow_unused=True), wrt)]  # log_w unused at S = 1
+                            rels = [(float((g.double() - e).norm() / e.norm()) if e.norm() > 0
+                                     else float(g.double().norm()), BWD_TOL[g.dtype]["rel"])
+                                    for g, e in zip(got, exact)]
+                            rel = max(x for x, _ in rels)
+                            worst["autograd_rel"] = max(worst["autograd_rel"], rel)
+                            ok = ok and all(x <= limit for x, limit in rels)
+                            what += f", against autograd of wkv6_scan in f64 rel {rel:.3g}"
+                            del leaves, s64, y, s_out, exact
+                        worst.update({x: max(worst[x], agree[x]) for x in ("max_abs_err", "worst", "rel")})
+                        n_cases += 1
+                        bad += not fails.check(ok, what)
+                        del args, got, again, want, scales
+                dt = time.perf_counter() - t0
+                rows.append({"K": K, "S": S, "B": B, "H": H, "cases": n_cases, "failed": bad, **worst,
+                             "seconds": dt})
+                print(f"  wkv6 backward K={K:>3} S={S:>5} B={B} H={H:>2}: {n_cases - bad}/{n_cases} cases agree "
+                      f"(max_abs_err {worst['max_abs_err']:.3g}, worst/limit {worst['worst']:.3g}, rel "
+                      f"{worst['rel']:.3g}" + (f", autograd rel {worst['autograd_rel']:.3g}"
+                                               if S <= WKV6_BWD_AUTOGRAD_MAX_S else "") + f"; {dt:.1f} s)",
+                      flush=True)
+                torch.cuda.empty_cache()
+    return rows
+
+
+def wkv6_bwd_at_train_shape(torch, wkv6_kernel, plain_bwd, bwd_agreement, seed: int) -> dict:
+    """The backward kernel at rwkv6-3b's training microbatch (2 x 2048, 40
+    heads of 64, bf16, log_w -exp(N(0, 1)), no state): its time by events
+    and each launch's (the walk, the partials' sum, du's sum) by the
+    profiler, its bound, the plain version's time (f32, on the card), the
+    forward kernel's time on the same inputs, and the agreement with the
+    plain version in float64.  No PyTorch call computes this gradient."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed + 18)
+    B, S, H, K = TRAIN_GLOBAL_BATCH // TRAIN_MICROBATCHES, TRAIN_SEQ, 40, 64
+    args = wkv6_bwd_inputs(torch, gen, B, S, H, K, None, False, torch.bfloat16)
+    r, k, v, lw, u, s0, dy, ds = args
+    t_bound, bound_by = wkv6_bwd_bound(B, S, H, K, 2, 2, False)
+    got = wkv6_kernel.launch_bwd(*args)
+    agree = bwd_agreement(got, *plain_bwd(*args, dtype=torch.float64, with_scales=True))
+    row = {"shape": [B, S, H, K], "dtype": "bf16",
+           "ms": device_ms(torch, lambda: wkv6_kernel.launch_bwd(*args), reps=10),
+           "plain_ms": device_ms(torch, lambda: plain_bwd(*args), reps=1, warmup=0),
+           "bound_ms": t_bound, "bound_by": bound_by, "library_ms": None, "agreement": agree,
+           "forward_ms": device_ms(torch, lambda: wkv6_kernel.launch(r, k, v, lw, u, None), reps=10),
+           "launch_ms": launch_times(torch, lambda: wkv6_kernel.launch_bwd(*args), "wkv6_bwd", reps=20),
+           "work_mib": wkv6_kernel.bwd_work_floats(B, S, H, K) * 4 / 2**20}
+    print(f"  wkv6 backward at {RWKV_ARCH}'s training microbatch {row['shape']} bf16: kernel {row['ms']:.3f} ms  "
+          f"bound {t_bound:.3f} ms ({bound_by}: 12 K^2 FLOPs a token and head, f32)  plain {row['plain_ms']:.1f} "
+          f"ms  library none  forward {row['forward_ms']:.3f} ms  workspace {row['work_mib']:.0f} MiB  "
+          f"max_abs_err {agree['max_abs_err']:.3g}, worst/limit {agree['worst']:.3g}, rel {agree['rel']:.3g}",
+          flush=True)
+    print("    launches: " + "  ".join(f"{name.split('<')[0]} {ms:.3f} ms" for name, ms in row["launch_ms"].items()),
+          flush=True)
+    del args, r, k, v, lw, u, dy, got
+    torch.cuda.empty_cache()
+    return row
+
+
+# ---------------------------------------------------------------------------
 # phase 14: the flash backward kernel against its plain version
 # ---------------------------------------------------------------------------
 
@@ -1889,26 +2074,24 @@ def train_flops(n_params: int, cfg, tokens: int, B: int, S: int) -> float:
 class BackwardProbe:
     """Wraps ``ops._backward`` while the training steps run.  Of each
     step's calls, the one numbered ``pick(step)`` keeps clones of its
-    inputs (a real layer's q, k, v, the saved output and the gradient that
-    reached it) and of the kernel's dq, dk, dv; ``check`` holds those
-    against flash_attention_bwd_plain in float64 given the same output,
-    under ref.BWD_TOL, after the step (its activations freed), beside
-    SDPA's backward on the same inputs against the plain backward given
-    SDPA's output (reported, not held).  The wrapped call still launches
-    the kernel once and counts once."""
+    tensor arguments (a real layer's inputs and the gradient that reached
+    it) and of the kernel's outputs; ``check`` holds them against the plain
+    backward in float64 through ``judge(args, got)`` after the step (its
+    activations freed).  The wrapped call still launches the kernel once
+    and counts once."""
 
-    def __init__(self, ops, pick) -> None:
-        self.ops, self.pick = ops, pick
+    def __init__(self, ops, pick, judge) -> None:
+        self.ops, self.pick, self.judge = ops, pick, judge
         self.orig = ops._backward
         self.step = self.calls = 0
         self.held = None
 
     def __enter__(self):
-        def record(q, k, v, out, lse, dout, *kw):
-            grads = self.orig(q, k, v, out, lse, dout, *kw)
+        def record(*args):
+            grads = self.orig(*args)
             if self.calls == self.pick(self.step):
-                self.held = ([t.clone() for t in (q, k, v, out, dout)], kw, [g.clone() for g in grads],
-                             self.calls)
+                keep = [a.clone() if hasattr(a, "clone") else a for a in args]
+                self.held = (keep, [g.clone() for g in grads], self.calls)
             self.calls += 1
             return grads
 
@@ -1919,60 +2102,161 @@ class BackwardProbe:
         self.ops._backward = self.orig
         return False
 
-    def check(self, plain_bwd, bwd_agreement) -> dict:
+    def check(self) -> dict:
         """The kept call of the step just run against the plain version;
         then the next step's calls count from 0."""
         if self.held is None:
-            raise RuntimeError(f"step {self.step}: call {self.pick(self.step)} of the flash backward never came "
+            raise RuntimeError(f"step {self.step}: call {self.pick(self.step)} of the backward never came "
                                f"({self.calls} calls)")
-        (q, k, v, out, dout), (causal, window, scale, cap), got, n = self.held
-        want = plain_bwd(q.double(), k.double(), v.double(), dout.double(), out.double(), causal=causal,
-                         window=window, scale=scale, logit_softcap=cap)
-        agree = dict(bwd_agreement(got, want), call=n, q=list(q.shape), kv_heads=k.shape[2])
-        if window == 0 and cap == 0.0:
-            import torch
-            import torch.nn.functional as F
-
-            qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
-            o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal, scale=scale, enable_gqa=True)
-            lib = [g.transpose(1, 2) for g in torch.autograd.grad(o, (qt, kt, vt), dout.transpose(1, 2))]
-            lib_want = plain_bwd(q.double(), k.double(), v.double(), dout.double(),
-                                 o.detach().transpose(1, 2).double(), causal=causal, window=0, scale=scale)
-            agree["library"] = bwd_agreement(lib, lib_want)
+        args, got, n = self.held
+        agree = dict(self.judge(args, got), call=n)
         self.held = None
         self.step += 1
         self.calls = 0
         return agree
 
 
-def train_path(torch, flash_ops, fails: Failures, seed: int, record: dict) -> dict:
-    """Phase 15.  starcoder2-3b at its published config (30 layers, bf16,
-    weights drawn from ``seed``), trained TRAIN_STEPS steps through
-    launch/train.py's model and step: data from the port's pipeline over
-    Zipf documents from ``seed`` packed at TRAIN_SEQ, global batch
-    TRAIN_GLOBAL_BATCH in TRAIN_MICROBATCHES microbatches, remat on, the
-    JAX package's launch/train.py AdamWConfig with f32 state (int8 state, said so, if the
-    card cannot hold f32).  Checks: finite loss that falls from the first
-    step to the last, flash backward launches = layers x microbatches a
-    step, no plain backward, and one backward kernel call a step (a real
-    layer's inputs and gradient) within ref.BWD_TOL of the plain backward
-    in float64 (BackwardProbe).  Per step, each under the profiler: ms,
-    tokens/s, the model-FLOP share of the card's bf16 peak, peak memory,
-    the card's idle share and the flash kernels' share of device time."""
+def flash_judge(args, got) -> dict:
+    """A flash backward call (``flash/ops._backward``'s arguments) against
+    flash_attention_bwd_plain in float64 given the same output, under
+    ref.BWD_TOL, beside SDPA's backward on the same inputs against the
+    plain backward given SDPA's output (reported, not held)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash.ref import bwd_agreement, flash_attention_bwd_plain as plain_bwd
+
+    q, k, v, out, _, dout, causal, window, scale, cap = args
+    want = plain_bwd(q.double(), k.double(), v.double(), dout.double(), out.double(), causal=causal,
+                     window=window, scale=scale, logit_softcap=cap)
+    agree = dict(bwd_agreement(got, want), q=list(q.shape), kv_heads=k.shape[2])
+    if window == 0 and cap == 0.0:
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+        o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal, scale=scale, enable_gqa=True)
+        lib = [g.transpose(1, 2) for g in torch.autograd.grad(o, (qt, kt, vt), dout.transpose(1, 2))]
+        lib_want = plain_bwd(q.double(), k.double(), v.double(), dout.double(),
+                             o.detach().transpose(1, 2).double(), causal=causal, window=0, scale=scale)
+        agree["library"] = bwd_agreement(lib, lib_want)
+    return agree
+
+
+def wkv6_judge(args, got) -> dict:
+    """A WKV6 backward call (``wkv6/ops._backward``'s arguments: a real
+    layer's bf16 r, k, v and u, its log_w across the clip's range, and the
+    f32 gradient of y from the group norm) against wkv6_bwd_plain in
+    float64 with its terms' magnitudes, under ref.BWD_TOL; the plain
+    version in f32 on the same inputs read beside it (not held)."""
+    import torch
+
+    from repro_torch.kernels.wkv6.ref import bwd_agreement, wkv6_bwd_plain
+
+    r, k, v, lw, u, s0, dy, ds = args
+    want, scales = wkv6_bwd_plain(r, k, v, lw, u, s0, dy, ds, dtype=torch.float64, with_scales=True)
+    plain = bwd_agreement(wkv6_bwd_plain(r, k, v, lw, u, s0, dy, ds), want, scales)
+    return dict(bwd_agreement(got, want, scales), q=list(r.shape), log_w_range=[float(lw.min()), float(lw.max())],
+                plain_f32={n: {x: p[x] for x in ("worst", "rel")} for n, p in plain["parts"].items()})
+
+
+class GradWitness:
+    """Wraps ``train/step.value_and_grad`` while the training steps run and
+    holds each step's accumulated gradient; ``read``, called after the
+    step's clock, keeps the leaves (a stacked leaf's layers one by one) that
+    are not finite or are all zero, and lets the gradient go."""
+
+    def __init__(self, step_module) -> None:
+        self.mod = step_module
+        self.orig = step_module.value_and_grad
+        self.grads = None
+        self.bad: list = []
+        self.leaves = 0
+
+    def __enter__(self):
+        def wrapped(*a, **kw):
+            out = self.orig(*a, **kw)
+            self.grads = out[2]
+            return out
+
+        self.mod.value_and_grad = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.value_and_grad = self.orig
+        return False
+
+    def read(self) -> None:
+        import torch
+
+        flags, names = [], []
+        for path, g in self.grads.items():
+            parts = g.flatten(1) if path.startswith("groups.") else g.reshape(1, -1)
+            flags.append(torch.isfinite(parts).all(1) & (parts != 0).any(1))
+            names += [f"{path}[{i}]" for i in range(parts.shape[0])] if path.startswith("groups.") else [path]
+        ok = torch.cat(flags).cpu().tolist()
+        self.grads = None
+        self.leaves = len(names)
+        self.bad = [n for n, f in zip(names, ok) if not f]
+
+
+def rwkv6_train_flops(n_params: int, cfg, tokens: int, B: int, S: int) -> float:
+    """Model FLOPs of one rwkv6 training step: 6 per parameter and token,
+    and the WKV's two state products (4 K^2 a token and head forward),
+    three times that with the backward: 12 K^2 a token, head and layer
+    (the recomputation of remat not counted)."""
+    K = cfg.ssm.head_size
+    return 6.0 * n_params * tokens + 12.0 * K * K * (cfg.d_model // K) * tokens * cfg.n_layers
+
+
+# What phases 15 and 18 train, and what each watches: the kernel ops whose
+# forward and backward launches a step are counted, the names of the
+# device kernels of its forward and of its backward in a trace, the
+# probe's judge, the model FLOPs, and what is drawn after the weights.
+TRAIN_CASES = {
+    "flash": dict(arch=TRAIN_ARCH, ops="repro_torch.kernels.flash.ops",
+                  fwd_parts=("flash_fwd_kernel", "flash_fwd_wgmma_kernel"),
+                  bwd_parts=("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel", "flash_bwd_dkv_sum_kernel"),
+                  judge=flash_judge, flops=train_flops, spread=False),
+    "wkv6": dict(arch="rwkv6-3b", ops="repro_torch.kernels.wkv6.ops",
+                 fwd_parts=("wkv6_chunks", "wkv6_states", "wkv6_carry"),
+                 bwd_parts=("wkv6_bwd_walk", "wkv6_bwd_sum", "wkv6_bwd_du"),
+                 judge=wkv6_judge, flops=rwkv6_train_flops, spread=True),
+}
+
+
+def train_path(torch, case: str, fails: Failures, seed: int, record: dict) -> dict:
+    """Phases 15 and 18.  ``TRAIN_CASES[case]``'s arch at its published
+    config (bf16, weights drawn from ``seed``; rwkv6's zero-initialised
+    tensors drawn too, ``spread_rwkv_zero_inits``), trained TRAIN_STEPS
+    steps through launch/train.py's model and step: data from the port's
+    pipeline over Zipf documents from ``seed`` packed at TRAIN_SEQ, global
+    batch TRAIN_GLOBAL_BATCH in TRAIN_MICROBATCHES microbatches, remat on,
+    the JAX package's launch/train.py AdamWConfig with f32 state (int8
+    state, said so, if the card cannot hold f32).  Checks: finite loss that
+    falls from the first step to the last, the kernel's backward launches =
+    layers x microbatches a step and its forward twice that (remat), no
+    plain backward, every leaf (each layer of a stacked one) a finite,
+    nonzero gradient each step (GradWitness), and one backward kernel call
+    a step (a real layer's inputs and gradient) within its ref.BWD_TOL of
+    the plain backward in float64 (BackwardProbe).  Per step, each under
+    the profiler: ms, tokens/s, the model-FLOP share of the card's bf16
+    peak, peak memory, the card's idle share and the kernels' share of
+    device time."""
     import gc
+    import importlib
 
     from repro_torch.configs.base import get_config
     from repro_torch.data.pipeline import PipelineConfig, ShardedLoader, build_dataset
-    from repro_torch.kernels.flash.ref import bwd_agreement, flash_attention_bwd_plain
     from repro_torch.launch.train import batch_on, build_model
+    from repro_torch.train import step as step_module
     from repro_torch.train.optimizer import AdamWConfig, adamw_init
     from repro_torch.train.step import TrainSpec, make_train_step
 
+    spec_ = TRAIN_CASES[case]
+    arch, kops = spec_["arch"], importlib.import_module(spec_["ops"])
     gc.collect()
     torch.cuda.empty_cache()
-    cfg = get_config(TRAIN_ARCH)
+    cfg = get_config(arch)
     print(f"  {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated before the model "
-          f"(the serving models are freed)", flush=True)
+          f"(the models before it are freed)", flush=True)
     t0 = time.perf_counter()
     docs = zipf_documents(TRAIN_DOCS, cfg.vocab_size - 8, seed)
     ds = build_dataset(docs, PipelineConfig(seq_len=TRAIN_SEQ, min_doc_tokens=8, vocab_size=cfg.vocab_size,
@@ -1982,12 +2266,16 @@ def train_path(torch, flash_ops, fails: Failures, seed: int, record: dict) -> di
           f"vocab {ds.vocab.size:,} (of the model's {cfg.vocab_size:,}) in {time.perf_counter() - t0:.1f} s",
           flush=True)
     spec = TrainSpec(microbatches=TRAIN_MICROBATCHES, remat=True)
-    report: dict = {"arch": TRAIN_ARCH, "layers": cfg.n_layers, "d_model": cfg.d_model,
+    report: dict = {"arch": arch, "layers": cfg.n_layers, "d_model": cfg.d_model,
                     "vocab": cfg.vocab_size, "seq": TRAIN_SEQ, "global_batch": TRAIN_GLOBAL_BATCH,
                     "microbatches": TRAIN_MICROBATCHES, "remat": True, "cuts": []}
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     model = build_model(cfg, torch.device("cuda"), seed)
+    if spec_["spread"]:
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(seed + 1)
+        spread_rwkv_zero_inits(torch, model, gen)
     params = model.params
     n_params = model.n_params()
     opt_cfg = AdamWConfig(lr_peak=3e-3, warmup_steps=10, total_steps=TRAIN_STEPS)
@@ -2006,21 +2294,22 @@ def train_path(torch, flash_ops, fails: Failures, seed: int, record: dict) -> di
     report.update(n_params=n_params, state_dtype=state_dtype)
     step_fn = make_train_step(model, opt_cfg, spec)
     torch.cuda.synchronize()
-    print(f"  {TRAIN_ARCH}: {n_params:,} parameters and {state_dtype} AdamW state on the card in "
+    print(f"  {arch}: {n_params:,} parameters and {state_dtype} AdamW state on the card in "
           f"{time.perf_counter() - t0:.1f} s, {torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated; "
           f"{cfg.n_layers} layers, d_model {cfg.d_model}, vocab {cfg.vocab_size} (nothing cut)", flush=True)
     tokens = TRAIN_GLOBAL_BATCH * TRAIN_SEQ
-    flops = train_flops(n_params, cfg, tokens, TRAIN_GLOBAL_BATCH, TRAIN_SEQ)
+    flops = spec_["flops"](n_params, cfg, tokens, TRAIN_GLOBAL_BATCH, TRAIN_SEQ)
     steps = []
     # one call a step held against the plain backward, a different layer
     # and microbatch each step
     per_step = cfg.n_layers * TRAIN_MICROBATCHES
-    probe = BackwardProbe(flash_ops, lambda s: s * per_step // TRAIN_STEPS)
+    probe = BackwardProbe(kops, lambda s: s * per_step // TRAIN_STEPS, spec_["judge"])
+    witness = GradWitness(step_module)
     path_check = {"calls": 0, "max_abs_err": 0.0, "worst": 0.0, "rel": 0.0}
-    flash_ops.reset_launches()
+    kops.reset_launches()
     for s in range(TRAIN_STEPS):
         batch = batch_on(loader, s, torch.device("cuda"))
-        before = (flash_ops.LAUNCHES, flash_ops.BWD_LAUNCHES)
+        before = (kops.LAUNCHES, kops.BWD_LAUNCHES)
         torch.cuda.reset_peak_memory_stats()
         held = {}
 
@@ -2032,69 +2321,77 @@ def train_path(torch, flash_ops, fails: Failures, seed: int, record: dict) -> di
 
         # each step under the profiler (CUDA activity only); its wall time
         # is taken inside the profiled window, without the profiler's start
-        # and stop
-        with probe:
+        # and stop; the witness reads the gradient after the step's clock
+        with probe, witness:
             events = trace_card(torch, one)
+        witness.read()
         params, opt_state, metrics = held["out"]
-        agree = probe.check(flash_attention_bwd_plain, bwd_agreement)
+        agree = probe.check()
         path_check["calls"] += 1
         path_check.update({x: max(path_check[x], agree[x]) for x in ("max_abs_err", "worst", "rel")})
-        fails.check(agree["ok"], f"train step {s}: flash backward call {agree['call']} (q {agree['q']}) disagrees "
-                                 f"with the plain backward in float64 ({agree})")
+        fails.check(agree["ok"], f"train step {s}: {case} backward call {agree['call']} (shape {agree['q']}) "
+                                 f"disagrees with the plain backward in float64 ({agree})")
+        fails.check(not witness.bad and witness.leaves > 0,
+                    f"train step {s}: {len(witness.bad)} of {witness.leaves} leaves have a zero or non-finite "
+                    f"gradient: {witness.bad[:8]}")
         dt = held["t1"] - held["t0"]
         loss = float(metrics["loss"])
-        fwd, bwd = flash_ops.LAUNCHES - before[0], flash_ops.BWD_LAUNCHES - before[1]
+        fwd, bwd = kops.LAUNCHES - before[0], kops.BWD_LAUNCHES - before[1]
         row = {"step": s, "loss": loss, "ms": dt * 1e3, "tokens_per_s": tokens / dt,
                "model_flop_share_of_bf16_peak": flops / dt / BF16_OPS_PER_S,
                "grad_norm": float(metrics["grad_norm"]), "lr": float(metrics["lr"]),
-               "peak_gib": torch.cuda.max_memory_allocated() / 2**30, "flash_fwd": fwd, "flash_bwd": bwd,
+               "peak_gib": torch.cuda.max_memory_allocated() / 2**30, "fwd_launches": fwd, "bwd_launches": bwd,
+               "leaves_with_gradient": witness.leaves - len(witness.bad), "leaves": witness.leaves,
                "bwd_check": agree}
         line = ""
         total = sum(device_us(ev) for ev in events) / 1e3 if events is not None else 0.0
         if total > 0:
-            fwd_ms = sum(device_us(ev) for ev in events if "flash_fwd" in ev.key) / 1e3
-            bwd_ms = sum(device_us(ev) for ev in events if "flash_bwd" in ev.key) / 1e3
-            row["flash_bwd_launch_ms"] = {
-                part: sum(device_us(ev) for ev in events if f"flash_bwd_{part}_kernel" in ev.key) / 1e3
-                for part in ("dq", "dkv", "dkv_sum")}
+            row["fwd_launch_ms"], row["bwd_launch_ms"] = (
+                {part: sum(device_us(ev) for ev in events if part in ev.key) / 1e3 for part in spec_[parts]}
+                for parts in ("fwd_parts", "bwd_parts"))
+            fwd_ms, bwd_ms = sum(row["fwd_launch_ms"].values()), sum(row["bwd_launch_ms"].values())
             top = sorted(((device_us(ev) / 1e3, ev.key) for ev in events if device_us(ev) > 0), reverse=True)[:6]
-            row.update(device_ms=total, idle_share=max(0.0, 1 - total / row["ms"]), flash_fwd_ms=fwd_ms,
-                       flash_bwd_ms=bwd_ms, flash_fwd_share=fwd_ms / total, flash_bwd_share=bwd_ms / total,
+            row.update(device_ms=total, idle_share=max(0.0, 1 - total / row["ms"]), fwd_ms=fwd_ms,
+                       bwd_ms=bwd_ms, fwd_share=fwd_ms / total, bwd_share=bwd_ms / total,
                        top=[{"kernel": k[:90], "ms": ms} for ms, k in top])
-            line = (f"  device {total:.1f} ms, card idle {100 * row['idle_share']:.1f}%, flash forward "
-                    f"{100 * row['flash_fwd_share']:.1f}% and backward {100 * row['flash_bwd_share']:.1f}% of "
+            line = (f"  device {total:.1f} ms, card idle {100 * row['idle_share']:.1f}%, {case} forward "
+                    f"{100 * row['fwd_share']:.1f}% and backward {100 * row['bwd_share']:.1f}% of "
                     f"device time (backward launches: " + ", ".join(
-                        f"{k} {v:.1f} ms" for k, v in row["flash_bwd_launch_ms"].items()) + ")")
+                        f"{k} {v:.1f} ms" for k, v in row["bwd_launch_ms"].items()) + ")")
         steps.append(row)
         fails.check(bwd == cfg.n_layers * TRAIN_MICROBATCHES,
-                    f"train step {s}: {bwd} flash backward launches, not {cfg.n_layers} x {TRAIN_MICROBATCHES}")
+                    f"train step {s}: {bwd} {case} backward launches, not {cfg.n_layers} x {TRAIN_MICROBATCHES}")
         fails.check(fwd == 2 * cfg.n_layers * TRAIN_MICROBATCHES,
-                    f"train step {s}: {fwd} flash forward launches, not 2 x {cfg.n_layers} x {TRAIN_MICROBATCHES} "
+                    f"train step {s}: {fwd} {case} forward launches, not 2 x {cfg.n_layers} x {TRAIN_MICROBATCHES} "
                     f"(remat recomputes each layer's forward)")
         print(f"  step {s}: loss {loss:.4f}  {row['ms']:.1f} ms  {row['tokens_per_s']:.0f} tokens/s  "
               f"model FLOPs {100 * row['model_flop_share_of_bf16_peak']:.1f}% of the bf16 peak (989 TFLOP/s)  "
-              f"peak {row['peak_gib']:.1f} GiB  grad norm {row['grad_norm']:.3g}  lr {row['lr']:.2e}  flash "
-              f"launches {fwd} forward, {bwd} backward; backward call {agree['call']} against float64: "
+              f"peak {row['peak_gib']:.1f} GiB  grad norm {row['grad_norm']:.3g}  lr {row['lr']:.2e}  {case} "
+              f"launches {fwd} forward, {bwd} backward; {row['leaves_with_gradient']}/{row['leaves']} leaves "
+              f"with a finite nonzero gradient; backward call {agree['call']} against float64: "
               f"worst/limit {agree['worst']:.3g}, rel {agree['rel']:.3g}" + (
                   f" (SDPA's backward on its inputs: worst/limit {agree['library']['worst']:.3g}, rel "
-                  f"{agree['library']['rel']:.3g})" if "library" in agree else "") + ";" + line, flush=True)
+                  f"{agree['library']['rel']:.3g})" if "library" in agree else "") + (
+                  " (the plain backward in f32 on its inputs: worst/limit " + ", ".join(
+                      f"{n} {p['worst']:.3g}" for n, p in agree["plain_f32"].items()) + ")"
+                  if "plain_f32" in agree else "") + ";" + line, flush=True)
         del held
     losses = [r["loss"] for r in steps]
-    fails.check(all(np.isfinite(losses)), f"train: non-finite loss {losses}")
-    fails.check(losses[-1] < losses[0], f"train: the loss did not fall ({losses[0]:.4f} -> {losses[-1]:.4f})")
-    fails.check(flash_ops.PLAIN_BWD_CALLS == 0, f"train: the plain backward ran {flash_ops.PLAIN_BWD_CALLS} times")
+    fails.check(all(np.isfinite(losses)), f"train {arch}: non-finite loss {losses}")
+    fails.check(losses[-1] < losses[0], f"train {arch}: the loss did not fall ({losses[0]:.4f} -> {losses[-1]:.4f})")
+    fails.check(kops.PLAIN_BWD_CALLS == 0, f"train {arch}: the plain backward ran {kops.PLAIN_BWD_CALLS} times")
     report["steps"] = steps
     report["bwd_check"] = path_check
-    report["launches"] = {"flash_fwd": flash_ops.LAUNCHES, "flash_bwd": flash_ops.BWD_LAUNCHES,
-                          "plain_bwd": flash_ops.PLAIN_BWD_CALLS}
+    report["launches"] = {"forward": kops.LAUNCHES, "backward": kops.BWD_LAUNCHES,
+                          "plain_bwd": kops.PLAIN_BWD_CALLS}
     if steps[-1].get("top"):
         print("  costliest kernels of the last step: " + "; ".join(
             f"{t['kernel'][:48]} {t['ms']:.1f} ms" for t in steps[-1]["top"][:5]), flush=True)
     report["peak_gib"] = max(r["peak_gib"] for r in steps)
-    print(f"  {TRAIN_ARCH} trained {TRAIN_STEPS} steps: loss {losses[0]:.4f} -> {losses[-1]:.4f}; step "
+    print(f"  {arch} trained {TRAIN_STEPS} steps: loss {losses[0]:.4f} -> {losses[-1]:.4f}; step "
           f"{np.median([r['ms'] for r in steps]):.1f} ms (median); peak memory {report['peak_gib']:.1f} GiB; "
-          f"flash launches {report['launches']}; on {nvidia_smi_line()}", flush=True)
-    record["train"] = report
+          f"launches {report['launches']}; on {nvidia_smi_line()}", flush=True)
+    record["train" if case == "flash" else f"train_{case}"] = report
     del model, params, opt_state, step_fn
     gc.collect()
     torch.cuda.empty_cache()
@@ -2106,15 +2403,15 @@ def train_path(torch, flash_ops, fails: Failures, seed: int, record: dict) -> di
 # ---------------------------------------------------------------------------
 
 
-def cli_path(fails: Failures, record: dict) -> dict:
-    """``python -m repro_torch.launch.train --reduced --steps 40
+def cli_path(fails: Failures, record: dict, arch: str = TRAIN_ARCH) -> dict:
+    """``python -m repro_torch.launch.train --arch ARCH --reduced --steps 40
     --ckpt-every 10 --fail-at 25`` on the card in a temporary directory: it
     must resume from step 20, finish at 40, and restore its final
     checkpoint bitwise equal to the state in memory."""
     import tempfile
 
-    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--reduced", "--steps", "40", "--ckpt-every", "10",
-           "--fail-at", "25"]
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch", arch, "--reduced", "--steps", "40",
+           "--ckpt-every", "10", "--fail-at", "25"]
     with tempfile.TemporaryDirectory() as tmp:
         env = dict(os.environ, PYTHONPATH=SRC)
         t0 = time.perf_counter()
@@ -2137,8 +2434,8 @@ def cli_path(fails: Failures, record: dict) -> dict:
     print(f"  {' '.join(cmd[1:])}: exit {proc.returncode} in {dt:.1f} s, resumed from {summary.get('resumed_from')}, "
           f"final step {summary.get('final_step')}, final checkpoint restores bitwise: "
           f"{summary.get('restores_bitwise')}, loss {losses[0]:.4f} -> {losses[-1]:.4f}", flush=True)
-    record["cli"] = {"cmd": cmd, "returncode": proc.returncode, "seconds": dt, **summary}
-    return record["cli"]
+    record.setdefault("cli", {})[arch] = {"cmd": cmd, "returncode": proc.returncode, "seconds": dt, **summary}
+    return record["cli"][arch]
 
 
 def nvidia_smi_line() -> str:
@@ -2183,7 +2480,8 @@ def main(argv=None) -> int:
     from repro_torch.kernels.wkv6 import kernel as wkv6_kernel
     from repro_torch.kernels.wkv6 import ops as wkv6_ops
     from repro_torch.kernels.wkv6.ref import agreement as wkv6_agreement
-    from repro_torch.kernels.wkv6.ref import wkv6_plain, wkv6_scan
+    from repro_torch.kernels.wkv6.ref import bwd_agreement as wkv6_bwd_agreement
+    from repro_torch.kernels.wkv6.ref import wkv6_bwd_plain, wkv6_plain, wkv6_scan
 
     fails = Failures()
     record: dict = {"sf": args.sf, "seed": args.seed}
@@ -2199,7 +2497,8 @@ def main(argv=None) -> int:
     # 2. build
     t0 = time.perf_counter()
     record["build_s"] = build_all({"segreduce": kernel.LIBRARY, "flash": flash_kernel.LIBRARY,
-                                   "flash_bwd": flash_kernel.BWD_LIBRARY, "wkv6": wkv6_kernel.LIBRARY})
+                                   "flash_bwd": flash_kernel.BWD_LIBRARY, "wkv6": wkv6_kernel.LIBRARY,
+                                   "wkv6_bwd": wkv6_kernel.BWD_LIBRARY})
     print("build: " + ", ".join(f"{n} library in {t:.1f} s" for n, t in record["build_s"].items())
           + f" (in parallel; all loaded in {time.perf_counter() - t0:.1f} s)", flush=True)
 
@@ -2329,13 +2628,27 @@ def main(argv=None) -> int:
 
     # 15. training starcoder2-3b at full width
     print(f"training path: {TRAIN_ARCH} at full width:", flush=True)
-    train = train_path(torch, flash_ops, fails, args.seed, record)
-    flash_launches += train["launches"]["flash_fwd"]
-    bwd_launches = train["launches"]["flash_bwd"]
+    train = train_path(torch, "flash", fails, args.seed, record)
+    flash_launches += train["launches"]["forward"]
+    bwd_launches = train["launches"]["backward"]
 
     # 16. the training CLI: a failure and a restart from the checkpoint
     print("training CLI with a simulated failure:", flush=True)
     cli_path(fails, record)
+    cli_path(fails, record, RWKV_ARCH)
+
+    # 17. the wkv6 backward against its plain version
+    print("wkv6 backward kernel against its plain version:", flush=True)
+    record["wkv6_bwd_matrix"] = wkv6_bwd_matrix(torch, wkv6_kernel, wkv6_bwd_plain, wkv6_scan, wkv6_bwd_agreement,
+                                                fails, args.seed)
+    wkv6_bwd_row = wkv6_bwd_at_train_shape(torch, wkv6_kernel, wkv6_bwd_plain, wkv6_bwd_agreement, args.seed)
+    record["wkv6_bwd_shape"] = wkv6_bwd_row
+
+    # 18. training rwkv6-3b at full width
+    print(f"training path: {RWKV_ARCH} at full width:", flush=True)
+    rwkv_train = train_path(torch, "wkv6", fails, args.seed, record)
+    wkv6_launches += rwkv_train["launches"]["forward"]
+    wkv6_bwd_launches = rwkv_train["launches"]["backward"]
 
     # the JSON record: each kernel at the largest shape the main path gave it
     entries = []
@@ -2410,7 +2723,27 @@ def main(argv=None) -> int:
         "bound_by": bwd_row["bound_by"],
         "library_ms": bwd_row["library_ms"],
     })
+    entries.append({
+        "name": "wkv6_bwd",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/wkv6/csrc/wkv6_bwd.cu",
+        "replaces": None,
+        "replaces_note": "no TPU kernel: the reference differentiates _wkv_chunked "
+                         "(src/repro/models/rwkv6.py:148) by autodiff",
+        "launches": wkv6_bwd_launches,
+        "max_abs_err": max([r["max_abs_err"] for r in record["wkv6_bwd_matrix"]]
+                           + [wkv6_bwd_row["agreement"]["max_abs_err"], rwkv_train["bwd_check"]["max_abs_err"]]),
+        "train_path_check": rwkv_train["bwd_check"],
+        "ms": wkv6_bwd_row["ms"],
+        "plain_ms": wkv6_bwd_row["plain_ms"],
+        "bound_ms": wkv6_bwd_row["bound_ms"],
+        "bound_by": wkv6_bwd_row["bound_by"],
+        "library_ms": None,
+    })
     fails.check(bwd_launches > 0, "the training path never launched the flash backward")
+    fails.check(wkv6_bwd_launches > 0, "the rwkv6 training path never launched the wkv6 backward")
+    fails.check(wkv6_bwd_row["agreement"]["ok"], f"wkv6 backward at the training shape disagrees with its plain "
+                                                 f"version ({wkv6_bwd_row['agreement']})")
     fails.check(bwd_row["agreement"]["ok"], f"flash backward at the training shape disagrees with its plain "
                                             f"version ({bwd_row['agreement']})")
     record["failures"] = fails.items

@@ -4,7 +4,8 @@
 #
 #   * integer columns become int32; wider ones wrap (``jnp.asarray`` of an
 #     int64 column does: 2**31 + 5 becomes -2147483643);
-#   * float64 columns become float32; float32, bf16 and f16 stay;
+#   * float64 columns become float32; float32, bf16 (ml_dtypes') and f16
+#     stay;
 #   * a Python int constant becomes int32, a float constant float32;
 #   * a scalar SUM over int32 (or bool) stays int32 and wraps, as
 #     ``jnp.sum`` does, where ``torch.sum`` would widen to int64.
@@ -34,7 +35,7 @@ def host_dtype(dtype: Any) -> np.dtype:
         return np.dtype(np.int32)
     if dtype == np.float64:
         return np.dtype(np.float32)
-    if dtype in (np.float32, np.float16):
+    if dtype in (np.float32, np.float16) or dtype.name == "bfloat16":
         return dtype
     raise UnsupportedProgram(
         f"column of {dtype} has no tensor form — apply data reformatting "
@@ -42,10 +43,32 @@ def host_dtype(dtype: Any) -> np.dtype:
     )
 
 
+def torch_dtype(dtype: np.dtype) -> torch.dtype:
+    """The tensor dtype of a host dtype (numpy has no bf16 of its own: a
+    bf16 column arrives in ml_dtypes' ``bfloat16``, known by its name)."""
+    if dtype.name == "bfloat16":
+        return torch.bfloat16
+    return torch.from_numpy(np.empty(0, dtype)).dtype
+
+
+def host_tensor(arr: np.ndarray) -> torch.Tensor:
+    """A host tensor sharing ``arr``'s memory."""
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
+
+
+def host_array(t: torch.Tensor, dtype: np.dtype) -> np.ndarray:
+    """A numpy array of ``dtype`` sharing host tensor ``t``'s memory."""
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(dtype)
+    return t.numpy()
+
+
 def column_tensor(values: Any, device: Device) -> torch.Tensor:
     """One host column as a tensor on ``device`` under the policy."""
     arr = np.asarray(values)
-    return torch.from_numpy(arr.astype(host_dtype(arr.dtype), copy=False)).to(device)
+    return host_tensor(arr.astype(host_dtype(arr.dtype), copy=False)).to(device)
 
 
 def scalar_tensor(value: Any, device: Device) -> torch.Tensor:

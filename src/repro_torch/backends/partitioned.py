@@ -66,9 +66,10 @@ from repro_torch.sched.fault_tolerant import (
 from repro_torch.sched.loop_schedule import busy_times, make_policy, simulate_schedule, worker_imbalance
 
 from repro_torch.kernels.segreduce import ops as segops
+from repro_torch.kernels.segreduce.ref import ordered_combine
 
 from .codegen import _densify, _host, required_columns
-from .dtypes import column_tensor, host_dtype, scalar_sum
+from .dtypes import column_tensor, host_array, host_dtype, host_tensor, scalar_sum, torch_dtype
 from .interface import register_backend
 from .torch_vec import _KERNEL_OPS, CodegenChoices, TorchLowering, _segment_reduce
 
@@ -144,11 +145,11 @@ def _padded_slice(a: np.ndarray, idx: np.ndarray, m: int, fill=0, pinned: bool =
     n = idx.shape[0]
     dt = host_dtype(a.dtype)
     if pinned:
-        buf = torch.empty((m,), dtype=torch.from_numpy(np.empty(0, dt)).dtype, pin_memory=True)
-        out = buf.numpy()
+        buf = torch.empty((m,), dtype=torch_dtype(dt), pin_memory=True)
+        out = host_array(buf, dt)
     else:
         out = np.empty((m,), dt)
-        buf = torch.from_numpy(out)
+        buf = host_tensor(out)
     out[:n] = a[idx]
     out[n:] = fill
     return buf
@@ -1137,10 +1138,8 @@ class PartitionedPlan:
             return part
         if op == "+":
             return acc + part  # int32 wraps, as the JAX package's
-        if op == "max":
-            return torch.maximum(acc, part)
-        if op == "min":
-            return torch.minimum(acc, part)
+        if op in ("max", "min"):
+            return ordered_combine(acc, part, op)  # -0.0 below +0.0, a NaN wins
         raise ValueError(f"bad merge op {op}")
 
     # -- execution -------------------------------------------------------------

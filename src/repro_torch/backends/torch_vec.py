@@ -26,6 +26,7 @@ from repro_torch.core.ir import (
 from repro_torch.data.multiset import Database, DictColumn
 
 from repro_torch.kernels.segreduce import ops as segops
+from repro_torch.kernels.segreduce.ref import ordered_reduce, ordered_scatter
 
 from .codegen import (
     FUSABLE_AGG_OPS,
@@ -45,7 +46,6 @@ from .interface import register_backend
 
 # engine accumulate-op spelling -> segreduce kernel spelling
 _KERNEL_OPS = {"+": "sum", "max": "max", "min": "min"}
-_SCATTER_REDUCE = {"max": "amax", "min": "amin"}
 
 
 @dataclass
@@ -104,8 +104,8 @@ def _segment_reduce(keys: torch.Tensor, values: torch.Tensor, num_keys: int, op:
     values = torch.where(inside, values, ident)
     if op == "+":
         return out.index_add_(0, idx, values)
-    if op in _SCATTER_REDUCE:
-        return out.scatter_reduce_(0, idx, values, reduce=_SCATTER_REDUCE[op], include_self=True)
+    if op in ("max", "min"):  # -0.0 below +0.0, a NaN wins (kernels.segreduce.ref)
+        return ordered_scatter(out, idx, values, op)
     raise UnsupportedProgram(op)
 
 
@@ -624,7 +624,7 @@ class TorchLowering:
         )
         if op == "+":
             return partials.sum(0, dtype=partials.dtype)
-        return partials.amax(0) if op == "max" else partials.amin(0)
+        return ordered_reduce(partials, 0, op)
 
     # -- equi-join engine --------------------------------------------------------
     #

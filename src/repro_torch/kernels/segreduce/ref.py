@@ -42,6 +42,63 @@ def acc_dtype(dtype: torch.dtype) -> torch.dtype:
     return dtype
 
 
+# Float max and min order their values as IEEE 754-2019's maximum and
+# minimum, as the CUDA kernel and the JAX package do: -0.0 below +0.0 and a
+# NaN wins either way, so no order of the rows changes the result.  The
+# values are reduced as integers: the bits of an f32 (f64), read as an
+# int32 (int64), with every bit but the sign flipped where the sign is set,
+# order as the floats do (-0.0 maps to -1, +0.0 to 0); a NaN is sent past
+# the end its op moves towards.  bf16 and f16 widen to f32 exactly first.
+# A NaN result comes back as torch's NaN.
+_WORDS = {torch.float64: torch.int64}
+
+
+def _words(x: torch.Tensor, op: str) -> torch.Tensor:
+    """The order-preserving integer words of a float tensor under max or
+    min (f64 as int64, every other float widened to f32, as int32)."""
+    wide = x if x.dtype == torch.float64 else x.to(torch.float32)
+    it = _WORDS.get(wide.dtype, torch.int32)
+    info = torch.iinfo(it)
+    w = wide.contiguous().view(it)
+    w = torch.where(w < 0, w ^ info.max, w)
+    return torch.where(torch.isnan(wide), info.max if op == "max" else info.min, w)
+
+
+def _floats(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``_words``' inverse (an involution on the bits), in ``dtype``."""
+    f = torch.where(w < 0, w ^ torch.iinfo(w.dtype).max, w).view(
+        torch.float64 if w.dtype == torch.int64 else torch.float32).to(dtype)
+    return torch.where(torch.isnan(f), torch.full((), torch.nan, dtype=dtype, device=f.device), f)
+
+
+def ordered_scatter(out: torch.Tensor, idx: torch.Tensor, values: torch.Tensor, op: str) -> torch.Tensor:
+    """``out.scatter_reduce_(0, idx, values, 'amax' / 'amin')`` with float
+    values ordered as IEEE 754-2019 orders them (see ``_words``); integers
+    scatter as they are.  Returns ``out``, written in place."""
+    if not values.dtype.is_floating_point:
+        return out.scatter_reduce_(0, idx, values, reduce=_REDUCE[op], include_self=True)
+    w = _words(out, op).scatter_reduce_(0, idx, _words(values, op), reduce=_REDUCE[op], include_self=True)
+    return out.copy_(_floats(w, out.dtype))
+
+
+def ordered_combine(a: torch.Tensor, b: torch.Tensor, op: str) -> torch.Tensor:
+    """The elementwise max or min of two tensors, floats ordered as
+    ``ordered_scatter`` orders them."""
+    if not a.dtype.is_floating_point:
+        return torch.maximum(a, b) if op == "max" else torch.minimum(a, b)
+    wa, wb = _words(a, op), _words(b, op)
+    return _floats(torch.maximum(wa, wb) if op == "max" else torch.minimum(wa, wb), a.dtype)
+
+
+def ordered_reduce(x: torch.Tensor, dim: int, op: str) -> torch.Tensor:
+    """``x.amax(dim)`` / ``x.amin(dim)``, floats ordered as
+    ``ordered_scatter`` orders them."""
+    if not x.dtype.is_floating_point:
+        return x.amax(dim) if op == "max" else x.amin(dim)
+    w = _words(x, op)
+    return _floats(w.amax(dim) if op == "max" else w.amin(dim), x.dtype)
+
+
 def _reduce_into(keys: torch.Tensor, values: torch.Tensor, num_keys: int, op: str) -> torch.Tensor:
     """Rows whose key lies outside [0, num_keys) are dropped, as the CUDA
     kernel and the JAX package's segment ops drop them: they are given key 0
@@ -55,7 +112,7 @@ def _reduce_into(keys: torch.Tensor, values: torch.Tensor, num_keys: int, op: st
     vals = torch.where(inside, values.to(dt), torch.tensor(ident, dtype=dt, device=values.device))
     if op == "sum":
         return out.index_add_(0, idx, vals)
-    return out.scatter_reduce_(0, idx, vals, reduce=_REDUCE[op], include_self=True)
+    return ordered_scatter(out, idx, vals, op)
 
 
 def segreduce_ref(

@@ -1,5 +1,7 @@
 # The hand-written CUDA WKV6 kernel (csrc/wkv6.cu): its ctypes binding, the
-# split of the work (chunk length and sequence segments) and one launch.
+# split of the work (chunk length and sequence segments) and one launch; and
+# its gradient (csrc/wkv6_bwd.cu): its binding, workspace and one backward
+# (``launch_bwd``).
 # The build (nvcc at first use into ``build/kernels/``, keyed by a hash of
 # the source) is the shared helper in ``kernels/_build.py``.
 # Nothing here runs at import time.
@@ -15,6 +17,7 @@ from .._build import CudaLibrary
 from .ref import CHUNK
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "wkv6.cu"
+BWD_SOURCE = Path(__file__).resolve().parent / "csrc" / "wkv6_bwd.cu"
 
 # The head sizes the kernel is built for (rwkv6's 64, its reduced configs'
 # 16).  Its chunk length (L in the source) is ref.CHUNK, which the plain twin
@@ -138,3 +141,66 @@ def launch(
     if rc != 0:
         raise RuntimeError(f"wkv6 kernel launch failed with cudaError {rc}")
     return y, s_out
+
+
+def _configure_bwd(lib: ctypes.CDLL) -> None:
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.wkv6_bwd_launch.argtypes = [p, p, p, p, p, p, p, p, p, p, p, p, p, p, p, ctypes.c_int64,
+                                    i, i, i, i, i, i, i, p]
+    lib.wkv6_bwd_launch.restype = ctypes.c_int
+
+
+BWD_LIBRARY = CudaLibrary("wkv6_bwd", BWD_SOURCE, _configure_bwd)
+
+# The backward's stage (T in the source): the interval of the states its
+# first walk keeps, and the tokens it re-walks at once; and its slice of
+# value columns a block (JS).
+BWD_STAGE = 8
+BWD_SLICE = 16
+
+
+def bwd_work_floats(B: int, S: int, H: int, K: int) -> int:
+    """f32 workspace of one backward (csrc/wkv6_bwd.cu's ``work``, which
+    refuses less): the state before every stage (B, H, ceil(S /
+    BWD_STAGE), K, K), the slices' partials of dr, dk and dlog_w (K /
+    BWD_SLICE, 3, B, S, H, K) and of du (B, K / BWD_SLICE, H, K)."""
+    slices = K // BWD_SLICE
+    return B * H * (-(-S // BWD_STAGE)) * K * K + 3 * slices * B * S * H * K + B * slices * H * K
+
+
+def launch_bwd(
+    r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, log_w: torch.Tensor, u: torch.Tensor,
+    S0: Optional[torch.Tensor], dy: torch.Tensor, dS_out: Optional[torch.Tensor],
+    lib: CudaLibrary = BWD_LIBRARY,
+) -> Tuple[torch.Tensor, ...]:
+    """One backward on CUDA tensors the caller has checked: r, k, v (B, S,
+    H, K) of one type of ``_DTYPES``, K in HEAD_SIZES, log_w and dy (B, S,
+    H, K) f32, u (H, K) f32 or bf16, S0 and dS_out (B, H, K, K) f32 or None,
+    all contiguous on one device.  The outputs and the workspace
+    (``bwd_work_floats``) are allocated here; the kernels run on the current
+    stream.  Returns (dr, dk, dv) in r's type, dlog_w f32, du in u's type
+    and dS0 f32."""
+    if r.dtype not in _DTYPES or u.dtype not in _DTYPES:
+        raise TypeError(f"the wkv6 backward takes float32 or bfloat16 r, k, v and u, not {r.dtype}, {u.dtype}")
+    B, S, H, K = r.shape
+    if K not in HEAD_SIZES:
+        raise ValueError(f"head size {K} is not one of the wkv6 backward's {HEAD_SIZES}")
+    r, k, v, log_w, dy = (_aligned(t) for t in (r, k, v, log_w, dy))
+    u32 = u.to(torch.float32).contiguous()
+    n_work = bwd_work_floats(B, S, H, K)
+    work = torch.empty(n_work, dtype=torch.float32, device=r.device)
+    dr, dk, dv = (torch.empty_like(t) for t in (r, k, v))
+    dlog_w = torch.empty((B, S, H, K), dtype=torch.float32, device=r.device)
+    du = torch.empty((H, K), dtype=u.dtype, device=r.device)
+    dS0 = torch.empty((B, H, K, K), dtype=torch.float32, device=r.device)
+    device = r.device.index if r.device.index is not None else torch.cuda.current_device()
+    stream = torch.cuda.current_stream(r.device).cuda_stream
+    rc = lib.load().wkv6_bwd_launch(
+        r.data_ptr(), k.data_ptr(), v.data_ptr(), log_w.data_ptr(), u32.data_ptr(),
+        None if S0 is None else S0.data_ptr(), dy.data_ptr(), None if dS_out is None else dS_out.data_ptr(),
+        dr.data_ptr(), dk.data_ptr(), dv.data_ptr(), dlog_w.data_ptr(), du.data_ptr(), dS0.data_ptr(),
+        work.data_ptr(), n_work, _DTYPES[r.dtype], _DTYPES[u.dtype], B, S, H, K, device, stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"wkv6 backward kernel launch failed with cudaError {rc}")
+    return dr, dk, dv, dlog_w, du, dS0

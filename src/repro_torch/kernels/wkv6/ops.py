@@ -1,7 +1,10 @@
-# Public wrapper of the WKV6 recurrence kernel.  A tensor on the CPU goes to
-# the plain PyTorch version (ref.wkv6_plain); a tensor on a CUDA device goes
-# to the hand-written CUDA kernel (kernel.py, csrc/wkv6.cu) or raises.  There
-# is no fallback from the card to the plain version.
+# Public wrapper of the WKV6 recurrence kernels.  A tensor on the CPU goes to
+# the plain PyTorch versions (ref.wkv6_plain, and ref.wkv6_bwd_plain for the
+# gradient); a tensor on a CUDA device goes to the hand-written CUDA kernels
+# (kernel.py, csrc/wkv6.cu and csrc/wkv6_bwd.cu) or raises.  There is no
+# fallback from the card to the plain versions.  When an input requires
+# grad, the call goes through the autograd Function ``WKV6``; without a
+# gradient (serving) the forward launches alone.
 from __future__ import annotations
 
 from typing import Optional, Tuple
@@ -9,17 +12,21 @@ from typing import Optional, Tuple
 import torch
 
 from . import kernel
-from .ref import wkv6_plain
+from .ref import wkv6_bwd_plain, wkv6_plain
 
-# Launches of the CUDA kernel, so a run can show that its time-mix went
-# through the kernel.  Only the CUDA path counts; the plain version on the
-# CPU launches nothing.
+# Launches of the CUDA kernels, so a run can show that its time-mix and its
+# gradient went through them: LAUNCHES counts the forward, BWD_LAUNCHES the
+# backward.  Only the CUDA path counts; the plain versions on the CPU launch
+# nothing.  PLAIN_BWD_CALLS counts the plain backward's calls, so a run on
+# the card can show it never took one.
 LAUNCHES = 0
+BWD_LAUNCHES = 0
+PLAIN_BWD_CALLS = 0
 
 
 def reset_launches() -> None:
-    global LAUNCHES
-    LAUNCHES = 0
+    global LAUNCHES, BWD_LAUNCHES, PLAIN_BWD_CALLS
+    LAUNCHES = BWD_LAUNCHES = PLAIN_BWD_CALLS = 0
 
 
 def _check(r, k, v, log_w, u, S0) -> None:
@@ -44,15 +51,8 @@ def _check(r, k, v, log_w, u, S0) -> None:
         raise ValueError(f"wkv6's inputs lie on {sorted(map(str, devices))}")
 
 
-def wkv6(
-    r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, log_w: torch.Tensor, u: torch.Tensor,
-    S0: Optional[torch.Tensor] = None,
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The WKV6 recurrence over r, k, v, log_w (B, S, H, K) with bonus u
-    (H, K) from the state S0 (B, H, K, K; zeros when None).  Returns y
-    (B, S, H, K) and the final state (B, H, K, K), both f32."""
+def _forward(r, k, v, log_w, u, S0) -> Tuple[torch.Tensor, torch.Tensor]:
     global LAUNCHES
-    _check(r, k, v, log_w, u, S0)
     if r.device.type == "cpu":
         return wkv6_plain(r, k, v, log_w, u, S0)
     if r.device.type != "cuda":
@@ -63,3 +63,66 @@ def wkv6(
     out = kernel.launch(r, k, v, log_w, u, S0)
     LAUNCHES += 1
     return out
+
+
+def _check_grad(r: torch.Tensor, u: torch.Tensor) -> None:
+    """The cases the gradient takes on the card: a head size and types the
+    backward kernel is built for.  (On the CPU the plain backward takes
+    any.)"""
+    if r.device.type != "cuda":
+        return
+    if r.shape[3] not in kernel.HEAD_SIZES:
+        raise ValueError(f"the wkv6 backward kernel is built for head sizes {kernel.HEAD_SIZES}, not {r.shape[3]}")
+    if r.dtype not in kernel._DTYPES or u.dtype not in kernel._DTYPES:
+        raise TypeError(f"the wkv6 backward kernel is built for float32 and bfloat16, not r {r.dtype}, u {u.dtype}")
+
+
+def _backward(r, k, v, log_w, u, S0, dy, dS_out) -> tuple:
+    """(dr, dk, dv, dlog_w, du, dS0): dr, dk, dv in r's type, dlog_w f32,
+    du in u's type, dS0 f32."""
+    global BWD_LAUNCHES, PLAIN_BWD_CALLS
+    if r.device.type == "cpu":
+        PLAIN_BWD_CALLS += 1
+        dt = torch.float64 if r.dtype == torch.float64 else torch.float32
+        dr, dk, dv, dlw, du, ds0 = wkv6_bwd_plain(r, k, v, log_w, u, S0, dy.to(dt), dS_out, dtype=dt)
+        return dr.to(r.dtype), dk.to(k.dtype), dv.to(v.dtype), dlw.to(log_w.dtype), du.to(u.dtype), ds0
+    dS_out = None if dS_out is None else dS_out.float().contiguous()
+    grads = kernel.launch_bwd(r, k, v, log_w, u, S0, dy.float().contiguous(), dS_out)
+    BWD_LAUNCHES += 1
+    return grads
+
+
+class WKV6(torch.autograd.Function):
+    """The WKV6 recurrence with its gradient: the forward kernel (on the
+    CPU its plain version) forward, the backward kernel (on the CPU its
+    plain version) backward, which rebuilds the states from r, k, v, log_w
+    and S0.  Under remat the recomputed forward launches anew."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, log_w, u, S0):
+        y, s_out = _forward(r, k, v, log_w, u, S0)
+        ctx.save_for_backward(r, k, v, log_w, u, S0)
+        return y, s_out
+
+    @staticmethod
+    def backward(ctx, dy, dS_out):
+        r, k, v, log_w, u, S0 = ctx.saved_tensors
+        dr, dk, dv, dlw, du, ds0 = _backward(r, k, v, log_w, u, S0, dy, dS_out)
+        return dr, dk, dv, dlw, du, (ds0 if S0 is not None and ctx.needs_input_grad[5] else None)
+
+
+def wkv6(
+    r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, log_w: torch.Tensor, u: torch.Tensor,
+    S0: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The WKV6 recurrence over r, k, v, log_w (B, S, H, K) with bonus u
+    (H, K) from the state S0 (B, H, K, K; zeros when None).  Returns y
+    (B, S, H, K) and the final state (B, H, K, K), both f32.
+    Differentiable in every input (``WKV6``) when grad mode is on; on the
+    card it raises where the backward kernel cannot take the case."""
+    _check(r, k, v, log_w, u, S0)
+    inputs = (r, k, v, log_w, u) + (() if S0 is None else (S0,))
+    if torch.is_grad_enabled() and any(t.requires_grad for t in inputs):
+        _check_grad(r, u)
+        return WKV6.apply(r, k, v, log_w, u, S0)
+    return _forward(r, k, v, log_w, u, S0)

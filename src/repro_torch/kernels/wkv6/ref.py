@@ -14,6 +14,9 @@
 # the tensor cores read them), over segments as the kernel cuts them.
 # ``tf32_round`` is cvt.rna.tf32.f32's rounding, for comparison.
 # ``agreement`` is the tolerance the kernel is held to against wkv6_plain.
+# ``wkv6_bwd_plain`` is the recurrence's gradient walked back token by token
+# (the JAX package takes it by autodiff of ``_wkv_chunked``): the backward
+# kernel's plain version, and in float64 its yardstick (``bwd_agreement``).
 #
 # Recurrence, per head (k, r in R^K, v in R^V, w_t = e^{log_w_t} in (0, 1]^K,
 # u in R^K):
@@ -41,10 +44,49 @@ from .._agreement import agreement as _agreement
 KERNEL_TOL = dict(rtol=2e-3, atol_frac=1e-3, rel=1e-4)
 
 
+# What the backward kernel (csrc/wkv6_bwd.cu) is held to against
+# wkv6_bwd_plain run in float64, for each of its outputs (dr, dk, dv,
+# dlog_w, du, dS0; ``kernels._agreement``: a row is one token and head of
+# dr, dk, dv, dlog_w, one head of du, one key row of dS0), by the output's
+# type.  The kernel walks the recurrence token by token in f32, as the plain
+# version does in f32; their errors against float64 grow with the length
+# and the weakness of the decay (the state and its gradient sum ~1 / (1 -
+# w) tokens).  A bf16 output (dr, dk, dv for bf16 r, k, v; du for a bf16 u)
+# is also rounded once: half a unit of its last place is 2^-8 of it at most.
+# Each element may also differ by scale_frac of the magnitudes of the terms
+# it sums (``wkv6_bwd_plain(..., with_scales=True)``): a real layer's
+# gradient cancels, dlog_w to 1e-5 of its terms (dy is orthogonal to the
+# normed y), where f32 keeps ~1e-6 of them (read on an H100, phase 18: the
+# kernel 9e-6, the plain version in f32 on the same inputs 9e-6, both past
+# the other limits).  Read on an H100: see PERF.md.  The limits reject a
+# dropped token's gradient, a lost bonus term and a decay off by one token,
+# on random inputs and on inputs whose gradients cancel
+# (tests/test_torch_wkv6_grad.py).
+BWD_TOL = {
+    torch.float32: dict(rtol=1e-3, atol_frac=1e-3, floor_frac=1e-5, scale_frac=2e-5, rel=1e-4),
+    torch.bfloat16: dict(rtol=8e-3, atol_frac=2e-3, floor_frac=1e-4, scale_frac=2e-5, rel=4e-3),
+}
+BWD_NAMES = ("dr", "dk", "dv", "dlog_w", "du", "dS0")
+
+
 def agreement(got: torch.Tensor, want: torch.Tensor) -> dict:
     """The kernel's ``got`` against the plain version's ``want`` under
     KERNEL_TOL (``kernels._agreement``)."""
     return _agreement(got, want, KERNEL_TOL)
+
+
+def bwd_agreement(got: tuple, want: tuple, scales: tuple = None) -> dict:
+    """The backward's outputs ``got`` against ``want`` (wkv6_bwd_plain in
+    float64), output by output under BWD_TOL for its type (an f64 ``got``
+    under f32's), with the terms' magnitudes ``scales`` when given
+    (``wkv6_bwd_plain(..., with_scales=True)``): ``ok`` when all agree,
+    with each output's reading under its name and the worst of them."""
+    scales = scales if scales is not None else (None,) * len(BWD_NAMES)
+    parts = {n: _agreement(g, w, BWD_TOL[torch.bfloat16 if g.dtype == torch.bfloat16 else torch.float32], sc)
+             for n, g, w, sc in zip(BWD_NAMES, got, want, scales)}
+    return dict(ok=all(p["ok"] for p in parts.values()), worst=max(p["worst"] for p in parts.values()),
+                rel=max(p["rel"] for p in parts.values()),
+                max_abs_err=max(p["max_abs_err"] for p in parts.values()), parts=parts)
 
 
 def _zero_state(r: torch.Tensor, dtype: torch.dtype = torch.float32) -> torch.Tensor:
@@ -83,23 +125,25 @@ def wkv6_plain(
     pairwise decay e^{cum_{i-1} - cum_j} (j < i) and the carry e^{total -
     cum_j} have exponents <= 0.  The ragged tail is padded with k = v = 0
     and log_w = 0, which changes neither y nor the state.  Returns y
-    (B, S, H, K) and the final state (B, H, K, K), both f32."""
+    (B, S, H, K) and the final state (B, H, K, K), both f32 (f64 for f64
+    inputs, which the gradient's checks take)."""
     B, S, H, K = r.shape
-    state = _zero_state(r) if S0 is None else S0.float()
+    dt = torch.float64 if r.dtype == torch.float64 else torch.float32
+    state = _zero_state(r, dt) if S0 is None else S0.to(dt)
     if S == 0:
-        return torch.zeros((B, 0, H, K), dtype=torch.float32, device=r.device), state
+        return torch.zeros((B, 0, H, K), dtype=dt, device=r.device), state
     L = min(chunk, S)
     pad = (-S) % L
     n = (S + pad) // L
 
     def prep(t):
-        return F.pad(t.float(), (0, 0, 0, 0, 0, pad)).reshape(B, n, L, H, K)
+        return F.pad(t.to(dt), (0, 0, 0, 0, 0, pad)).reshape(B, n, L, H, K)
 
     r_, k_, v_, lw = prep(r), prep(k), prep(v), prep(log_w)
     cum = torch.cumsum(lw, dim=2)                                    # inclusive, <= 0
     cum_q = torch.cat([torch.zeros_like(cum[:, :, :1]), cum[:, :, :-1]], dim=2)  # cum_{i-1}
     total = cum[:, :, -1]                                            # (B, n, H, K)
-    u32 = u.float()
+    u32 = u.to(dt)
     idx = torch.arange(L, device=r.device)
     lower = (idx[None, :] < idx[:, None])[None, :, :, None, None]   # (1, L, L, 1, 1): j < i
     ys = []
@@ -121,6 +165,9 @@ def wkv6_plain(
 
 LOG2E = 1.4426950408889634
 CHUNK = 16  # the CUDA kernel's chunk length (L in csrc/wkv6.cu)
+# wkv6_bwd_plain keeps the state every STRETCH tokens and batches each
+# stretch's sums
+STRETCH = 64
 
 
 def tf32_round(x: torch.Tensor) -> torch.Tensor:
@@ -294,3 +341,82 @@ def wkv6_segmented_plain(
     if not ys:
         return torch.zeros((B, 0, H, K), dtype=torch.float32, device=r.device), state
     return torch.cat(ys, dim=1), state
+
+
+def wkv6_bwd_plain(
+    r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, log_w: torch.Tensor, u: torch.Tensor,
+    S0: Optional[torch.Tensor], dy: torch.Tensor, dS_out: Optional[torch.Tensor] = None,
+    dtype: torch.dtype = torch.float32, with_scales: bool = False,
+) -> Tuple[torch.Tensor, ...]:
+    """The gradient of the WKV6 recurrence (``wkv6_scan``) given dy (B, S,
+    H, K), the gradient of y, and dS_out (B, H, K, K), that of the final
+    state (zeros when None): (dr, dk, dv, dlog_w, du, dS0), all in
+    ``dtype`` (f32, as the CUDA kernel computes, or f64, its yardstick).
+    Per head, walking t from S - 1 down to 0 with dS = dL/dS_t (from
+    dS_out) and w_t = e^{log_w_t}:
+      dr_t[i]     = sum_j S_{t-1}[i,j] dy_t[j] + u_i k_t[i] (v_t . dy_t)
+      du_i       += r_t[i] k_t[i] (v_t . dy_t)
+      dk_t[i]     = sum_j dS[i,j] v_t[j] + r_t[i] u_i (v_t . dy_t)
+      dv_t[j]     = sum_i dS[i,j] k_t[i] + (sum_i r_t[i] u_i k_t[i]) dy_t[j]
+      dlog_w_t[i] = w_t[i] sum_j S_{t-1}[i,j] dS[i,j]
+      dS         <- diag(w_t) dS + r_t dy_t^T        (dS0 is the last dS)
+    S_{t-1} is never recovered by dividing out the decay (w underflows to
+    0): the states at every STRETCH-th token are kept from a forward
+    walk, and each stretch is walked forward again from its state before it
+    is walked backward.  With ``with_scales``, returns (grads, scales):
+    scales[n] is the sum of the magnitudes of the terms grads[n] sums (each
+    product above taken in absolute values, dS0's through the recurrence),
+    the scale of a float sum's rounding where its terms cancel
+    (``bwd_agreement``)."""
+    B, S, H, K = r.shape
+    f = lambda t: t.to(dtype)  # noqa: E731
+    r_, k_, v_, lw, dy_ = f(r), f(k), f(v), f(log_w), f(dy)
+    u_ = f(u)
+    w = torch.exp(lw)
+    state = _zero_state(r, dtype) if S0 is None else f(S0)
+    starts = []
+    for t in range(S):
+        if t % STRETCH == 0:
+            starts.append(state)
+        state = w[:, t, ..., None] * state + k_[:, t, ..., :, None] * v_[:, t, ..., None, :]
+    dS = _zero_state(r, dtype) if dS_out is None else f(dS_out)
+    dr, dk, dv, dlw = (torch.zeros((B, S, H, K), dtype=dtype, device=r.device) for _ in range(4))
+    du = torch.zeros((B, H, K), dtype=dtype, device=r.device)
+    if with_scales:
+        sc = [torch.zeros_like(dr) for _ in range(4)]
+        sc_du = torch.zeros_like(du)
+        sc_dS = dS.abs()
+    for c in reversed(range(len(starts))):
+        a, b = c * STRETCH, min(S, (c + 1) * STRETCH)
+        # the stretch's S_{t-1} and dS = dL/dS_t, token by token; the rest
+        # at once over the stretch
+        prev, after, state = [], [], starts[c]
+        for t in range(a, b):
+            prev.append(state)
+            state = w[:, t, ..., None] * state + k_[:, t, ..., :, None] * v_[:, t, ..., None, :]
+        for t in reversed(range(a, b)):
+            after.append(dS)
+            if with_scales:
+                sc_dS = w[:, t, ..., None] * sc_dS + (r_[:, t, ..., :, None] * dy_[:, t, ..., None, :]).abs()
+            dS = w[:, t, ..., None] * dS + r_[:, t, ..., :, None] * dy_[:, t, ..., None, :]
+        sp, ds = torch.stack(prev, 1), torch.stack(after[::-1], 1)     # (B, L, H, K, K)
+        rt, kt, vt, dyt, wt = (x[:, a:b] for x in (r_, k_, v_, dy_, w))
+        vdy = (vt * dyt).sum(-1, keepdim=True)
+        dr[:, a:b] = torch.einsum("blhij,blhj->blhi", sp, dyt) + u_ * kt * vdy
+        du += (rt * kt * vdy).sum(1)
+        dk[:, a:b] = torch.einsum("blhij,blhj->blhi", ds, vt) + rt * u_ * vdy
+        dv[:, a:b] = torch.einsum("blhij,blhi->blhj", ds, kt) + (rt * u_ * kt).sum(-1, keepdim=True) * dyt
+        dlw[:, a:b] = wt * (sp * ds).sum(-1)
+        if with_scales:
+            a_vdy = (vt * dyt).abs().sum(-1, keepdim=True)
+            a_sp, a_ds = sp.abs(), ds.abs()
+            sc[0][:, a:b] = torch.einsum("blhij,blhj->blhi", a_sp, dyt.abs()) + (u_ * kt).abs() * a_vdy
+            sc[1][:, a:b] = torch.einsum("blhij,blhj->blhi", a_ds, vt.abs()) + (rt * u_).abs() * a_vdy
+            sc[2][:, a:b] = (torch.einsum("blhij,blhi->blhj", a_ds, kt.abs())
+                             + (rt * u_ * kt).abs().sum(-1, keepdim=True) * dyt.abs())
+            sc[3][:, a:b] = wt * (a_sp * a_ds).sum(-1)
+            sc_du += ((rt * kt).abs() * a_vdy).sum(1)
+    grads = (dr, dk, dv, dlw, du.sum(0), dS)
+    if with_scales:
+        return grads, (sc[0], sc[1], sc[2], sc[3], sc_du.sum(0), sc_dS)
+    return grads

@@ -204,3 +204,72 @@ def test_plan_keeps_columns_on_its_device():
     first = plan.input_columns()
     assert first["t"]["k"].dtype == torch.int32 and first["t"]["k"].device.type == "cpu"
     assert plan.input_columns()["t"]["k"] is first["t"]["k"]  # uploaded once
+
+
+# ---------------------------------------------------------------------------
+# MAX and MIN order -0.0 below +0.0, and a NaN wins, as the JAX package does
+# (ROADMAP C34): both rows of each key hold one zero each, in either order,
+# so a reduction that keeps whichever zero it meets first gives a key the
+# wrong sign.  Held bit for bit; a NaN against a NaN.
+# ---------------------------------------------------------------------------
+
+SIGNED_ZERO_SQL = "SELECT k, MAX(v), MIN(v) FROM t GROUP BY k"
+SIGNED_ZERO_CASES = {
+    "zeros": [-0.0, 0.0, 0.0, -0.0],
+    "nan": [-0.0, float("nan"), 0.0, -0.0],
+}
+
+
+def _signed_zero_table(case, dtype):
+    import ml_dtypes
+
+    np_dtype = {"f32": np.float32, "bf16": ml_dtypes.bfloat16}[dtype]
+    return {"t": dict(k=np.array([0, 0, 1, 1], np.int32), v=np.array(SIGNED_ZERO_CASES[case], np_dtype))}
+
+
+def _bits(rows):
+    """Each row's key and, per float, NaN or its sign and value."""
+    out = []
+    for r in sorted(rows, key=lambda r: r[0]):
+        out.append((int(r[0]),) + tuple("nan" if np.isnan(float(x)) else (bool(np.signbit(float(x))), float(x))
+                                        for x in r[1:]))
+    return out
+
+
+@pytest.mark.parametrize("case", sorted(SIGNED_ZERO_CASES))
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("method", AGG_METHODS)
+def test_signed_zero_max_min_match_jax_plan(method, dtype, case):
+    jplan, tplan = _both_plans(SIGNED_ZERO_SQL, _signed_zero_table(case, dtype), method, {"t": ["k", "v"]})
+    want = _bits(jplan.run()["R"])
+    assert _bits(tplan.run()["R"]) == want
+    if case == "zeros":
+        assert want == [(0, (False, 0.0), (True, -0.0)), (1, (False, 0.0), (True, -0.0))]
+
+
+@pytest.mark.parametrize("case", sorted(SIGNED_ZERO_CASES))
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_signed_zero_max_min_match_jax_session(dtype, case):
+    import repro
+    from repro_torch import Session
+
+    tables = _signed_zero_table(case, dtype)
+    js, ts = repro.Session(), Session(device="cpu")
+    for name, cols in tables.items():
+        js.register(name, **cols)
+        ts.register(name, **cols)
+    assert _bits(ts.sql(SIGNED_ZERO_SQL).rows) == _bits(js.sql(SIGNED_ZERO_SQL).rows)
+
+
+@pytest.mark.parametrize("method", AGG_METHODS)
+def test_signed_zero_vmap_merge_matches_jax(method):
+    """parallel='vmap' reduces row blocks apart and merges the partials:
+    each row in a block of its own."""
+    tables = _signed_zero_table("zeros", "f32")
+    schemas = {"t": ["k", "v"]}
+    jres = jax_optimize(jax_sql(SIGNED_ZERO_SQL, schemas), _jax_db(tables),
+                        JaxOptions(n_parts=4, agg_method=method, parallel_exec="vmap"))
+    tres = optimize(sql_to_forelem(SIGNED_ZERO_SQL, schemas), database_from_columns(tables),
+                    OptimizeOptions(n_parts=4, agg_method=method, parallel_exec="vmap", device="cpu"))
+    assert tres.plan.lowering.choices.parallel == "vmap" and tres.plan.lowering.spec.n_parts == 4
+    assert _bits(tres.plan.run()["R"]) == _bits(jres.plan.run()["R"])

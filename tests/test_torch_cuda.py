@@ -16,7 +16,11 @@
 # the decode step replayed as a CUDA graph against the eager step (tokens
 # and logits bitwise equal), the serving CLI refilling slots under the
 # graph, and a reduced starcoder2-3b train step whose attention gradients
-# run the backward kernel.  This file imports neither jax nor the JAX package, so it runs
+# run the backward kernel; the hand-written WKV6 backward against its plain
+# version in float64 (within ``ref.BWD_TOL``, reruns bitwise equal) and a
+# reduced rwkv6 train step whose time-mix gradients run it, with the raise
+# where it is not built; and the plain MAX/MIN paths' -0.0 / +0.0 order on
+# the card, the same over 20 runs.  This file imports neither jax nor the JAX package, so it runs
 # on a machine that has only the port:
 #
 #     PYTHONPATH=src python -m pytest tests/test_torch_cuda.py -q
@@ -49,7 +53,8 @@ from repro_torch.kernels.segreduce.ref import fused_segreduce_ref, segreduce_ref
 from repro_torch.kernels.wkv6 import kernel as wkv6_kernel
 from repro_torch.kernels.wkv6 import ops as wkv6_ops
 from repro_torch.kernels.wkv6.ref import agreement as wkv6_agreement
-from repro_torch.kernels.wkv6.ref import wkv6_plain, wkv6_scan
+from repro_torch.kernels.wkv6.ref import bwd_agreement as wkv6_bwd_agreement
+from repro_torch.kernels.wkv6.ref import wkv6_bwd_plain, wkv6_plain, wkv6_scan
 from repro_torch.models.transformer import Model
 from repro_torch.serve.step import generate
 
@@ -795,6 +800,132 @@ def test_rwkv6_prefill_runs_the_kernel_and_matches_the_cpu(cuda):
                                rtol=5e-2, atol=5e-2)
     res = generate(card, toks.to(cuda), 4)
     assert res.tokens.shape == (2, 44) and res.tokens.device.type == "cuda"
+
+
+def _wkv_grad_inputs(seed, B, S, H, K, decay, dtype, device, with_state):
+    """_wkv_inputs, and dy (B, S, H, K) and dS_out (B, H, K, K; None without
+    a state) N(0, 1) in f32."""
+    r, k, v, lw, u, s0 = _wkv_inputs(seed, B, S, H, K, decay, dtype, device, with_state)
+    rng = np.random.default_rng(seed + 1)
+    dy = torch.from_numpy(rng.normal(size=(B, S, H, K)).astype(np.float32)).to(device)
+    ds = torch.from_numpy(rng.normal(size=(B, H, K, K)).astype(np.float32)).to(device) if with_state else None
+    return r, k, v, lw, u, s0, dy, ds
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("with_state", [False, True], ids=["zero", "S0"])
+@pytest.mark.parametrize("decay", WKV_DECAYS)
+@pytest.mark.parametrize("B,H", [(2, 3), (1, 40)])
+@pytest.mark.parametrize("S", [1, 53, 208])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("K", wkv6_kernel.HEAD_SIZES)
+def test_wkv6_bwd_kernel_matches_plain(cuda, K, dtype, S, B, H, decay, with_state):
+    """The backward kernel against wkv6_bwd_plain in float64 within BWD_TOL,
+    every output in its type (u in r's type); reruns bitwise equal."""
+    r, k, v, lw, u, s0, dy, ds = _wkv_grad_inputs(K * 5 + S, B, S, H, K, decay, dtype, cuda, with_state)
+    u = u.to(dtype)
+    got = wkv6_kernel.launch_bwd(r, k, v, lw, u, s0, dy, ds)
+    again = wkv6_kernel.launch_bwd(r, k, v, lw, u, s0, dy, ds)
+    want, scales = wkv6_bwd_plain(r, k, v, lw, u, s0, dy, ds, dtype=torch.float64, with_scales=True)
+    torch.cuda.synchronize()
+    assert [t.dtype for t in got] == [dtype] * 3 + [torch.float32, dtype, torch.float32]
+    assert all(_bitwise(a, b) for a, b in zip(got, again))
+    agree = wkv6_bwd_agreement(got, want, scales)
+    assert agree["ok"], agree
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("decay", ["random", "-3.4e-4"])
+def test_wkv6_bwd_kernel_at_the_training_shape(cuda, decay):
+    """rwkv6-3b's training microbatch (2 x 2048, 40 heads of 64, bf16),
+    through the Function: dy from a loss, the counters, and the gradient
+    within BWD_TOL of the plain version in float64."""
+    r, k, v, lw, u, _, dy, _ = _wkv_grad_inputs(7, 2, 2048, 40, 64, decay, torch.bfloat16, cuda, False)
+    u = u.to(torch.bfloat16)
+    leaves = [t.clone().requires_grad_() for t in (r, k, v, lw, u)]
+    wkv6_ops.reset_launches()
+    y, _ = wkv6_ops.wkv6(*leaves)
+    y.backward(dy)
+    assert (wkv6_ops.LAUNCHES, wkv6_ops.BWD_LAUNCHES, wkv6_ops.PLAIN_BWD_CALLS) == (1, 1, 0)
+    got = [t.grad for t in leaves]
+    want, scales = wkv6_bwd_plain(r, k, v, lw, u, None, dy, None, dtype=torch.float64, with_scales=True)
+    agree = wkv6_bwd_agreement(got, want[:5], scales[:5])
+    assert agree["ok"], agree
+
+
+@pytest.mark.requires_cuda
+def test_wkv6_gradient_raises_where_the_kernel_is_not_built(cuda):
+    """Under a gradient on the card, ops.wkv6 goes through the backward
+    kernel or raises: a head size it is not built for, or an f16 input."""
+    for K, dtype, err in ((32, torch.bfloat16, ValueError), (64, torch.float16, TypeError)):
+        r = torch.zeros(1, 4, 2, K, device=cuda, dtype=dtype, requires_grad=True)
+        lw = torch.zeros(1, 4, 2, K, device=cuda)
+        u = torch.zeros(2, K, device=cuda)
+        with pytest.raises(err, match="backward"):
+            wkv6_ops.wkv6(r, r.detach(), r.detach(), lw, u)
+    # without a gradient the forward alone decides
+    with torch.no_grad():
+        r = torch.zeros(1, 4, 2, 32, device=cuda, dtype=torch.bfloat16)
+        with pytest.raises(ValueError, match="head size"):
+            wkv6_ops.wkv6(r, r, r, torch.zeros(1, 4, 2, 32, device=cuda), torch.zeros(2, 32, device=cuda))
+
+
+@pytest.mark.requires_cuda
+def test_rwkv6_train_step_on_the_card_runs_the_backward_kernel(cuda):
+    """Reduced rwkv6: one value_and_grad on the card launches the WKV6
+    backward once per layer and microbatch, never the plain one; every
+    leaf gets a finite, nonzero gradient in every layer; the gradients agree with the same
+    weights' on the CPU within the train tests' tolerance."""
+    from repro_torch.train.step import TrainSpec, value_and_grad
+
+    cfg = reduced_config(get_config("rwkv6-3b"))
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(0)
+    card = _spread_rwkv(Model(cfg).init_params(gen), gen)
+    host = Model(cfg, device="cpu")
+    host.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    toks = np.random.default_rng(2).integers(4, cfg.vocab_size, (4, 37)).astype(np.int32)
+    spec = TrainSpec(microbatches=2, remat=True)
+    wkv6_ops.reset_launches()
+    loss, _, got = value_and_grad(card, card.params, {"tokens": torch.from_numpy(toks).to(cuda)}, spec)
+    assert wkv6_ops.BWD_LAUNCHES == cfg.n_layers * 2 and wkv6_ops.PLAIN_BWD_CALLS == 0
+    assert wkv6_ops.LAUNCHES == 2 * cfg.n_layers * 2
+    # every leaf, and every layer's slice of a stacked one (15 of each block's
+    # 22 are the time-mix's)
+    assert len(got) == 25 and len([p for p in got if ".tmix." in p]) == 15
+    for path, g in got.items():
+        parts = list(g) if path.startswith("groups.") else [g]
+        assert all(bool(torch.isfinite(x).all()) and float(x.abs().max()) > 0 for x in parts), path
+    want_loss, _, want = value_and_grad(host, host.params, {"tokens": torch.from_numpy(toks)}, spec)
+    assert abs(float(loss) - float(want_loss)) <= 2e-3 * abs(float(want_loss))
+    for path, w in want.items():
+        g = got[path].cpu().double()
+        rel = float((g - w.double()).norm() / w.double().norm())
+        assert rel <= 3e-2, (path, rel)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("method", ["dense", "sort"])
+def test_plain_max_min_order_signed_zeros_the_same_every_run(cuda, method):
+    """The plain MAX/MIN paths on the card (integer words scattered by
+    atomics) give max +0.0 and min -0.0 for both keys, whichever zero a key
+    meets first, the same bits over 20 runs."""
+    from repro_torch.backends.torch_vec import CodegenChoices, Plan
+    from repro_torch.core.transforms import canonicalize_array_names
+    from repro_torch.data.multiset import database_from_columns
+    from repro_torch.frontends.sql import sql_to_forelem
+
+    n = 1 << 16
+    keys = np.arange(n, dtype=np.int32) % 2
+    vals = np.where((np.arange(n) // 2) % 2 == 0, -0.0, 0.0).astype(np.float32)
+    sql = "SELECT k, MAX(v), MIN(v) FROM t GROUP BY k"
+    prog = canonicalize_array_names(sql_to_forelem(sql, {"t": ["k", "v"]}))
+    plan = Plan(prog, database_from_columns({"t": dict(k=keys, v=vals)}), CodegenChoices(agg_method=method))
+    runs = [sorted((int(r[0]), float(r[1]), float(r[2])) for r in plan.run()["R"]) for _ in range(20)]
+    want = [(0, 0.0, -0.0), (1, 0.0, -0.0)]
+    for rows in runs:
+        assert [(k, np.signbit(a), np.signbit(b)) for k, a, b in rows] == [(0, False, True), (1, False, True)]
+        assert rows == want
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,6 @@
 # The port's LM serving path on the CPU against the JAX package, on reduced
-# configs of gemma2-9b, gemma3-4b and starcoder2-3b with the reference's own
+# configs of gemma2-9b, gemma3-4b, starcoder2-3b, qwen2-vl-72b (its M-RoPE
+# positions, text only) and starcoder2-15b with the reference's own
 # weights (Model.init_params(PRNGKey)) carried across by params_from_jax:
 # forward logits, prefill's last logits and caches at S > window (so local
 # layers mask by their window), decode logits teacher-forced on the
@@ -31,7 +32,7 @@ from repro_torch.serve.step import generate, make_prefill_step, pad_cache
 
 PREFILL_TOL = dict(rtol=5e-2, atol=5e-2)
 DECODE_TOL = dict(rtol=0.15, atol=0.15)
-ARCHS = ["gemma2-9b", "gemma3-4b", "starcoder2-3b"]
+ARCHS = ["gemma2-9b", "gemma3-4b", "starcoder2-3b", "qwen2-vl-72b", "starcoder2-15b"]
 
 
 def _np(x) -> np.ndarray:

@@ -419,3 +419,23 @@ def test_group_keys_past_int32_raise_overflow_as_the_jax_package_does(backend):
         js.sql(q)
     with pytest.raises(OverflowError):
         ts.sql(q)
+
+
+@pytest.mark.parametrize("method", ["dense", "kernel"])
+@pytest.mark.parametrize("k", [2, 4])
+def test_signed_zero_merge_matches_jax(k, method):
+    """MAX and MIN merge the partitions' partials with -0.0 below +0.0 and
+    a NaN winning, as the JAX package does (ROADMAP C34): key 0 meets -0.0
+    first and key 1 +0.0, each in another partition than its second row
+    (the rows are partitioned by w, which differs in every row)."""
+    q = "SELECT k, MAX(v), MIN(v) FROM t GROUP BY k"
+    for v in ([-0.0, 0.0, 0.0, -0.0], [-0.0, np.nan, 0.0, -0.0]):
+        tables = {"t": dict(k=np.array([0, 0, 1, 1], np.int32), v=np.array(v, np.float32),
+                            w=np.arange(4, dtype=np.int32))}
+        j, t, tplan, _ = _both(q, tables, agg_method=method, n_partitions=k, partition_field=("t", "w"))
+        assert len({d.partition for d in tplan.dispatch_log}) >= 2
+        bits = [[(x if isinstance(x, int) else ("nan" if np.isnan(x) else (bool(np.signbit(x)), x))) for x in r]
+                for r in sorted(t["R"])]
+        assert bits == [[(x if isinstance(x, int) else ("nan" if np.isnan(x) else (bool(np.signbit(x)), x)))
+                         for x in r] for r in sorted(j["R"])]
+        assert bits[1] == [1, (False, 0.0), (True, -0.0)]

@@ -343,3 +343,31 @@ def test_ordered_piece_cuts_of_skewed_counts(seed):
         sizes = [hi - lo for bb, lo, hi in cuts if bb == b]
         assert max(sizes) - min(sizes) <= 1
 
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+@pytest.mark.parametrize("case", ["zeros", "nan"])
+def test_signed_zero_and_nan_match_jax_bitwise(case, dtype):
+    """MAX and MIN order -0.0 below +0.0 and let a NaN win whatever the
+    order of the rows (ROADMAP C34), as the Pallas kernel, the jnp fallback
+    and the CUDA kernel do: bit for bit, a NaN against a NaN."""
+    v = [-0.0, 0.0, 0.0, -0.0] + ([np.nan, 1.0, 2.0, np.nan] if case == "nan" else [])
+    keys = np.array([0, 0, 1, 1, 2, 2, 3, 3][: len(v)], np.int32)
+    vals = np.array(v, np.float32)
+    K = int(keys.max()) + 2  # the last key empty: its identity
+    tvals = torch.from_numpy(vals).to(getattr(torch, dtype))
+    jvals = jnp.asarray(vals).astype(getattr(jnp, dtype))
+    for op in ("max", "min"):
+        (got,), _ = ops.fused_segreduce(torch.from_numpy(keys), (tvals,), (op,), K)
+        single = ops.segreduce(torch.from_numpy(keys), tvals, K, op=op)
+        for jax_fn in (lambda: fused_segreduce_pallas(jnp.asarray(keys), (jvals,), (op,), K, interpret=True)[0][0],
+                       lambda: jax_fused_ref(jnp.asarray(keys), (jvals,), (op,), K)[0][0]):
+            want = np.asarray(jax_fn(), np.float32)
+            for g in (got, single):
+                g = g.float().numpy()
+                assert np.array_equal(np.isnan(g), np.isnan(want)), (op, g, want)
+                ok = ~np.isnan(want)
+                assert np.array_equal(np.signbit(g[ok]), np.signbit(want[ok])) and np.array_equal(g[ok], want[ok]), (
+                    op, g, want)
+        if case == "zeros":
+            assert list(np.signbit(got.float().numpy()[:2])) == [op == "min"] * 2
