@@ -155,8 +155,9 @@ Phases, each of which must pass for the exit code to be 0:
    ``wkv6_bwd_cases``), each case run twice and
    required to be bitwise equal; then the kernel at rwkv6-3b's training
    microbatch (2 x 2048, 40 heads of 64): its time and each launch's (the
-   walk, the partials' sum, du's sum), its bound, the plain version's
-   time and the forward's (no PyTorch call computes this gradient);
+   states pass, the carries, the chunk pass, du's sum), its bound, what
+   each pass takes on the card, the plain version's time and the
+   forward's (no PyTorch call computes this gradient);
 18. training rwkv6-3b at its published width and depth (32 layers,
    d_model 2560, 40 heads of 64, vocab 65536, 3.07 B parameters drawn on
    the card from ``--seed``, its zero-initialised tensors drawn too) as
@@ -1755,24 +1756,44 @@ def wkv6_bwd_cases(S: int) -> tuple:
 
 # the f64 autograd of wkv6_scan keeps every step's state: only up to this S;
 # each output is held there within its type's ref.BWD_TOL["rel"] (relative
-# Frobenius): the kernel's f32 walk, and the bf16 outputs' one rounding
+# Frobenius): the kernel's f32 sums, and the bf16 outputs' one rounding
 WKV6_BWD_AUTOGRAD_MAX_S = 208
 
 
-def wkv6_bwd_bound(B: int, S: int, H: int, K: int, elem: int, u_elem: int, with_state: bool) -> tuple:
-    """(bound_ms, bound_by): the larger of the operations' time and the
-    bytes' time of the gradient.  Operations: about six K x K products a
-    token and head (the two walks of the state it needs, dS's decay and
-    update, and dS against v, k and the state: 12 K^2 FLOPs), f32 on the
-    CUDA cores.  Bytes: r, k, v (``elem``) and log_w, dy (f32) read once;
-    dr, dk, dv (``elem``) and dlog_w (f32) written once; u read and du
-    written (``u_elem``); S0, dS_out read and dS0 written when a state is
-    given (f32)."""
+def wkv6_bwd_counts(B: int, S: int, H: int, K: int, elem: int, u_elem: int, with_state: bool,
+                    chunk: int) -> dict:
+    """The chunked gradient's least times, ms: ``ops_ms`` its operations,
+    ``bytes_ms`` its bytes, and ``walk_ops_ms`` the f32 count of the
+    token-by-token walk it replaced.  Operations, per token and head (V =
+    K), counted as ``wkv6_bound`` counts the forward's: the five K x V
+    products (the chunk's state product of the rebuild, dr~, dk~, r~^T dy
+    and k~ dS', 10 K V FLOPs) on the tensor cores in split TF32, three
+    products each, at the TF32 rate; on the CUDA cores at the f32 rate, A
+    as the forward's ((L - 1) / 2 pairs of K terms, 5 operations each), dA
+    and A^T dy ((L + 1) / 2 pairs of K, an FMA each, 2 operations), the
+    pairs' shares of dr, dk and dlog_w's (d) ((L - 1) / 2 pairs of K, 7
+    operations), the per-key terms (20 K) and the decays of the carried
+    state and gradient (2 x 2 K V / L).  Bytes: r, k, v (``elem``) and
+    log_w, dy (f32) read once; dr, dk, dv (``elem``) and dlog_w (f32)
+    written once; u read and du written (``u_elem``); S0, dS_out read and
+    dS0 written when a state is given (f32).  The walk: about six K x K
+    products a token and head, 12 K^2 FLOPs on the f32 CUDA cores."""
     n = B * S * H
-    t_ops = n * 12.0 * K * K / F32_OPS_PER_S * 1e3
+    t_tensor = n * 3 * 10 * K * K / TF32_OPS_PER_S * 1e3
+    t_cuda = n * ((chunk - 1) / 2 * K * (5 + 7) + (chunk + 1) / 2 * K * 2 * 2 + 20 * K
+                  + 4 * K * K / chunk) / F32_OPS_PER_S * 1e3
     nbytes = n * K * (6 * elem + 3 * 4) + 2 * H * K * u_elem + (3 * B * H * K * K * 4 if with_state else 0)
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+    return {"ops_ms": t_tensor + t_cuda, "tensor_ms": t_tensor, "cuda_core_ms": t_cuda,
+            "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3, "walk_ops_ms": n * 12.0 * K * K / F32_OPS_PER_S * 1e3}
+
+
+def wkv6_bwd_bound(B: int, S: int, H: int, K: int, elem: int, u_elem: int, with_state: bool) -> tuple:
+    """(bound_ms, bound_by): the larger of the chunked gradient's operations'
+    time and its bytes' time (``wkv6_bwd_counts``)."""
+    from repro_torch.kernels.wkv6.ref import CHUNK
+
+    c = wkv6_bwd_counts(B, S, H, K, elem, u_elem, with_state, CHUNK)
+    return (c["ops_ms"], "operations") if c["ops_ms"] >= c["bytes_ms"] else (c["bytes_ms"], "bytes")
 
 
 def wkv6_bwd_inputs(torch, gen, B: int, S: int, H: int, K: int, decay, with_state: bool, dtype) -> list:
@@ -1861,31 +1882,43 @@ def wkv6_bwd_matrix(torch, wkv6_kernel, plain_bwd, scan, bwd_agreement, fails: F
 def wkv6_bwd_at_train_shape(torch, wkv6_kernel, plain_bwd, bwd_agreement, seed: int) -> dict:
     """The backward kernel at rwkv6-3b's training microbatch (2 x 2048, 40
     heads of 64, bf16, log_w -exp(N(0, 1)), no state): its time by events
-    and each launch's (the walk, the partials' sum, du's sum) by the
-    profiler, its bound, the plain version's time (f32, on the card), the
-    forward kernel's time on the same inputs, and the agreement with the
-    plain version in float64.  No PyTorch call computes this gradient."""
+    and each launch's (the states pass, the carries, the chunk pass, du's
+    sum) by the profiler, its bound (with the operations' counts beside it),
+    what each pass takes on the card, the plain version's time (f32, on the
+    card), the forward kernel's time on the same inputs, and the agreement
+    with the plain version in float64.  No PyTorch call computes this
+    gradient."""
+    from repro_torch.kernels.wkv6.ref import CHUNK
+
     gen = torch.Generator(device="cuda")
     gen.manual_seed(seed + 18)
     B, S, H, K = TRAIN_GLOBAL_BATCH // TRAIN_MICROBATCHES, TRAIN_SEQ, 40, 64
     args = wkv6_bwd_inputs(torch, gen, B, S, H, K, None, False, torch.bfloat16)
     r, k, v, lw, u, s0, dy, ds = args
     t_bound, bound_by = wkv6_bwd_bound(B, S, H, K, 2, 2, False)
+    counts = wkv6_bwd_counts(B, S, H, K, 2, 2, False, CHUNK)
     got = wkv6_kernel.launch_bwd(*args)
     agree = bwd_agreement(got, *plain_bwd(*args, dtype=torch.float64, with_scales=True))
     row = {"shape": [B, S, H, K], "dtype": "bf16",
            "ms": device_ms(torch, lambda: wkv6_kernel.launch_bwd(*args), reps=10),
            "plain_ms": device_ms(torch, lambda: plain_bwd(*args), reps=1, warmup=0),
-           "bound_ms": t_bound, "bound_by": bound_by, "library_ms": None, "agreement": agree,
+           "bound_ms": t_bound, "bound_by": bound_by, "counts": counts, "library_ms": None, "agreement": agree,
            "forward_ms": device_ms(torch, lambda: wkv6_kernel.launch(r, k, v, lw, u, None), reps=10),
            "launch_ms": launch_times(torch, lambda: wkv6_kernel.launch_bwd(*args), "wkv6_bwd", reps=20),
+           "segments": wkv6_kernel.bwd_segments(S), "segment_tokens": wkv6_kernel.BWD_SEGMENT,
+           "info": {name: wkv6_kernel.bwd_library_info(torch.bfloat16, K, chunks)
+                    for name, chunks in (("chunks", True), ("states", False))},
            "work_mib": wkv6_kernel.bwd_work_floats(B, S, H, K) * 4 / 2**20}
     print(f"  wkv6 backward at {RWKV_ARCH}'s training microbatch {row['shape']} bf16: kernel {row['ms']:.3f} ms  "
-          f"bound {t_bound:.3f} ms ({bound_by}: 12 K^2 FLOPs a token and head, f32)  plain {row['plain_ms']:.1f} "
-          f"ms  library none  forward {row['forward_ms']:.3f} ms  workspace {row['work_mib']:.0f} MiB  "
-          f"max_abs_err {agree['max_abs_err']:.3g}, worst/limit {agree['worst']:.3g}, rel {agree['rel']:.3g}",
-          flush=True)
-    print("    launches: " + "  ".join(f"{name.split('<')[0]} {ms:.3f} ms" for name, ms in row["launch_ms"].items()),
+          f"bound {t_bound:.3f} ms ({bound_by}; operations {counts['ops_ms']:.3f}: split TF32 "
+          f"{counts['tensor_ms']:.3f}, CUDA cores {counts['cuda_core_ms']:.3f}; the f32 walk's count "
+          f"{counts['walk_ops_ms']:.3f})  plain {row['plain_ms']:.1f} ms  library none  forward "
+          f"{row['forward_ms']:.3f} ms  workspace {row['work_mib']:.0f} MiB  {row['segments']} segments of "
+          f"{row['segment_tokens']}  max_abs_err {agree['max_abs_err']:.3g}, worst/limit {agree['worst']:.3g}, "
+          f"rel {agree['rel']:.3g}", flush=True)
+    print("    launches: " + "  ".join(f"{name.split('<')[0]} {ms:.3f} ms" for name, ms in row["launch_ms"].items())
+          + "; " + ", ".join(f"{n} {i['registers']} registers, {i['smem']} B shared, {i['blocks_per_sm']} "
+                              f"blocks an SM, {i['spill_bytes']} B spilled" for n, i in row["info"].items()),
           flush=True)
     del args, r, k, v, lw, u, dy, got
     torch.cuda.empty_cache()
@@ -2209,16 +2242,23 @@ def rwkv6_train_flops(n_params: int, cfg, tokens: int, B: int, S: int) -> float:
 # What phases 15 and 18 train, and what each watches: the kernel ops whose
 # forward and backward launches a step are counted, the names of the
 # device kernels of its forward and of its backward in a trace, the
-# probe's judge, the model FLOPs, and what is drawn after the weights.
+# probe's judge, the model FLOPs, what is drawn after the weights, and
+# AdamW's peak rate.  rwkv6 takes AdamWConfig's own default peak: at the
+# JAX launcher's 3e-3 its drawn weights' first step (gradient norm ~4e4)
+# doubles the loss and six steps end above the first even through the
+# exact (float64) WKV6 backward, so the check failed a right gradient;
+# at 3e-4 that backward's last loss is below its first, and so is the
+# kernel's at two seeds with dy nudged by 2^-20 either way
+# (scripts/wkv6_train_sensitivity.py).
 TRAIN_CASES = {
     "flash": dict(arch=TRAIN_ARCH, ops="repro_torch.kernels.flash.ops",
                   fwd_parts=("flash_fwd_kernel", "flash_fwd_wgmma_kernel"),
                   bwd_parts=("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel", "flash_bwd_dkv_sum_kernel"),
-                  judge=flash_judge, flops=train_flops, spread=False),
+                  judge=flash_judge, flops=train_flops, spread=False, lr_peak=3e-3),
     "wkv6": dict(arch="rwkv6-3b", ops="repro_torch.kernels.wkv6.ops",
                  fwd_parts=("wkv6_chunks", "wkv6_states", "wkv6_carry"),
-                 bwd_parts=("wkv6_bwd_walk", "wkv6_bwd_sum", "wkv6_bwd_du"),
-                 judge=wkv6_judge, flops=rwkv6_train_flops, spread=True),
+                 bwd_parts=("wkv6_bwd_states", "wkv6_bwd_carry", "wkv6_bwd_chunks", "wkv6_bwd_du"),
+                 judge=wkv6_judge, flops=rwkv6_train_flops, spread=True, lr_peak=3e-4),
 }
 
 
@@ -2229,9 +2269,9 @@ def train_path(torch, case: str, fails: Failures, seed: int, record: dict) -> di
     steps through launch/train.py's model and step: data from the port's
     pipeline over Zipf documents from ``seed`` packed at TRAIN_SEQ, global
     batch TRAIN_GLOBAL_BATCH in TRAIN_MICROBATCHES microbatches, remat on,
-    the JAX package's launch/train.py AdamWConfig with f32 state (int8
-    state, said so, if the card cannot hold f32).  Checks: finite loss that
-    falls from the first step to the last, the kernel's backward launches =
+    the JAX package's launch/train.py AdamWConfig at the case's peak
+    rate with f32 state (int8 state, said so, if the card cannot hold
+    f32).  Checks: finite loss that falls from the first step to the last, the kernel's backward launches =
     layers x microbatches a step and its forward twice that (remat), no
     plain backward, every leaf (each layer of a stacked one) a finite,
     nonzero gradient each step (GradWitness), and one backward kernel call
@@ -2278,7 +2318,7 @@ def train_path(torch, case: str, fails: Failures, seed: int, record: dict) -> di
         spread_rwkv_zero_inits(torch, model, gen)
     params = model.params
     n_params = model.n_params()
-    opt_cfg = AdamWConfig(lr_peak=3e-3, warmup_steps=10, total_steps=TRAIN_STEPS)
+    opt_cfg = AdamWConfig(lr_peak=spec_["lr_peak"], warmup_steps=10, total_steps=TRAIN_STEPS)
     state_dtype = "f32"
     try:
         opt_state = adamw_init(params, state_dtype)
@@ -2288,7 +2328,8 @@ def train_path(torch, case: str, fails: Failures, seed: int, record: dict) -> di
         torch.cuda.empty_cache()
         print("  the card cannot hold f32 AdamW state beside the model: int8 state "
               "(AdamWConfig.state_dtype='int8')", flush=True)
-        opt_cfg = AdamWConfig(lr_peak=3e-3, warmup_steps=10, total_steps=TRAIN_STEPS, state_dtype="int8")
+        opt_cfg = AdamWConfig(lr_peak=spec_["lr_peak"], warmup_steps=10, total_steps=TRAIN_STEPS,
+                              state_dtype="int8")
         opt_state = adamw_init(params, state_dtype)
         report["cuts"].append("optimizer state int8 (f32 did not fit)")
     report.update(n_params=n_params, state_dtype=state_dtype)

@@ -146,37 +146,60 @@ def launch(
 def _configure_bwd(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.wkv6_bwd_launch.argtypes = [p, p, p, p, p, p, p, p, p, p, p, p, p, p, p, ctypes.c_int64,
-                                    i, i, i, i, i, i, i, p]
+                                    i, i, i, i, i, i, i, i, i, p]
     lib.wkv6_bwd_launch.restype = ctypes.c_int
+    lib.wkv6_bwd_info.argtypes = [i, i, i, i, ctypes.POINTER(ctypes.c_int)]
+    lib.wkv6_bwd_info.restype = ctypes.c_int
 
 
 BWD_LIBRARY = CudaLibrary("wkv6_bwd", BWD_SOURCE, _configure_bwd)
 
-# The backward's stage (T in the source): the interval of the states its
-# first walk keeps, and the tokens it re-walks at once; and its slice of
-# value columns a block (JS).
-BWD_STAGE = 8
-BWD_SLICE = 16
+# The backward's segment: the tokens one block of its chunk pass walks, and
+# the most it takes: two groups of BWD_NC = 4 chunks in the source, whose
+# states it keeps in shared memory (the rebuild runs again from the
+# segment's first state for the second group).  Eight chunks give the 2 x
+# 40 heads of rwkv6-3b's training microbatch 1,280 blocks at 2048 tokens,
+# and half the states pass and carries of segments of four.
+BWD_SEGMENT = 8 * CHUNK
 
 
-def bwd_work_floats(B: int, S: int, H: int, K: int) -> int:
+def bwd_segments(S: int, seg_len: int = BWD_SEGMENT) -> int:
+    """How many segments of ``seg_len`` tokens the backward cuts S into (one
+    for S = 0)."""
+    return max(1, -(-S // seg_len))
+
+
+def bwd_work_floats(B: int, S: int, H: int, K: int, seg_len: int = BWD_SEGMENT) -> int:
     """f32 workspace of one backward (csrc/wkv6_bwd.cu's ``work``, which
-    refuses less): the state before every stage (B, H, ceil(S /
-    BWD_STAGE), K, K), the slices' partials of dr, dk and dlog_w (K /
-    BWD_SLICE, 3, B, S, H, K) and of du (B, K / BWD_SLICE, H, K)."""
-    slices = K // BWD_SLICE
-    return B * H * (-(-S // BWD_STAGE)) * K * K + 3 * slices * B * S * H * K + B * slices * H * K
+    refuses less): each segment's state and its gradient (B, H, n_seg, K,
+    K) each, its decay (B, H, n_seg, K) and du's (b, segment) partials (B,
+    n_seg, H, K)."""
+    n_seg = bwd_segments(S, seg_len)
+    return 2 * B * H * n_seg * K * K + 2 * B * H * n_seg * K
+
+
+def bwd_library_info(dtype: torch.dtype, K: int, chunks: bool = True, device: int = 0) -> dict:
+    """What one instance of the backward's chunk pass (``chunks``) or its
+    states pass takes on the card, read back from the library: registers a
+    thread, dynamic shared bytes a block, blocks resident on an SM, spilled
+    bytes a thread."""
+    out = (ctypes.c_int * 4)()
+    rc = BWD_LIBRARY.load().wkv6_bwd_info(_DTYPES[dtype], K, int(chunks), device, out)
+    if rc != 0:
+        raise RuntimeError(f"wkv6_bwd_info failed with cudaError {rc}")
+    return {"registers": out[0], "smem": out[1], "blocks_per_sm": out[2], "spill_bytes": out[3]}
 
 
 def launch_bwd(
     r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, log_w: torch.Tensor, u: torch.Tensor,
     S0: Optional[torch.Tensor], dy: torch.Tensor, dS_out: Optional[torch.Tensor],
-    lib: CudaLibrary = BWD_LIBRARY,
+    lib: CudaLibrary = BWD_LIBRARY, seg_len: int = BWD_SEGMENT,
 ) -> Tuple[torch.Tensor, ...]:
     """One backward on CUDA tensors the caller has checked: r, k, v (B, S,
     H, K) of one type of ``_DTYPES``, K in HEAD_SIZES, log_w and dy (B, S,
     H, K) f32, u (H, K) f32 or bf16, S0 and dS_out (B, H, K, K) f32 or None,
-    all contiguous on one device.  The outputs and the workspace
+    all contiguous on one device, over segments of ``seg_len`` tokens (a
+    multiple of CHUNK up to BWD_SEGMENT).  The outputs and the workspace
     (``bwd_work_floats``) are allocated here; the kernels run on the current
     stream.  Returns (dr, dk, dv) in r's type, dlog_w f32, du in u's type
     and dS0 f32."""
@@ -185,9 +208,11 @@ def launch_bwd(
     B, S, H, K = r.shape
     if K not in HEAD_SIZES:
         raise ValueError(f"head size {K} is not one of the wkv6 backward's {HEAD_SIZES}")
+    if seg_len % CHUNK or not 0 < seg_len <= BWD_SEGMENT:
+        raise ValueError(f"the wkv6 backward's segment is a multiple of {CHUNK} up to {BWD_SEGMENT}, not {seg_len}")
     r, k, v, log_w, dy = (_aligned(t) for t in (r, k, v, log_w, dy))
     u32 = u.to(torch.float32).contiguous()
-    n_work = bwd_work_floats(B, S, H, K)
+    n_work = bwd_work_floats(B, S, H, K, seg_len)
     work = torch.empty(n_work, dtype=torch.float32, device=r.device)
     dr, dk, dv = (torch.empty_like(t) for t in (r, k, v))
     dlog_w = torch.empty((B, S, H, K), dtype=torch.float32, device=r.device)
@@ -199,7 +224,8 @@ def launch_bwd(
         r.data_ptr(), k.data_ptr(), v.data_ptr(), log_w.data_ptr(), u32.data_ptr(),
         None if S0 is None else S0.data_ptr(), dy.data_ptr(), None if dS_out is None else dS_out.data_ptr(),
         dr.data_ptr(), dk.data_ptr(), dv.data_ptr(), dlog_w.data_ptr(), du.data_ptr(), dS0.data_ptr(),
-        work.data_ptr(), n_work, _DTYPES[r.dtype], _DTYPES[u.dtype], B, S, H, K, device, stream,
+        work.data_ptr(), n_work, _DTYPES[r.dtype], _DTYPES[u.dtype], B, S, H, K, bwd_segments(S, seg_len),
+        seg_len, device, stream,
     )
     if rc != 0:
         raise RuntimeError(f"wkv6 backward kernel launch failed with cudaError {rc}")

@@ -17,6 +17,9 @@
 # ``wkv6_bwd_plain`` is the recurrence's gradient walked back token by token
 # (the JAX package takes it by autodiff of ``_wkv_chunked``): the backward
 # kernel's plain version, and in float64 its yardstick (``bwd_agreement``).
+# ``wkv6_bwd_chunked_split_plain`` is the backward kernel's own arithmetic on
+# the CPU: the chunked gradient in log2 units, its products in split TF32,
+# dlog_w from its four direct terms, over segments with both carries.
 #
 # Recurrence, per head (k, r in R^K, v in R^V, w_t = e^{log_w_t} in (0, 1]^K,
 # u in R^K):
@@ -48,8 +51,9 @@ KERNEL_TOL = dict(rtol=2e-3, atol_frac=1e-3, rel=1e-4)
 # wkv6_bwd_plain run in float64, for each of its outputs (dr, dk, dv,
 # dlog_w, du, dS0; ``kernels._agreement``: a row is one token and head of
 # dr, dk, dv, dlog_w, one head of du, one key row of dS0), by the output's
-# type.  The kernel walks the recurrence token by token in f32, as the plain
-# version does in f32; their errors against float64 grow with the length
+# type.  The kernel takes the chunked gradient in f32 with its products in
+# split TF32 (``wkv6_bwd_chunked_split_plain``), the plain version walks
+# token by token in f32; their errors against float64 grow with the length
 # and the weakness of the decay (the state and its gradient sum ~1 / (1 -
 # w) tokens).  A bf16 output (dr, dk, dv for bf16 r, k, v; du for a bf16 u)
 # is also rounded once: half a unit of its last place is 2^-8 of it at most.
@@ -310,6 +314,194 @@ def wkv6_chunked_split_plain(
         y, state = _chunk_steps(r[:, a:b], k[:, a:b], v[:, a:b], log_w[:, a:b], u, start, exact_v)
         ys.append(y)
     return torch.cat(ys, dim=1), state
+
+
+def _segment_grad_state(r, dy, log_w):
+    """The gradient one segment (B, n, H, K) sends to the state before it
+    from a zero gradient after it, G = sum_t (r_t . 2^{cumq_t})^T dy_t with
+    cumq the exclusive running sum of the log2 decays over the segment, as
+    the backward's states pass takes it: chunks from the first, r~ = r .
+    2^{pre + cumq_c} with pre the log2 decay of the chunks before (every
+    exponent <= 0)."""
+    B, S, H, K = r.shape
+    pad = (-S) % CHUNK
+    n = (S + pad) // CHUNK
+
+    def prep(t):
+        return F.pad(t.float(), (0, 0, 0, 0, 0, pad)).reshape(B, n, CHUNK, H, K)
+
+    r_, dy_ = prep(r), prep(dy)
+    cum = torch.cumsum(prep(log_w) * LOG2E, dim=2)
+    cum_q = torch.cat([torch.zeros_like(cum[:, :, :1]), cum[:, :, :-1]], dim=2)
+    g = _zero_state(r)
+    pre = torch.zeros((B, H, K), dtype=torch.float32, device=r.device)
+    for c in range(n):
+        g = g + _split_product("bjhk,bjhv->bhkv", r_[:, c] * torch.exp2(pre[:, None] + cum_q[:, c]), dy_[:, c])
+        pre = pre + cum[:, c, -1]
+    return g
+
+
+def _exclusive_cumsum(x: torch.Tensor, reverse: bool = False) -> torch.Tensor:
+    """Over dim 1: the sum of the entries before each (after it when
+    ``reverse``), each sum taken directly."""
+    if reverse:
+        return _exclusive_cumsum(x.flip(1)).flip(1)
+    return torch.cat([torch.zeros_like(x[:, :1]), x[:, :-1].cumsum(1)], dim=1)
+
+
+# _carry_back and _dlogw_terms are functions of their own only so that
+# tests/test_torch_wkv6_grad.py can replace them: a twin that drops the
+# carry or one of the four terms must fail BWD_TOL.
+def _carry_back(dS: torch.Tensor, tot: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """The gradient carried to the state before a chunk: 2^{tot} . dS' + G."""
+    return torch.exp2(tot)[..., None] * dS + g
+
+
+def _dlogw_terms(a, b, c, d):
+    """dlog_w of a chunk from its four direct terms (see
+    ``wkv6_bwd_chunked_split_plain``), summed in the kernel's order."""
+    return a + b + c + d
+
+
+def _chunk_grads(r, k, v, log_w, u, dy, start, dS, exact_v: bool):
+    """The backward's chunk pass over one segment (B, n, H, K): its chunks'
+    states rebuilt forward from ``start``, then its chunks walked back from
+    ``dS``, the gradient after the segment.  Returns dr, dk, dv, dlog_w (B,
+    n, H, K), du's share (B, H, K) and the gradient before the segment."""
+    B, S, H, K = r.shape
+    L, half = CHUNK, CHUNK // 2
+    pad = (-S) % L
+    n = (S + pad) // L
+
+    def prep(t):
+        return F.pad(t.float(), (0, 0, 0, 0, 0, pad)).reshape(B, n, L, H, K)
+
+    r_, k_, v_, dy_ = prep(r), prep(k), prep(v), prep(dy)
+    cum = torch.cumsum(prep(log_w) * LOG2E, dim=2)
+    cum_q = torch.cat([torch.zeros_like(cum[:, :, :1]), cum[:, :, :-1]], dim=2)
+    total = cum[:, :, -1]
+    idx = torch.arange(L, device=r.device)
+    lower = (idx[None, :] < idx[:, None])[None, :, :, None, None]           # j < i
+    on_or_below = (idx[None, :] <= idx[:, None])[None, :, :, None]
+    diag = (idx[None, :] == idx[:, None])[None, :, :, None]
+    same_half = ((idx[:, None] // half) == (idx[None, :] // half))[None, :, :, None, None]
+    # straddle[t, i, j]: the pair (i, j), j < i, of one half straddles t
+    straddle = ((idx[None, None, :] < idx[:, None, None]) & (idx[:, None, None] < idx[None, :, None])
+                & ((idx[None, :, None] // half) == (idx[None, None, :] // half))).float()
+    u32 = u.float()
+    states = [start]
+    for c in range(n - 1):
+        kd = k_[:, c] * torch.exp2(total[:, c, None] - cum[:, c])
+        E = _split_product("bjhk,bjhv->bhkv", kd, v_[:, c], exact_b=exact_v)
+        states.append(torch.exp2(total[:, c])[..., None] * states[-1] + E)
+    out = [torch.zeros((B, n, L, H, K), dtype=torch.float32, device=r.device) for _ in range(4)]
+    du = torch.zeros((B, H, K), dtype=torch.float32, device=r.device)
+    for c in reversed(range(n)):
+        rc, kc, vc, gc, Sc = r_[:, c], k_[:, c], v_[:, c], dy_[:, c], states[c]
+        cumc, cumqc, totc = cum[:, c], cum_q[:, c], total[:, c]
+        r_t = rc * torch.exp2(cumqc)                                         # r~
+        k_t = kc * torch.exp2(totc[:, None] - cumc)                          # k~
+        # the weights within the chunk: the diagonal blocks directly, the
+        # block below them factored at its corner m = half - 1
+        ld = cumqc[:, :, None] - cumc[:, None, :]
+        D = torch.where(lower & same_half, torch.exp2(torch.where(lower, ld, 0.0)), 0.0)  # (B, i, j, H, K)
+        r_f = rc[:, half:] * torch.exp2(cumqc[:, half:] - cumc[:, half - 1:half])         # R~
+        k_f = kc[:, :half] * torch.exp2(cumc[:, half - 1:half] - cumc[:, :half])          # K~
+        A = (rc[:, :, None] * kc[:, None] * D).sum(-1)
+        A[:, half:, :half] = torch.einsum("bihk,bjhk->bijh", r_f, k_f)
+        A = torch.where(diag, (rc * u32 * kc).sum(-1)[:, :, None], A)
+        dA = torch.where(on_or_below, torch.einsum("bihv,bjhv->bijh", gc, vc), 0.0)
+        dAd = torch.diagonal(dA, dim1=1, dim2=2).permute(0, 2, 1)[..., None]  # (B, L, H, 1)
+        # the five K x V products on the tensor cores
+        dr_t = _split_product("bhkv,bihv->bihk", Sc, gc)
+        dk_t = _split_product("bhkv,bjhv->bjhk", dS, vc, exact_b=exact_v)
+        G = _split_product("bihk,bihv->bhkv", r_t, gc)
+        dv = _split_product("bjhk,bhkv->bjhv", k_t, dS) + torch.einsum("bijh,bihv->bjhv", A, gc)
+        # dr, dk: the state's share, the pairs of the diagonal blocks, the
+        # block below them through its factors, the bonus
+        P = dA[..., None] * D                                               # (B, i, j, H, K)
+        dr = dr_t * torch.exp2(cumqc) + (P * kc[:, None]).sum(2) + dAd * u32 * kc
+        dk = dk_t * torch.exp2(totc[:, None] - cumc) + (P * rc[:, :, None]).sum(1) + dAd * u32 * rc
+        y_off = torch.einsum("bijh,bjhk->bihk", dA[:, half:, :half], k_f)  # (dA K~)_i, i >= half
+        x_off = torch.einsum("bijh,bihk->bjhk", dA[:, half:, :half], r_f)  # (dA^T R~)_j, j < half
+        dr[:, half:] += torch.exp2(cumqc[:, half:] - cumc[:, half - 1:half]) * y_off
+        dk[:, :half] += torch.exp2(cumc[:, half - 1:half] - cumc[:, :half]) * x_off
+        # dlog_w: (a) the state's decay, the same for every token; (b) r~'s
+        # after t; (c) k~'s before t; (d) A's pairs that straddle t: those of
+        # the diagonal blocks directly, those of the block below as prefix
+        # sums of K~ (dA^T R~) over the first half and suffix sums of R~
+        # (dA K~) over the second
+        a = (torch.exp2(totc) * (Sc * dS).sum(-1))[:, None]
+        b = _exclusive_cumsum(r_t * dr_t, reverse=True)
+        c_ = _exclusive_cumsum(k_t * dk_t)
+        pairs = P * rc[:, :, None] * kc[:, None]
+        d = torch.einsum("tij,bijhk->bthk", straddle, pairs)
+        d[:, :half] += _exclusive_cumsum(k_f * x_off)
+        d[:, half:] += _exclusive_cumsum(r_f * y_off, reverse=True)
+        dlw = _dlogw_terms(a, b, c_, d)
+        du = du + (dAd * rc * kc).sum(1)
+        for o, x in zip(out, (dr, dk, dv, dlw)):
+            o[:, c] = x
+        dS = _carry_back(dS, totc, G)
+    return [o.reshape(B, n * L, H, K)[:, :S] for o in out] + [du, dS]
+
+
+def wkv6_bwd_chunked_split_plain(
+    r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, log_w: torch.Tensor, u: torch.Tensor,
+    S0: Optional[torch.Tensor], dy: torch.Tensor, dS_out: Optional[torch.Tensor] = None,
+    seg_len: Optional[int] = None,
+) -> Tuple[torch.Tensor, ...]:
+    """The backward kernel's arithmetic on the CPU (csrc/wkv6_bwd.cu), the
+    backward's twin of ``wkv6_chunked_split_plain``: (dr, dk, dv, dlog_w,
+    du, dS0), all f32.  Per chunk of CHUNK tokens, in log2 units (cum,
+    cumq, tot as there; r~ = r . 2^{cumq}, k~ = k . 2^{tot - cum}), with S
+    the state before the chunk and dS' the gradient after it:
+      dA[i][j] = dy_i . v_j (j <= i), A as the forward's;
+      dv  = A^T dy + k~ dS';  dr~ = dy S^T;  dk~ = v dS'^T;
+      dr_i = dr~_i . 2^{cumq_i} + sum_{j<i} dA[i][j] k_j 2^{cumq_i - cum_j} + dA[i][i] u k_i;
+      dk_j = dk~_j . 2^{tot - cum_j} + sum_{i>j} dA[i][j] r_i 2^{cumq_i - cum_j} + dA[j][j] u r_j;
+      du  += sum_i dA[i][i] r_i k_i;  the gradient before: 2^{tot} . dS' + r~^T dy;
+      dlog_w_t = (a) 2^{tot} (S . dS' summed over the values) + (b) sum_{s>t} r~_s dr~_s
+               + (c) sum_{s<t} k~_s dk~_s + (d) sum_{s<t<s'} dA[s'][s] r_s' k_s 2^{cumq_s' - cum_s},
+    every exponent <= 0 (no reverse cumsum of a growing sum).  The pair
+    sums take the diagonal blocks of CHUNK / 2 tokens directly and the
+    block below them through the factors R~, K~ of the forward.  The five
+    K x V products (the chunk's state product for the rebuild, dr~, dk~,
+    r~^T dy and k~ dS') go through the tensor cores' split TF32
+    (``_split_product``; v is exact when r, k and v are bf16); the carried
+    state and gradient are decayed on the CUDA cores.  With ``seg_len`` (a
+    multiple of CHUNK), over segments as the kernel's passes: each
+    segment's state from zero and its decay (``_segment_state``) and its
+    gradient from zero (``_segment_grad_state``), the carries forward from
+    S0 and back from dS_out, then each segment rebuilt and walked back."""
+    B, S, H, K = r.shape
+    start = _zero_state(r) if S0 is None else S0.float()
+    end = _zero_state(r) if dS_out is None else dS_out.float()
+    if S == 0:
+        z = torch.zeros((B, 0, H, K), dtype=torch.float32, device=r.device)
+        return z, z.clone(), z.clone(), z.clone(), torch.zeros_like(u, dtype=torch.float32), end
+    exact_v = r.dtype == torch.bfloat16
+    seg_len = S if seg_len is None else seg_len
+    bounds = [(a, min(S, a + seg_len)) for a in range(0, S, seg_len)]
+    sl = [slice(a, b) for a, b in bounds]
+    starts, decays = [start], []
+    for s in sl:
+        e, tot = _segment_state(k[:, s], v[:, s], log_w[:, s], exact_v)
+        decays.append(torch.exp2(tot))
+        starts.append(decays[-1][..., None] * starts[-1] + e)
+    ends = [end]
+    for i in reversed(range(1, len(sl))):
+        g = _segment_grad_state(r[:, sl[i]], dy[:, sl[i]], log_w[:, sl[i]])
+        ends.insert(0, decays[i][..., None] * ends[0] + g)
+    outs, du = [], torch.zeros((B, H, K), dtype=torch.float32, device=r.device)
+    for i in reversed(range(len(sl))):
+        s = sl[i]
+        *grads, du_s, dS = _chunk_grads(r[:, s], k[:, s], v[:, s], log_w[:, s], u, dy[:, s], starts[i], ends[i],
+                                        exact_v)
+        outs.insert(0, grads)
+        du = du + du_s
+    dr, dk, dv, dlw = (torch.cat(x, dim=1) for x in zip(*outs))
+    return dr, dk, dv, dlw, du.sum(0), dS
 
 
 def wkv6_segmented_plain(

@@ -835,6 +835,51 @@ def test_wkv6_bwd_kernel_matches_plain(cuda, K, dtype, S, B, H, decay, with_stat
 
 
 @pytest.mark.requires_cuda
+@pytest.mark.parametrize("with_state", [False, True], ids=["zero", "S0"])
+@pytest.mark.parametrize("decay", ["random", "-54.6"])
+@pytest.mark.parametrize("seg_len", [16, 32, 64, 128])
+@pytest.mark.parametrize("at", ["4L-1", "4L", "4L+1", "12L+5"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("K", wkv6_kernel.HEAD_SIZES)
+def test_wkv6_bwd_kernel_at_segment_boundaries(cuda, K, dtype, at, seg_len, decay, with_state):
+    """The backward's passes where chunks and segments begin and end, the
+    counterpart of test_wkv6_kernel_at_segment_boundaries: segments of one,
+    two, four and eight chunks (two groups of kept states; S a multiple of
+    the chunk length L, one less or one more, or 12 L + 5), with and without
+    S0 and dS_out; every output within BWD_TOL of the plain version in
+    float64, reruns bitwise equal."""
+    chunk = wkv6_kernel.CHUNK
+    S = {"4L-1": 4 * chunk - 1, "4L": 4 * chunk, "4L+1": 4 * chunk + 1, "12L+5": 12 * chunk + 5}[at]
+    r, k, v, lw, u, s0, dy, ds = _wkv_grad_inputs(S * 5 + seg_len + K, 2, S, 3, K, decay, dtype, cuda, with_state)
+    u = u.to(dtype)
+    got = wkv6_kernel.launch_bwd(r, k, v, lw, u, s0, dy, ds, seg_len=seg_len)
+    again = wkv6_kernel.launch_bwd(r, k, v, lw, u, s0, dy, ds, seg_len=seg_len)
+    want, scales = wkv6_bwd_plain(r, k, v, lw, u, s0, dy, ds, dtype=torch.float64, with_scales=True)
+    torch.cuda.synchronize()
+    assert all(_bitwise(a, b) for a, b in zip(got, again))
+    agree = wkv6_bwd_agreement(got, want, scales)
+    assert agree["ok"], agree
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("K", wkv6_kernel.HEAD_SIZES)
+def test_wkv6_bwd_library_residency(cuda, K, dtype):
+    """Both passes of the backward build and fit an SM: the chunk pass one
+    block of two warpgroups with its kept states and operands in shared
+    memory, the states pass without spills.  At K = 64 the chunk pass takes
+    all 255 registers a thread and spills, as built with CUDA 12.8 on an
+    H100, 24 bytes in bf16 and 248 in f32 (the training path is bf16); at
+    K = 16 nothing.  A change that spills more fails here."""
+    spill_limit = {(64, torch.bfloat16): 32, (64, torch.float32): 256}.get((K, dtype), 0)
+    chunks = wkv6_kernel.bwd_library_info(dtype, K, True)
+    assert chunks["blocks_per_sm"] >= 1 and chunks["smem"] <= 227 * 1024, chunks
+    assert chunks["spill_bytes"] <= spill_limit, chunks
+    states = wkv6_kernel.bwd_library_info(dtype, K, False)
+    assert states["spill_bytes"] == 0 and states["blocks_per_sm"] >= 1, states
+
+
+@pytest.mark.requires_cuda
 @pytest.mark.parametrize("decay", ["random", "-3.4e-4"])
 def test_wkv6_bwd_kernel_at_the_training_shape(cuda, decay):
     """rwkv6-3b's training microbatch (2 x 2048, 40 heads of 64, bf16),

@@ -7,7 +7,10 @@
 # regimes the model's clip allows, with a carried state and a gradient of
 # the final state; gradcheck of the autograd Function ops.WKV6; the CPU path
 # of ops.wkv6 under a gradient; and the mutations ref.BWD_TOL must reject.
-# Inputs come from numpy with a seed.
+# The CUDA kernel's own arithmetic on the CPU (ref.wkv6_bwd_chunked_split_plain:
+# chunks, log2 units, split-TF32 products, dlog_w from its four direct
+# terms, segments with both carries) against the plain walk in float64 and
+# against jax.grad, and its mutations.  Inputs come from numpy with a seed.
 #
 # Tolerances: the plain version in f64 against autograd in f64 within
 # 1e-10 relative (the same sums in another order); jax.grad, run in f32
@@ -32,7 +35,9 @@ from repro.kernels.wkv6.ref import wkv6_ref
 from repro.models.rwkv6 import _wkv_chunked
 from repro_torch.kernels._agreement import agreement
 from repro_torch.kernels.wkv6 import ops
-from repro_torch.kernels.wkv6.ref import BWD_NAMES, BWD_TOL, bwd_agreement, wkv6_bwd_plain, wkv6_scan
+from repro_torch.kernels.wkv6 import ref
+from repro_torch.kernels.wkv6.ref import (BWD_NAMES, BWD_TOL, bwd_agreement, wkv6_bwd_chunked_split_plain,
+                                          wkv6_bwd_plain, wkv6_scan)
 
 F64_REL = 1e-10
 REF_DLOGW_ATOL = 2e-5
@@ -274,13 +279,82 @@ def test_bwd_tol_reads_each_output_by_its_type():
 
 def test_bwd_workspace_at_the_training_shape():
     """The backward kernel's f32 workspace (kernel.bwd_work_floats, which
-    csrc/wkv6_bwd.cu refuses to run short of): 800 MiB at rwkv6-3b's
-    training microbatch, most of it the states every 8 tokens and the four
-    slices' partials."""
+    csrc/wkv6_bwd.cu refuses to run short of): 41 MiB at rwkv6-3b's
+    training microbatch, the 16 segments' states and gradients (20 MiB
+    each) and their decays and du's partials; one segment at 17 tokens,
+    two of 16."""
     from repro_torch.kernels.wkv6 import kernel
 
-    states = 2 * 40 * (2048 // kernel.BWD_STAGE) * 64 * 64
-    partials = 3 * (64 // kernel.BWD_SLICE) * 2 * 2048 * 40 * 64
-    assert kernel.bwd_work_floats(2, 2048, 40, 64) == states + partials + 2 * 4 * 40 * 64
-    assert round(kernel.bwd_work_floats(2, 2048, 40, 64) * 4 / 2 ** 20) == 800
-    assert kernel.bwd_work_floats(1, 17, 3, 16) == 3 * 3 * 16 * 16 + 3 * 17 * 3 * 16 + 3 * 16
+    assert kernel.bwd_segments(2048) == 2048 // kernel.BWD_SEGMENT == 16
+    states = 2 * 40 * 16 * 64 * 64
+    assert kernel.bwd_work_floats(2, 2048, 40, 64) == 2 * states + 2 * 2 * 40 * 16 * 64
+    assert round(kernel.bwd_work_floats(2, 2048, 40, 64) * 4 / 2 ** 20) == 41
+    assert kernel.bwd_work_floats(1, 17, 3, 16) == 2 * 3 * 16 * 16 + 2 * 3 * 16
+    assert kernel.bwd_work_floats(1, 17, 3, 16, seg_len=16) == 2 * (2 * 3 * 16 * 16 + 2 * 3 * 16)
+
+
+# ---------------------------------------------------------------------------
+# the backward kernel's arithmetic on the CPU (ref.wkv6_bwd_chunked_split_plain)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("seg_len", [16, 32, 64, 128, None], ids=["seg16", "seg32", "seg64", "seg128", "segS"])
+@pytest.mark.parametrize("with_state", [False, True], ids=["zero", "state"])
+@pytest.mark.parametrize("decay", list(DECAYS))
+@pytest.mark.parametrize("S", [1, 16, 53, 208])
+@pytest.mark.parametrize("K", [16, 64])
+def test_chunked_twin_matches_the_plain_walk_in_f64(K, S, decay, with_state, seg_len):
+    """The kernel's arithmetic in f32 (chunks, split TF32, dlog_w from its
+    direct terms, segments of seg_len tokens or one of S) within BWD_TOL's
+    f32 limits, with the terms' magnitudes, of the plain walk in f64."""
+    arrays = _inputs(S * 3 + K, 1, S, 2, K, DECAYS[decay], with_state)
+    want, scales = wkv6_bwd_plain(*_torch(arrays), dtype=torch.float64, with_scales=True)
+    got = wkv6_bwd_chunked_split_plain(*_torch(arrays, torch.float32), seg_len=seg_len)
+    assert [g.dtype for g in got] == [torch.float32] * 6 and [g.shape for g in got] == [w.shape for w in want]
+    agree = bwd_agreement(got, want, scales)
+    assert agree["ok"], {n: (p["worst"], p["rel"]) for n, p in agree["parts"].items()}
+
+
+@pytest.mark.parametrize("with_state", [False, True], ids=["zero", "state"])
+@pytest.mark.parametrize("decay", list(DECAYS))
+def test_chunked_twin_matches_jax_grad_of_the_reference(decay, with_state):
+    """The kernel's arithmetic against jax.grad of the reference's chunked
+    form (f32) within BWD_TOL's f32 limits with the terms' magnitudes, every
+    output, over segments of 32 tokens; dlog_w under the reference's own
+    stated exception (its reverse-cumsum cancellation at strong decay):
+    rtol of |jax.grad| plus REF_DLOGW_ATOL times the rms of dr."""
+    arrays = _inputs(53 + len(decay), 2, 53, 3, 16, DECAYS[decay], with_state)
+    ref_grad = _jax_grad(_wkv_chunked, *arrays)
+    _, scales = wkv6_bwd_plain(*_torch(arrays), dtype=torch.float64, with_scales=True)
+    got = wkv6_bwd_chunked_split_plain(*_torch(arrays, torch.float32), seg_len=32)
+    agree = bwd_agreement(got, [g.double() for g in ref_grad], scales)
+    bad = {n: (p["worst"], p["rel"]) for n, p in agree["parts"].items() if not p["ok"]}
+    assert set(bad) <= {"dlog_w"}, bad
+    want = ref_grad[3].double()
+    scale = float(ref_grad[0].double().square().mean().sqrt())
+    limit = BWD_TOL[torch.float32]["rtol"] * want.abs() + REF_DLOGW_ATOL * scale
+    assert bool(((got[3].double() - want).abs() <= limit).all())
+    if decay in ("random", "-3.4e-4"):
+        assert not bad, bad
+
+
+@pytest.mark.parametrize("fault", ["a", "b", "c", "d", "chunk carry"])
+def test_bwd_tol_rejects_the_chunked_twin_without_a_dlogw_term_or_a_carry(fault, monkeypatch):
+    """The twin with one of dlog_w's four direct terms dropped, or with the
+    gradient not carried from one chunk to the one before, fails BWD_TOL
+    against the plain walk in f64; the twin as it is passes."""
+    arrays = _inputs(29, 2, 53, 3, 16, None, True)
+    want, scales = wkv6_bwd_plain(*_torch(arrays), dtype=torch.float64, with_scales=True)
+    t32 = _torch(arrays, torch.float32)
+    assert bwd_agreement(wkv6_bwd_chunked_split_plain(*t32), want, scales)["ok"]
+    if fault == "chunk carry":
+        monkeypatch.setattr(ref, "_carry_back", lambda dS, tot, g: g)
+    else:
+        keep, drop = ref._dlogw_terms, "abcd".index(fault)
+
+        def without(*terms):
+            return keep(*(torch.zeros_like(x) if i == drop else x for i, x in enumerate(terms)))
+
+        monkeypatch.setattr(ref, "_dlogw_terms", without)
+    agree = bwd_agreement(wkv6_bwd_chunked_split_plain(*t32), want, scales)
+    assert not agree["ok"], (fault, {n: (p["worst"], p["rel"]) for n, p in agree["parts"].items()})
