@@ -168,17 +168,51 @@ Phases, each of which must pass for the exit code to be 0:
    within ``ref.BWD_TOL`` of the plain backward in float64; per step its
    ms, tokens/s, model-FLOP share (6 per parameter and token and the WKV's
    12 K^2 a token, head and layer), peak memory, idle share and the
-   backward's share of device time.
+   backward's share of device time;
+19. the MoE models at their published widths (experts, top-k, capacity
+   factor 1.25 and vocabulary as published; random weights drawn on the
+   card from ``--seed``) over the most whole periods of layers whose
+   weights fit MOE_WEIGHT_GIB (``moe_depth``, from the port's parameter
+   definitions; printed): dbrx-132b for (a) 8 requests of 2048 prompt
+   tokens and 64 new ones, llama4-scout-17b-a16e for (a) and (b) one
+   request of 16384 tokens (twice its chunk: its chunked layers fold the
+   chunks into the batch) and 16 new ones, as phase 7 runs them: reruns
+   and the eager decode bitwise equal to the CUDA graph's, one flash
+   launch per layer and prefill, every flash call held against the plain
+   version, finite logits; the first decode step against prefill_forward
+   of prompt plus token on (a)'s first request at a capacity factor of E /
+   K, where C = T (at 1.25 a prefill drops choices by design and a decode
+   step never does; the count dropped at 1.25 is printed beside it; at
+   (b) the reference's chunked decode reads its ring of the last 8192
+   positions, where its prefill attends within the chunk, so the two
+   differ by design); TF32 off for the router's f32 product; per scenario
+   the busiest expert's load over the mean and the share of choices
+   dropped, and one prefill's device time split into the flash kernel,
+   the expert products, dispatch/combine, the router and the rest;
+20. training dbrx-132b at its published width over one layer (its
+   pattern's whole period; the port's training state at 14 bytes a
+   parameter with int8 AdamW moments: ``TRAIN_CASES["moe"]``) as phase
+   15 trains starcoder2-3b: the loss finite and falling at a peak rate
+   of 1e-4 (at the launcher's 3e-3 the routing collapses and the loss
+   reaches nan), lb_loss and router_z finite and in the loss
+   each step, the flash backward once per layer and microbatch and the
+   plain backward never, every leaf and each expert's slice of every
+   expert stack and router a finite nonzero gradient each step; its ms,
+   tokens/s, model-FLOP share over the active parameters (top-4 of 16
+   experts), peak memory and idle share.
 
 Phases 12 and 13 count their own segreduce launches (a CUDA graph's replay
 counts the launches it captured); the kernels' line adds them to phase 4's,
-and phase 18's wkv6 forward launches to phase 10's.
+and phase 18's wkv6 forward launches to phase 10's; phases 19 and 20's
+flash launches join phases 7 and 15's, phase 20's backward phase 15's.
 
 What is cut from TPC-H: Q15 keeps only its revenue view (no outer max or
 supplier join); Q13 keeps its inner aggregate (no outer join's zero-count
 customers, no comment filter); Q2 keeps only its inner MIN (no region
 joins); dbgen is replaced by numpy.  Nothing of gemma2-9b, rwkv6-3b or
-starcoder2-3b is cut; their weights are random.
+starcoder2-3b is cut; their weights are random.  dbrx-132b (132 B
+parameters) and llama4-scout (109 B) do not fit one card: phases 19 and 20
+cut their depth only, to the layers printed.
 
 The last lines are the kernels' JSON record and {"ok": true, "device": ...}.
 The script exits non-zero, printing neither, without a CUDA device or
@@ -217,6 +251,14 @@ SERVE_ARCH = "gemma2-9b"
 SERVE_SCENARIOS = {"a": (8, 2048, 64), "b": (1, 8192, 16)}  # batch, prompt, new tokens
 RWKV_ARCH = "rwkv6-3b"
 RWKV_SCENARIOS = {"a": (8, 2048, 64), "b": (1, 16384, 16)}
+# phase 19: llama4's (b) is twice its chunk of 8192, so its chunked layers
+# fold the chunks into the batch and decode through their ring caches
+MOE_SCENARIOS = {"dbrx-132b": {"a": (8, 2048, 64)},
+                 "llama4-scout-17b-a16e": {"a": (8, 2048, 64), "b": (1, 16384, 16)}}
+# the MoE models' serving weights on the 80 GB card; the rest holds a
+# prefill's expert buffers and activations (8 x 2048 tokens, dbrx: the
+# (16, 5120, 10752) bf16 products, 1.76 GB each)
+MOE_WEIGHT_GIB = 56.0
 WKV6_HEAD_SIZES = (16, 64)
 # 53 = 3 L + 5 and 207-209 = 13 L - 1, 13 L, 13 L + 1 for segments of
 # L = 16 tokens (the shortest the sequence-parallel form cuts: one long
@@ -1335,20 +1377,51 @@ def spread_rwkv_zero_inits(torch, model, gen) -> None:
                 p.copy_(0.1 * torch.randn(shape, generator=gen, device=dev))
 
 
+def first_step_vs_prefill(torch, model, prompts, res, ops, rec: CallRecorder, n_layers: int, fails: Failures,
+                          what: str) -> dict:
+    """The first decode step's logits (``res.logits[1]``, from
+    ``generate(model, prompts, ..., keep_logits=True)``) against
+    prefill_forward of the prompt plus the token it fed: within rtol/atol
+    DECODE_TOL and DECODE_REL of the largest logit; the prefill launches the
+    kernel once per layer."""
+    rec.label = f"{what}+1"
+    before = ops.LAUNCHES
+    tok0 = res.tokens[:, prompts.shape[1] : prompts.shape[1] + 1]
+    with torch.inference_mode():
+        full, _ = model.prefill({"tokens": torch.cat([prompts, tok0], dim=1)})
+    fails.check(ops.LAUNCHES - before == n_layers, f"serve {what}: consistency prefill: launches")
+    got, want = res.logits[1].float(), full[:, -1].float()
+    err, top = float((got - want).abs().max()), float(want.abs().max())
+    ok = bool(torch.allclose(got, want, rtol=DECODE_TOL, atol=DECODE_TOL))
+    ok = ok and bool(torch.isfinite(want).all()) and err <= DECODE_REL * top
+    fails.check(ok, f"serve {what}: first decode step against prefill: max_abs_err {err:.3g}, "
+                    f"{err / top:.3g} of the largest logit {top:.3g}")
+    return {"decode_vs_prefill_max_abs_err": err, "logit_abs_max": top}
+
+
 def serve_path(torch, arch: str, scenarios_spec: dict, ops, rec: CallRecorder, kernel: str, fails: Failures,
-               seed: int, record: dict, prepare=None):
-    """``generate`` at ``arch``'s full width for each scenario (batch,
-    prompt, new tokens), twice, through the kernel that ``rec`` wraps on
-    ``ops``: one launch per layer and prefill, every call held against the
-    plain version, bitwise-equal tokens, finite logits, and for (b) the
-    first decode step against a prefill of prompt + token; then where the
-    card time goes (``serve_breakdown``).  ``prepare(model, gen)`` adjusts
-    the drawn weights."""
+               seed: int, record: dict, prepare=None, n_layers: int = 0, moe=None):
+    """``generate`` at ``arch``'s full width (over its first ``n_layers``
+    layers where given) for each scenario (batch, prompt, new tokens),
+    twice, through the kernel that ``rec`` wraps on ``ops``: one launch per
+    layer and prefill, every call held against the plain version,
+    bitwise-equal tokens, finite logits, and for (b) the first decode step
+    against a prefill of prompt + token (``first_step_vs_prefill``); then
+    where the card time goes (``serve_breakdown``).  ``prepare(model,
+    gen)`` adjusts the drawn weights.  ``moe`` (the models/moe module), for
+    an MoE model: the consistency check runs instead on (a)'s first request
+    at a capacity with C = T (``moe_consistency``), and each scenario also
+    reads its routing (``moe_routing``) and its prefill's device time by
+    part (``moe_breakdown``)."""
+    import dataclasses
+
     from repro_torch.configs.base import get_config
     from repro_torch.models.transformer import Model
     from repro_torch.serve.step import generate
 
     cfg = get_config(arch)
+    if n_layers:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
     n_layers = cfg.n_layers
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -1366,7 +1439,7 @@ def serve_path(torch, arch: str, scenarios_spec: dict, ops, rec: CallRecorder, k
         name: (rng.integers(4, cfg.vocab_size, (B, S)).astype(np.int32), new)
         for name, (B, S, new) in scenarios_spec.items()
     }
-    report: dict = {"arch": arch, "n_params": n_params}
+    report: dict = {"arch": arch, "n_params": n_params, "layers": n_layers}
     ops.reset_launches()
     with rec:
         for name, (prompt_np, new) in scenarios.items():
@@ -1403,22 +1476,12 @@ def serve_path(torch, arch: str, scenarios_spec: dict, ops, rec: CallRecorder, k
                 "prefill_tok_s": B * prompts.shape[1] / res.prefill_s,
                 "graph_tokens_equal_eager": bool(torch.equal(res.tokens, eager.tokens)),
             }
-            if name == "b":
+            if name == "b" and moe is None:
                 # the first decode step against a prefill of the prompt plus its token
-                rec.label = "b+1"
-                before = ops.LAUNCHES
-                tok0 = res.tokens[:, prompts.shape[1] : prompts.shape[1] + 1]
-                with torch.inference_mode():
-                    full, _ = model.prefill({"tokens": torch.cat([prompts, tok0], dim=1)})
-                fails.check(ops.LAUNCHES - before == n_layers, f"serve {arch}: consistency prefill: launches")
-                got, want = runs[1].logits[1].float(), full[:, -1].float()
-                err, top = float((got - want).abs().max()), float(want.abs().max())
-                ok = bool(torch.allclose(got, want, rtol=DECODE_TOL, atol=DECODE_TOL))
-                ok = ok and bool(torch.isfinite(want).all()) and err <= DECODE_REL * top
-                fails.check(ok, f"serve {arch} (b): first decode step against prefill: max_abs_err {err:.3g}, "
-                                f"{err / top:.3g} of the largest logit {top:.3g}")
-                entry["decode_vs_prefill_max_abs_err"] = err
-                entry["logit_abs_max"] = top
+                entry.update(first_step_vs_prefill(torch, model, prompts, runs[1], ops, rec, n_layers, fails,
+                                                   f"{arch} (b)"))
+            if name == "a" and moe is not None:
+                entry.update(moe_consistency(torch, model, prompts[:1], ops, rec, n_layers, fails, arch))
             report[name] = entry
             print(f"  ({name}) batch {B} x {prompts.shape[1]} prompt + {new} new: prefill {entry['prefill_ms']:.1f} ms, "
                   f"decode {entry['decode_ms_per_token']:.2f} ms/token as a CUDA graph (eager "
@@ -1430,15 +1493,23 @@ def serve_path(torch, arch: str, scenarios_spec: dict, ops, rec: CallRecorder, k
     report["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
     print(f"  {rec.name} launches on the serving path: {launches}; peak memory {report['peak_gib']:.1f} GiB",
           flush=True)
-    if "b" in report:
-        b = report["b"]
-        print(f"  (b) first decode step vs prefill of prompt+token: max_abs_err "
-              f"{b['decode_vs_prefill_max_abs_err']:.4g}, logits up to {b['logit_abs_max']:.4g} (ratio "
-              f"{b['decode_vs_prefill_max_abs_err'] / b['logit_abs_max']:.4g}; limits {DECODE_TOL} and "
-              f"{DECODE_REL} of the largest logit)", flush=True)
+    for name, b in report.items():
+        if isinstance(b, dict) and "decode_vs_prefill_max_abs_err" in b:
+            print(f"  ({name}) first decode step vs prefill of prompt+token" + (
+                f" (its first request at capacity factor {b['capacity_factor']:g}, C = T = {b['capacity']}; "
+                f"{b['dropped_at_published']} of {b['choices']} choices dropped at the published "
+                f"{b['published_capacity_factor']:g})" if "capacity" in b else "") + ": max_abs_err "
+                f"{b['decode_vs_prefill_max_abs_err']:.4g}, logits up to {b['logit_abs_max']:.4g} (ratio "
+                f"{b['decode_vs_prefill_max_abs_err'] / b['logit_abs_max']:.4g}; limits {DECODE_TOL} and "
+                f"{DECODE_REL} of the largest logit)", flush=True)
     # where each scenario's card time goes (these launches are not counted)
     with torch.inference_mode():
         for name, (prompt_np, _) in scenarios.items():
+            if moe is not None:
+                prompts = torch.from_numpy(prompt_np).cuda()
+                report[name]["routing"] = moe_routing(torch, moe, model, prompts)
+                report[name]["prefill_parts"] = moe_breakdown(torch, moe, model, prompts, kernel)
+                print_moe_reading(name, report[name])
             prof = serve_breakdown(torch, model, torch.from_numpy(prompt_np).cuda(), kernel)
             report[name]["profile"] = prof
             if "device_ms" in prof:
@@ -1462,6 +1533,167 @@ def serve_path(torch, arch: str, scenarios_spec: dict, ops, rec: CallRecorder, k
     del model
     torch.cuda.empty_cache()
     return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 19: the MoE models at published width over the layers that fit
+# ---------------------------------------------------------------------------
+
+
+def moe_depth(cfg, budget_gib: float, period: int) -> tuple:
+    """(layers, bytes a layer, bytes of the embedding and head): the most
+    whole periods of ``period`` layers whose weights, with the embedding and
+    the head, fit ``budget_gib``, from the port's own parameter definitions
+    (bf16 weights, the f32 router)."""
+    import math
+
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.models.transformer import block_defs, model_defs
+
+    def nbytes(defs) -> int:
+        return sum(math.prod(d.shape) * d.dtype.itemsize for _, d in tree_leaves(defs))
+
+    layer = max(nbytes(block_defs(cfg, kind)) for kind in set(cfg.layer_kinds()))
+    outer = nbytes({k: v for k, v in model_defs(cfg).items() if k not in ("groups", "remainder")})
+    n = int((budget_gib * 2**30 - outer) // layer) // period * period
+    return max(n, period), layer, outer
+
+
+def moe_consistency(torch, model, prompts, ops, rec: CallRecorder, n_layers: int, fails: Failures,
+                    arch: str) -> dict:
+    """The first decode step against a prefill of prompt + token for one
+    request, at a capacity factor of E / K, where C = T and no expert drops
+    a token: at the published 1.25 a prefill drops by design (decode never
+    does, C >= T there), so the two would differ where it dropped.  Also the
+    choices the published capacity drops on the same prompt."""
+    import dataclasses
+
+    from repro_torch.models import moe
+    from repro_torch.serve.step import generate
+
+    cfg = model.cfg
+    m = cfg.moe
+    factor = m.n_experts / m.top_k
+    T = int(prompts.numel())
+    dropped = moe_routing(torch, moe, model, prompts)["dropped"]
+    model.cfg = dataclasses.replace(cfg, moe=dataclasses.replace(m, capacity_factor=factor))
+    try:
+        assert moe.capacity(model.cfg, T + 1)[1] == T + 1 and moe.capacity(model.cfg, T)[1] == T
+        rec.label = "a[0]"
+        before = ops.LAUNCHES
+        res = generate(model, prompts, 2, keep_logits=True)
+        fails.check(ops.LAUNCHES - before == n_layers, f"serve {arch}: consistency generate: launches")
+        out = first_step_vs_prefill(torch, model, prompts, res, ops, rec, n_layers, fails, f"{arch} (a)[0]")
+    finally:
+        model.cfg = cfg
+    return dict(out, capacity_factor=factor, capacity=T + 1, published_capacity_factor=m.capacity_factor,
+                dropped_at_published=dropped, choices=T * m.top_k * n_layers)
+
+
+def moe_routing(torch, moe, model, prompts) -> dict:
+    """One prefill of ``prompts``, each block's routing read: the load of
+    the busiest expert over the mean load (choices before the capacity
+    cut), the share of choices dropped at the model's capacity, and their
+    count, over the layers (each layer's load, and the busiest layer)."""
+    held = []
+    orig = moe.route
+
+    def recorded(logits, **kw):
+        r = orig(logits, **kw)
+        held.append((r.expert_ids.reshape(-1), r.keep.reshape(-1), kw["E"]))
+        return r
+
+    moe.route = recorded
+    try:
+        with torch.inference_mode():
+            model.prefill({"tokens": prompts})
+    finally:
+        moe.route = orig
+    loads, drops, dropped = [], [], 0
+    for ids, keep, E in held:
+        counts = torch.bincount(ids, minlength=E).float()
+        loads.append(float(counts.max() / counts.mean()))
+        n_drop = int((~keep).sum())
+        dropped += n_drop
+        drops.append(n_drop / keep.numel())
+    return {"max_over_mean_load": loads, "dropped_share": drops, "dropped": dropped,
+            "worst_load": max(loads), "mean_dropped_share": sum(drops) / len(drops)}
+
+
+MOE_PARTS = ("router_logits", "route", "dispatch", "experts", "shared_expert", "combine")
+
+
+def moe_breakdown(torch, moe, model, prompts, kernel: str) -> dict:
+    """The profiler's device ms of one prefill, split into the flash kernel,
+    the expert products (``moe.experts`` and the shared expert), dispatch
+    and combine (``moe.route``'s sorts, searchsorted and gathers,
+    ``moe.dispatch``'s copy into the expert buffers, ``moe.combine``), the
+    router (its f32 product) and the rest: each part is the device time of
+    the kernels launched inside a ``record_function`` range around the
+    module's function (wrapped for this reading only).  Empty when the
+    profiler cannot trace the card."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    origs = {name: getattr(moe, name) for name in MOE_PARTS}
+
+    def ranged(name, fn):
+        def call(*a, **kw):
+            with record_function(f"moe.{name}"):
+                return fn(*a, **kw)
+        return call
+
+    for name, fn in origs.items():
+        setattr(moe, name, ranged(name, fn))
+    try:
+        with torch.inference_mode():
+            model.prefill({"tokens": prompts})  # warm
+            torch.cuda.synchronize()
+            try:
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    time.sleep(0.1)
+                    model.prefill({"tokens": prompts})
+                    torch.cuda.synchronize()
+            except (RuntimeError, AssertionError) as e:
+                print(f"    (the profiler cannot trace the card: {e})", flush=True)
+                return {}
+    finally:
+        for name, fn in origs.items():
+            setattr(moe, name, fn)
+    events = prof.key_averages()
+    # the ranges also appear on the device's timeline as annotations: the
+    # kernels are the device's other events, a range's time its host
+    # event's device time (the kernels launched inside it)
+    kernels = [ev for ev in events if ev.device_type == DeviceType.CUDA and not ev.key.startswith("moe.")]
+    total = sum(device_us(ev) for ev in kernels) / 1e3
+    if total <= 0:
+        print("    (the profiler recorded no device time)", flush=True)
+        return {}
+    ranges = {ev.key: device_us(ev) / 1e3 for ev in events
+              if ev.key.startswith("moe.") and ev.device_type == DeviceType.CPU}
+    part = {name: ranges.get(f"moe.{name}", 0.0) for name in MOE_PARTS}
+    out = {"device_ms": total, "flash_ms": sum(device_us(ev) for ev in kernels if kernel in ev.key) / 1e3,
+           "experts_ms": part["experts"] + part["shared_expert"],
+           "dispatch_combine_ms": part["route"] + part["dispatch"] + part["combine"],
+           "router_ms": part["router_logits"], "parts_ms": part}
+    out["rest_ms"] = total - out["flash_ms"] - out["experts_ms"] - out["dispatch_combine_ms"] - out["router_ms"]
+    return out
+
+
+def print_moe_reading(name: str, entry: dict) -> None:
+    r = entry["routing"]
+    print(f"  ({name}) routing of one prefill: busiest expert {r['worst_load']:.3f}x the mean load (per layer "
+          + ", ".join(f"{x:.2f}" for x in r["max_over_mean_load"]) + f"); {100 * r['mean_dropped_share']:.2f}% of "
+          f"choices dropped at the model's capacity ({r['dropped']} choices)", flush=True)
+    b = entry["prefill_parts"]
+    if b:
+        t = b["device_ms"]
+        print(f"  ({name}) prefill device time {t:.1f} ms: flash {b['flash_ms']:.1f} ({100 * b['flash_ms'] / t:.1f}%), "
+              f"expert products {b['experts_ms']:.1f} ({100 * b['experts_ms'] / t:.1f}%), dispatch/combine "
+              f"{b['dispatch_combine_ms']:.1f} ({100 * b['dispatch_combine_ms'] / t:.1f}%), router "
+              f"{b['router_ms']:.2f} ({100 * b['router_ms'] / t:.2f}%), rest {b['rest_ms']:.1f} "
+              f"({100 * b['rest_ms'] / t:.1f}%); by function: " + ", ".join(
+                  f"{k} {v:.2f}" for k, v in b["parts_ms"].items()), flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -2192,21 +2424,24 @@ def wkv6_judge(args, got) -> dict:
 
 class GradWitness:
     """Wraps ``train/step.value_and_grad`` while the training steps run and
-    holds each step's accumulated gradient; ``read``, called after the
-    step's clock, keeps the leaves (a stacked leaf's layers one by one) that
-    are not finite or are all zero, and lets the gradient go."""
+    holds each step's accumulated gradient, loss and metrics; ``read``,
+    called after the step's clock, keeps the leaves (a stacked leaf's layers
+    one by one, and an MoE leaf's experts one by one: each expert's slice of
+    the expert stacks and its column of the router) that are not finite or
+    are all zero, and lets the gradient go."""
 
     def __init__(self, step_module) -> None:
         self.mod = step_module
         self.orig = step_module.value_and_grad
         self.grads = None
+        self.loss = self.metrics = None
         self.bad: list = []
         self.leaves = 0
 
     def __enter__(self):
         def wrapped(*a, **kw):
             out = self.orig(*a, **kw)
-            self.grads = out[2]
+            self.loss, self.metrics, self.grads = out
             return out
 
         self.mod.value_and_grad = wrapped
@@ -2216,14 +2451,28 @@ class GradWitness:
         self.mod.value_and_grad = self.orig
         return False
 
+    @staticmethod
+    def _parts(path: str, g):
+        """(rows, names): one row a layer of a stacked leaf, and one a layer
+        and expert of an MoE leaf."""
+        stacked = path.startswith("groups.")
+        g = g if stacked else g[None]
+        leaf = path.split(".")[-1]
+        if ".moe." in path and leaf == "router":
+            g = g.transpose(-1, -2)  # (layers, experts, d)
+        if ".moe." in path and (leaf == "router" or leaf.startswith("w_")):
+            rows = g.reshape(g.shape[0] * g.shape[1], -1)
+            return rows, [f"{path}[{r}][expert {e}]" for r in range(g.shape[0]) for e in range(g.shape[1])]
+        return g.reshape(g.shape[0], -1), [f"{path}[{r}]" for r in range(g.shape[0])] if stacked else [path]
+
     def read(self) -> None:
         import torch
 
         flags, names = [], []
         for path, g in self.grads.items():
-            parts = g.flatten(1) if path.startswith("groups.") else g.reshape(1, -1)
+            parts, part_names = self._parts(path, g)
             flags.append(torch.isfinite(parts).all(1) & (parts != 0).any(1))
-            names += [f"{path}[{i}]" for i in range(parts.shape[0])] if path.startswith("groups.") else [path]
+            names += part_names
         ok = torch.cat(flags).cpu().tolist()
         self.grads = None
         self.leaves = len(names)
@@ -2239,11 +2488,21 @@ def rwkv6_train_flops(n_params: int, cfg, tokens: int, B: int, S: int) -> float:
     return 6.0 * n_params * tokens + 12.0 * K * K * (cfg.d_model // K) * tokens * cfg.n_layers
 
 
-# What phases 15 and 18 train, and what each watches: the kernel ops whose
-# forward and backward launches a step are counted, the names of the
+def moe_train_flops(n_params: int, cfg, tokens: int, B: int, S: int) -> float:
+    """Model FLOPs of one MoE training step over its active parameters:
+    ``train_flops`` without the (E - K) / E of the expert stacks that a
+    token does not run."""
+    m = cfg.moe
+    stacks = 3 * m.n_experts * cfg.d_model * m.d_ff_expert * cfg.n_layers
+    return train_flops(int(n_params - stacks * (m.n_experts - m.top_k) / m.n_experts), cfg, tokens, B, S)
+
+
+# What phases 15, 18 and 20 train, and what each watches: the kernel ops
+# whose forward and backward launches a step are counted, the names of the
 # device kernels of its forward and of its backward in a trace, the
-# probe's judge, the model FLOPs, what is drawn after the weights, and
-# AdamW's peak rate.  rwkv6 takes AdamWConfig's own default peak: at the
+# probe's judge, the model FLOPs, what is drawn after the weights,
+# AdamW's peak rate, and where the card cannot hold the whole model, the
+# layers kept and the optimizer state's type.  rwkv6 takes AdamWConfig's own default peak: at the
 # JAX launcher's 3e-3 its drawn weights' first step (gradient norm ~4e4)
 # doubles the loss and six steps end above the first even through the
 # exact (float64) WKV6 backward, so the check failed a right gradient;
@@ -2259,6 +2518,21 @@ TRAIN_CASES = {
                  fwd_parts=("wkv6_chunks", "wkv6_states", "wkv6_carry"),
                  bwd_parts=("wkv6_bwd_states", "wkv6_bwd_carry", "wkv6_bwd_chunks", "wkv6_bwd_du"),
                  judge=wkv6_judge, flops=rwkv6_train_flops, spread=True, lr_peak=3e-4),
+    # dbrx-132b at one layer (one whole period of its pattern): the port's
+    # training keeps bf16 weights, f32 gradient accumulators and f32 master
+    # weights, and bf16 gradients until they are added in, 12 bytes a
+    # parameter, and AdamW's m and v, 8 more in f32 or 2 in int8.  One layer
+    # with the embedding and head is 4.49 B parameters: 90 GB with f32
+    # state, 63 GB with int8 state; two layers are 7.75 B, 109 GB.  Its
+    # peak rate is 1e-4: at the launcher's 3e-3 the router sends every
+    # choice to four experts by step 2 and the loss reaches nan by step 4,
+    # and at 3e-4 the loss falls but experts go without a token in two of
+    # the six steps (scripts/moe_train_rates.py)
+    "moe": dict(arch="dbrx-132b", ops="repro_torch.kernels.flash.ops",
+                fwd_parts=("flash_fwd_kernel", "flash_fwd_wgmma_kernel"),
+                bwd_parts=("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel", "flash_bwd_dkv_sum_kernel"),
+                judge=flash_judge, flops=moe_train_flops, spread=False, lr_peak=1e-4, layers=1,
+                state_dtype="int8"),
 }
 
 
@@ -2280,6 +2554,7 @@ def train_path(torch, case: str, fails: Failures, seed: int, record: dict) -> di
     the profiler: ms, tokens/s, the model-FLOP share of the card's bf16
     peak, peak memory, the card's idle share and the kernels' share of
     device time."""
+    import dataclasses
     import gc
     import importlib
 
@@ -2292,9 +2567,14 @@ def train_path(torch, case: str, fails: Failures, seed: int, record: dict) -> di
 
     spec_ = TRAIN_CASES[case]
     arch, kops = spec_["arch"], importlib.import_module(spec_["ops"])
+    kname = spec_["ops"].split(".")[-2]  # the kernel's package: flash, wkv6
     gc.collect()
     torch.cuda.empty_cache()
     cfg = get_config(arch)
+    cuts = []
+    if spec_.get("layers"):
+        cuts.append(f"{spec_['layers']} of {cfg.n_layers} layers")
+        cfg = dataclasses.replace(cfg, n_layers=spec_["layers"])
     print(f"  {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated before the model "
           f"(the models before it are freed)", flush=True)
     t0 = time.perf_counter()
@@ -2308,7 +2588,7 @@ def train_path(torch, case: str, fails: Failures, seed: int, record: dict) -> di
     spec = TrainSpec(microbatches=TRAIN_MICROBATCHES, remat=True)
     report: dict = {"arch": arch, "layers": cfg.n_layers, "d_model": cfg.d_model,
                     "vocab": cfg.vocab_size, "seq": TRAIN_SEQ, "global_batch": TRAIN_GLOBAL_BATCH,
-                    "microbatches": TRAIN_MICROBATCHES, "remat": True, "cuts": []}
+                    "microbatches": TRAIN_MICROBATCHES, "remat": True, "cuts": cuts}
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     model = build_model(cfg, torch.device("cuda"), seed)
@@ -2318,8 +2598,11 @@ def train_path(torch, case: str, fails: Failures, seed: int, record: dict) -> di
         spread_rwkv_zero_inits(torch, model, gen)
     params = model.params
     n_params = model.n_params()
-    opt_cfg = AdamWConfig(lr_peak=spec_["lr_peak"], warmup_steps=10, total_steps=TRAIN_STEPS)
-    state_dtype = "f32"
+    state_dtype = spec_.get("state_dtype", "f32")
+    if state_dtype != "f32":
+        cuts.append(f"optimizer state {state_dtype} (f32 does not fit: TRAIN_CASES)")
+    opt_cfg = AdamWConfig(lr_peak=spec_["lr_peak"], warmup_steps=10, total_steps=TRAIN_STEPS,
+                          state_dtype=state_dtype)
     try:
         opt_state = adamw_init(params, state_dtype)
     except torch.cuda.OutOfMemoryError:
@@ -2337,7 +2620,8 @@ def train_path(torch, case: str, fails: Failures, seed: int, record: dict) -> di
     torch.cuda.synchronize()
     print(f"  {arch}: {n_params:,} parameters and {state_dtype} AdamW state on the card in "
           f"{time.perf_counter() - t0:.1f} s, {torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated; "
-          f"{cfg.n_layers} layers, d_model {cfg.d_model}, vocab {cfg.vocab_size} (nothing cut)", flush=True)
+          f"{cfg.n_layers} layers, d_model {cfg.d_model}, vocab {cfg.vocab_size} "
+          f"({'; '.join(cuts) if cuts else 'nothing cut'})", flush=True)
     tokens = TRAIN_GLOBAL_BATCH * TRAIN_SEQ
     flops = spec_["flops"](n_params, cfg, tokens, TRAIN_GLOBAL_BATCH, TRAIN_SEQ)
     steps = []
@@ -2370,11 +2654,21 @@ def train_path(torch, case: str, fails: Failures, seed: int, record: dict) -> di
         agree = probe.check()
         path_check["calls"] += 1
         path_check.update({x: max(path_check[x], agree[x]) for x in ("max_abs_err", "worst", "rel")})
-        fails.check(agree["ok"], f"train step {s}: {case} backward call {agree['call']} (shape {agree['q']}) "
+        fails.check(agree["ok"], f"train step {s}: {kname} backward call {agree['call']} (shape {agree['q']}) "
                                  f"disagrees with the plain backward in float64 ({agree})")
         fails.check(not witness.bad and witness.leaves > 0,
                     f"train step {s}: {len(witness.bad)} of {witness.leaves} leaves have a zero or non-finite "
                     f"gradient: {witness.bad[:8]}")
+        aux = {}
+        if cfg.moe is not None:
+            # lb_loss and router_z finite, and in the loss: the step's loss
+            # is the nll plus 0.01 lb_loss + router_z_loss router_z (means
+            # over the microbatches)
+            aux = {k: float(witness.metrics[k]) for k in ("loss", "lb_loss", "router_z")}
+            total = float(witness.loss)
+            want = aux["loss"] + 0.01 * aux["lb_loss"] + cfg.moe.router_z_loss * aux["router_z"]
+            fails.check(all(np.isfinite(list(aux.values()))) and abs(total - want) <= 1e-5 * abs(total),
+                        f"train step {s}: aux losses {aux} not finite or not in the loss {total}")
         dt = held["t1"] - held["t0"]
         loss = float(metrics["loss"])
         fwd, bwd = kops.LAUNCHES - before[0], kops.BWD_LAUNCHES - before[1]
@@ -2383,7 +2677,8 @@ def train_path(torch, case: str, fails: Failures, seed: int, record: dict) -> di
                "grad_norm": float(metrics["grad_norm"]), "lr": float(metrics["lr"]),
                "peak_gib": torch.cuda.max_memory_allocated() / 2**30, "fwd_launches": fwd, "bwd_launches": bwd,
                "leaves_with_gradient": witness.leaves - len(witness.bad), "leaves": witness.leaves,
-               "bwd_check": agree}
+               "bwd_check": agree, **({"nll": aux["loss"], "lb_loss": aux["lb_loss"],
+                                       "router_z": aux["router_z"]} if aux else {})}
         line = ""
         total = sum(device_us(ev) for ev in events) / 1e3 if events is not None else 0.0
         if total > 0:
@@ -2395,19 +2690,20 @@ def train_path(torch, case: str, fails: Failures, seed: int, record: dict) -> di
             row.update(device_ms=total, idle_share=max(0.0, 1 - total / row["ms"]), fwd_ms=fwd_ms,
                        bwd_ms=bwd_ms, fwd_share=fwd_ms / total, bwd_share=bwd_ms / total,
                        top=[{"kernel": k[:90], "ms": ms} for ms, k in top])
-            line = (f"  device {total:.1f} ms, card idle {100 * row['idle_share']:.1f}%, {case} forward "
+            line = (f"  device {total:.1f} ms, card idle {100 * row['idle_share']:.1f}%, {kname} forward "
                     f"{100 * row['fwd_share']:.1f}% and backward {100 * row['bwd_share']:.1f}% of "
                     f"device time (backward launches: " + ", ".join(
                         f"{k} {v:.1f} ms" for k, v in row["bwd_launch_ms"].items()) + ")")
         steps.append(row)
         fails.check(bwd == cfg.n_layers * TRAIN_MICROBATCHES,
-                    f"train step {s}: {bwd} {case} backward launches, not {cfg.n_layers} x {TRAIN_MICROBATCHES}")
+                    f"train step {s}: {bwd} {kname} backward launches, not {cfg.n_layers} x {TRAIN_MICROBATCHES}")
         fails.check(fwd == 2 * cfg.n_layers * TRAIN_MICROBATCHES,
-                    f"train step {s}: {fwd} {case} forward launches, not 2 x {cfg.n_layers} x {TRAIN_MICROBATCHES} "
+                    f"train step {s}: {fwd} {kname} forward launches, not 2 x {cfg.n_layers} x {TRAIN_MICROBATCHES} "
                     f"(remat recomputes each layer's forward)")
         print(f"  step {s}: loss {loss:.4f}  {row['ms']:.1f} ms  {row['tokens_per_s']:.0f} tokens/s  "
               f"model FLOPs {100 * row['model_flop_share_of_bf16_peak']:.1f}% of the bf16 peak (989 TFLOP/s)  "
-              f"peak {row['peak_gib']:.1f} GiB  grad norm {row['grad_norm']:.3g}  lr {row['lr']:.2e}  {case} "
+              f"peak {row['peak_gib']:.1f} GiB  grad norm {row['grad_norm']:.3g}  lr {row['lr']:.2e}  " + (
+                  f"lb_loss {aux['lb_loss']:.4f}  router_z {aux['router_z']:.4f}  " if aux else "") + f"{kname} "
               f"launches {fwd} forward, {bwd} backward; {row['leaves_with_gradient']}/{row['leaves']} leaves "
               f"with a finite nonzero gradient; backward call {agree['call']} against float64: "
               f"worst/limit {agree['worst']:.3g}, rel {agree['rel']:.3g}" + (
@@ -2524,6 +2820,7 @@ def main(argv=None) -> int:
     from repro_torch.kernels.wkv6.ref import bwd_agreement as wkv6_bwd_agreement
     from repro_torch.kernels.wkv6.ref import wkv6_bwd_plain, wkv6_plain, wkv6_scan
 
+    t_start = time.perf_counter()
     fails = Failures()
     record: dict = {"sf": args.sf, "seed": args.seed}
 
@@ -2690,6 +2987,34 @@ def main(argv=None) -> int:
     rwkv_train = train_path(torch, "wkv6", fails, args.seed, record)
     wkv6_launches += rwkv_train["launches"]["forward"]
     wkv6_bwd_launches = rwkv_train["launches"]["backward"]
+    print(f"phases 1-18 in {time.perf_counter() - t_start:.0f} s", flush=True)
+
+    # 19. the MoE models at published width over the layers that fit
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import moe
+
+    fails.check(not torch.backends.cuda.matmul.allow_tf32,
+                "TF32 is on for f32 products: the MoE router's product must run in f32")
+    for arch, scenarios in MOE_SCENARIOS.items():
+        cfg = get_config(arch)
+        layers, layer_b, outer_b = moe_depth(cfg, MOE_WEIGHT_GIB, len(cfg.layer_pattern))
+        print(f"serving path: {arch} at published width over {layers} of {cfg.n_layers} layers "
+              f"({layer_b / 1e9:.3f} GB a layer, {outer_b / 1e9:.3f} GB embedding and head: {layers} layers fit "
+              f"{MOE_WEIGHT_GIB:g} GiB of weights; widths, experts, top-k, capacity and vocabulary as published):",
+              flush=True)
+        t0 = time.perf_counter()
+        flash_launches += serve_path(torch, arch, scenarios, flash_ops, flash_rec, "flash_fwd", fails, args.seed,
+                                     record, n_layers=layers, moe=moe)
+        flash_rec.inputs.clear()  # phase 8 timed the serving shapes; these are held only
+        print(f"  {arch}: {time.perf_counter() - t0:.0f} s", flush=True)
+
+    # 20. training dbrx-132b at published width over the layers that fit
+    print(f"training path: {TRAIN_CASES['moe']['arch']} at published width:", flush=True)
+    t0 = time.perf_counter()
+    moe_train = train_path(torch, "moe", fails, args.seed, record)
+    flash_launches += moe_train["launches"]["forward"]
+    bwd_launches += moe_train["launches"]["backward"]
+    print(f"  {time.perf_counter() - t0:.0f} s; phases 1-20 in {time.perf_counter() - t_start:.0f} s", flush=True)
 
     # the JSON record: each kernel at the largest shape the main path gave it
     entries = []
@@ -2756,8 +3081,9 @@ def main(argv=None) -> int:
                          "(src/repro/models/attention.py:54) by autodiff",
         "launches": bwd_launches,
         "max_abs_err": max([r["max_abs_err"] for r in record["flash_bwd_matrix"]]
-                           + [bwd_row["agreement"]["max_abs_err"], train["bwd_check"]["max_abs_err"]]),
-        "train_path_check": train["bwd_check"],
+                           + [bwd_row["agreement"]["max_abs_err"], train["bwd_check"]["max_abs_err"],
+                              moe_train["bwd_check"]["max_abs_err"]]),
+        "train_path_check": {"starcoder2-3b": train["bwd_check"], "dbrx-132b": moe_train["bwd_check"]},
         "ms": bwd_row["ms"],
         "plain_ms": bwd_row["plain_ms"],
         "bound_ms": bwd_row["bound_ms"],

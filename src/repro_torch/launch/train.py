@@ -7,7 +7,8 @@
 # reduced config at the data's vocabulary; --no-reduced runs the published
 # config.  --fail-at simulates a failure at that step: it restores
 # the last checkpoint and goes on from it.  At the end it restores its
-# final checkpoint and holds it bitwise against the state in memory.
+# final checkpoint and holds it bitwise against the state in memory.  An
+# MoE model also logs its lb_loss and router_z (the loss includes them).
 #
 #   PYTHONPATH=src python -m repro_torch.launch.train --arch starcoder2-3b \
 #       --steps 100 --reduced --fail-at 40
@@ -111,6 +112,8 @@ def train(args: argparse.Namespace) -> Dict[str, Any]:
     gss = GuidedSelfScheduling(min_chunk=args.ckpt_every)
     step = start
     losses: Dict[int, float] = {}
+    aux_keys = ("lb_loss", "router_z") if cfg.moe is not None else ()
+    aux_log: Dict[str, Dict[int, float]] = {k: {} for k in aux_keys}
     t0 = time.time()
     failed_once = False
     while step < args.steps:
@@ -129,8 +132,11 @@ def train(args: argparse.Namespace) -> Dict[str, Any]:
                 break
             params, opt_state, metrics = step_fn(params, opt_state, batch_on(loader, s, device))
             losses[s] = float(metrics["loss"])
+            for k in aux_keys:
+                aux_log[k][s] = float(metrics[k])
             if s % 10 == 0:
-                print(f"[train] step {s:5d} loss {losses[s]:.4f} lr {float(metrics['lr']):.2e}", flush=True)
+                print(f"[train] step {s:5d} loss {losses[s]:.4f} lr {float(metrics['lr']):.2e}"
+                      + "".join(f" {k} {aux_log[k][s]:.4f}" for k in aux_keys), flush=True)
         else:
             step = end
             ckpt.save(step, (params, opt_state), blocking=False)
@@ -142,7 +148,8 @@ def train(args: argparse.Namespace) -> Dict[str, Any]:
           f"restores bitwise: {bitwise}", flush=True)
     return {"final_step": step, "resumed_from": resumed, "restores_bitwise": bitwise,
             "losses": [losses[s] for s in sorted(losses)], "n_params": model.n_params(),
-            "scale_events": len(elastic.events)}
+            "scale_events": len(elastic.events),
+            **{k: [v[s] for s in sorted(v)] for k, v in aux_log.items()}}
 
 
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:

@@ -24,7 +24,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.wkv6 import ops as wkv6_ops
 from repro_torch.kernels.wkv6.ref import wkv6_scan
-from .common import ParamDef
+from .common import ParamDef, sigmoid, silu
 
 LOG_CLAMP = -30.0  # log-decay anchor for the factorized form
 
@@ -71,13 +71,6 @@ def _mix(x: torch.Tensor, prev: torch.Tensor, mu: torch.Tensor) -> torch.Tensor:
     return x + (prev - x) * mu
 
 
-def _sigmoid(x: torch.Tensor) -> torch.Tensor:
-    """jax.nn.sigmoid as the JAX package computes it on bf16: 1 / (1 +
-    exp(-x)), each step rounded to x's type (torch.sigmoid rounds once, and
-    differs from it in a third of bf16 outputs)."""
-    return 1 / (1 + torch.exp(-x))
-
-
 def rwkv6_time_mix(
     p: Dict[str, torch.Tensor],
     x: torch.Tensor,  # (B, S, d)
@@ -101,7 +94,7 @@ def rwkv6_time_mix(
     k = (xk @ p["wk"]).reshape(B, S, H, K)
     v = (xv @ p["wv"]).reshape(B, S, H, K)
     xg = xg @ p["wg"]
-    g = xg * _sigmoid(xg)  # jax.nn.silu
+    g = silu(xg)
     # data-dependent decay (the Finch contribution):
     #   w_t = exp(-exp(w0 + LoRA(x_w))) in (0,1), its log taken in f32
     w_log = p["w0"].float() + (torch.tanh(xw @ p["w_lora_a"]) @ p["w_lora_b"]).float()
@@ -216,6 +209,6 @@ def rwkv6_channel_mix(
     xk = _mix(x, prev, p["mu_k"])
     xr = _mix(x, prev, p["mu_r"])
     k = torch.square(F.relu(xk @ p["wk"]))
-    out = _sigmoid(xr @ p["wr"]) * (k @ p["wv"])
+    out = sigmoid(xr @ p["wr"]) * (k @ p["wv"])
     new_state = {"shift_c": x[:, -1]} if state is not None else None
     return out, new_state

@@ -1,6 +1,7 @@
 # Model assembly: parameter-definition trees, the layer stacker (pattern
 # periods with stacked parameters, plus a remainder), and the forward /
-# prefill / decode entry points for the attention families and rwkv6.
+# prefill / decode entry points for the attention families (with a dense
+# or a mixture-of-experts feed-forward) and rwkv6.
 #
 # Heterogeneous layer patterns (gemma local:global alternation) stack one
 # tensor per pattern position with a leading ``repeats`` axis, as the JAX
@@ -21,7 +22,7 @@ from repro_torch.configs.base import ArchConfig
 from .attention import AttnInputs, attention_block, attention_defs, init_cache_shape
 from .common import (
     ParamDef,
-    init_param,
+    draw_param_,
     param_count,
     rms_norm,
     softcap,
@@ -30,6 +31,7 @@ from .common import (
     tree_stack_defs,
 )
 from .mlp import mlp_block, mlp_defs
+from .moe import moe_block, moe_defs
 from .rwkv6 import rwkv6_channel_defs, rwkv6_channel_mix, rwkv6_defs, rwkv6_time_mix
 
 ATTN_KINDS = ("global", "local", "chunked", "bidir")
@@ -44,8 +46,6 @@ def _not_ported(what: str) -> NotImplementedError:
 def _check_ported(cfg: ArchConfig) -> None:
     if cfg.family == "audio":
         raise _not_ported("the audio frontend")
-    if cfg.moe is not None:
-        raise _not_ported("the moe block")
     if cfg.shared_attn_period:
         raise _not_ported("the zamba2 shared block")
     for kind in set(cfg.layer_kinds()):
@@ -65,13 +65,14 @@ def block_defs(cfg: ArchConfig, kind: str) -> Dict[str, Any]:
         return ParamDef((d,), ("embed",), init="zeros")
 
     if kind in ATTN_KINDS:
-        if cfg.moe is not None:
-            raise _not_ported("the moe block")
         out: Dict[str, Any] = {"ln1": ln(), "attn": attention_defs(cfg)}
         if cfg.post_block_norms:
             out["ln1_post"] = ln()
         out["ln2"] = ln()
-        out["mlp"] = mlp_defs(cfg)
+        if cfg.moe is not None:
+            out["moe"] = moe_defs(cfg)
+        else:
+            out["mlp"] = mlp_defs(cfg)
         if cfg.post_block_norms:
             out["ln2_post"] = ln()
         return out
@@ -118,7 +119,8 @@ def apply_block(
     prefill: bool = False,
     prefill_quant: bool = False,
 ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]], Dict[str, torch.Tensor]]:
-    """Returns (x_out, new_cache, aux)."""
+    """Returns (x_out, new_cache, aux); aux holds the MoE block's
+    lb_loss and router_z (f32 scalars), and is empty for other blocks."""
     if kind == "rwkv":
         return _rwkv_block(p, x, cfg, cache, prefill)
     if kind not in ATTN_KINDS:
@@ -130,13 +132,23 @@ def apply_block(
     )
     if cfg.post_block_norms:
         attn_out = rms_norm(attn_out, p["ln1_post"], cfg.norm_eps)
-    x = x + attn_out
-    h = rms_norm(x, p["ln2"], cfg.norm_eps)
-    ff = mlp_block(p["mlp"], h, cfg)
+        x = x + attn_out
+        h = rms_norm(x, p["ln2"], cfg.norm_eps)
+    else:
+        # the JAX package's compiled block norms the f32 sum, unrounded (XLA
+        # keeps the add fused into the norm, as in the rwkv block); the
+        # residual itself is rounded
+        h = rms_norm(x.float() + attn_out.float(), p["ln2"], cfg.norm_eps).to(x.dtype)
+        x = x + attn_out
+    aux: Dict[str, torch.Tensor] = {}
+    if cfg.moe is not None:
+        ff, aux = moe_block(p["moe"], h, cfg)
+    else:
+        ff = mlp_block(p["mlp"], h, cfg)
     if cfg.post_block_norms:
         ff = rms_norm(ff, p["ln2_post"], cfg.norm_eps)
     x = x + ff
-    return x, new_cache, {}
+    return x, new_cache, aux
 
 
 def _rwkv_block(
@@ -293,28 +305,38 @@ def forward(
     cfg: ArchConfig,
     remat: bool = False,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Full-sequence forward (train / prefill).  Returns (logits, aux).
-    ``remat`` recomputes each repeat of the layer pattern in the backward
+    """Full-sequence forward (train / prefill).  Returns (logits, aux),
+    aux the MoE losses summed over the layers (zeros without experts), as
+    the JAX package sums them over its scan and the remainder.  ``remat``
+    recomputes each repeat of the layer pattern in the backward
     (torch.utils.checkpoint), as the JAX package checkpoints each step of
     its scan; the remainder layers are not recomputed, as there."""
     x = embed_tokens(params, batch, cfg)
     B, S, _ = x.shape
     positions = _positions_of(batch, cfg, B, S, x.device)
     (pattern, repeats), remainder = cfg.scan_groups()
+    zero = torch.zeros(len(AUX_KEYS), dtype=torch.float32, device=x.device)
 
-    def repeat(x: torch.Tensor, r: int) -> torch.Tensor:
+    def add_aux(acc: torch.Tensor, aux: Dict[str, torch.Tensor]) -> torch.Tensor:
+        return acc + torch.stack([aux[k] for k in AUX_KEYS]) if aux else acc
+
+    def repeat(x: torch.Tensor, r: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        acc = zero
         for i, kind in enumerate(pattern):
-            x, _, _ = apply_block(_layer(params["groups"][f"pos{i}"], r), x, cfg, kind, positions)
-        return x
+            x, _, aux = apply_block(_layer(params["groups"][f"pos{i}"], r), x, cfg, kind, positions)
+            acc = add_aux(acc, aux)
+        return x, acc
 
+    aux_acc = zero
     for r in range(repeats):
-        x = checkpoint(repeat, x, r, use_reentrant=False) if remat else repeat(x, r)
+        x, aux_r = checkpoint(repeat, x, r, use_reentrant=False) if remat else repeat(x, r)
+        aux_acc = aux_acc + aux_r
     for j, kind in enumerate(remainder):
-        x, _, _ = apply_block(params["remainder"][j], x, cfg, kind, positions)
+        x, _, aux = apply_block(params["remainder"][j], x, cfg, kind, positions)
+        aux_acc = add_aux(aux_acc, aux)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = _project_logits(params, x, cfg)
-    aux = {k: torch.zeros((), dtype=torch.float32, device=x.device) for k in AUX_KEYS}
-    return logits, aux
+    return logits, dict(zip(AUX_KEYS, aux_acc.unbind()))
 
 
 def _project_logits(params: Dict[str, Any], x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
@@ -409,7 +431,10 @@ def lm_loss(
     ll = torch.gather(logits32, -1, labels[..., None])[..., 0]
     nll = (lse - ll) * mask
     loss = nll.sum() / torch.clamp(mask.sum(), min=1.0)
-    return loss, {"loss": loss, **aux}
+    metrics = {"loss": loss, **aux}
+    if cfg.moe is not None:
+        loss = loss + 0.01 * aux["lb_loss"] + cfg.moe.router_z_loss * aux["router_z"]
+    return loss, metrics
 
 
 # ---------------------------------------------------------------------------
@@ -487,7 +512,7 @@ class Model(nn.Module):
         """Draw every parameter from ``generator`` (a generator on the
         model's device), leaf by leaf, after the JAX package's scheme."""
         for path, d in tree_leaves(self._defs):
-            self.get_parameter(path).copy_(init_param(d, generator, self.device))
+            draw_param_(self.get_parameter(path), d, generator)
         return self
 
     def forward(self, batch: Dict[str, torch.Tensor],

@@ -6,7 +6,8 @@
 # and the bf16 working parameters are copied into, so that at starcoder2-3b
 # the card holds one copy of each (12 GB apiece in f32) and not two.  A
 # leaf is updated a slice of its leading axis at a time (one layer of a
-# stacked leaf), which bounds the f32 temporaries to one such slice.
+# stacked leaf), or of its rows over the last axis where one layer is
+# larger than a slice, which bounds the f32 temporaries to one slice.
 from __future__ import annotations
 
 import math
@@ -116,7 +117,7 @@ def global_norm(tree: Any) -> torch.Tensor:
 def _norm_sq(leaf: torch.Tensor) -> torch.Tensor:
     """sum(square(leaf)) in f32, a slice at a time."""
     total = torch.zeros((), dtype=torch.float32, device=leaf.device)
-    for part in _slices(leaf, _rows_per_slice(leaf)):
+    for part in _slices(leaf, _plan(leaf)):
         total = total + torch.sum(torch.square(part.to(torch.float32)))
     return total
 
@@ -131,17 +132,26 @@ def clip_by_global_norm(grads: Any, max_norm: float) -> Tuple[Any, torch.Tensor]
     return tree_map(lambda g: g.to(torch.float32) * scale, grads), norm
 
 
-def _rows_per_slice(t: torch.Tensor) -> int:
-    """Rows of ``t``'s leading axis in one slice of at most _CHUNK elements
-    (0: the whole leaf at once)."""
+def _plan(t: torch.Tensor) -> Tuple[bool, int]:
+    """How ``t`` is cut into slices of at most _CHUNK elements: (over its
+    last axis, rows).  Rows of its leading axis, or, where one such row is
+    larger (one layer of an MoE model's expert stack), rows of ``t`` viewed
+    as (-1, last axis); rows 0: the whole leaf at once.  A row over the
+    last axis is never cut, so the int8 state's row scales cut alike."""
     if t.dim() < 2 or t.numel() <= _CHUNK:
-        return 0
-    return max(1, _CHUNK // max(1, t[0].numel()))
+        return False, 0
+    if t[0].numel() <= _CHUNK:
+        return False, max(1, _CHUNK // max(1, t[0].numel()))
+    return True, max(1, _CHUNK // t.shape[-1])
 
 
-def _slices(t: torch.Tensor, rows: int) -> List[torch.Tensor]:
-    """Views of ``t`` of ``rows`` rows of its leading axis (all of it at 0)."""
-    return [t] if rows == 0 else list(torch.split(t, rows, dim=0))
+def _slices(t: torch.Tensor, plan: Tuple[bool, int]) -> List[torch.Tensor]:
+    """Views of ``t`` cut by ``plan`` (``_plan`` of a tensor of its shape
+    but for the last axis)."""
+    flat, rows = plan
+    if rows == 0:
+        return [t]
+    return list(torch.split(t.reshape(-1, t.shape[-1]) if flat else t, rows, dim=0))
 
 
 def adamw_update(
@@ -177,10 +187,10 @@ def adamw_update(
     with torch.no_grad():
         for path, g in tree_leaves(grads):
             m, v, w, p = flat_m[path], flat_v[path], flat_w[path], flat_p[path]
-            rows = _rows_per_slice(w)
+            plan = _plan(w)
 
             def cut(t):
-                return _slices(t, rows)
+                return _slices(t, plan)
 
             if cfg.state_dtype == "int8":
                 parts = zip(cut(g), cut(m["q"]), cut(m["s"]), cut(v["q"]), cut(v["s"]), cut(w), cut(p))

@@ -20,7 +20,11 @@
 # version in float64 (within ``ref.BWD_TOL``, reruns bitwise equal) and a
 # reduced rwkv6 train step whose time-mix gradients run it, with the raise
 # where it is not built; and the plain MAX/MIN paths' -0.0 / +0.0 order on
-# the card, the same over 20 runs.  This file imports neither jax nor the JAX package, so it runs
+# the card, the same over 20 runs; the MoE block's sort-based routing on
+# the card equal to the CPU's (ties and capacity drops included), and a
+# reduced dbrx-132b and llama4-scout whose decode step, routing and all, is
+# captured in a CUDA graph and gives the eager step's tokens and logits bit
+# for bit.  This file imports neither jax nor the JAX package, so it runs
 # on a machine that has only the port:
 #
 #     PYTHONPATH=src python -m pytest tests/test_torch_cuda.py -q
@@ -1374,6 +1378,53 @@ def test_graph_decode_equals_eager(cuda, arch):
     assert torch.equal(eager.tokens, graphed.tokens)
     for a, b in zip(eager.logits, graphed.logits):
         assert torch.equal(a, b)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("shards,C", [(1, 8), (1, 40), (2, 12)])
+def test_moe_route_on_the_card_equals_the_cpu(cuda, shards, C):
+    """models/moe.route on the card (stable sort, searchsorted, gathers, the
+    combine's order) against the CPU on the same f32 logits, with two
+    experts tied at every token and capacities that drop and that do not:
+    every field equal (lb_loss within f32 rounding), the combine
+    bitwise."""
+    from repro_torch.models import moe
+
+    rng = np.random.default_rng(shards * 100 + C)
+    E, K, T, d = 16, 4, 96, 32
+    logits = rng.standard_normal((T, E)).astype(np.float32)
+    logits[:, 5] = logits[:, 9]
+    lg = torch.from_numpy(logits).reshape(shards, T // shards, E)
+    y = torch.from_numpy(rng.standard_normal((shards, E * C, d)).astype(np.float32)).bfloat16()
+    want = moe.route(lg, E=E, K=K, C=C, dtype=torch.bfloat16)
+    got = moe.route(lg.to(cuda), E=E, K=K, C=C, dtype=torch.bfloat16)
+    for name, w in want._asdict().items():
+        if name == "lb":  # an f32 mean over the tokens, summed in another order
+            torch.testing.assert_close(got.lb.cpu(), w, rtol=1e-6, atol=0)
+        else:
+            assert torch.equal(getattr(got, name).cpu(), w), name
+    assert torch.equal(moe.combine(y.to(cuda), got).cpu(), moe.combine(y, want))
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("arch", ["dbrx-132b", "llama4-scout-17b-a16e"])
+def test_moe_graph_decode_equals_eager(cuda, arch):
+    """A reduced MoE model's decode step (routing, dispatch and combine with
+    no value read back to the host) captures in a CUDA graph: greedy
+    generation gives the eager step's tokens and logits bit for bit, and a
+    second eager run the same (the combine is a gather, not an atomic
+    scatter).  llama4's prompt is longer than its reduced chunk."""
+    cfg = reduced_config(get_config(arch))
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(0)
+    model = Model(cfg).init_params(gen)
+    toks = torch.from_numpy(np.random.default_rng(1).integers(4, cfg.vocab_size, (2, 40)).astype(np.int32)).to(cuda)
+    eager = generate(model, toks, 10, keep_logits=True, graph=False)
+    again = generate(model, toks, 10, keep_logits=True, graph=False)
+    graphed = generate(model, toks, 10, keep_logits=True, graph=True)
+    assert torch.equal(eager.tokens, graphed.tokens) and torch.equal(eager.tokens, again.tokens)
+    for a, b, c in zip(eager.logits, graphed.logits, again.logits):
+        assert torch.equal(a, b) and torch.equal(a, c)
 
 
 @pytest.mark.requires_cuda

@@ -35,6 +35,7 @@ import repro_torch.models.rwkv6
 import repro_torch.configs.base
 import repro_torch.models.common
 import repro_torch.models.mlp
+import repro_torch.models.moe
 import repro_torch.models.attention
 import repro_torch.models.transformer
 import repro_torch.models.convert

@@ -1,14 +1,28 @@
 # The port's LM serving path on the CPU against the JAX package, on reduced
 # configs of gemma2-9b, gemma3-4b, starcoder2-3b, qwen2-vl-72b (its M-RoPE
-# positions, text only) and starcoder2-15b with the reference's own
-# weights (Model.init_params(PRNGKey)) carried across by params_from_jax:
-# forward logits, prefill's last logits and caches at S > window (so local
-# layers mask by their window), decode logits teacher-forced on the
-# reference's tokens, and greedy generation.  Also: every config equal field
-# by field, and the int8 cache branch.
+# positions, text only), starcoder2-15b and the MoE models dbrx-132b and
+# llama4-scout (chunked layers) with the reference's own weights
+# (Model.init_params(PRNGKey)) carried across by params_from_jax: forward
+# logits, prefill's last logits and caches at S > window (so local layers
+# mask by their window; llama4's prompt is longer than its reduced chunk,
+# so its chunked layers attend within chunks and keep a rolled ring
+# cache), decode logits teacher-forced on the reference's tokens, and
+# greedy generation.  Also: every config equal field by field, and the
+# int8 cache branch.
 #
 # Tolerances are the reference's own (tests/test_models_smoke.py): 5e-2 for
 # bf16 forward/prefill logits and caches, 0.15 for decode logits.
+#
+# Decode from an empty cache is held against the reference's forward where
+# the two compute the same function, as the reference's own golden check
+# (test_models_smoke.test_decode_matches_forward) holds them: MoE models at
+# its capacity factor of 8.0, where no expert drops a token (a prefill's
+# drops depend on the batch; a decode step of B tokens never drops), and a
+# chunked layer only inside the first chunk (past it the reference's
+# decode reads its ring of the last chunk_size positions, a sliding window,
+# where its forward attends within the chunk).  Past the first chunk the
+# yardstick is the reference's own teacher-forced decode.
+import contextlib
 import dataclasses
 
 import numpy as np
@@ -30,9 +44,13 @@ from repro_torch.models.transformer import Model
 from repro_torch.serve.kvcache import cache_bytes, dequantize_kv, quantize_kv
 from repro_torch.serve.step import generate, make_prefill_step, pad_cache
 
+from test_torch_moe import forced_routing, reference_routing, split_steps
+
 PREFILL_TOL = dict(rtol=5e-2, atol=5e-2)
 DECODE_TOL = dict(rtol=0.15, atol=0.15)
-ARCHS = ["gemma2-9b", "gemma3-4b", "starcoder2-3b", "qwen2-vl-72b", "starcoder2-15b"]
+ARCHS = ["gemma2-9b", "gemma3-4b", "starcoder2-3b", "qwen2-vl-72b", "starcoder2-15b", "dbrx-132b",
+         "llama4-scout-17b-a16e"]
+MOE_DECODE_CAPACITY = 8.0  # the reference's golden check's: C = T
 
 
 def _np(x) -> np.ndarray:
@@ -54,45 +72,101 @@ def _numpy_tree(tree):
 
 
 PROMPT, NEW = 24, 8  # prompts beyond the reduced window of 16; decode at 24..31
+PROMPTS = {"llama4-scout-17b-a16e": 40}  # beyond the reduced chunk of 32
+
+
+def _decode_config(cfg):
+    """``cfg`` as the decode-against-forward check runs it."""
+    if cfg.moe is None:
+        return cfg
+    return dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=MOE_DECODE_CAPACITY))
 
 
 @pytest.fixture(scope="module", params=ARCHS)
 def case(request):
     """The port's model with the reference's weights, and the reference's
-    outputs on the inputs the tests share (computed once per arch)."""
+    outputs on the inputs the tests share (computed once per arch), with
+    the routing of every MoE block of each run (test_torch_moe's
+    reference_routing; each function jitted anew under it)."""
     cfg = jax_base.reduced_config(jax_base.get_config(request.param))
     jm = JaxModel(cfg)
     params = jax.jit(jm.init_params)(jax.random.PRNGKey(0))
     model = Model(base.reduced_config(base.get_config(request.param)), device="cpu")
     model.load_state_dict(params_from_jax(_numpy_tree(params)), strict=True)
-    toks = _tokens(cfg.vocab_size, 2, PROMPT, 1)  # reduced window 16 < PROMPT
-    logits, _ = jax.jit(jm.forward)(params, {"tokens": jnp.asarray(toks)})
-    prefill = jax.jit(jax_prefill, static_argnums=(2, 3))
-    last, cache = prefill(params, {"tokens": jnp.asarray(toks)}, cfg, False)
-    _, qcache = prefill(params, {"tokens": jnp.asarray(toks)}, cfg, True)
+    prompt = PROMPTS.get(request.param, PROMPT)
+    toks = _tokens(cfg.vocab_size, 2, prompt, 1)  # reduced window 16 < prompt
+    routing: dict = {}
+
+    def recording(name):
+        return reference_routing(routing.setdefault(name, []))
+
+    with recording("forward"):
+        logits, _ = jax.jit(lambda p, b: jm.forward(p, b))(params, {"tokens": jnp.asarray(toks)})
+    with recording("prefill"):
+        last, cache = jax.jit(lambda p, b: jax_prefill(p, b, cfg, False))(params, {"tokens": jnp.asarray(toks)})
+    with recording("qprefill"):
+        _, qcache = jax.jit(lambda p, b: jax_prefill(p, b, cfg, True))(params, {"tokens": jnp.asarray(toks)})
     # the reference's generate loop (serve/step.py), step by step, with each
     # step's logits; the decode step is the one its generate jits
-    full = jm.cache_init(2, PROMPT + NEW)
+    full = jm.cache_init(2, prompt + NEW)
     gcache = jax.tree.map(lambda a, b: jnp.pad(a, [(0, y - x) for x, y in zip(a.shape, b.shape)]), cache, full)
-    decode = jax.jit(jax_make_decode_step(jm))
     tok = jnp.argmax(last[:, -1].astype(jnp.float32), axis=-1)[:, None].astype(jnp.int32)
     gen_toks, gen_logits = [tok], [last[:, -1]]
-    for t in range(NEW - 1):
-        tok, lg, gcache = decode(params, gcache, tok, jnp.asarray(PROMPT + t, jnp.int32), jax.random.PRNGKey(0))
-        gen_toks.append(tok)
-        gen_logits.append(lg[:, -1])
+    with recording("decode"):
+        decode = jax.jit(jax_make_decode_step(jm))
+        for t in range(NEW - 1):
+            tok, lg, gcache = decode(params, gcache, tok, jnp.asarray(prompt + t, jnp.int32), jax.random.PRNGKey(0))
+            gen_toks.append(tok)
+            gen_logits.append(lg[:, -1])
     # the int8 branch: one decode step on the padded quantized cache
-    qfull = jm.cache_init(2, PROMPT + 1, quantized=True)
+    qfull = jm.cache_init(2, prompt + 1, quantized=True)
     qpad = jax.tree.map(lambda a, b: jnp.pad(a, [(0, y - x) for x, y in zip(a.shape, b.shape)]), qcache, qfull)
-    qlogits, _ = jax.jit(jm.decode_step)(
-        params, qpad, {"tokens": jnp.asarray(toks[:, -1:]), "pos": jnp.asarray(PROMPT)})
+    with recording("qdecode"):
+        qlogits, _ = jax.jit(lambda p, c, b: jm.decode_step(p, c, b))(
+            params, qpad, {"tokens": jnp.asarray(toks[:, -1:]), "pos": jnp.asarray(prompt)})
+    # the yardsticks of decode from an empty cache: the forward at the
+    # decode config, and past a chunk the reference's own decode; a
+    # decode step routes each token as the forward does where nothing drops
+    dcfg = _decode_config(cfg)
+    djm = jm if dcfg is cfg else JaxModel(dcfg)
+    dlogits = logits
+    if dcfg is not cfg:
+        with recording("dforward"):
+            dlogits = jax.jit(lambda p, b: djm.forward(p, b))(params, {"tokens": jnp.asarray(toks)})[0]
+    else:
+        routing["dforward"] = routing["forward"]
+    routing["dsteps"] = split_steps(routing["dforward"], 2, prompt)
+    tf_logits = None
+    if "chunked" in cfg.layer_kinds():
+        dcache, tf_logits = djm.cache_init(2, prompt), []
+        with recording("tfsteps"):
+            dstep = jax.jit(lambda p, c, b: djm.decode_step(p, c, b))
+            for t in range(prompt):
+                lg, dcache = dstep(params, dcache, {"tokens": jnp.asarray(toks[:, t : t + 1]), "pos": jnp.asarray(t)})
+                tf_logits.append(lg[:, 0])
+        tf_logits = jnp.stack(tf_logits, axis=1)
     ref = dict(
         toks=toks, logits=logits, last=last, cache=_numpy_tree(cache), qcache=_numpy_tree(qcache),
         quantized=_numpy_tree(jax_quantize_kv(cache)), qlogits=qlogits,
         gen_toks=np.asarray(jnp.concatenate(gen_toks, axis=1)), gen_logits=gen_logits,
-        n_params=jm.n_params(), params=_numpy_tree(params),
+        n_params=jm.n_params(), params=_numpy_tree(params), prompt=prompt, dlogits=dlogits, tf_logits=tf_logits,
+        routing=routing,
     )
     return cfg, model, ref
+
+
+@contextlib.contextmanager
+def _routed(ref, *runs, teacher_forced=True):
+    """The port's MoE blocks routed as the reference's ``runs`` routed
+    (test_torch_moe's forced_routing): every token whose own choice
+    differs must lie within the reference's margin, and a teacher-forced
+    run must find its record at every block."""
+    with forced_routing([r for run in runs for r in ref["routing"][run]]) as forced:
+        yield forced
+    assert forced.unexplained == [], forced.unexplained
+    assert forced.unmatched == 0 or not teacher_forced
+    if forced.tokens_differing:
+        print(f"{runs}: {forced.tokens_differing} token choices differed within the reference's margin")
 
 
 def _first_layers(cfg):
@@ -124,10 +198,12 @@ def test_param_names_and_counts(case):
 def test_forward_and_prefill_match(case):
     cfg, model, ref = case
     toks = torch.from_numpy(ref["toks"])
-    got, _ = model({"tokens": toks})
+    with _routed(ref, "forward"):
+        got, _ = model({"tokens": toks})
     assert got.shape == ref["logits"].shape and got.dtype == torch.bfloat16
     _close(got, ref["logits"], PREFILL_TOL)
-    got_last, got_cache = make_prefill_step(model)({"tokens": toks})
+    with _routed(ref, "prefill"):
+        got_last, got_cache = make_prefill_step(model)({"tokens": toks})
     _close(got_last, ref["last"][:, -1], PREFILL_TOL)
     want_leaves = dict(tree_leaves(cache_from_jax(ref["cache"])))
     got_leaves = dict(tree_leaves(got_cache))
@@ -147,31 +223,47 @@ def test_generate_greedy_matches_teacher_forced(case):
     """The port's logits at every step, fed the reference's tokens, match the
     reference's; each of the port's tokens is the argmax of its step."""
     cfg, model, ref = case
+    prompt = ref["prompt"]
     prompts = torch.from_numpy(ref["toks"])
-    res = generate(model, prompts, NEW, feed=torch.from_numpy(ref["gen_toks"].copy()), keep_logits=True)
-    assert res.tokens.shape == (2, PROMPT + NEW) and res.steps == NEW
-    assert torch.equal(res.tokens[:, :PROMPT], prompts)
+    with _routed(ref, "prefill", "decode"):
+        res = generate(model, prompts, NEW, feed=torch.from_numpy(ref["gen_toks"].copy()), keep_logits=True)
+    assert res.tokens.shape == (2, prompt + NEW) and res.steps == NEW
+    assert torch.equal(res.tokens[:, :prompt], prompts)
     assert len(res.logits) == NEW
     for got, want in zip(res.logits, ref["gen_logits"]):
         _close(got, want, DECODE_TOL)
     picks = torch.stack([lg.argmax(-1) for lg in res.logits], dim=1).to(torch.int32)
-    assert torch.equal(res.tokens[:, PROMPT:], picks)
+    assert torch.equal(res.tokens[:, prompt:], picks)
     # without teacher forcing the port feeds on its own picks
-    free = generate(model, prompts, NEW)
-    assert torch.equal(free.tokens[:, : PROMPT + 1], res.tokens[:, : PROMPT + 1])
+    with _routed(ref, "prefill", teacher_forced=False):
+        free = generate(model, prompts, NEW)
+    assert torch.equal(free.tokens[:, : prompt + 1], res.tokens[:, : prompt + 1])
 
 
 def test_decode_step_matches_forward(case):
     """Teacher-forced decode from an empty cache agrees with the reference's
-    forward pass (its own golden check), ring buffers included."""
+    forward pass (its own golden check), ring buffers included, where the
+    two compute the same function (the header says where), and past a
+    chunk with the reference's own decode."""
     cfg, model, ref = case
-    toks = ref["toks"]
-    cache = model.cache_init(2, PROMPT)
+    toks, prompt = ref["toks"], ref["prompt"]
+    dcfg = _decode_config(cfg)
+    if dcfg is not cfg:
+        model = Model(_decode_config(model.cfg), device="cpu")
+        model.load_state_dict(params_from_jax(ref["params"]), strict=True)
+    cache = model.cache_init(2, prompt)
     outs = []
-    for t in range(PROMPT):
-        lg, cache = model.decode_step(cache, {"tokens": torch.from_numpy(toks[:, t : t + 1]), "pos": t})
+    # past the first chunk (chunked layers) the reference's own decode
+    n = cfg.chunk_size if ref["tf_logits"] is not None else prompt
+    assert prompt > n or ref["tf_logits"] is None
+    for t in range(prompt):
+        with _routed(ref, "dsteps" if t < n else "tfsteps"):
+            lg, cache = model.decode_step(cache, {"tokens": torch.from_numpy(toks[:, t : t + 1]), "pos": t})
         outs.append(lg[:, 0])
-    _close(torch.stack(outs, dim=1), ref["logits"], DECODE_TOL)
+    got = torch.stack(outs, dim=1)
+    _close(got[:, :n], np.asarray(ref["dlogits"], np.float32)[:, :n], DECODE_TOL)
+    if ref["tf_logits"] is not None:
+        _close(got[:, n:], np.asarray(ref["tf_logits"], np.float32)[:, n:], DECODE_TOL)
 
 
 def test_int8_cache_branch(case):
@@ -184,7 +276,8 @@ def test_int8_cache_branch(case):
         assert got[name].dtype == want[name].dtype and torch.equal(got[name], want[name]), name
     # the quantized prefill: the same layout, and the first layers' values
     toks = torch.from_numpy(ref["toks"])
-    _, tq = model.prefill({"tokens": toks}, quantize_cache=True)
+    with _routed(ref, "qprefill"):
+        _, tq = model.prefill({"tokens": toks}, quantize_cache=True)
     want = dict(tree_leaves(cache_from_jax(ref["qcache"])))
     got = dict(tree_leaves(tq))
     assert want.keys() == got.keys()
@@ -195,8 +288,10 @@ def test_int8_cache_branch(case):
             deq = [c[f"{group}.{kv}_q"][r].float() * c[f"{group}.{kv}_s"][r].float() for c in (got, want)]
             _close(deq[0], deq[1], PREFILL_TOL)
     # decode through the int8 branch, padded to one more position
-    tpad = pad_cache(tq, model.cache_init(2, PROMPT + 1, quantized=True))
-    got_lg, _ = model.decode_step(tpad, {"tokens": toks[:, -1:], "pos": PROMPT})
+    prompt = ref["prompt"]
+    tpad = pad_cache(tq, model.cache_init(2, prompt + 1, quantized=True))
+    with _routed(ref, "qdecode"):
+        got_lg, _ = model.decode_step(tpad, {"tokens": toks[:, -1:], "pos": prompt})
     _close(got_lg, ref["qlogits"], DECODE_TOL)
     assert cache_bytes(tq) < cache_bytes(dequantize_kv(tq))
 
@@ -222,7 +317,16 @@ def test_serve_cli_on_the_cpu():
     assert out["done"] >= 2 and out["tokens"] > 0
 
 
+@pytest.mark.parametrize("arch", ["dbrx-132b", "llama4-scout-17b-a16e"])
+def test_serve_cli_runs_moe_on_the_cpu(arch):
+    from repro_torch.launch import serve
+
+    out = serve.main(["--device", "cpu", "--arch", arch, "--requests", "3", "--batch", "2", "--new", "4",
+                      "--prompt-len", "40"])
+    assert out["done"] >= 2 and out["tokens"] > 0
+
+
 def test_not_ported_families_raise():
-    for arch in ("dbrx-132b", "zamba2-7b", "hubert-xlarge"):
+    for arch in ("zamba2-7b", "hubert-xlarge"):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             Model(base.reduced_config(base.get_config(arch)), device="cpu")

@@ -9,7 +9,13 @@
 # gradient (its time-mix's through the WKV6 Function); remat on against
 # off; and the system tests of the training loop (the loss drops; a restart
 # resumes exactly) with the launch.train CLI and its --fail-at, for rwkv6
-# too.
+# too.  For the MoE models, reduced dbrx-132b and reduced llama4-scout: the
+# loss with its aux term (0.01 lb_loss + router_z_loss router_z), the aux
+# metrics and every leaf's gradient against jax.value_and_grad of the
+# reference's lm_loss, the port's blocks routed as the reference's forward
+# routed them (test_torch_moe's forced_routing: the bf16 hidden states
+# differ by rounding, and a token within the reference's margin may choose
+# other experts), and the CLI with its MoE metrics.
 #
 # Tolerances: AdamW's state within 1e-6 (both run the same f32 operations
 # in the same order; XLA and torch may round a transcendental differently
@@ -60,6 +66,7 @@ from test_torch_rwkv6 import spread_zero_inits
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TRAIN_ARCHS = ["starcoder2-3b", "rwkv6-3b"]
+MOE_ARCHS = ["dbrx-132b", "llama4-scout-17b-a16e"]
 STATE_TOL = dict(rtol=1e-6, atol=1e-6)
 LOSS_REL = 2e-3
 GRAD_REL = 3e-2
@@ -125,6 +132,33 @@ def test_adamw_update_matches_reference(state_dtype, scale):
                                            rtol=1e-6, atol=1e-6 if j.dtype != np.int8 else 1, err_msg=path)
         for (path, t), (_, j) in zip(tree_leaves(tp), tree_leaves(_numpy_tree(jp))):
             np.testing.assert_allclose(_np(t), _np(j), rtol=2 ** -8, atol=0, err_msg=path)
+
+
+@pytest.mark.parametrize("state_dtype", ["f32", "int8"])
+def test_adamw_update_in_slices_equals_whole(monkeypatch, state_dtype):
+    """AdamW's update a slice at a time (rows of a leaf's leading axis, or,
+    where one such row is larger than a slice, rows over its last axis, as
+    one layer of an MoE model's expert stack is cut) gives the update of
+    the leaf whole, bit for bit, and the same gradient norm."""
+    rng = np.random.default_rng(5)
+    shapes = {"stack": (2, 3, 5, 7), "rows": (3, 40), "vec": (4,), "one": (1, 9, 8)}
+    p = {k: torch.from_numpy(rng.standard_normal(s).astype(np.float32)).bfloat16() for k, s in shapes.items()}
+    g = {k: torch.from_numpy(rng.standard_normal(s).astype(np.float32)) for k, s in shapes.items()}
+    cfg = topt.AdamWConfig(warmup_steps=1, state_dtype=state_dtype)
+    out = []
+    for chunk in (50, topt._CHUNK):
+        monkeypatch.setattr(topt, "_CHUNK", chunk)
+        params = {k: v.clone() for k, v in p.items()}
+        state = topt.adamw_init(params, state_dtype)
+        for _ in range(3):
+            params, state, metrics = topt.adamw_update(cfg, g, state, params)
+        out.append((params, state, metrics["grad_norm"]))
+        if chunk == 50:
+            assert [topt._plan(p[k]) for k in shapes] == [(True, 7), (False, 1), (False, 0), (True, 6)]
+    (p0, s0, n0), (p1, s1, n1) = out
+    assert torch.equal(n0, n1)
+    for a, b in zip(tree_leaves((p0, s0)), tree_leaves((p1, s1))):
+        assert torch.equal(a[1], b[1]), a[0]
 
 
 def test_lr_schedule_and_clip_match_reference():
@@ -261,18 +295,21 @@ def test_checkpoint_keeps_newest_and_ignores_aborted(tmp_path):
 # ---------------------------------------------------------------------------
 
 
-def _jax_grads(jm, params, batch, n_mb):
+def _jax_grads(jm, params, batch, n_mb, metrics=None):
     """The reference's loss and mean gradient over ``n_mb`` microbatches
-    (as its train_step accumulates them: f32 sums divided by n_mb)."""
+    (as its train_step accumulates them: f32 sums divided by n_mb); each
+    microbatch's metrics appended to ``metrics`` when given."""
     vg = jax.jit(jax.value_and_grad(lambda p, b: jm.loss(p, b, remat=False), has_aux=True))
     B = batch["tokens"].shape[0]
     losses, acc = [], None
     for i in range(n_mb):
         mb = {k: jnp.asarray(v[i * B // n_mb:(i + 1) * B // n_mb]) for k, v in batch.items()}
-        (loss, _), g = vg(params, mb)
+        (loss, m), g = vg(params, mb)
         g = jax.tree.map(lambda a: a.astype(jnp.float32), g)
         acc = g if acc is None else jax.tree.map(jnp.add, acc, g)
         losses.append(float(loss))
+        if metrics is not None:
+            metrics.append({k: float(v) for k, v in m.items()})
     return float(np.float32(sum(np.float32(x) for x in losses)) / n_mb), jax.tree.map(lambda a: a / n_mb, acc)
 
 
@@ -298,10 +335,13 @@ def _grads_agree(got: dict, want: dict, witness: dict = None) -> list:
     return bad
 
 
-def _f32_witness(arch, batch, n_mb):
+def _f32_witness(arch, batch, n_mb, routing=None):
     """The reference's gradient with its weights in f32, after holding the
     port's, on the same f32 weights, within F32_GRAD_REL of it, leaf by
-    leaf (both packages compute every op in f32 then)."""
+    leaf (both packages compute every op in f32 then).  With ``routing``
+    (an MoE model; ``reference_routing``'s record of the reference's bf16
+    run) the witness is the port's gradient in f32 with its blocks routed
+    as recorded: the f32 gradient of the routing the bf16 runs took."""
     cfg, jm, params, _ = _reference(arch)
     p32 = jax.tree.map(lambda a: a.astype(jnp.float32), params)
     want_loss, want = _jax_grads(jm, p32, batch, n_mb)
@@ -315,7 +355,13 @@ def _f32_witness(arch, batch, n_mb):
     for path, w in flat.items():
         rel = np.linalg.norm(got[path].double().numpy() - w) / max(np.linalg.norm(w), 1e-30)
         assert rel <= F32_GRAD_REL, (path, rel)
-    return flat
+    if routing is None:
+        return flat
+    from test_torch_moe import forced_routing
+
+    with forced_routing(routing):
+        _, _, got = value_and_grad(model, model.params, tbatch, TrainSpec(microbatches=n_mb, remat=True))
+    return {p: got[p].double().numpy() for p in flat}
 
 
 @pytest.mark.parametrize("n_mb", [1, 2])
@@ -351,6 +397,51 @@ def test_train_step_gradients_match_value_and_grad(arch, n_mb):
     dropped = dict(got, **{path: got[path].clone()})
     dropped[path][1] = 0
     assert [p for p, _ in _grads_agree(dropped, want_flat, witness)] == [path]
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_loss_aux_and_gradients_match_value_and_grad(arch):
+    """lm_loss of a reduced MoE model: the loss with its aux term, lb_loss
+    and router_z, and every leaf's gradient (the router's, each expert
+    stack's, the shared expert's) against jax.value_and_grad, the port's
+    blocks routed as the reference's were."""
+    from test_torch_moe import forced_routing, reference_routing  # it imports this module's tolerances
+
+    cfg, jm, params, model = _reference(arch)
+    batch = _batch(cfg.vocab_size, 4, 24, 3)
+    want_metrics, routing = [], []
+    with reference_routing(routing):
+        want_loss, want = _jax_grads(jm, params, batch, 1, want_metrics)
+    tbatch = {k: torch.from_numpy(v) for k, v in batch.items()}
+    with forced_routing(routing) as forced:
+        loss, metrics, got = value_and_grad(model, model.params, tbatch, TrainSpec(microbatches=1, remat=True))
+    assert forced.unexplained == [] and forced.unmatched == 0
+    assert abs(float(loss) - want_loss) <= LOSS_REL * abs(want_loss)
+    for k in ("loss", "lb_loss", "router_z"):
+        assert abs(float(metrics[k]) - want_metrics[0][k]) <= LOSS_REL * abs(want_metrics[0][k]), k
+    # the loss is the nll plus the aux term, in both packages
+    aux = 0.01 * metrics["lb_loss"] + cfg.moe.router_z_loss * metrics["router_z"]
+    assert float(aux) > 0
+    np.testing.assert_allclose(float(loss), float(metrics["loss"] + aux), rtol=1e-6)
+    w = want_metrics[0]
+    np.testing.assert_allclose(want_loss, w["loss"] + 0.01 * w["lb_loss"] + cfg.moe.router_z_loss * w["router_z"],
+                               rtol=1e-6)
+    want_flat = {p: np.asarray(w) for p, w in _flat_jax(want).items()}
+    assert set(got) == set(want_flat)
+    # as rwkv6's: an element past GRAD_TOL counts only where the port's
+    # bf16 value lies no nearer the f32 witness than the reference's
+    witness = _f32_witness(arch, batch, 1, routing) if _grads_agree(got, want_flat) else None
+    assert _grads_agree(got, want_flat, witness) == []
+    experts = [p for p in got if ".moe." in p]
+    assert {p.split(".")[-1] for p in experts} >= {"router", "w_gate", "w_up", "w_down"}
+    for path in experts:  # every layer's router column and expert slice moved
+        leaf = path.split(".")[-1]
+        for g in (list(got[path]) if path.startswith("groups.") else [got[path]]):
+            slices = g.T if leaf == "router" else (g if leaf.startswith("w_") else g[None])
+            assert bool(torch.isfinite(g).all()) and all(float(e.abs().max()) > 0 for e in slices), path
+    # the check fails a router gradient 10% off
+    path = next(p for p in experts if p.endswith("router"))
+    assert [p for p, _ in _grads_agree(dict(got, **{path: got[path] * 1.1}), want_flat, witness)] == [path]
 
 
 @pytest.mark.parametrize("state_dtype", ["f32", "int8"])
@@ -471,6 +562,20 @@ def test_launch_train_cli_resumes_after_fail_at(tmp_path, arch):
     summary = json.loads(out.stdout.split("[train] summary ")[-1])
     assert summary["resumed_from"] == [10] and summary["final_step"] == 20
     assert summary["losses"][-1] < summary["losses"][0]
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_launch_train_cli_logs_moe_metrics(tmp_path, arch):
+    """launch.train on a reduced MoE model: a failure and a restart as for
+    the other archs, and lb_loss and router_z logged each step."""
+    from repro_torch.launch import train
+
+    summary = train.main(["--device", "cpu", "--arch", arch, "--steps", "6", "--ckpt-every", "3", "--fail-at", "4",
+                          "--seq", "64", "--ckpt-dir", str(tmp_path / "ck")])
+    assert summary["resumed_from"] == [3] and summary["final_step"] == 6 and summary["restores_bitwise"]
+    for k in ("lb_loss", "router_z"):
+        assert len(summary[k]) == len(summary["losses"]) == 6 and np.all(np.isfinite(summary[k])), k
+    assert min(summary["lb_loss"]) > 0
 
 
 def test_launch_train_takes_no_reduced():
