@@ -37,7 +37,8 @@ Phases, each of which must pass for the exit code to be 0:
    library call's time (a scatter over the first column) and that of one
    scatter a table, presence included (the whole function);
 6. the flash-attention kernel against its plain version
-   (flash_attention_plain) on the card: f32 and bf16, head dim 64/128/256,
+   (flash_attention_plain) on the card: f32 and bf16, head dim 64/112/128/256
+   (112, zamba2's, through the zero-padded route to 128; not at 8191),
    GQA groups 1/2/12, causal or not, window 0/32/4096, softcap 0/50 and
    softcap 50 with q scaled by 32 (scores up to about 3x the cap),
    (Sq, Sk) in (1, 2112), (8, 128), (129, 129), (200, 1000), (1000, 1000),
@@ -71,7 +72,8 @@ Phases, each of which must pass for the exit code to be 0:
    the ptxas report of the bf16 kernel at head dim 256;
 9. the WKV6 kernel against its plain version (wkv6_plain) on the card: head
    size 16/64, S in {1, 16, 53, 100, 207, 208, 209, 256, 2048, 16385} (some
-   at segment boundaries), (B, H) in {(2, 3), (8, 40), (1, 40)}, r/k/v in
+   at segment boundaries), (B, H) in {(2, 3), (8, 40), (1, 40)} ((1, 40)
+   alone at 16385), r/k/v in
    bf16, log_w = -exp(N(0, 1)) or the constants -5, -54.6 (the clip's
    strongest decay) and -3.4e-4 (its weakest), S0 zero or random; y and the
    final state held to ``ref.KERNEL_TOL``, each case run twice and required
@@ -151,8 +153,8 @@ Phases, each of which must pass for the exit code to be 0:
    208, on bf16 r, k, v and u: head size 16/64, S in {1, 16, 53, 208,
    2048, 16385}, (B, H) in {(2, 3), (2, 40), (1, 40)}, log_w = -exp(N(0,
    1)), -5, -54.6 and -3.4e-4, S0 and dS_out zero or random
-   (all (B, H) at each S but 16385, which runs (1, 40);
-   ``wkv6_bwd_cases``), each case run twice and
+   (all (B, H) at each S but 16385, which runs (1, 40) at head size 64
+   only, random and -54.6 decays; ``wkv6_bwd_cases``), each case run twice and
    required to be bitwise equal; then the kernel at rwkv6-3b's training
    microbatch (2 x 2048, 40 heads of 64): its time and each launch's (the
    states pass, the carries, the chunk pass, du's sum), its bound, what
@@ -199,18 +201,33 @@ Phases, each of which must pass for the exit code to be 0:
    plain backward never, every leaf and each expert's slice of every
    expert stack and router a finite nonzero gradient each step; its ms,
    tokens/s, model-FLOP share over the active parameters (top-4 of 16
-   experts), peak memory and idle share.
+   experts), peak memory and idle share;
+21. the serving path at zamba2-7b's full published width and depth (81
+   Mamba2 layers, d_model 3584, 112 SSM heads of 64, d_state 64; two shared
+   attention blocks of 32 heads of 112 invoked after every 6th layer; 7.01
+   B parameters drawn on the card from ``--seed``, with a_log, dt_bias,
+   conv_b and norm drawn as Mamba2 publishes them): as phase 7, for (a) 8
+   requests of 2048 prompt tokens and 64 new ones and (b) one request of
+   16384 prompt tokens and 16 new ones, with 13 flash launches per prefill
+   (one a shared invocation), every flash call held against the plain
+   version at head dim 112, reruns and the eager decode bitwise equal to
+   the graph's, finite logits, and (b)'s first decode step against a
+   prefill of 16385 tokens; TF32 off for the SSD's f32 products; (a)'s
+   prefill's device time split into flash, the SSD, the conv, the Mamba2
+   in/out projections, the shared blocks' MLP and the rest; then phase 8's
+   reading of the flash kernel at zamba2's shapes (SDPA computes the same
+   function there: causal, no softcap, no window).
 
 Phases 12 and 13 count their own segreduce launches (a CUDA graph's replay
 counts the launches it captured); the kernels' line adds them to phase 4's,
-and phase 18's wkv6 forward launches to phase 10's; phases 19 and 20's
+and phase 18's wkv6 forward launches to phase 10's; phases 19, 20 and 21's
 flash launches join phases 7 and 15's, phase 20's backward phase 15's.
 
 What is cut from TPC-H: Q15 keeps only its revenue view (no outer max or
 supplier join); Q13 keeps its inner aggregate (no outer join's zero-count
 customers, no comment filter); Q2 keeps only its inner MIN (no region
-joins); dbgen is replaced by numpy.  Nothing of gemma2-9b, rwkv6-3b or
-starcoder2-3b is cut; their weights are random.  dbrx-132b (132 B
+joins); dbgen is replaced by numpy.  Nothing of gemma2-9b, rwkv6-3b,
+starcoder2-3b or zamba2-7b is cut; their weights are random.  dbrx-132b (132 B
 parameters) and llama4-scout (109 B) do not fit one card: phases 19 and 20
 cut their depth only, to the layers printed.
 
@@ -247,6 +264,11 @@ FLASH_SHAPES = ((1, 2112), (8, 128), (129, 129), (200, 1000), (1000, 1000), (204
 # about 3x the cap of 50 over a row, where tanh bends and the kernel's
 # approximate tanh differs most from the plain version's
 FLASH_CAPS = ((0.0, 1), (50.0, 1), (50.0, 32))
+# phase 6's head dims: the kernel's own, and zamba2's 112 (zero-padded to
+# 128) at every shape but the longest (its plain version takes ~27 s a dtype
+# there; phase 21 holds every 112 call at 16384 against it)
+FLASH_HEAD_DIMS = (64, 112, 128, 256)
+FLASH_LONG_HEAD_DIMS = (64, 128, 256)
 SERVE_ARCH = "gemma2-9b"
 SERVE_SCENARIOS = {"a": (8, 2048, 64), "b": (1, 8192, 16)}  # batch, prompt, new tokens
 RWKV_ARCH = "rwkv6-3b"
@@ -259,12 +281,16 @@ MOE_SCENARIOS = {"dbrx-132b": {"a": (8, 2048, 64)},
 # prefill's expert buffers and activations (8 x 2048 tokens, dbrx: the
 # (16, 5120, 10752) bf16 products, 1.76 GB each)
 MOE_WEIGHT_GIB = 56.0
+# phase 21: zamba2 is subquadratic, so (b) is twice gemma2's prompt
+ZAMBA2_ARCH = "zamba2-7b"
+ZAMBA2_SCENARIOS = {"a": (8, 2048, 64), "b": (1, 16384, 16)}
 WKV6_HEAD_SIZES = (16, 64)
 # 53 = 3 L + 5 and 207-209 = 13 L - 1, 13 L, 13 L + 1 for segments of
 # L = 16 tokens (the shortest the sequence-parallel form cuts: one long
 # prompt of 40 heads is cut in 13 segments, a few heads in more)
 WKV6_LENGTHS = (1, 16, 53, 100, 207, 208, 209, 256, 2048, 16385)
 WKV6_BATCH_HEADS = ((2, 3), (8, 40), (1, 40))
+WKV6_LONG = 16385  # one long prompt: only (B, H) = (1, 40), rwkv6-3b's (b)
 # log_w: -exp(N(0, 1)), strong, the clip's strongest (-e^4), its weakest (-e^-8)
 WKV6_DECAYS = {"random": None, "-5": -5.0, "-54.6": -54.6, "-3.4e-4": -3.4e-4}
 
@@ -1149,7 +1175,9 @@ def flash_cases(torch, dtype, sq: int, sk: int, gen):
     dims, GQA groups, causal, window and FLASH_CAPS, inputs drawn from gen."""
     dev = gen.device
     B, Hkv = (2, 2) if sk <= 2112 and sq <= 8 else (1, 1)
-    for D in (64, 128, 256):
+    for D in FLASH_HEAD_DIMS:
+        if D not in FLASH_LONG_HEAD_DIMS and sq >= 8191:
+            continue
         for G in (1, 2, 12):
             q = torch.randn(B, sq, Hkv * G, D, device=dev, generator=gen).to(dtype)
             k = torch.randn(B, sk, Hkv, D, device=dev, generator=gen).to(dtype)
@@ -1300,14 +1328,17 @@ def decode_ops(torch, step, n_steps: int):
     return sorted(rows, key=lambda r: -r["ms"])
 
 
-def serve_breakdown(torch, model, prompts, kernel: str, n_steps: int = 4) -> dict:
+def serve_breakdown(torch, model, prompts, kernel: str, n_steps: int = 4, prefill_reading=None,
+                    by_op: bool = True) -> dict:
     """Where a batch's card time goes: the profiler's device ms of one
     prefill and the share of the kernels whose name holds ``kernel``; then,
     for the decode step run eagerly and replayed as a CUDA graph, the wall
     ms of a step on the host clock (synchronized, without the profiler),
     the device ms the profiler sees in a step, and the card's idle share of
     the step, 1 - device / wall, with the step's costliest kernels; and for
-    the eager step the PyTorch ops that launch its device time."""
+    the eager step the PyTorch ops that launch its device time (``by_op``).
+    ``prefill_reading`` (``ranged_prefill``'s), where given, stands for the
+    prefill's trace: the prefill then runs untraced."""
     from repro_torch.serve.step import make_decode_step, pad_cache
 
     B, S = prompts.shape
@@ -1316,13 +1347,23 @@ def serve_breakdown(torch, model, prompts, kernel: str, n_steps: int = 4) -> dic
     def prefill():
         held["out"] = model.prefill({"tokens": prompts})
 
-    events = trace_card(torch, prefill)
-    logits, pcache = held.pop("out")
     out: dict = {}
+    if prefill_reading is not None:
+        prefill()
+        events = None
+        if prefill_reading:
+            total, ours = prefill_reading["device_ms"], prefill_reading["flash_ms"]
+            out.update(device_ms=total, kernel_ms=ours, kernel_share=ours / total if total else 0.0,
+                       prefill_top=prefill_reading["prefill_top"])
+    else:
+        events = trace_card(torch, prefill)
+    logits, pcache = held.pop("out")
     if events is not None:
         total = sum(device_us(ev) for ev in events)
         ours = sum(device_us(ev) for ev in events if kernel in ev.key)  # every dtype's instance
         out.update(device_ms=total / 1e3, kernel_ms=ours / 1e3, kernel_share=ours / total if total else 0.0)
+        top = sorted(((device_us(ev) / 1e3, ev.count, ev.key) for ev in events if device_us(ev) > 0), reverse=True)
+        out["prefill_top"] = [{"kernel": key[:90], "ms": ms, "launches": n} for ms, n, key in top[:8]]
     cache = pad_cache(pcache, model.cache_init(B, S + 6 * n_steps + 4))
     state = {"tok": torch.argmax(logits[:, -1].float(), dim=-1)[:, None].to(torch.int32), "pos": S, "cache": cache}
     del logits, pcache, cache
@@ -1348,7 +1389,7 @@ def serve_breakdown(torch, model, prompts, kernel: str, n_steps: int = 4) -> dic
             busy = sum(ms for ms, _ in per)
             row.update(decode_device_ms=busy, decode_idle_share=max(0.0, 1.0 - busy / row["decode_wall_ms"]),
                        decode_top=[{"kernel": key[:90], "ms": ms} for ms, key in per[:6]])
-        if mode == "eager":
+        if mode == "eager" and by_op:
             row["decode_ops"] = decode_ops(torch, step, n_steps)
         out[mode] = row
         del decode
@@ -1383,7 +1424,7 @@ def first_step_vs_prefill(torch, model, prompts, res, ops, rec: CallRecorder, n_
     ``generate(model, prompts, ..., keep_logits=True)``) against
     prefill_forward of the prompt plus the token it fed: within rtol/atol
     DECODE_TOL and DECODE_REL of the largest logit; the prefill launches the
-    kernel once per layer."""
+    kernel ``n_layers`` times (once per layer that runs it)."""
     rec.label = f"{what}+1"
     before = ops.LAUNCHES
     tok0 = res.tokens[:, prompts.shape[1] : prompts.shape[1] + 1]
@@ -1400,11 +1441,13 @@ def first_step_vs_prefill(torch, model, prompts, res, ops, rec: CallRecorder, n_
 
 
 def serve_path(torch, arch: str, scenarios_spec: dict, ops, rec: CallRecorder, kernel: str, fails: Failures,
-               seed: int, record: dict, prepare=None, n_layers: int = 0, moe=None):
+               seed: int, record: dict, prepare=None, n_layers: int = 0, moe=None, per_prefill=None,
+               breakdown=None):
     """``generate`` at ``arch``'s full width (over its first ``n_layers``
     layers where given) for each scenario (batch, prompt, new tokens),
     twice, through the kernel that ``rec`` wraps on ``ops``: one launch per
-    layer and prefill, every call held against the plain version,
+    layer and prefill (``per_prefill(cfg)`` launches where given), every
+    call held against the plain version,
     bitwise-equal tokens, finite logits, and for (b) the first decode step
     against a prefill of prompt + token (``first_step_vs_prefill``); then
     where the card time goes (``serve_breakdown``).  ``prepare(model,
@@ -1412,7 +1455,10 @@ def serve_path(torch, arch: str, scenarios_spec: dict, ops, rec: CallRecorder, k
     an MoE model: the consistency check runs instead on (a)'s first request
     at a capacity with C = T (``moe_consistency``), and each scenario also
     reads its routing (``moe_routing``) and its prefill's device time by
-    part (``moe_breakdown``)."""
+    part (``moe_breakdown``).  ``breakdown(model, prompts)``, where given,
+    reads the first scenario's prefill by part (a dict with ``device_ms``,
+    printed by ``print_parts``; one profile of a whole prefill with its
+    host ops takes ~15 s at zamba2's size)."""
     import dataclasses
 
     from repro_torch.configs.base import get_config
@@ -1423,6 +1469,7 @@ def serve_path(torch, arch: str, scenarios_spec: dict, ops, rec: CallRecorder, k
     if n_layers:
         cfg = dataclasses.replace(cfg, n_layers=n_layers)
     n_layers = cfg.n_layers
+    launches_per_prefill = per_prefill(cfg) if per_prefill is not None else n_layers
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     gen = torch.Generator(device="cuda")
@@ -1443,6 +1490,7 @@ def serve_path(torch, arch: str, scenarios_spec: dict, ops, rec: CallRecorder, k
     ops.reset_launches()
     with rec:
         for name, (prompt_np, new) in scenarios.items():
+            t_scenario = time.perf_counter()
             prompts = torch.from_numpy(prompt_np).cuda()
             runs = []
             for run in ("checked", "timed", "eager"):
@@ -1454,8 +1502,9 @@ def serve_path(torch, arch: str, scenarios_spec: dict, ops, rec: CallRecorder, k
                     with rec.paused():
                         res = generate(model, prompts, new, keep_logits=(name == "b"), graph=run != "eager")
                 launched = ops.LAUNCHES - before
-                fails.check(launched == n_layers,
-                            f"serve {arch} ({name}, {run}): {launched} {rec.name} launches, not {n_layers}")
+                fails.check(launched == launches_per_prefill,
+                            f"serve {arch} ({name}, {run}): {launched} {rec.name} launches, "
+                            f"not {launches_per_prefill}")
                 finite = all(bool(torch.isfinite(lg).all()) for lg in res.logits) if res.logits else True
                 fails.check(finite, f"serve {arch} ({name}): non-finite logits")
                 runs.append(res)
@@ -1478,12 +1527,14 @@ def serve_path(torch, arch: str, scenarios_spec: dict, ops, rec: CallRecorder, k
             }
             if name == "b" and moe is None:
                 # the first decode step against a prefill of the prompt plus its token
-                entry.update(first_step_vs_prefill(torch, model, prompts, runs[1], ops, rec, n_layers, fails,
-                                                   f"{arch} (b)"))
+                entry.update(first_step_vs_prefill(torch, model, prompts, runs[1], ops, rec, launches_per_prefill,
+                                                   fails, f"{arch} (b)"))
             if name == "a" and moe is not None:
                 entry.update(moe_consistency(torch, model, prompts[:1], ops, rec, n_layers, fails, arch))
             report[name] = entry
-            print(f"  ({name}) batch {B} x {prompts.shape[1]} prompt + {new} new: prefill {entry['prefill_ms']:.1f} ms, "
+            entry["seconds"] = time.perf_counter() - t_scenario
+            print(f"  ({name}) batch {B} x {prompts.shape[1]} prompt + {new} new ({entry['seconds']:.0f} s): "
+                  f"prefill {entry['prefill_ms']:.1f} ms, "
                   f"decode {entry['decode_ms_per_token']:.2f} ms/token as a CUDA graph (eager "
                   f"{entry['eager_decode_ms_per_token']:.2f}), {entry['decode_tok_s']:.1f} decode tok/s, "
                   f"{entry['tok_s']:.1f} tok/s overall; tokens equal across runs and to the eager decode's",
@@ -1505,16 +1556,26 @@ def serve_path(torch, arch: str, scenarios_spec: dict, ops, rec: CallRecorder, k
     # where each scenario's card time goes (these launches are not counted)
     with torch.inference_mode():
         for name, (prompt_np, _) in scenarios.items():
+            t_profile = time.perf_counter()
             if moe is not None:
                 prompts = torch.from_numpy(prompt_np).cuda()
                 report[name]["routing"] = moe_routing(torch, moe, model, prompts)
                 report[name]["prefill_parts"] = moe_breakdown(torch, moe, model, prompts, kernel)
                 print_moe_reading(name, report[name])
-            prof = serve_breakdown(torch, model, torch.from_numpy(prompt_np).cuda(), kernel)
+            parts = None
+            if breakdown is not None and name == next(iter(scenarios)):
+                parts = report[name]["prefill_parts"] = breakdown(model, torch.from_numpy(prompt_np).cuda())
+                print_parts(name, parts)
+            prof = serve_breakdown(torch, model, torch.from_numpy(prompt_np).cuda(), kernel, prefill_reading=parts,
+                                   by_op=breakdown is None)
             report[name]["profile"] = prof
+            prof["seconds"] = time.perf_counter() - t_profile
             if "device_ms" in prof:
-                print(f"  ({name}) prefill device time {prof['device_ms']:.1f} ms, {rec.name} kernel "
-                      f"{prof['kernel_ms']:.1f} ms ({100 * prof['kernel_share']:.1f}%)", flush=True)
+                print(f"  ({name}, read in {prof['seconds']:.0f} s) prefill device time {prof['device_ms']:.1f} ms, "
+                      f"{rec.name} kernel "
+                      f"{prof['kernel_ms']:.1f} ms ({100 * prof['kernel_share']:.1f}%); costliest: " + "; ".join(
+                          f"{t['kernel'][:48]} {t['ms']:.1f} ({t['launches']})" for t in prof["prefill_top"][:6]),
+                      flush=True)
             for mode in ("eager", "graph"):
                 row = prof[mode]
                 line = f"  ({name}) {mode} decode step wall {row['decode_wall_ms']:.2f} ms"
@@ -1623,31 +1684,30 @@ def moe_routing(torch, moe, model, prompts) -> dict:
 MOE_PARTS = ("router_logits", "route", "dispatch", "experts", "shared_expert", "combine")
 
 
-def moe_breakdown(torch, moe, model, prompts, kernel: str) -> dict:
-    """The profiler's device ms of one prefill, split into the flash kernel,
-    the expert products (``moe.experts`` and the shared expert), dispatch
-    and combine (``moe.route``'s sorts, searchsorted and gathers,
-    ``moe.dispatch``'s copy into the expert buffers, ``moe.combine``), the
-    router (its f32 product) and the rest: each part is the device time of
-    the kernels launched inside a ``record_function`` range around the
-    module's function (wrapped for this reading only).  Empty when the
+def ranged_prefill(torch, parts: dict, model, prompts, kernel: str) -> dict:
+    """The profiler's device ms of one prefill (the model warmed by the
+    serving runs before it), split by function: ``parts`` maps a label to
+    (module, function name); each part is the device time of the kernels
+    launched inside a ``record_function`` range around that function
+    (wrapped for this reading only), ``flash_ms`` that of the kernels whose
+    name holds ``kernel``.  Returns {"device_ms", "flash_ms", "parts_ms":
+    {label: ms}, "prefill_top": the costliest kernels}; empty when the
     profiler cannot trace the card."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
-    origs = {name: getattr(moe, name) for name in MOE_PARTS}
+    origs = {label: (mod, fname, getattr(mod, fname)) for label, (mod, fname) in parts.items()}
 
-    def ranged(name, fn):
+    def ranged(label, fn):
         def call(*a, **kw):
-            with record_function(f"moe.{name}"):
+            with record_function(f"part.{label}"):
                 return fn(*a, **kw)
         return call
 
-    for name, fn in origs.items():
-        setattr(moe, name, ranged(name, fn))
+    for label, (mod, fname, fn) in origs.items():
+        setattr(mod, fname, ranged(label, fn))
     try:
         with torch.inference_mode():
-            model.prefill({"tokens": prompts})  # warm
             torch.cuda.synchronize()
             try:
                 with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1658,26 +1718,74 @@ def moe_breakdown(torch, moe, model, prompts, kernel: str) -> dict:
                 print(f"    (the profiler cannot trace the card: {e})", flush=True)
                 return {}
     finally:
-        for name, fn in origs.items():
-            setattr(moe, name, fn)
+        for label, (mod, fname, fn) in origs.items():
+            setattr(mod, fname, fn)
     events = prof.key_averages()
     # the ranges also appear on the device's timeline as annotations: the
     # kernels are the device's other events, a range's time its host
     # event's device time (the kernels launched inside it)
-    kernels = [ev for ev in events if ev.device_type == DeviceType.CUDA and not ev.key.startswith("moe.")]
+    kernels = [ev for ev in events if ev.device_type == DeviceType.CUDA and not ev.key.startswith("part.")]
     total = sum(device_us(ev) for ev in kernels) / 1e3
     if total <= 0:
         print("    (the profiler recorded no device time)", flush=True)
         return {}
     ranges = {ev.key: device_us(ev) / 1e3 for ev in events
-              if ev.key.startswith("moe.") and ev.device_type == DeviceType.CPU}
-    part = {name: ranges.get(f"moe.{name}", 0.0) for name in MOE_PARTS}
-    out = {"device_ms": total, "flash_ms": sum(device_us(ev) for ev in kernels if kernel in ev.key) / 1e3,
-           "experts_ms": part["experts"] + part["shared_expert"],
-           "dispatch_combine_ms": part["route"] + part["dispatch"] + part["combine"],
-           "router_ms": part["router_logits"], "parts_ms": part}
+              if ev.key.startswith("part.") and ev.device_type == DeviceType.CPU}
+    top = sorted(((device_us(ev) / 1e3, ev.count, ev.key) for ev in kernels if device_us(ev) > 0), reverse=True)
+    return {"device_ms": total, "flash_ms": sum(device_us(ev) for ev in kernels if kernel in ev.key) / 1e3,
+            "parts_ms": {label: ranges.get(f"part.{label}", 0.0) for label in parts},
+            "prefill_top": [{"kernel": key[:90], "ms": ms, "launches": n} for ms, n, key in top[:8]]}
+
+
+def moe_breakdown(torch, moe, model, prompts, kernel: str) -> dict:
+    """One prefill's device ms (``ranged_prefill``) split into the flash
+    kernel, the expert products (``moe.experts`` and the shared expert),
+    dispatch and combine (``moe.route``'s sorts, searchsorted and gathers,
+    ``moe.dispatch``'s copy into the expert buffers, ``moe.combine``), the
+    router (its f32 product) and the rest."""
+    out = ranged_prefill(torch, {name: (moe, name) for name in MOE_PARTS}, model, prompts, kernel)
+    if not out:
+        return {}
+    total, part = out["device_ms"], out["parts_ms"]
+    out.update({"experts_ms": part["experts"] + part["shared_expert"],
+                "dispatch_combine_ms": part["route"] + part["dispatch"] + part["combine"],
+                "router_ms": part["router_logits"]})
     out["rest_ms"] = total - out["flash_ms"] - out["experts_ms"] - out["dispatch_combine_ms"] - out["router_ms"]
     return out
+
+
+# phase 21: the prefill's parts, by the function that launches them
+ZAMBA2_PARTS = {"ssd": ("mamba2", "ssd_batched"), "conv": ("mamba2", "_causal_conv1d"),
+                "in_proj": ("mamba2", "in_proj"), "out_proj": ("mamba2", "out_proj"),
+                "shared_mlp": ("transformer", "mlp_block")}
+
+
+def zamba2_breakdown(torch, model, prompts, kernel: str) -> dict:
+    """One zamba2 prefill's device ms split into the flash kernel, the SSD
+    (``mamba2.ssd_batched``), the conv, the Mamba2 in and out projections,
+    the shared blocks' MLP (the only ``mlp_block`` of zamba2) and the rest
+    (norms, gates, the shared blocks' projections, the head)."""
+    from repro_torch.models import mamba2, transformer
+
+    mods = {"mamba2": mamba2, "transformer": transformer}
+    out = ranged_prefill(torch, {k: (mods[m], f) for k, (m, f) in ZAMBA2_PARTS.items()}, model, prompts, kernel)
+    if out:
+        out["rest_ms"] = out["device_ms"] - out["flash_ms"] - sum(out["parts_ms"].values())
+    return out
+
+
+def print_parts(name: str, b: dict) -> None:
+    if not b:
+        return
+    t = b["device_ms"]
+    print(f"  ({name}) prefill device time {t:.1f} ms: flash {b['flash_ms']:.1f} ({100 * b['flash_ms'] / t:.1f}%), "
+          + ", ".join(f"{k} {v:.1f} ({100 * v / t:.1f}%)" for k, v in b["parts_ms"].items())
+          + f", rest {b['rest_ms']:.1f} ({100 * b['rest_ms'] / t:.1f}%)", flush=True)
+
+
+def shared_invocations(cfg) -> int:
+    """zamba2's shared-block invocations in one pass: one flash launch each."""
+    return cfg.n_layers // cfg.shared_attn_period
 
 
 def print_moe_reading(name: str, entry: dict) -> None:
@@ -1828,7 +1936,7 @@ def wkv6_matrix(torch, wkv6_ops, plain, agreement, fails: Failures, seed: int) -
     results = []
     for K in WKV6_HEAD_SIZES:
         for S in WKV6_LENGTHS:
-            for B, H in WKV6_BATCH_HEADS:
+            for B, H in (((1, 40),) if S == WKV6_LONG else WKV6_BATCH_HEADS):
                 t0 = time.perf_counter()
                 r, k, v = (0.5 * torch.randn(B, S, H, K, device=dev, generator=gen)).to(torch.bfloat16), \
                     (0.5 * torch.randn(B, S, H, K, device=dev, generator=gen)).to(torch.bfloat16), \
@@ -1978,12 +2086,16 @@ def wkv6_at_shapes(torch, wkv6_ops, plain, scan, agreement, rec: CallRecorder) -
 # walk in f64 takes ~4 s a case there, whatever B and H)
 WKV6_BWD_LENGTHS = (1, 16, 53, 208, 2048, 16385)
 WKV6_BWD_LONG = 16385
+WKV6_BWD_LONG_DECAYS = ("random", "-54.6")  # the long sequence's f64 walk takes ~6 s a case
 WKV6_BWD_SHAPES = ((2, 3), (2, 40), (1, 40))
 
 
-def wkv6_bwd_cases(S: int) -> tuple:
-    """The (B, H) pairs phase 17 runs at length S."""
-    return ((1, 40),) if S == WKV6_BWD_LONG else WKV6_BWD_SHAPES
+def wkv6_bwd_cases(S: int, K: int) -> tuple:
+    """The (B, H) pairs phase 17 runs at length S and head size K: the long
+    sequence only at rwkv6-3b's head size (its f64 walk takes ~4 s a case)."""
+    if S == WKV6_BWD_LONG:
+        return ((1, 40),) if K == 64 else ()
+    return WKV6_BWD_SHAPES
 
 
 # the f64 autograd of wkv6_scan keeps every step's state: only up to this S;
@@ -2062,11 +2174,13 @@ def wkv6_bwd_matrix(torch, wkv6_kernel, plain_bwd, scan, bwd_agreement, fails: F
     rows = []
     for K in WKV6_HEAD_SIZES:
         for S in WKV6_BWD_LENGTHS:
-            for B, H in wkv6_bwd_cases(S):
+            for B, H in wkv6_bwd_cases(S, K):
                 t0 = time.perf_counter()
                 n_cases = bad = 0
                 worst = {"max_abs_err": 0.0, "worst": 0.0, "rel": 0.0, "autograd_rel": 0.0}
                 for dname, value in WKV6_DECAYS.items():
+                    if S == WKV6_BWD_LONG and dname not in WKV6_BWD_LONG_DECAYS:
+                        continue
                     for with_state in (False, True):
                         args = wkv6_bwd_inputs(torch, gen, B, S, H, K, value, with_state, torch.bfloat16)
                         got = wkv6_kernel.launch_bwd(*args)
@@ -2821,10 +2935,12 @@ def main(argv=None) -> int:
     from repro_torch.kernels.wkv6.ref import wkv6_bwd_plain, wkv6_plain, wkv6_scan
 
     t_start = time.perf_counter()
+    phase_start: dict = {}  # seconds from the start to each phase's start
     fails = Failures()
     record: dict = {"sf": args.sf, "seed": args.seed}
 
     # 1. environment
+    phase_start[1] = time.perf_counter() - t_start
     smi = nvidia_smi_line()
     name = torch.cuda.get_device_name(0)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device {name}", flush=True)
@@ -2833,6 +2949,7 @@ def main(argv=None) -> int:
     record["torch"] = torch.__version__
 
     # 2. build
+    phase_start[2] = time.perf_counter() - t_start
     t0 = time.perf_counter()
     record["build_s"] = build_all({"segreduce": kernel.LIBRARY, "flash": flash_kernel.LIBRARY,
                                    "flash_bwd": flash_kernel.BWD_LIBRARY, "wkv6": wkv6_kernel.LIBRARY,
@@ -2841,12 +2958,14 @@ def main(argv=None) -> int:
           + f" (in parallel; all loaded in {time.perf_counter() - t0:.1f} s)", flush=True)
 
     # 3. kernel against plain
+    phase_start[3] = time.perf_counter() - t_start
     print("kernel against its plain version:", flush=True)
     big_n = int(6_000_000 * args.sf)
     record["matrix"] = kernel_matrix(torch, ops, ref, fails, big_n, args.seed)
     torch.cuda.empty_cache()
 
     # 4. main path
+    phase_start[4] = time.perf_counter() - t_start
     print(f"main path at TPC-H SF{args.sf:g}:", flush=True)
     t0 = time.perf_counter()
     tables = tpch_tables(args.sf, args.seed)
@@ -2862,6 +2981,7 @@ def main(argv=None) -> int:
     record["launches"] = dict(launches)
 
     # 5. the kernel at the main path's shapes (these launches are not counted)
+    phase_start[5] = time.perf_counter() - t_start
     print("kernel at the main path's shapes:", flush=True)
     shapes = {}
     for rec in recorders:
@@ -2884,6 +3004,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
 
     # 6. flash against its plain version
+    phase_start[6] = time.perf_counter() - t_start
     print("flash kernel against its plain version:", flush=True)
     record["flash_matrix"] = flash_matrix(torch, flash_ops, flash_attention_plain, agreement, fails, args.seed)
     record["flash_config"] = {d: flash_kernel.library_config(d) for d in flash_kernel.HEAD_DIMS}
@@ -2897,12 +3018,14 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
 
     # 7. the serving path at full width
+    phase_start[7] = time.perf_counter() - t_start
     print(f"serving path: {SERVE_ARCH} at full width:", flush=True)
     flash_rec = flash_recorder(flash_ops, flash_attention_plain, agreement, fails)
     flash_launches = serve_path(torch, SERVE_ARCH, SERVE_SCENARIOS, flash_ops, flash_rec, "flash_fwd", fails,
                                 args.seed, record)
 
     # 8. flash at the serving path's shapes (these launches are not counted)
+    phase_start[8] = time.perf_counter() - t_start
     print("flash kernel at the serving path's shapes:", flush=True)
     record["flash_ptxas_d256"] = flash_kernel.ptxas_report(256)
     for line in record["flash_ptxas_d256"] or ["ptxas: the flash library was not built in this run"]:
@@ -2911,22 +3034,26 @@ def main(argv=None) -> int:
     record["flash_shapes"] = flash_rows
 
     # 9. wkv6 against its plain version
+    phase_start[9] = time.perf_counter() - t_start
     print("wkv6 kernel against its plain version:", flush=True)
     record["wkv6_matrix"] = wkv6_matrix(torch, wkv6_ops, wkv6_plain, wkv6_agreement, fails, args.seed)
     record["wkv6_passes"] = wkv6_pass_report(torch, args.seed)
 
     # 10. the rwkv6 serving path at full width
+    phase_start[10] = time.perf_counter() - t_start
     print(f"serving path: {RWKV_ARCH} at full width:", flush=True)
     wkv6_rec = wkv6_recorder(wkv6_ops, wkv6_plain, wkv6_agreement, fails)
     wkv6_launches = serve_path(torch, RWKV_ARCH, RWKV_SCENARIOS, wkv6_ops, wkv6_rec, "wkv6_", fails,
                                args.seed, record, prepare=lambda m, g: spread_rwkv_zero_inits(torch, m, g))
 
     # 11. wkv6 at the serving path's shapes (these launches are not counted)
+    phase_start[11] = time.perf_counter() - t_start
     print("wkv6 kernel at the serving path's shapes:", flush=True)
     wkv6_rows = wkv6_at_shapes(torch, wkv6_ops, wkv6_plain, wkv6_scan, wkv6_agreement, wkv6_rec)
     record["wkv6_shapes"] = wkv6_rows
 
     # 12. the partitioned backend at the main path's size
+    phase_start[12] = time.perf_counter() - t_start
     print(f"partitioned backend at TPC-H SF{args.sf:g}:", flush=True)
     chunk_recorders = [Recorder(ops, "fused_segreduce", first_only=True),
                        Recorder(ops, "segreduce", first_only=True)]
@@ -2943,6 +3070,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
 
     # 13. the multi-tenant QueryServer
+    phase_start[13] = time.perf_counter() - t_start
     print("QueryServer: tenants over one shared chunk pool:", flush=True)
     t0 = time.perf_counter()
     tables["zipf"] = zipf_table(rows["lineitem"], args.seed)
@@ -2958,6 +3086,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
 
     # 14. the flash backward against its plain version
+    phase_start[14] = time.perf_counter() - t_start
     print("flash backward kernel against its plain version:", flush=True)
     record["flash_bwd_matrix"] = flash_bwd_matrix(torch, flash_kernel, flash_attention_bwd_plain, attention_ref,
                                                   bwd_agreement, bwd_exact_agreement, fails, args.seed)
@@ -2965,17 +3094,20 @@ def main(argv=None) -> int:
     record["flash_bwd_shape"] = bwd_row
 
     # 15. training starcoder2-3b at full width
+    phase_start[15] = time.perf_counter() - t_start
     print(f"training path: {TRAIN_ARCH} at full width:", flush=True)
     train = train_path(torch, "flash", fails, args.seed, record)
     flash_launches += train["launches"]["forward"]
     bwd_launches = train["launches"]["backward"]
 
     # 16. the training CLI: a failure and a restart from the checkpoint
+    phase_start[16] = time.perf_counter() - t_start
     print("training CLI with a simulated failure:", flush=True)
     cli_path(fails, record)
     cli_path(fails, record, RWKV_ARCH)
 
     # 17. the wkv6 backward against its plain version
+    phase_start[17] = time.perf_counter() - t_start
     print("wkv6 backward kernel against its plain version:", flush=True)
     record["wkv6_bwd_matrix"] = wkv6_bwd_matrix(torch, wkv6_kernel, wkv6_bwd_plain, wkv6_scan, wkv6_bwd_agreement,
                                                 fails, args.seed)
@@ -2983,6 +3115,7 @@ def main(argv=None) -> int:
     record["wkv6_bwd_shape"] = wkv6_bwd_row
 
     # 18. training rwkv6-3b at full width
+    phase_start[18] = time.perf_counter() - t_start
     print(f"training path: {RWKV_ARCH} at full width:", flush=True)
     rwkv_train = train_path(torch, "wkv6", fails, args.seed, record)
     wkv6_launches += rwkv_train["launches"]["forward"]
@@ -2990,6 +3123,7 @@ def main(argv=None) -> int:
     print(f"phases 1-18 in {time.perf_counter() - t_start:.0f} s", flush=True)
 
     # 19. the MoE models at published width over the layers that fit
+    phase_start[19] = time.perf_counter() - t_start
     from repro_torch.configs.base import get_config
     from repro_torch.models import moe
 
@@ -3009,12 +3143,33 @@ def main(argv=None) -> int:
         print(f"  {arch}: {time.perf_counter() - t0:.0f} s", flush=True)
 
     # 20. training dbrx-132b at published width over the layers that fit
+    phase_start[20] = time.perf_counter() - t_start
     print(f"training path: {TRAIN_CASES['moe']['arch']} at published width:", flush=True)
     t0 = time.perf_counter()
     moe_train = train_path(torch, "moe", fails, args.seed, record)
     flash_launches += moe_train["launches"]["forward"]
     bwd_launches += moe_train["launches"]["backward"]
     print(f"  {time.perf_counter() - t0:.0f} s; phases 1-20 in {time.perf_counter() - t_start:.0f} s", flush=True)
+
+    # 21. zamba2-7b at its published width and depth
+    phase_start[21] = time.perf_counter() - t_start
+    from repro_torch.models import mamba2
+
+    print(f"serving path: {ZAMBA2_ARCH} at full width and depth:", flush=True)
+    fails.check(not torch.backends.cuda.matmul.allow_tf32 and torch.get_float32_matmul_precision() == "highest",
+                "TF32 is on for f32 products: the Mamba2 SSD's products must run in f32")
+    t0 = time.perf_counter()
+    zamba_rec = flash_recorder(flash_ops, flash_attention_plain, agreement, fails)
+    flash_launches += serve_path(
+        torch, ZAMBA2_ARCH, ZAMBA2_SCENARIOS, flash_ops, zamba_rec, "flash_fwd", fails, args.seed, record,
+        prepare=lambda m, g: mamba2.spread_zero_inits_(m.named_parameters(), g), per_prefill=shared_invocations,
+        breakdown=lambda m, p: zamba2_breakdown(torch, m, p, "flash_fwd"))
+    print(f"flash kernel at {ZAMBA2_ARCH}'s shapes (head dim 112, padded to 128; SSD chunk 64, states passed "
+          f"{mamba2.STATE_BLOCK} chunks a product):", flush=True)
+    zamba_rows = flash_at_shapes(torch, flash_ops, flash_attention_plain, agreement, zamba_rec, fails)
+    record["flash_shapes_zamba2"] = zamba_rows
+    flash_rows = flash_rows + zamba_rows
+    print(f"  {time.perf_counter() - t0:.0f} s; phases 1-21 in {time.perf_counter() - t_start:.0f} s", flush=True)
 
     # the JSON record: each kernel at the largest shape the main path gave it
     entries = []
@@ -3113,6 +3268,9 @@ def main(argv=None) -> int:
                                                  f"version ({wkv6_bwd_row['agreement']})")
     fails.check(bwd_row["agreement"]["ok"], f"flash backward at the training shape disagrees with its plain "
                                             f"version ({bwd_row['agreement']})")
+    ends = sorted(phase_start.items()) + [(None, time.perf_counter() - t_start)]
+    record["phase_seconds"] = {n: ends[i + 1][1] - t for i, (n, t) in enumerate(ends[:-1])}
+    print("seconds a phase: " + ", ".join(f"{n} {t:.0f}" for n, t in record["phase_seconds"].items()), flush=True)
     record["failures"] = fails.items
     os.makedirs(os.path.dirname(args.out), exist_ok=True)
     with open(args.out, "w") as fh:

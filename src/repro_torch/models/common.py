@@ -200,13 +200,23 @@ def silu(x: torch.Tensor) -> torch.Tensor:
     return x * sigmoid(x)
 
 
+def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    """jax.nn.gelu(x, approximate=True), x / 2 (1 + tanh(sqrt(2/pi) (x +
+    0.044715 x^3))), each step rounded to x's type as XLA rounds it, its
+    constants cast to x's type first (F.gelu rounds once, and differed
+    from it in half a zamba2 MLP's bf16 outputs)."""
+    c = float(torch.tensor(math.sqrt(2 / math.pi), dtype=x.dtype))
+    cubic = float(torch.tensor(0.044715, dtype=x.dtype))
+    return x * ((torch.tanh((x + x * x * x * cubic) * c) + 1.0) * 0.5)
+
+
 def activation_fn(name: str) -> Callable[[torch.Tensor], torch.Tensor]:
     if name == "silu":
         return silu
     if name == "gelu":
         return F.gelu
     if name == "gelu_tanh":
-        return lambda x: F.gelu(x, approximate="tanh")
+        return gelu_tanh
     if name == "relu2":
         return lambda x: torch.square(F.relu(x))
     raise ValueError(f"unknown activation {name}")

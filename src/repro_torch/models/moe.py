@@ -14,6 +14,9 @@
 # contributions in ascending expert order, rounding in the experts' dtype
 # after each add, as the reference's sequential scatter-add into bf16 does; it is a
 # gather, not an atomic scatter, so it gives the same bits on every run.
+# The dispatch's gradient sums each token's K rows by a gather too, in f32
+# in a fixed order (``_TokenRows``): index_select's own backward adds them
+# by atomics on the card, in an order that changes between runs.
 from __future__ import annotations
 
 from typing import Dict, NamedTuple, Tuple
@@ -100,6 +103,27 @@ def route(logits: torch.Tensor, *, E: int, K: int, C: int, dtype: torch.dtype) -
     return Routing(expert_ids, stok, slot, keep, weight, by_token, lb)
 
 
+class _TokenRows(torch.autograd.Function):
+    """``x.index_select(0, rows)`` for rows that name each of x's rows K
+    times, whose backward sums each row's K gradient rows in f32 in the
+    order ``by_token`` lists them (ascending) and rounds the sum once, as
+    the CPU's index_add_ does: a gather, so the same bits on every run."""
+
+    @staticmethod
+    def forward(ctx, x, rows, by_token):
+        ctx.save_for_backward(by_token)
+        return x.index_select(0, rows)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (by_token,) = ctx.saved_tensors  # (x rows, K) rows of grad
+        parts = grad.index_select(0, by_token.reshape(-1)).reshape(*by_token.shape, grad.shape[-1])
+        out = parts[:, 0].float()
+        for k in range(1, by_token.shape[1]):
+            out = out + parts[:, k].float()
+        return out.to(grad.dtype), None, None
+
+
 def dispatch(xt: torch.Tensor, r: Routing, E: int, C: int) -> torch.Tensor:
     """xt (ns, Tl, d) into the expert buffers (ns, E, C, d): each kept
     choice's token copied to its slot.  Slots are unique, so the reference's
@@ -109,7 +133,9 @@ def dispatch(xt: torch.Tensor, r: Routing, E: int, C: int) -> torch.Tensor:
     rows = E * C + 1
     base = torch.arange(ns, device=xt.device)[:, None]
     dest = torch.where(r.keep, r.slot, E * C) + base * rows
-    src = xt.reshape(ns * Tl, d).index_select(0, (r.stok + base * Tl).reshape(-1))
+    K = r.by_token.shape[-1]
+    src = _TokenRows.apply(xt.reshape(ns * Tl, d), (r.stok + base * Tl).reshape(-1),
+                           (r.by_token + base[:, :, None] * (Tl * K)).reshape(ns * Tl, K))
     xin = xt.new_zeros((ns * rows, d))
     xin.index_copy_(0, dest.reshape(-1), src)
     return xin.reshape(ns, rows, d)[:, : E * C].reshape(ns, E, C, d)

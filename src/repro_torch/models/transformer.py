@@ -1,14 +1,20 @@
 # Model assembly: parameter-definition trees, the layer stacker (pattern
 # periods with stacked parameters, plus a remainder), and the forward /
 # prefill / decode entry points for the attention families (with a dense
-# or a mixture-of-experts feed-forward) and rwkv6.
+# or a mixture-of-experts feed-forward), rwkv6 and zamba2 (Mamba2 layers
+# with shared attention blocks).
 #
 # Heterogeneous layer patterns (gemma local:global alternation) stack one
 # tensor per pattern position with a leading ``repeats`` axis, as the JAX
 # package stacks them for lax.scan; here a Python loop over the repeats
 # indexes ``[r]``.  Caches are stacked the same way; decode writes them in
-# place (the attention block its k/v at the position, the rwkv block its
-# whole state).
+# place (the attention block its k/v at the position, the rwkv and mamba2
+# blocks their whole state).  zamba2 invokes one of its
+# ``n_shared_blocks`` shared transformer blocks (stacked under ``shared``)
+# after every ``shared_attn_period``-th layer, block ``inv %
+# n_shared_blocks`` for the inv-th invocation; each invocation has its own
+# k/v cache, stacked (repeats, invocations a repeat, ...) under ``shared``
+# and listed under ``shared_rem`` for the remainder layers.
 from __future__ import annotations
 
 import math
@@ -30,12 +36,13 @@ from .common import (
     tree_map,
     tree_stack_defs,
 )
+from .mamba2 import mamba2_block, mamba2_defs, mamba2_init_state
 from .mlp import mlp_block, mlp_defs
 from .moe import moe_block, moe_defs
 from .rwkv6 import rwkv6_channel_defs, rwkv6_channel_mix, rwkv6_defs, rwkv6_time_mix
 
 ATTN_KINDS = ("global", "local", "chunked", "bidir")
-PORTED_KINDS = ATTN_KINDS + ("rwkv",)
+PORTED_KINDS = ATTN_KINDS + ("rwkv", "mamba2")
 AUX_KEYS = ("lb_loss", "router_z")
 
 
@@ -46,8 +53,6 @@ def _not_ported(what: str) -> NotImplementedError:
 def _check_ported(cfg: ArchConfig) -> None:
     if cfg.family == "audio":
         raise _not_ported("the audio frontend")
-    if cfg.shared_attn_period:
-        raise _not_ported("the zamba2 shared block")
     for kind in set(cfg.layer_kinds()):
         if kind not in PORTED_KINDS:
             raise _not_ported(f"the {kind} layer")
@@ -79,8 +84,24 @@ def block_defs(cfg: ArchConfig, kind: str) -> Dict[str, Any]:
     if kind == "rwkv":
         return {"ln1": ln(), "tmix": rwkv6_defs(cfg), "ln2": ln(), "cmix": rwkv6_channel_defs(cfg)}
     if kind == "mamba2":
-        raise _not_ported(f"the {kind} layer")
+        return {"ln1": ln(), "mamba": mamba2_defs(cfg)}
     raise ValueError(f"unknown layer kind {kind}")
+
+
+def shared_block_defs(cfg: ArchConfig) -> Dict[str, Any]:
+    """zamba2's shared transformer block (attention + MLP), invoked every
+    ``shared_attn_period`` layers; its weights are shared across
+    invocations (two alternating blocks), with a per-use input projection
+    from [h, embed]."""
+    d = cfg.d_model
+    din = 2 * d if cfg.shared_concat_embed else d
+    return {
+        "in_proj": ParamDef((din, d), ("embed", "embed_out")),
+        "ln1": ParamDef((din,), ("embed",), init="zeros"),
+        "attn": attention_defs(cfg),
+        "ln2": ParamDef((d,), ("embed",), init="zeros"),
+        "mlp": mlp_defs(cfg),
+    }
 
 
 def model_defs(cfg: ArchConfig) -> Dict[str, Any]:
@@ -100,6 +121,10 @@ def model_defs(cfg: ArchConfig) -> Dict[str, Any]:
         }
     if remainder:
         defs["remainder"] = [block_defs(cfg, kind) for kind in remainder]
+    if cfg.shared_attn_period:
+        assert len(pattern) % cfg.shared_attn_period == 0, (
+            "layer_pattern length must be a multiple of shared_attn_period")
+        defs["shared"] = tree_stack_defs(shared_block_defs(cfg), cfg.n_shared_blocks)
     return defs
 
 
@@ -123,6 +148,8 @@ def apply_block(
     lb_loss and router_z (f32 scalars), and is empty for other blocks."""
     if kind == "rwkv":
         return _rwkv_block(p, x, cfg, cache, prefill)
+    if kind == "mamba2":
+        return _mamba2_block(p, x, cfg, cache, prefill)
     if kind not in ATTN_KINDS:
         raise _not_ported(f"the {kind} layer")
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
@@ -180,6 +207,61 @@ def _rwkv_block(
     return x, cache, {}
 
 
+def _mamba2_block(
+    p: Dict[str, Any],
+    x: torch.Tensor,
+    cfg: ArchConfig,
+    cache: Optional[Dict[str, torch.Tensor]],
+    prefill: bool,
+) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]], Dict[str, torch.Tensor]]:
+    """The normed input through the Mamba2 block, added to the residual.
+    ``x`` is the bf16 residual or, after another mamba2 layer or a shared
+    block of the same repeat, its unrounded f32 sum, which ln1 norms as it
+    is; the sum returned is unrounded too (C42).  Prefill without a cache
+    starts from the zero state and returns the state it ends in; with a
+    cache (decode) the new conv and ssm states are copied into the cache's
+    tensors in place, as in the rwkv block."""
+    if prefill and cache is None:
+        cache = mamba2_init_state(cfg, x.shape[0], device=x.device)
+    h = rms_norm(x, p["ln1"], cfg.norm_eps).to(torch.bfloat16)
+    m_out, new_state = mamba2_block(p["mamba"], h, cfg, state=cache)
+    if cache is not None:
+        for name, value in new_state.items():
+            cache[name].copy_(value)
+    return x.to(torch.bfloat16).float() + m_out.float(), cache, {}
+
+
+def apply_shared_block(
+    p: Dict[str, Any],
+    x: torch.Tensor,
+    embed0: torch.Tensor,
+    cfg: ArchConfig,
+    positions: torch.Tensor,
+    cache: Optional[Dict[str, torch.Tensor]] = None,
+    cache_pos: Optional[torch.Tensor] = None,
+    prefill: bool = False,
+    prefill_quant: bool = False,
+) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
+    """zamba2's shared block on [x, embed0]: ln1 over both, the input
+    projection back to d_model, global attention, then the MLP, each added
+    to x.  ``x`` may be a mamba2 layer's unrounded sum: the block reads it
+    rounded, and returns its own last sum unrounded for the next layer's
+    norm (C42).  Returns (x, the attention's cache: built at prefill,
+    written in place at decode)."""
+    x = x.to(embed0.dtype)
+    h = torch.cat([x, embed0], dim=-1) if cfg.shared_concat_embed else x
+    h = rms_norm(h, p["ln1"], cfg.norm_eps)
+    h = h @ p["in_proj"]
+    attn_out, new_cache = attention_block(
+        p["attn"], h, cfg, "global",
+        AttnInputs(positions, cache, cache_pos, collect_kv=prefill, quantize_collected=prefill_quant),
+    )
+    # ln2 norms the f32 sum, unrounded, as in the attention block
+    h2 = rms_norm(x.float() + attn_out.float(), p["ln2"], cfg.norm_eps).to(attn_out.dtype)
+    x = x + attn_out
+    return x.float() + mlp_block(p["mlp"], h2, cfg).float(), new_cache
+
+
 def _layer(tree: Dict[str, Any], r: int) -> Dict[str, Any]:
     """Repeat ``r`` of a stacked tree (views, so writes reach the stack)."""
     return tree_map(lambda a: a[r], tree)
@@ -202,6 +284,8 @@ def _block_cache_shapes(cfg: ArchConfig, kind: str, batch: int, max_seq: int,
             "shift_t": ((batch, cfg.d_model), torch.bfloat16),
             "shift_c": ((batch, cfg.d_model), torch.bfloat16),
         }
+    if kind == "mamba2":
+        return {name: (tuple(t.shape), t.dtype) for name, t in mamba2_init_state(cfg, batch, device="meta").items()}
     shape = init_cache_shape(cfg, kind, batch, max_seq)
     if quantized:
         s_shape = shape[:-1] + (1,)
@@ -229,7 +313,26 @@ def cache_abstract(cfg: ArchConfig, batch: int, max_seq: int, quantized: bool = 
         }
     if remainder:
         out["remainder"] = [_block_cache_shapes(cfg, kind, batch, max_seq, quantized) for kind in remainder]
+    per_step, rem_inv = _shared_layout(cfg)
+    if per_step:
+        out["shared"] = {
+            name: ((repeats, per_step) + shape, dt)
+            for name, (shape, dt) in _block_cache_shapes(cfg, "global", batch, max_seq, quantized).items()
+        }
+    if rem_inv:
+        out["shared_rem"] = [_block_cache_shapes(cfg, "global", batch, max_seq, quantized) for _ in range(rem_inv)]
     return out
+
+
+def _shared_layout(cfg: ArchConfig) -> Tuple[int, int]:
+    """(shared invocations a repeat of the pattern, invocations among the
+    remainder layers)."""
+    if not cfg.shared_attn_period:
+        return 0, 0
+    (pattern, repeats), remainder = cfg.scan_groups()
+    base = repeats * len(pattern)
+    rem = sum(1 for j in range(len(remainder)) if (base + j + 1) % cfg.shared_attn_period == 0)
+    return len(pattern) // cfg.shared_attn_period, rem
 
 
 def _is_shape_leaf(x: Any) -> bool:
@@ -284,13 +387,29 @@ def _positions_of(batch: Dict[str, torch.Tensor], cfg: ArchConfig, B: int, S: in
 
 
 def _layers(cfg: ArchConfig):
-    """(group key or None, repeat or remainder index, kind) in layer order."""
+    """(group key or None, repeat or remainder index, kind, shared) in
+    layer order.  ``shared`` is the shared invocation that follows the
+    layer, else None: (the block it uses, the index of its cache) with the
+    index (r, j), the j-th invocation of repeat r in the ``shared`` stack,
+    or (k,), the k-th of ``shared_rem``.  The inv-th invocation (counted
+    across the repeats and the remainder) uses block inv % n_shared_blocks."""
     (pattern, repeats), remainder = cfg.scan_groups()
+    period = cfg.shared_attn_period
+
+    def invocation(layer: int) -> Optional[int]:
+        if period and (layer + 1) % period == 0:
+            return (layer + 1) // period - 1
+        return None
+
     for r in range(repeats):
         for i, kind in enumerate(pattern):
-            yield f"pos{i}", r, kind
+            inv = invocation(r * len(pattern) + i)
+            yield f"pos{i}", r, kind, None if inv is None else (inv % cfg.n_shared_blocks, (r, (i + 1) // period - 1))
+    k = 0
     for j, kind in enumerate(remainder):
-        yield None, j, kind
+        inv = invocation(repeats * len(pattern) + j)
+        yield None, j, kind, None if inv is None else (inv % cfg.n_shared_blocks, (k,))
+        k += inv is not None
 
 
 def _layer_params(params: Dict[str, Any], group: Optional[str], idx: int) -> Dict[str, Any]:
@@ -312,29 +431,37 @@ def forward(
     (torch.utils.checkpoint), as the JAX package checkpoints each step of
     its scan; the remainder layers are not recomputed, as there."""
     x = embed_tokens(params, batch, cfg)
+    embed0 = x
     B, S, _ = x.shape
     positions = _positions_of(batch, cfg, B, S, x.device)
     (pattern, repeats), remainder = cfg.scan_groups()
     zero = torch.zeros(len(AUX_KEYS), dtype=torch.float32, device=x.device)
+    by_repeat: Dict[Optional[int], List[tuple]] = {}
+    for layer in _layers(cfg):
+        by_repeat.setdefault(None if layer[0] is None else layer[1], []).append(layer)
 
-    def add_aux(acc: torch.Tensor, aux: Dict[str, torch.Tensor]) -> torch.Tensor:
-        return acc + torch.stack([aux[k] for k in AUX_KEYS]) if aux else acc
-
-    def repeat(x: torch.Tensor, r: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    def run(x: torch.Tensor, r: Optional[int]) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The layers of repeat ``r`` (None: the remainder), each followed
+        by its shared invocation, if any."""
         acc = zero
-        for i, kind in enumerate(pattern):
-            x, _, aux = apply_block(_layer(params["groups"][f"pos{i}"], r), x, cfg, kind, positions)
-            acc = add_aux(acc, aux)
-        return x, acc
+        for group, idx, kind, shared in by_repeat[r]:
+            x, _, aux = apply_block(_layer_params(params, group, idx), x, cfg, kind, positions)
+            if aux:
+                acc = acc + torch.stack([aux[k] for k in AUX_KEYS])
+            if shared is not None:
+                x, _ = apply_shared_block(_layer(params["shared"], shared[0]), x, embed0, cfg, positions)
+        # a repeat ends rounded (the reference's scan carries bf16); the
+        # remainder's last sum reaches the final norm unrounded (C42)
+        return (x if r is None else x.to(embed0.dtype)), acc
 
     aux_acc = zero
     for r in range(repeats):
-        x, aux_r = checkpoint(repeat, x, r, use_reentrant=False) if remat else repeat(x, r)
+        x, aux_r = checkpoint(run, x, r, use_reentrant=False) if remat else run(x, r)
         aux_acc = aux_acc + aux_r
-    for j, kind in enumerate(remainder):
-        x, _, aux = apply_block(params["remainder"][j], x, cfg, kind, positions)
-        aux_acc = add_aux(aux_acc, aux)
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    if remainder:
+        x, aux_r = run(x, None)
+        aux_acc = aux_acc + aux_r
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps).to(embed0.dtype)
     logits = _project_logits(params, x, cfg)
     return logits, dict(zip(AUX_KEYS, aux_acc.unbind()))
 
@@ -363,21 +490,35 @@ def prefill_forward(
     Returns (last-position logits (B, 1, V), cache): full (B, S, V) logits
     at 32k x 256k vocab would be hundreds of GB."""
     x = embed_tokens(params, batch, cfg)
+    embed0 = x
     B, S, _ = x.shape
     positions = _positions_of(batch, cfg, B, S, x.device)
     (pattern, repeats), remainder = cfg.scan_groups()
     per_group: Dict[str, List[Dict[str, torch.Tensor]]] = {f"pos{i}": [] for i in range(len(pattern))}
     rem_caches: List[Dict[str, torch.Tensor]] = []
-    for group, idx, kind in _layers(cfg):
+    per_repeat: List[List[Dict[str, torch.Tensor]]] = [[] for _ in range(repeats)]
+    shared_rem: List[Dict[str, torch.Tensor]] = []
+    for group, idx, kind, shared in _layers(cfg):
         x, c_new, _ = apply_block(_layer_params(params, group, idx), x, cfg, kind, positions,
                                   prefill=True, prefill_quant=quantize_cache)
         (rem_caches if group is None else per_group[group]).append(c_new)
+        if shared is not None:
+            x, sc_new = apply_shared_block(_layer(params["shared"], shared[0]), x, embed0, cfg, positions,
+                                           prefill=True, prefill_quant=quantize_cache)
+            (shared_rem if group is None else per_repeat[idx]).append(sc_new)
+        if group == f"pos{len(pattern) - 1}":
+            x = x.to(embed0.dtype)  # a repeat ends rounded (C42)
     cache: Dict[str, Any] = {}
     if repeats > 0:
         cache["groups"] = {g: _stack_caches(cs) for g, cs in per_group.items()}
     if remainder:
         cache["remainder"] = rem_caches
-    x = rms_norm(x[:, -1:], params["final_norm"], cfg.norm_eps)
+    if repeats > 0 and per_repeat[0]:
+        cache["shared"] = _stack_caches([_stack_caches(cs) for cs in per_repeat])
+    if shared_rem:
+        cache["shared_rem"] = shared_rem
+    # the last position's slice is taken of the rounded residual (C42)
+    x = rms_norm(x[:, -1:].to(embed0.dtype), params["final_norm"], cfg.norm_eps)
     logits = _project_logits(params, x, cfg)
     return logits, cache
 
@@ -403,10 +544,17 @@ def decode_step(
     positions = pos.to(torch.int32).reshape(1, 1).expand(B, 1)
     if cfg.m_rope_sections:
         positions = positions[None].expand(3, B, 1)
-    for group, idx, kind in _layers(cfg):
+    embed0 = x
+    for group, idx, kind, shared in _layers(cfg):
         lc = cache["remainder"][idx] if group is None else _layer(cache["groups"][group], idx)
         x, _, _ = apply_block(_layer_params(params, group, idx), x, cfg, kind, positions, lc, pos)
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+        if shared is not None:
+            block, at = shared
+            sc = cache["shared_rem"][at[0]] if group is None else _layer(_layer(cache["shared"], at[0]), at[1])
+            x, _ = apply_shared_block(_layer(params["shared"], block), x, embed0, cfg, positions, sc, pos)
+        if group == f"pos{len(cfg.layer_pattern) - 1}":
+            x = x.to(embed0.dtype)  # a repeat ends rounded (C42)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps).to(embed0.dtype)
     logits = _project_logits(params, x, cfg)
     return logits, cache
 

@@ -140,14 +140,20 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+# the batch axis of each part of a cache: stacked group caches (repeats,
+# B, ...), the shared blocks' stacked caches (repeats, invocations, B, ...),
+# the remainder layers' and the remainder's shared invocations' (B, ...)
+BATCH_AXIS = {"groups": 1, "shared": 2, "remainder": 0, "shared_rem": 0}
+
+
 def reset_lane_(cache: Dict[str, Any], lane: int) -> None:
     """Zero one batch lane of a cache in place (a slot handed to a new
     request); the buffers stay the ones a captured decode graph reads and
-    writes.  Stacked group caches carry the batch on axis 1, remainder
-    layers' on axis 0."""
+    writes."""
     for key, sub in cache.items():
+        axis = BATCH_AXIS[key]
         for _, t in tree_leaves(sub):
-            (t[:, lane] if key == "groups" else t[lane]).zero_()
+            t.select(axis, lane).zero_()
 
 
 def pad_cache(c_pref: Any, c_full: Any) -> Any:

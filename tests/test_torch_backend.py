@@ -25,6 +25,9 @@ from repro_torch.core.passes import OptimizeOptions, optimize
 from repro_torch.core.transforms import canonicalize_array_names
 from repro_torch.data.multiset import database_from_columns
 from repro_torch.frontends.sql import sql_to_forelem
+from test_torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 AGG_METHODS = ("dense", "onehot", "sort", "kernel")
 JOIN_SCHEMAS = {"A": ["b_id", "f", "w"], "B": ["id", "g", "v"]}

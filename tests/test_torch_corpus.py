@@ -22,6 +22,9 @@ from repro_torch import MapReduceSpec
 from repro_torch.core import OptimizeOptions, optimize
 from repro_torch.data.multiset import database_from_columns
 from repro_torch.frontends.sql import sql_to_forelem
+from test_torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 i32 = np.int32
 

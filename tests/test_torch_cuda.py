@@ -24,7 +24,13 @@
 # the card equal to the CPU's (ties and capacity drops included), and a
 # reduced dbrx-132b and llama4-scout whose decode step, routing and all, is
 # captured in a CUDA graph and gives the eager step's tokens and logits bit
-# for bit.  This file imports neither jax nor the JAX package, so it runs
+# for bit, and whose train step's gradients repeat bit for bit (the
+# dispatch's gradient a gather, not atomics); the flash kernel at zamba2's
+# head dim 112 (zero-padded to 128),
+# and a reduced zamba2 (Mamba2 layers, shared attention blocks) whose
+# prefill runs the kernel once a shared invocation and matches the CPU,
+# whose graph decode equals its eager decode, and which the serving CLI
+# serves.  This file imports neither jax nor the JAX package, so it runs
 # on a machine that has only the port:
 #
 #     PYTHONPATH=src python -m pytest tests/test_torch_cuda.py -q
@@ -59,8 +65,12 @@ from repro_torch.kernels.wkv6 import ops as wkv6_ops
 from repro_torch.kernels.wkv6.ref import agreement as wkv6_agreement
 from repro_torch.kernels.wkv6.ref import bwd_agreement as wkv6_bwd_agreement
 from repro_torch.kernels.wkv6.ref import wkv6_bwd_plain, wkv6_plain, wkv6_scan
+from repro_torch.models import mamba2
 from repro_torch.models.transformer import Model
 from repro_torch.serve.step import generate
+from test_torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 _TOL = dict(rtol=1e-5, atol=1e-5)
 
@@ -501,7 +511,7 @@ def test_ordered_regime_graph_replay_matches_eager(cuda, n):
 
 @pytest.mark.requires_cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("D", [64, 112, 128, 256])
 @pytest.mark.parametrize("G", [1, 2, 12])
 @pytest.mark.parametrize("causal,window,cap", [
     (True, 0, 0.0), (False, 0, 0.0), (True, 32, 50.0), (False, 32, 0.0),
@@ -541,7 +551,7 @@ def test_flash_kernel_small_head_dim_pads(cuda):
 
 
 @pytest.mark.requires_cuda
-@pytest.mark.parametrize("D", [32, 64, 128, 256])
+@pytest.mark.parametrize("D", [32, 64, 112, 128, 256])
 @pytest.mark.parametrize("cap,q_mul", [(0.0, 1), (50.0, 1), (50.0, 32), (50.0, 64)])
 @pytest.mark.parametrize("Sq,Sk,causal,window", [
     (1, 1, True, 0), (1, 129, True, 0), (127, 127, True, 0), (128, 128, True, 0), (129, 129, True, 0),
@@ -1362,16 +1372,19 @@ def test_flash_gradient_raises_where_the_kernel_is_not_built(cuda):
 
 
 @pytest.mark.requires_cuda
-@pytest.mark.parametrize("arch", ["gemma2-9b", "rwkv6-3b", "starcoder2-3b"])
+@pytest.mark.parametrize("arch", ["gemma2-9b", "rwkv6-3b", "starcoder2-3b", "zamba2-7b"])
 def test_graph_decode_equals_eager(cuda, arch):
     """Greedy generation with the decode step replayed as a CUDA graph gives
-    the eager path's tokens and logits, bit for bit."""
+    the eager path's tokens and logits, bit for bit (zamba2: the Mamba2
+    states and the shared blocks' k/v written in place)."""
     cfg = reduced_config(get_config(arch))
     gen = torch.Generator(device=cuda)
     gen.manual_seed(0)
     model = Model(cfg).init_params(gen)
     if arch == "rwkv6-3b":
         model = _spread_rwkv(model, gen)
+    if arch == "zamba2-7b":
+        mamba2.spread_zero_inits_(model.named_parameters(), gen)
     toks = torch.from_numpy(np.random.default_rng(1).integers(4, cfg.vocab_size, (2, 24)).astype(np.int32)).to(cuda)
     eager = generate(model, toks, 10, keep_logits=True, graph=False)
     graphed = generate(model, toks, 10, keep_logits=True, graph=True)
@@ -1477,3 +1490,65 @@ def test_serve_cli_refills_slots_under_the_graph(cuda):
 
     out = serve.main(["--requests", "5", "--batch", "2", "--new", "4", "--prompt-len", "20"])
     assert out["done"] == 2 and out["tokens"] == 2 * 4
+
+
+@pytest.mark.requires_cuda
+def test_zamba2_prefill_runs_the_kernel_and_matches_the_cpu(cuda):
+    """Reduced zamba2 on the card: one flash launch a shared invocation,
+    the SSD's f32 products in f32 (no TF32), and the logits, the Mamba2
+    states and the shared blocks' k/v agree with the same weights on the
+    CPU within the bf16 prefill tolerance."""
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg = reduced_config(get_config("zamba2-7b"))
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(0)
+    card = Model(cfg).init_params(gen)
+    mamba2.spread_zero_inits_(card.named_parameters(), gen)
+    host = Model(cfg, device="cpu")
+    host.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    toks = torch.from_numpy(np.random.default_rng(0).integers(4, cfg.vocab_size, (2, 100)).astype(np.int32))
+    flash_ops.reset_launches()
+    with torch.inference_mode():
+        got, gcache = card.prefill({"tokens": toks.to(cuda)})
+        want, wcache = host.prefill({"tokens": toks})
+    assert flash_ops.LAUNCHES == cfg.n_layers // cfg.shared_attn_period == 3
+    tol = dict(rtol=5e-2, atol=5e-2)
+    torch.testing.assert_close(got.float().cpu(), want.float(), **tol)
+    for name in ("conv", "ssm"):
+        torch.testing.assert_close(gcache["groups"]["pos0"][name][0].float().cpu(),
+                                   wcache["groups"]["pos0"][name][0].float(), **tol)
+    for name in ("k", "v"):
+        torch.testing.assert_close(gcache["shared"][name][0, 0].float().cpu(), wcache["shared"][name][0, 0].float(),
+                                   **tol)
+    res = generate(card, toks.to(cuda), 4)
+    assert res.tokens.shape == (2, 104) and res.tokens.device.type == "cuda"
+
+
+@pytest.mark.requires_cuda
+def test_serve_cli_serves_zamba2_under_the_graph(cuda):
+    """launch/serve.py on the card with reduced zamba2: slots refilled (every
+    cache lane zeroed in place, the shared stacks' included) while each
+    decode step replays the graph."""
+    from repro_torch.launch import serve
+
+    out = serve.main(["--arch", "zamba2-7b", "--requests", "5", "--batch", "2", "--new", "4", "--prompt-len", "20"])
+    assert out["done"] == 2 and out["tokens"] == 2 * 4
+
+
+@pytest.mark.requires_cuda
+def test_moe_train_step_gradients_repeat_bitwise(cuda):
+    """A reduced dbrx-132b value_and_grad on the card gives the same bits
+    twice: the dispatch's gradient sums each token's K rows by a gather in
+    a fixed order (moe._TokenRows), not by index_add_'s atomics."""
+    from repro_torch.train.step import TrainSpec, value_and_grad
+
+    cfg = reduced_config(get_config("dbrx-132b"))
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(0)
+    model = Model(cfg).init_params(gen)
+    toks = torch.from_numpy(np.random.default_rng(3).integers(4, cfg.vocab_size, (4, 32)).astype(np.int32)).to(cuda)
+    spec = TrainSpec(microbatches=2, remat=True)
+    runs = [value_and_grad(model, model.params, {"tokens": toks}, spec) for _ in range(2)]
+    assert torch.equal(runs[0][0], runs[1][0])
+    for path, g in runs[0][2].items():
+        assert torch.equal(g, runs[1][2][path]), path

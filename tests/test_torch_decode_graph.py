@@ -18,6 +18,9 @@ from repro_torch.models import transformer as T
 from repro_torch.models.common import apply_rope, rms_norm, tree_leaves
 from repro_torch.models.transformer import Model
 from repro_torch.serve.step import generate, make_decode_step, pad_cache, reset_lane_
+from test_torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 PROMPT, NEW = 20, 12  # the reduced window is 16: decode wraps the ring buffers
 

@@ -18,6 +18,9 @@ from repro.models.attention import flash_attention_jnp
 from repro_torch.kernels.flash import kernel, ops
 from repro_torch.kernels.flash.ref import KERNEL_TOL, agreement, attention_ref, flash_attention_plain
 from repro_torch.models.attention import banded_window_attention
+from test_torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 F32_TOL = dict(rtol=2e-3, atol=2e-3)
 BF16_TOL = dict(rtol=3e-2, atol=3e-2)

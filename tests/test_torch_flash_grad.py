@@ -30,6 +30,9 @@ from repro_torch.kernels.flash.ref import (
     flash_attention_lse_plain,
     flash_attention_plain,
 )
+from test_torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 JAX_TOL = dict(rtol=1e-4, atol=1e-4)
 TORCH_TOL = dict(rtol=1e-5, atol=1e-5)

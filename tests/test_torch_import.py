@@ -6,6 +6,10 @@ import re
 import subprocess
 import sys
 
+from test_torch_threads import cap_torch_threads, subprocess_env
+
+cap_torch_threads()
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|repro)(\.|\s|$)")
 
@@ -66,7 +70,7 @@ print(json.dumps(bad))
 
 
 def test_import_loads_neither_jax_nor_repro():
-    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    env = subprocess_env(PYTHONPATH=os.path.join(ROOT, "src"))
     out = subprocess.run(
         [sys.executable, "-c", _PROBE], capture_output=True, text=True, env=env, timeout=120
     )

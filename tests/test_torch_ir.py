@@ -23,6 +23,9 @@ from repro_torch.core.ir import FieldRef, program_str
 from repro_torch.frontends.mapreduce import MapReduceSpec, mapreduce_to_forelem
 from repro_torch.frontends.sql import sql_to_forelem
 from test_analysis import CORRUPTIONS
+from test_torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 
 def to_port(obj):

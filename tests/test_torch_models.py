@@ -45,11 +45,14 @@ from repro_torch.serve.kvcache import cache_bytes, dequantize_kv, quantize_kv
 from repro_torch.serve.step import generate, make_prefill_step, pad_cache
 
 from test_torch_moe import forced_routing, reference_routing, split_steps
+from test_torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 PREFILL_TOL = dict(rtol=5e-2, atol=5e-2)
 DECODE_TOL = dict(rtol=0.15, atol=0.15)
 ARCHS = ["gemma2-9b", "gemma3-4b", "starcoder2-3b", "qwen2-vl-72b", "starcoder2-15b", "dbrx-132b",
-         "llama4-scout-17b-a16e"]
+         "llama4-scout-17b-a16e", "zamba2-7b"]
 MOE_DECODE_CAPACITY = 8.0  # the reference's golden check's: C = T
 
 
@@ -170,11 +173,22 @@ def _routed(ref, *runs, teacher_forced=True):
 
 
 def _first_layers(cfg):
-    """Cache names and repeat index of the first two layers, in layer order."""
+    """Cache names and index of the first two layers' k/v, in layer order:
+    for zamba2 (Mamba2 layers) those of its first two shared invocations."""
+    if cfg.shared_attn_period:
+        return [("shared", (0, 0)), ("shared", (0, 1))]
     pattern = cfg.layer_pattern
     if len(pattern) >= 2:
         return [("groups.pos0", 0), ("groups.pos1", 0)]
     return [("groups.pos0", 0), ("groups.pos0", 1)]
+
+
+def _first_states(cfg):
+    """The recurrent caches of the first two layers (zamba2's conv and ssm
+    states), as (cache leaf name, repeat index)."""
+    if "mamba2" not in cfg.layer_pattern:
+        return []
+    return [(f"groups.pos{i}.{name}", 0) for i in (0, 1) for name in ("conv", "ssm")]
 
 
 @pytest.mark.parametrize("arch", sorted(jax_base.list_archs()))
@@ -217,6 +231,8 @@ def test_forward_and_prefill_match(case):
     for group, r in _first_layers(cfg):
         for kv in "kv":
             _close(got_leaves[f"{group}.{kv}"][r], want_leaves[f"{group}.{kv}"][r], PREFILL_TOL)
+    for name, r in _first_states(cfg):
+        _close(got_leaves[name][r], want_leaves[name][r], PREFILL_TOL)
 
 
 def test_generate_greedy_matches_teacher_forced(case):
@@ -327,6 +343,61 @@ def test_serve_cli_runs_moe_on_the_cpu(arch):
 
 
 def test_not_ported_families_raise():
-    for arch in ("zamba2-7b", "hubert-xlarge"):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            Model(base.reduced_config(base.get_config(arch)), device="cpu")
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        Model(base.reduced_config(base.get_config("hubert-xlarge")), device="cpu")
+
+
+def test_zamba2_builds_with_the_references_names_and_counts():
+    """zamba2-7b's definitions count the reference's parameters at the
+    published size (nothing allocated); the reduced model builds on the
+    CPU with the reference's names and shapes, the shared blocks included,
+    and every leaf of the reference's tree lands on a parameter."""
+    import math
+
+    from repro.models.transformer import model_defs as jax_model_defs
+    from repro_torch.models.transformer import model_defs
+
+    cfg, jcfg = base.get_config("zamba2-7b"), jax_base.get_config("zamba2-7b")
+    want = {p: tuple(d.shape) for p, d in tree_leaves(jax_model_defs(jcfg))}
+    got = {p: tuple(d.shape) for p, d in tree_leaves(model_defs(cfg))}
+    assert got == want
+    assert sum(math.prod(s) for s in got.values()) == 7_008_046_288
+    assert any(p.startswith("shared.") for p in got)
+    rcfg = base.reduced_config(cfg)
+    model = Model(rcfg, device="cpu")
+    jm = JaxModel(jax_base.reduced_config(jcfg))
+    tree = _numpy_tree(jax.jit(jm.init_params)(jax.random.PRNGKey(1)))
+    state = params_from_jax(tree)
+    assert {k: tuple(v.shape) for k, v in state.items()} == {k: tuple(p.shape) for k, p in model.state_dict().items()}
+    model.load_state_dict(state, strict=True)
+    assert model.n_params() == jm.n_params() == 328_584
+
+
+def test_serve_cli_runs_zamba2_on_the_cpu():
+    """Continuous batching over reduced zamba2: a finished slot's lane of
+    every cache (the Mamba2 states and the shared blocks' k/v) is zeroed
+    for the next request."""
+    from repro_torch.launch import serve
+
+    out = serve.main(["--device", "cpu", "--arch", "zamba2-7b", "--requests", "3", "--batch", "2", "--new", "4",
+                      "--prompt-len", "20"])
+    assert out["done"] >= 2 and out["tokens"] > 0
+
+
+def test_reset_lane_zeroes_one_lane_of_a_zamba2_cache():
+    cfg = base.reduced_config(base.get_config("zamba2-7b"))
+    cfg = dataclasses.replace(cfg, n_layers=8)  # a remainder of two layers, one shared invocation among them
+    from repro_torch.models.transformer import cache_init
+    from repro_torch.serve.step import reset_lane_
+
+    cache = cache_init(cfg, 3, 10, device="cpu")
+    assert set(cache) == {"groups", "remainder", "shared", "shared_rem"}
+    leaves = dict(tree_leaves(cache))
+    for t in leaves.values():
+        t.fill_(1)
+    reset_lane_(cache, 1)
+    axis = {"groups": 1, "shared": 2, "remainder": 0, "shared_rem": 0}  # the batch axis by the path's first part
+    for name, t in leaves.items():
+        ax = axis[name.split(".")[0]]
+        assert bool((t.select(ax, 1) == 0).all()), name
+        assert bool((t.select(ax, 0) == 1).all()) and bool((t.select(ax, 2) == 1).all()), name

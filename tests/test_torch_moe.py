@@ -61,6 +61,9 @@ from repro_torch.models import moe
 from repro_torch.models.convert import params_from_jax, tensor_from_numpy
 
 from test_torch_train import _grads_agree
+from test_torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 OUT_TOL = {"float32": dict(rtol=1e-5, atol=1e-5), "bfloat16": dict(rtol=2e-2, atol=2e-2)}
 AUX_RTOL = 1e-5
@@ -317,3 +320,26 @@ def forced_routing(records: list):
         yield forced
     finally:
         moe.top_k = orig
+
+
+@pytest.mark.parametrize("K,C", [(1, 8), (2, 8), (4, 3)])
+def test_dispatch_gradient_sums_each_tokens_rows_in_order(K, C):
+    """moe.dispatch's gradient (``_TokenRows``: each token's K rows gathered
+    and summed in f32 in ascending order, rounded once) equals
+    index_select's own backward on the CPU bit for bit, dropped choices
+    included (C = 3 drops)."""
+    rng = np.random.default_rng(K * 10 + C)
+    ns, Tl, E, d = 2, 12, 4, 8
+    logits = torch.from_numpy(rng.standard_normal((ns, Tl, E)).astype(np.float32))
+    r = moe.route(logits, E=E, K=K, C=C, dtype=torch.bfloat16)
+    x = torch.from_numpy(rng.standard_normal((ns, Tl, d)).astype(np.float32)).bfloat16()
+    cot = torch.from_numpy(rng.standard_normal((ns, E, C, d)).astype(np.float32)).bfloat16()
+    a = x.clone().requires_grad_()
+    moe.dispatch(a, r, E, C).backward(cot)
+    b = x.clone().requires_grad_()
+    base = torch.arange(ns)[:, None]
+    src = b.reshape(ns * Tl, d).index_select(0, (r.stok + base * Tl).reshape(-1))
+    dest = (torch.where(r.keep, r.slot, E * C) + base * (E * C + 1)).reshape(-1)
+    xin = b.new_zeros((ns * (E * C + 1), d)).index_copy(0, dest, src)
+    xin.reshape(ns, E * C + 1, d)[:, : E * C].reshape(ns, E, C, d).backward(cot)
+    assert torch.equal(a.grad + 0.0, b.grad + 0.0)

@@ -31,6 +31,9 @@ from repro_torch.data.multiset import database_from_columns
 from repro_torch.engine import EngineError
 from repro_torch.frontends.sql import sql_to_forelem
 from repro_torch.planner import PlanCache
+from test_torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 SCHEMAS = {"A": ["b_id", "f", "w"], "B": ["id", "g", "v"], "t": ["k", "v", "w"]}
 

@@ -12,6 +12,9 @@ from hypothesis import given, settings, strategies as st  # noqa: E402
 
 from repro.data import pipeline as jp  # noqa: E402
 from repro_torch.data import pipeline as tp  # noqa: E402
+from test_torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 
 def _docs(rng, n_docs, max_words=80, words=50):

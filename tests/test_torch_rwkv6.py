@@ -32,6 +32,9 @@ from repro_torch.models.convert import cache_from_jax, params_from_jax
 from repro_torch.models.rwkv6 import rwkv6_time_mix
 from repro_torch.models.transformer import Model
 from repro_torch.serve.step import generate, make_prefill_step
+from test_torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 PREFILL_TOL = dict(rtol=5e-2, atol=5e-2)
 DECODE_TOL = dict(rtol=0.15, atol=0.15)

@@ -13,6 +13,9 @@ from repro.sched import loop_schedule as jls
 from repro_torch.sched import elastic as tel
 from repro_torch.sched import fault_tolerant as tft
 from repro_torch.sched import loop_schedule as tls
+from test_torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 POLICIES = ("static", "fixed", "gss", "guided", "tss", "factoring", "feedback")
 

@@ -20,6 +20,9 @@ from repro.kernels.segreduce.ref import fused_segreduce_ref as jax_fused_ref
 from repro_torch.kernels.segreduce import kernel as cuda_kernel
 from repro_torch.kernels.segreduce import ops
 from repro_torch.kernels.segreduce.ref import op_identity
+from test_torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 # (n rows, num_keys, key range) — the reference kernel's row tile is 1024,
 # so multi_tile spans 5 of its tiles; empty_groups leaves keys [8, 64) empty

@@ -19,6 +19,9 @@ from repro_torch.engine import EngineError
 from repro_torch.engine.server import SharedChunkPool
 from repro_torch.planner import program_fingerprint
 from repro_torch.sched import ChunkRetryExceeded, PoolScalePolicy, RetryPolicy, deterministic_fault_hook
+from test_torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 N_ROWS = 20_000
 QUERIES = [

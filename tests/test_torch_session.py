@@ -23,6 +23,9 @@ from repro_torch.engine import EngineError
 from repro_torch.frontends.mapreduce import mapreduce_to_forelem
 from repro_torch.frontends.sql import sql_to_forelem
 from repro_torch.planner import program_fingerprint
+from test_torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 
 def _rows_close(a, b, tol=1e-3, rtol=1e-5):

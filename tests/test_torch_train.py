@@ -63,6 +63,9 @@ from repro_torch.train.checkpoint import CheckpointManager
 from repro_torch.train.step import TrainSpec, assign_, make_train_step, value_and_grad
 
 from test_torch_rwkv6 import spread_zero_inits
+from test_torch_threads import cap_torch_threads, subprocess_env
+
+cap_torch_threads()
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TRAIN_ARCHS = ["starcoder2-3b", "rwkv6-3b"]
@@ -549,7 +552,7 @@ def test_checkpoint_restart_resumes_exactly(tmp_path):
 
 @pytest.mark.parametrize("arch", TRAIN_ARCHS)
 def test_launch_train_cli_resumes_after_fail_at(tmp_path, arch):
-    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    env = subprocess_env(PYTHONPATH=os.path.join(ROOT, "src"))
     out = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.train", "--device", "cpu", "--arch", arch, "--steps", "20",
          "--ckpt-every", "5", "--fail-at", "12", "--ckpt-dir", str(tmp_path / "ck")],

@@ -31,6 +31,9 @@ from repro_torch.kernels.wkv6.ref import (
     wkv6_segmented_plain,
 )
 from repro_torch.models import rwkv6 as port_rwkv6
+from test_torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 TOL = dict(rtol=2e-3, atol=2e-3)
 STRONG_TOL = dict(rtol=1e-4, atol=1e-4)

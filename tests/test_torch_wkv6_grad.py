@@ -38,6 +38,9 @@ from repro_torch.kernels.wkv6 import ops
 from repro_torch.kernels.wkv6 import ref
 from repro_torch.kernels.wkv6.ref import (BWD_NAMES, BWD_TOL, bwd_agreement, wkv6_bwd_chunked_split_plain,
                                           wkv6_bwd_plain, wkv6_scan)
+from test_torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 F64_REL = 1e-10
 REF_DLOGW_ATOL = 2e-5
