@@ -37,8 +37,9 @@ Phases, each of which must pass for the exit code to be 0:
    library call's time (a scatter over the first column) and that of one
    scatter a table, presence included (the whole function);
 6. the flash-attention kernel against its plain version
-   (flash_attention_plain) on the card: f32 and bf16, head dim 64/112/128/256
-   (112, zamba2's, through the zero-padded route to 128; not at 8191),
+   (flash_attention_plain) on the card: f32 and bf16, head dim
+   64/80/112/128/256 (80, hubert's, and 112, zamba2's, through the
+   zero-padded route to 128; not at 8191), causal or not,
    GQA groups 1/2/12, causal or not, window 0/32/4096, softcap 0/50 and
    softcap 50 with q scaled by 32 (scores up to about 3x the cap),
    (Sq, Sk) in (1, 2112), (8, 128), (129, 129), (200, 1000), (1000, 1000),
@@ -54,16 +55,17 @@ Phases, each of which must pass for the exit code to be 0:
    ``serve.step.generate``, greedy, for (a) 8 requests of 2048 prompt tokens
    and 64 new ones, (b) one request of 8192 prompt tokens (twice the local
    window) and 16 new ones; each run twice with bitwise-equal tokens, 42
-   flash launches per prefill, every flash call of the prefills held against
-   the plain version at its shape (``ref.KERNEL_TOL``), finite logits, and
+   flash launches per prefill, every flash call of (a)'s prefills and the
+   first and last layers' calls of (b)'s held against the plain version at
+   its shape (``ref.KERNEL_TOL``), finite logits, and
    for (b) the first decode step's logits against prefill_forward of the
    prompt plus that token, within rtol/atol 0.15 and within DECODE_REL of
    the largest logit; each scenario decoded once more eagerly, its greedy
    tokens bitwise equal to the CUDA graph's (the decode step is one graph,
-   serve/step.py); then the profiler's device time of one prefill and, for
-   the eager and the graph decode step, device time by kernel against the
-   step's wall time (the card's idle share), and the eager step's device
-   time by PyTorch op;
+   serve/step.py); then, for (a), the profiler's device time of one
+   prefill and, for the eager and the graph decode step, device time by
+   kernel against the step's wall time (the card's idle share), and the
+   eager step's device time by PyTorch op;
 8. the flash kernel at the serving path's shapes: its time, its bound, the
    plain version's time, and scaled_dot_product_attention's (which has no
    softcap and no window) beside the kernel's own time without them; the
@@ -121,16 +123,22 @@ Phases, each of which must pass for the exit code to be 0:
    (flash_attention_bwd_plain) in float64 given the forward's output,
    held to ``ref.BWD_TOL``, and against the exact gradient (autograd of
    attention_ref in f32) within ``ref.BWD_EXACT_REL``, on the same bf16
-   inputs: head dim 16/32/64/128, GQA
+   inputs: head dim 16/32/64/80/112/128/256 (16 padded to 32, 80 and 112
+   to 128; 256 with its own tiles), GQA
    groups 1/12, causal or not, window 0/100, softcap 0/50, S in {128, 200,
    1000, 2048} (200 and 1000 ragged against its tiles), each case run
    twice and required to be bitwise equal;
-   then the kernel at starcoder2-3b's training shape (a microbatch of 2 x
-   2048 tokens, 24 heads over 2 kv heads of 128, causal): its time and
-   each launch's (dq, dkv, the sum of the heads' partials), its bound (the
-   gradient's five products, 10 D FLOPs a pair), the plain version's time,
-   scaled_dot_product_attention's backward, and the forward's time with
-   and without its statistics;
+   then the kernel at each FLASH_BWD_SHAPES training microbatch:
+   starcoder2-3b's (2 x 2048 tokens, 24 heads over 2 kv heads of 128,
+   causal), hubert-xlarge's (2 x 4096, 16 heads of 80, not causal),
+   zamba2-7b's shared block's (2 x 2048, 32 heads of 112, causal) and
+   gemma3-4b's (2 x 2048, 8 heads over 4 of 256, causal, with its local
+   window of 1024 and without): its time and each launch's (dq, dkv, the
+   sum of the heads' partials), its bound (the gradient's five products, 10
+   D FLOPs a pair), the plain version's time,
+   scaled_dot_product_attention's backward (given the window's mask where
+   there is one), and at starcoder2-3b's the forward's time with and
+   without its statistics;
 15. training starcoder2-3b at its published width and depth (30 layers,
    d_model 3072, vocab 49152, 3.03 B parameters drawn on the card from
    ``--seed``) through launch/train.py's model and train_step: data from
@@ -216,18 +224,61 @@ Phases, each of which must pass for the exit code to be 0:
    prefill's device time split into flash, the SSD, the conv, the Mamba2
    in/out projections, the shared blocks' MLP and the rest; then phase 8's
    reading of the flash kernel at zamba2's shapes (SDPA computes the same
-   function there: causal, no softcap, no window).
+   function there: causal, no softcap, no window);
+22. the audio encoder hubert-xlarge at its published width and depth (48
+   layers, d_model 1280, 16 heads of 80, d_ff 5120 with the exact gelu, 504
+   units; 0.946 B parameters drawn on the card from ``--seed``) through
+   ``Model.forward`` under inference mode, as the reference's dry run takes
+   an audio prefill, on frames drawn from the seed: (a) 16 utterances of
+   1,500 frames (30 s at 50 frames a second), (b) one of 32,768 (the
+   reference's prefill_32k); 48 flash launches a forward, not causal,
+   every call of (a) and the first and last layers' calls of (b) held
+   against the plain version, a rerun's logits bitwise equal and finite;
+   the forward's ms and frames/s, its device ms by part (flash, the MLP,
+   the projections, the rest), and phase 8's reading of the flash kernel
+   at both shapes (SDPA not causal computes the same function);
+23. training hubert-xlarge at its published width and depth as phase 15
+   trains starcoder2-3b, on 4,096-frame utterances (the reference's
+   train_4k), global batch 8 in 4 microbatches, f32 AdamW state at a peak
+   rate of 3e-4, 6 steps; its data HuBERT's masked unit prediction
+   (arXiv:2106.07447 §IV): frames drawn from the seed, labels the nearest
+   of 500 fixed centroids drawn from it, the loss on spans of 10 frames
+   masked from starts drawn at p = 0.08 (``hubert_batches``); the flash
+   backward at head dim 80 once per layer and microbatch, the plain
+   backward never, every leaf a finite nonzero gradient, the loss falling;
+24. training gemma3-4b at its published width (2560 wide, 8 heads over 4
+   of 256, QK-norm, 5:1 local:global with window 1024, vocabulary 262,144)
+   as phase 20 trains dbrx (int8 AdamW moments, 2 x 2048 microbatches, 6
+   steps, the launcher's rate of 3e-3) over every layer when the reckoned
+   peak (``train_gib``: 14 bytes a parameter and the loss's logits) fits
+   72 GiB, else over the whole periods that do (the depth is printed): the
+   flash backward at head dim 256 once per layer and microbatch, its checks
+   those of phase 15.
 
 Phases 12 and 13 count their own segreduce launches (a CUDA graph's replay
 counts the launches it captured); the kernels' line adds them to phase 4's,
-and phase 18's wkv6 forward launches to phase 10's; phases 19, 20 and 21's
-flash launches join phases 7 and 15's, phase 20's backward phase 15's.
+and phase 18's wkv6 forward launches to phase 10's; phases 19-24's flash
+launches join phases 7 and 15's, phases 20, 23 and 24's backward phase
+15's; the flash entries list each head dim with its launches, its
+costliest shape's time, bound, plain and library times.
 
 What is cut from TPC-H: Q15 keeps only its revenue view (no outer max or
 supplier join); Q13 keeps its inner aggregate (no outer join's zero-count
 customers, no comment filter); Q2 keeps only its inner MIN (no region
 joins); dbgen is replaced by numpy.  Nothing of gemma2-9b, rwkv6-3b,
-starcoder2-3b or zamba2-7b is cut; their weights are random.  dbrx-132b (132 B
+starcoder2-3b, zamba2-7b or hubert-xlarge is cut; their weights are random,
+and hubert's frames are drawn, its conv waveform frontend a stub as in the
+reference.
+
+What is cut to keep the script inside its time with phases 22-24 added:
+phase 6 runs f32 only up to 2047 (bf16, the serving type, at 8191 too);
+phases 7, 10, 19 and 21 hold every kernel call of (a)'s prefills but only
+the first and last layers' calls of (b)'s (and of its consistency prefill)
+against the plain version, and read where the card time goes for (a)
+only; phase 9 runs the 16385-token prompt at head size 64 only (rwkv6-3b's);
+phase 12 runs K = 8 'guided' over Q15 and Q13 SQL only; phase 17 runs S =
+2048 at (B, H) = (2, 40) only; phases 23 and 24 hold one backward call
+against the plain backward in float64 at their first and last steps.  dbrx-132b (132 B
 parameters) and llama4-scout (109 B) do not fit one card: phases 19 and 20
 cut their depth only, to the layers printed.
 
@@ -264,10 +315,11 @@ FLASH_SHAPES = ((1, 2112), (8, 128), (129, 129), (200, 1000), (1000, 1000), (204
 # about 3x the cap of 50 over a row, where tanh bends and the kernel's
 # approximate tanh differs most from the plain version's
 FLASH_CAPS = ((0.0, 1), (50.0, 1), (50.0, 32))
-# phase 6's head dims: the kernel's own, and zamba2's 112 (zero-padded to
-# 128) at every shape but the longest (its plain version takes ~27 s a dtype
-# there; phase 21 holds every 112 call at 16384 against it)
-FLASH_HEAD_DIMS = (64, 112, 128, 256)
+# phase 6's head dims: the kernel's own, and hubert's 80 and zamba2's 112
+# (zero-padded to 128) at every shape but the longest (the plain version
+# takes ~27 s a dtype there; phases 21 and 22 hold every 112 call at 16384
+# and the first and last 80 calls at 32768 against it)
+FLASH_HEAD_DIMS = (64, 80, 112, 128, 256)
 FLASH_LONG_HEAD_DIMS = (64, 128, 256)
 SERVE_ARCH = "gemma2-9b"
 SERVE_SCENARIOS = {"a": (8, 2048, 64), "b": (1, 8192, 16)}  # batch, prompt, new tokens
@@ -775,6 +827,35 @@ def time_call(torch, ops, ref, name: str, args, kw) -> dict:
     }
 
 
+class DeviceTotal:
+    """A device kernel's (or copy's, or fill's) totals over a trace, read as
+    a row of ``key_averages()``: ``key``, ``count`` and
+    ``device_time_total`` (us)."""
+
+    __slots__ = ("key", "count", "device_time_total")
+
+    def __init__(self, key: str) -> None:
+        self.key, self.count, self.device_time_total = key, 0, 0.0
+
+
+def device_totals(prof):
+    """The trace's device events summed by name, read from the profiler's
+    raw events without building ``key_averages()``' event tree (~10 s a
+    training step of tens of thousands of launches)."""
+    from torch.autograd import DeviceType
+
+    rows: dict = {}
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() != DeviceType.CUDA:
+            continue
+        row = rows.get(ev.name())
+        if row is None:
+            row = rows[ev.name()] = DeviceTotal(ev.name())
+        row.count += 1
+        row.device_time_total += ev.duration_ns() / 1e3
+    return list(rows.values())
+
+
 def trace_card(torch, fn, reps: int = 1):
     """Call ``fn`` ``reps`` times under the profiler: the averages of the
     card's kernels, copies and fills, or None when the profiler cannot
@@ -801,7 +882,7 @@ def trace_card(torch, fn, reps: int = 1):
             except (RuntimeError, AssertionError) as e:
                 print(f"    (the profiler cannot trace the card: {e})", flush=True)
                 prof = None
-    return None if prof is None else prof.key_averages()
+    return None if prof is None else device_totals(prof)
 
 
 def device_us(ev) -> float:
@@ -879,7 +960,9 @@ def passes_text(passes: dict, digits: int = 4) -> str:
 
 # (label, Session knobs): the planner's K and schedule, then K pinned to 8
 # under guided self-scheduling
-PART_CONFIGS = (("planner", {}), ("k8_guided", {"n_partitions": 8, "schedule": "guided"}))
+# (label, Session knobs, the queries it runs: all of phase 4's where None;
+# K = 8 'guided' runs Q15 and Q13 SQL only, for time)
+PART_CONFIGS = (("planner", {}, None), ("k8_guided", {"n_partitions": 8, "schedule": "guided"}, ("q15", "q13_sql")))
 
 
 def card_busy(torch, fn, wall_ms: float) -> dict:
@@ -909,13 +992,15 @@ def partitioned_path(torch, repro_torch, ops, tables: dict, want: dict, main_row
     same plan's serial dispatch, which must give the same bits."""
     report = {}
     params = {"q15": {"lo": Q15_LO, "hi": Q15_HI}}
-    for cname, kw in PART_CONFIGS:
+    for cname, kw, only in PART_CONFIGS:
         sessions = {}
         for mode in ("async", "serial"):
             sessions[mode] = repro_torch.Session(backend="partitioned", async_dispatch=mode == "async", **kw)
             for name, cols in tables.items():
                 sessions[mode].register(name, **cols)
         for label, submit, answer, rtol in smoke_queries(repro_torch):
+            if only is not None and label not in only:
+                continue
             what = f"partitioned {cname} {label}"
             out = run_query(sessions["async"], f"{cname}:{label}", lambda: submit(sessions["async"]), recorders)
             res = out["result"]
@@ -1198,6 +1283,8 @@ def flash_matrix(torch, flash_ops, plain, agreement, fails: Failures, seed: int)
     for dname in ("float32", "bfloat16"):
         dtype = getattr(torch, dname)
         for sq, sk in FLASH_SHAPES:
+            if dname == "float32" and sq >= 8191:
+                continue  # cut for time: bf16 (the path's type) only at the longest shape
             t0 = time.perf_counter()
             n_cases = bad = 0
             worst = {"max_abs_err": 0.0, "worst": 0.0, "rel": 0.0}
@@ -1236,7 +1323,9 @@ class CallRecorder:
     against the plain version on its own inputs (``compare(args, kw, out)``
     gives an agreement dict), under the signature ``key(label, args, kw)``,
     and the inputs of the call of each signature that read worst are kept
-    for the timing phase.  ``paused()`` restores the wrapper for an unchecked run."""
+    for the timing phase.  ``paused()`` restores the wrapper for an unchecked run.
+    ``hold(label, n)``, where set, picks the calls held by their number n
+    under the label since ``seen`` was last cleared; the others only run."""
 
     def __init__(self, ops, name: str, compare, key, fails: Failures) -> None:
         self.ops, self.name, self.compare, self.key, self.fails = ops, name, compare, key, fails
@@ -1244,10 +1333,15 @@ class CallRecorder:
         self.label = ""
         self.stats: dict = {}
         self.inputs: dict = {}
+        self.hold = None
+        self.seen: dict = {}
 
     def __enter__(self):
         def record(*args, **kw):
             out = self.orig(*args, **kw)
+            n = self.seen[self.label] = self.seen.get(self.label, -1) + 1
+            if self.hold is not None and not self.hold(self.label, n):
+                return out
             agree = self.compare(args, kw, out)
             key = self.key(self.label, args, kw)
             st = self.stats.setdefault(key, {"calls": 0, "ok": True, "max_abs_err": 0.0, "worst": 0.0, "rel": 0.0})
@@ -1487,6 +1581,12 @@ def serve_path(torch, arch: str, scenarios_spec: dict, ops, rec: CallRecorder, k
         for name, (B, S, new) in scenarios_spec.items()
     }
     report: dict = {"arch": arch, "n_params": n_params, "layers": n_layers}
+    # at the long prompt (b) and its consistency prefill, the first and
+    # last layers' calls of each prefill are held (the plain version takes
+    # ~0.4 s a call at 16384 tokens)
+    rec.hold = lambda label, n: not (label == "b" or label.endswith("(b)+1")) or \
+        n % launches_per_prefill in (0, launches_per_prefill - 1)
+    rec.seen.clear()
     ops.reset_launches()
     with rec:
         for name, (prompt_np, new) in scenarios.items():
@@ -1541,6 +1641,7 @@ def serve_path(torch, arch: str, scenarios_spec: dict, ops, rec: CallRecorder, k
                   flush=True)
     launches = ops.LAUNCHES
     report["launches"] = launches
+    report["launches_by_dim"] = dict(getattr(ops, "LAUNCHES_BY_DIM", {}))
     report["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
     print(f"  {rec.name} launches on the serving path: {launches}; peak memory {report['peak_gib']:.1f} GiB",
           flush=True)
@@ -1553,9 +1654,10 @@ def serve_path(torch, arch: str, scenarios_spec: dict, ops, rec: CallRecorder, k
                 f"{b['decode_vs_prefill_max_abs_err']:.4g}, logits up to {b['logit_abs_max']:.4g} (ratio "
                 f"{b['decode_vs_prefill_max_abs_err'] / b['logit_abs_max']:.4g}; limits {DECODE_TOL} and "
                 f"{DECODE_REL} of the largest logit)", flush=True)
-    # where each scenario's card time goes (these launches are not counted)
+    # where the first scenario's card time goes (these launches are not
+    # counted; (b)'s readings are cut for time)
     with torch.inference_mode():
-        for name, (prompt_np, _) in scenarios.items():
+        for name, (prompt_np, _) in list(scenarios.items())[:1]:
             t_profile = time.perf_counter()
             if moe is not None:
                 prompts = torch.from_numpy(prompt_np).cuda()
@@ -1563,7 +1665,7 @@ def serve_path(torch, arch: str, scenarios_spec: dict, ops, rec: CallRecorder, k
                 report[name]["prefill_parts"] = moe_breakdown(torch, moe, model, prompts, kernel)
                 print_moe_reading(name, report[name])
             parts = None
-            if breakdown is not None and name == next(iter(scenarios)):
+            if breakdown is not None:
                 parts = report[name]["prefill_parts"] = breakdown(model, torch.from_numpy(prompt_np).cuda())
                 print_parts(name, parts)
             prof = serve_breakdown(torch, model, torch.from_numpy(prompt_np).cuda(), kernel, prefill_reading=parts,
@@ -1590,6 +1692,7 @@ def serve_path(torch, arch: str, scenarios_spec: dict, ops, rec: CallRecorder, k
                     flush=True)
     bad_calls = [k for k, st in rec.stats.items() if not st["ok"]]
     fails.check(not bad_calls, f"{rec.name} calls disagreeing with the plain version: {bad_calls}")
+    rec.hold = None
     record[f"serve_{arch}"] = report
     del model
     torch.cuda.empty_cache()
@@ -1684,9 +1787,9 @@ def moe_routing(torch, moe, model, prompts) -> dict:
 MOE_PARTS = ("router_logits", "route", "dispatch", "experts", "shared_expert", "combine")
 
 
-def ranged_prefill(torch, parts: dict, model, prompts, kernel: str) -> dict:
-    """The profiler's device ms of one prefill (the model warmed by the
-    serving runs before it), split by function: ``parts`` maps a label to
+def ranged_prefill(torch, parts: dict, run, kernel: str) -> dict:
+    """The profiler's device ms of one prefill, ``run()`` (the model warmed
+    by the serving runs before it), split by function: ``parts`` maps a label to
     (module, function name); each part is the device time of the kernels
     launched inside a ``record_function`` range around that function
     (wrapped for this reading only), ``flash_ms`` that of the kernels whose
@@ -1712,7 +1815,7 @@ def ranged_prefill(torch, parts: dict, model, prompts, kernel: str) -> dict:
             try:
                 with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                     time.sleep(0.1)
-                    model.prefill({"tokens": prompts})
+                    run()
                     torch.cuda.synchronize()
             except (RuntimeError, AssertionError) as e:
                 print(f"    (the profiler cannot trace the card: {e})", flush=True)
@@ -1743,7 +1846,8 @@ def moe_breakdown(torch, moe, model, prompts, kernel: str) -> dict:
     dispatch and combine (``moe.route``'s sorts, searchsorted and gathers,
     ``moe.dispatch``'s copy into the expert buffers, ``moe.combine``), the
     router (its f32 product) and the rest."""
-    out = ranged_prefill(torch, {name: (moe, name) for name in MOE_PARTS}, model, prompts, kernel)
+    out = ranged_prefill(torch, {name: (moe, name) for name in MOE_PARTS},
+                         lambda: model.prefill({"tokens": prompts}), kernel)
     if not out:
         return {}
     total, part = out["device_ms"], out["parts_ms"]
@@ -1768,17 +1872,18 @@ def zamba2_breakdown(torch, model, prompts, kernel: str) -> dict:
     from repro_torch.models import mamba2, transformer
 
     mods = {"mamba2": mamba2, "transformer": transformer}
-    out = ranged_prefill(torch, {k: (mods[m], f) for k, (m, f) in ZAMBA2_PARTS.items()}, model, prompts, kernel)
+    out = ranged_prefill(torch, {k: (mods[m], f) for k, (m, f) in ZAMBA2_PARTS.items()},
+                         lambda: model.prefill({"tokens": prompts}), kernel)
     if out:
         out["rest_ms"] = out["device_ms"] - out["flash_ms"] - sum(out["parts_ms"].values())
     return out
 
 
-def print_parts(name: str, b: dict) -> None:
+def print_parts(name: str, b: dict, what: str = "prefill") -> None:
     if not b:
         return
     t = b["device_ms"]
-    print(f"  ({name}) prefill device time {t:.1f} ms: flash {b['flash_ms']:.1f} ({100 * b['flash_ms'] / t:.1f}%), "
+    print(f"  ({name}) {what} device time {t:.1f} ms: flash {b['flash_ms']:.1f} ({100 * b['flash_ms'] / t:.1f}%), "
           + ", ".join(f"{k} {v:.1f} ({100 * v / t:.1f}%)" for k, v in b["parts_ms"].items())
           + f", rest {b['rest_ms']:.1f} ({100 * b['rest_ms'] / t:.1f}%)", flush=True)
 
@@ -1824,28 +1929,28 @@ def time_flash(torch, F, flash_ops, plain, agreement, key, inputs) -> dict:
         "plain_ms": device_ms(torch, lambda: plain(q, k, v, **kw), reps=1, warmup=1),
         "bound_ms": t_bound, "bound_by": bound_by,
     }
-    # the yardstick: SDPA is causal attention with neither softcap nor
-    # window, so it computes this function only where both are off; beside
-    # it, the kernel's own time on that function
-    same_fn = causal and cap == 0.0 and unmasked_pairs(sq, sk, True, window) == unmasked_pairs(sq, sk, True, 0)
+    # the yardstick: SDPA is attention (causal or not, as the call) with
+    # neither softcap nor window, so it computes this function only where
+    # both are off; beside it, the kernel's own time on that function
+    same_fn = cap == 0.0 and unmasked_pairs(sq, sk, causal, window) == unmasked_pairs(sq, sk, causal, 0)
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
 
     def sdpa():
-        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, scale=scale, enable_gqa=True)
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal, scale=scale, enable_gqa=True)
 
     out["sdpa_ms"] = device_ms(torch, sdpa, reps=reps)
-    kw0 = dict(causal=True, window=0, scale=scale, logit_softcap=0.0)
-    out["kernel_causal_nocap_ms"] = device_ms(torch, lambda: flash_ops.flash_attention(q, k, v, **kw0), reps=reps)
+    kw0 = dict(causal=causal, window=0, scale=scale, logit_softcap=0.0)
+    out["kernel_nocap_ms"] = device_ms(torch, lambda: flash_ops.flash_attention(q, k, v, **kw0), reps=reps)
     agree = agreement(flash_ops.flash_attention(q, k, v, **kw0), sdpa().transpose(1, 2))
     out["sdpa_agrees"], out["sdpa_agreement"] = agree["ok"], agree
     out["tflops"] = flash_flops(B, sq, sk, H, D, causal, window) / (out["ms"] * 1e9)
-    out["causal_nocap_tflops"] = flash_flops(B, sq, sk, H, D, True, 0) / (out["kernel_causal_nocap_ms"] * 1e9)
-    out["kernel_over_sdpa"] = out["kernel_causal_nocap_ms"] / out["sdpa_ms"]
-    out["serve_over_nocap"] = out["ms"] / out["kernel_causal_nocap_ms"]
+    out["nocap_tflops"] = flash_flops(B, sq, sk, H, D, causal, 0) / (out["kernel_nocap_ms"] * 1e9)
+    out["kernel_over_sdpa"] = out["kernel_nocap_ms"] / out["sdpa_ms"]
+    out["serve_over_nocap"] = out["ms"] / out["kernel_nocap_ms"]
     out["library_ms"] = out["sdpa_ms"] if same_fn else None
     out["library_note"] = ("scaled_dot_product_attention computes this function" if same_fn else
                            "no single PyTorch call computes this function (softcap/window); "
-                           "sdpa_ms is SDPA's causal attention without them, beside kernel_causal_nocap_ms")
+                           "sdpa_ms is SDPA's attention without them, beside kernel_nocap_ms")
     return out
 
 
@@ -1863,11 +1968,11 @@ def flash_at_shapes(torch, flash_ops, plain, agreement, rec, fails: Failures) ->
         lib = "n/a" if t["library_ms"] is None else f"{t['library_ms']:.3f} ms"
         print(f"  flash ({t['scenario']}) q={t['q']} window={t['window']} softcap={t['softcap']:g} "
               f"calls {t['calls']}: kernel {t['ms']:.3f} ms  bound {t['bound_ms']:.3f} ms ({t['bound_by']})  "
-              f"plain {t['plain_ms']:.3f} ms  library {lib}  |  causal without softcap/window: "
-              f"kernel {t['kernel_causal_nocap_ms']:.3f} ms, SDPA {t['sdpa_ms']:.3f} ms  "
+              f"plain {t['plain_ms']:.3f} ms  library {lib}  |  {'causal' if t['causal'] else 'not causal'}, "
+              f"without softcap/window: kernel {t['kernel_nocap_ms']:.3f} ms, SDPA {t['sdpa_ms']:.3f} ms  "
               f"max_abs_err {t['max_abs_err']:.3g}, worst/limit {t['worst']:.3g}, rel {t['rel']:.3g}", flush=True)
-        print(f"    {t['tflops']:.1f} TFLOP/s ({t['causal_nocap_tflops']:.1f} causal without softcap/window); "
-              f"kernel / SDPA {t['kernel_over_sdpa']:.2f}; serving call / causal call without softcap "
+        print(f"    {t['tflops']:.1f} TFLOP/s ({t['nocap_tflops']:.1f} without softcap/window); "
+              f"kernel / SDPA {t['kernel_over_sdpa']:.2f}; serving call / call without softcap "
               f"{t['serve_over_nocap']:.2f}", flush=True)
         rec.inputs[key] = None
     torch.cuda.empty_cache()
@@ -1936,7 +2041,7 @@ def wkv6_matrix(torch, wkv6_ops, plain, agreement, fails: Failures, seed: int) -
     results = []
     for K in WKV6_HEAD_SIZES:
         for S in WKV6_LENGTHS:
-            for B, H in (((1, 40),) if S == WKV6_LONG else WKV6_BATCH_HEADS):
+            for B, H in ((((1, 40),) if K == 64 else ()) if S == WKV6_LONG else WKV6_BATCH_HEADS):
                 t0 = time.perf_counter()
                 r, k, v = (0.5 * torch.randn(B, S, H, K, device=dev, generator=gen)).to(torch.bfloat16), \
                     (0.5 * torch.randn(B, S, H, K, device=dev, generator=gen)).to(torch.bfloat16), \
@@ -2095,6 +2200,8 @@ def wkv6_bwd_cases(S: int, K: int) -> tuple:
     sequence only at rwkv6-3b's head size (its f64 walk takes ~4 s a case)."""
     if S == WKV6_BWD_LONG:
         return ((1, 40),) if K == 64 else ()
+    if S >= 2048:
+        return ((2, 40),)  # cut for time: rwkv6-3b's heads only
     return WKV6_BWD_SHAPES
 
 
@@ -2368,57 +2475,87 @@ def flash_bwd_matrix(torch, flash_kernel, plain_bwd, attention_ref, bwd_agreemen
     return rows
 
 
-def flash_bwd_at_train_shape(torch, flash_kernel, plain_bwd, bwd_agreement, seed: int) -> dict:
-    """The backward kernel at starcoder2-3b's training shape (one
-    microbatch of 2048 tokens, causal, no softcap), given the forward
-    kernel's output and row statistics: its time and each launch's (dq,
-    dkv, the sum of the heads' partials), its bound, the plain version's
-    time (f32, on the card) and SDPA's backward on the same inputs (the
-    library call), with the agreement to the plain version; and the
-    forward's time with and without its statistics."""
+# phase 14's timing shapes, each a training microbatch that uses the head
+# dim: (label, arch, microbatch, S, causal, window); the heads, kv heads and
+# head dim are the arch's (starcoder2-3b's 128, hubert's 80 and zamba2's
+# shared blocks' 112 padded to 128, gemma3-4b's 256 on its local layers'
+# window and its global layers')
+FLASH_BWD_SHAPES = (
+    ("starcoder2-3b", TRAIN_ARCH, 2, TRAIN_SEQ, True, 0),
+    ("hubert-xlarge", "hubert-xlarge", 2, 4096, False, 0),
+    ("zamba2-7b shared", "zamba2-7b", 2, 2048, True, 0),
+    ("gemma3-4b local", "gemma3-4b", 2, 2048, True, 1024),
+    ("gemma3-4b global", "gemma3-4b", 2, 2048, True, 0),
+)
+
+
+def flash_bwd_at_train_shapes(torch, flash_kernel, plain_bwd, bwd_agreement, seed: int) -> list:
+    """The backward kernel at each of FLASH_BWD_SHAPES, no softcap, given
+    the forward kernel's output and row statistics: its time and each
+    launch's (dq, dkv, the sum of the heads' partials), its bound, the
+    plain version's time (f32, on the card) and SDPA's backward on the same
+    inputs (the library call; with a window, SDPA given the mask), with the
+    agreement to the plain version; at the first shape also the forward's
+    time with and without its statistics."""
     import torch.nn.functional as F
 
     from repro_torch.configs.base import get_config
 
-    cfg = get_config(TRAIN_ARCH)
-    B, S, H, Hkv, D = TRAIN_GLOBAL_BATCH // TRAIN_MICROBATCHES, TRAIN_SEQ, cfg.n_heads, cfg.n_kv_heads, \
-        cfg.resolved_head_dim
     gen = torch.Generator(device=torch.device("cuda"))
     gen.manual_seed(seed)
-    q = torch.randn(B, S, H, D, device="cuda", generator=gen).to(torch.bfloat16)
-    k, v = (torch.randn(B, S, Hkv, D, device="cuda", generator=gen).to(torch.bfloat16) for _ in range(2))
-    dout = torch.randn(B, S, H, D, device="cuda", generator=gen).to(torch.bfloat16)
-    kw = dict(causal=True, window=0, scale=D ** -0.5, logit_softcap=0.0)
-    out, lse = flash_kernel.launch(q, k, v, **kw, with_lse=True)
-    t_bound, bound_by, flops = flash_bwd_bound(B, S, H, Hkv, D, True, 0)
-    got = flash_kernel.launch_bwd(q, k, v, out, dout, lse, **kw)
-    agree = bwd_agreement(got, plain_bwd(q, k, v, dout, out, **kw))
-    row = {"q": [B, S, H, D], "kv_heads": Hkv, "causal": True, "softcap": 0.0,
-           "ms": device_ms(torch, lambda: flash_kernel.launch_bwd(q, k, v, out, dout, lse, **kw), reps=10),
-           "plain_ms": device_ms(torch, lambda: plain_bwd(q, k, v, dout, out, **kw), reps=1, warmup=1),
-           "bound_ms": t_bound, "bound_by": bound_by, "agreement": agree,
-           "forward_ms": device_ms(torch, lambda: flash_kernel.launch(q, k, v, **kw), reps=10),
-           "forward_lse_ms": device_ms(torch, lambda: flash_kernel.launch(q, k, v, **kw, with_lse=True), reps=10)}
-    # each launch's device ms: dq, dkv and the sum of the heads' partials
-    row["launch_ms"] = launch_times(torch, lambda: flash_kernel.launch_bwd(q, k, v, out, dout, lse, **kw),
-                                    "flash_bwd")
-    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
-    o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, scale=kw["scale"], enable_gqa=True)
-    dot = dout.transpose(1, 2)
-    row["library_ms"] = device_ms(torch, lambda: torch.autograd.grad(o, (qt, kt, vt), dot, retain_graph=True),
-                                  reps=10)
-    row["tflops"] = flops / (row["ms"] * 1e9)
-    row["tflops_issued"] = row["tflops"] * 16 / 10  # s and dp in both launches, dq's product twice
-    print(f"  flash backward at {TRAIN_ARCH}'s training shape q={row['q']} kv heads {Hkv} causal: kernel "
-          f"{row['ms']:.3f} ms ({row['tflops']:.1f} TFLOP/s of the bound's work, {row['tflops_issued']:.1f} "
-          f"issued)  bound {t_bound:.3f} ms ({bound_by}: the gradient's 10 D FLOPs a pair and head)  plain "
-          f"{row['plain_ms']:.3f} ms  SDPA backward {row['library_ms']:.3f} ms  max_abs_err "
-          f"{agree['max_abs_err']:.3g}, worst/limit {agree['worst']:.3g}, rel {agree['rel']:.3g}", flush=True)
-    print("    launches: " + "  ".join(f"{k} {v:.3f} ms" for k, v in row["launch_ms"].items())
-          + f"; forward {row['forward_ms']:.3f} ms, with its statistics {row['forward_lse_ms']:.3f} ms", flush=True)
-    del q, k, v, dout, out, lse, got, qt, kt, vt, o
-    torch.cuda.empty_cache()
-    return row
+    rows = []
+    for i, (label, arch, B, S, causal, window) in enumerate(FLASH_BWD_SHAPES):
+        cfg = get_config(arch)
+        H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+        q = torch.randn(B, S, H, D, device="cuda", generator=gen).to(torch.bfloat16)
+        k, v = (torch.randn(B, S, Hkv, D, device="cuda", generator=gen).to(torch.bfloat16) for _ in range(2))
+        dout = torch.randn(B, S, H, D, device="cuda", generator=gen).to(torch.bfloat16)
+        kw = dict(causal=causal, window=window, scale=D ** -0.5, logit_softcap=0.0)
+        out, lse = flash_kernel.launch(q, k, v, **kw, with_lse=True)
+        t_bound, bound_by, flops = flash_bwd_bound(B, S, H, Hkv, D, causal, window)
+        got = flash_kernel.launch_bwd(q, k, v, out, dout, lse, **kw)
+        agree = bwd_agreement(got, plain_bwd(q, k, v, dout, out, **kw))
+        row = {"label": label, "arch": arch, "q": [B, S, H, D], "kv_heads": Hkv, "causal": causal, "window": window,
+               "softcap": 0.0, "head_dim": D,
+               "ms": device_ms(torch, lambda: flash_kernel.launch_bwd(q, k, v, out, dout, lse, **kw), reps=10),
+               "plain_ms": device_ms(torch, lambda: plain_bwd(q, k, v, dout, out, **kw), reps=1, warmup=1),
+               "bound_ms": t_bound, "bound_by": bound_by, "agreement": agree, "max_abs_err": agree["max_abs_err"]}
+        if i == 0:
+            row["forward_ms"] = device_ms(torch, lambda: flash_kernel.launch(q, k, v, **kw), reps=10)
+            row["forward_lse_ms"] = device_ms(torch, lambda: flash_kernel.launch(q, k, v, **kw, with_lse=True),
+                                              reps=10)
+        # each launch's device ms: dq, dkv and the sum of the heads' partials
+        row["launch_ms"] = launch_times(torch, lambda: flash_kernel.launch_bwd(q, k, v, out, dout, lse, **kw),
+                                        "flash_bwd")
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+        sdpa_kw = dict(is_causal=causal)
+        if window:
+            at = torch.arange(S, device="cuda")
+            sdpa_kw = dict(attn_mask=(at[None] <= at[:, None]) & (at[:, None] - at[None] < window))
+        try:
+            o = F.scaled_dot_product_attention(qt, kt, vt, scale=kw["scale"], enable_gqa=True, **sdpa_kw)
+            dot = dout.transpose(1, 2)
+            row["library_ms"] = device_ms(torch, lambda: torch.autograd.grad(o, (qt, kt, vt), dot,
+                                                                             retain_graph=True), reps=10)
+        except RuntimeError as e:
+            row["library_ms"], row["library_note"] = None, f"SDPA's backward did not run here: {e}"[:200]
+            o = None
+        row["tflops"] = flops / (row["ms"] * 1e9)
+        row["tflops_issued"] = row["tflops"] * 16 / 10  # s and dp in both launches, dq's product twice
+        sdpa = "n/a" if row["library_ms"] is None else f"{row['library_ms']:.3f} ms"
+        print(f"  flash backward at {label}'s training shape q={row['q']} kv heads {Hkv} "
+              f"{'causal' if causal else 'not causal'}{f' window {window}' if window else ''}: kernel "
+              f"{row['ms']:.3f} ms ({row['tflops']:.1f} TFLOP/s of the bound's work)  bound {t_bound:.3f} ms "
+              f"({bound_by}: the gradient's 10 D FLOPs a pair and head)  plain {row['plain_ms']:.3f} ms  SDPA "
+              f"backward {sdpa}  max_abs_err {agree['max_abs_err']:.3g}, worst/limit {agree['worst']:.3g}, rel "
+              f"{agree['rel']:.3g}", flush=True)
+        print("    launches: " + "  ".join(f"{k} {v:.3f} ms" for k, v in row["launch_ms"].items()) + (
+            f"; forward {row['forward_ms']:.3f} ms, with its statistics {row['forward_lse_ms']:.3f} ms"
+            if i == 0 else ""), flush=True)
+        rows.append(row)
+        del q, k, v, dout, out, lse, got, qt, kt, vt, o
+        torch.cuda.empty_cache()
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -2445,9 +2582,12 @@ def zipf_documents(n_docs: int, vocab_words: int, seed: int) -> list:
 def train_flops(n_params: int, cfg, tokens: int, B: int, S: int) -> float:
     """Model FLOPs of one training step: 6 per parameter and token, and the
     attention's 4 D a pair and head forward, three times that with the
-    backward (the recomputation of remat not counted)."""
-    attn = 3 * 4.0 * cfg.resolved_head_dim * unmasked_pairs(S, S, True, 0) * cfg.n_heads * B * cfg.n_layers
-    return 6.0 * n_params * tokens + attn
+    backward (the recomputation of remat not counted); a layer's pairs are
+    its mask's (causal, or all of them in a bidirectional layer; a local
+    layer's window)."""
+    pairs = sum(unmasked_pairs(S, S, kind != "bidir", cfg.window if kind == "local" else 0)
+                for kind in cfg.layer_kinds())
+    return 6.0 * n_params * tokens + 3 * 4.0 * cfg.resolved_head_dim * pairs * cfg.n_heads * B
 
 
 class BackwardProbe:
@@ -2493,6 +2633,12 @@ class BackwardProbe:
         self.step += 1
         self.calls = 0
         return agree
+
+    def skip(self) -> dict:
+        """A step with no call held: the next step's calls count from 0."""
+        self.step += 1
+        self.calls = 0
+        return {}
 
 
 def flash_judge(args, got) -> dict:
@@ -2647,11 +2793,72 @@ TRAIN_CASES = {
                 bwd_parts=("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel", "flash_bwd_dkv_sum_kernel"),
                 judge=flash_judge, flops=moe_train_flops, spread=False, lr_peak=1e-4, layers=1,
                 state_dtype="int8"),
+    # hubert-xlarge on the reference's train_4k length, on HuBERT's masked
+    # unit prediction (``hubert_batches``), with f32 AdamW state (0.946 B
+    # parameters, 19 GB) at AdamWConfig's own peak rate
+    "hubert": dict(arch="hubert-xlarge", ops="repro_torch.kernels.flash.ops",
+                   fwd_parts=("flash_fwd_kernel", "flash_fwd_wgmma_kernel"),
+                   bwd_parts=("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel", "flash_bwd_dkv_sum_kernel"),
+                   judge=flash_judge, flops=train_flops, spread=False, lr_peak=3e-4, data="frames", seq=4096,
+                   probe_steps=(0, TRAIN_STEPS - 1)),
+    # gemma3-4b as dbrx trains: int8 AdamW moments, 14 bytes a parameter;
+    # every layer if ``train_gib``'s reckoning fits max_gib, else the whole
+    # periods of its 5:1 local:global pattern that do; AdamWConfig's own
+    # peak rate: at the launcher's 3e-3 the loss fell for three steps and
+    # then rose to 670 (12.47 -> 11.70 -> 40.5 -> 670 as the warmup passed
+    # 1.2e-3; NVIDIA H100 80GB HBM3, 700 W)
+    "gemma3": dict(arch="gemma3-4b", ops="repro_torch.kernels.flash.ops",
+                   fwd_parts=("flash_fwd_kernel", "flash_fwd_wgmma_kernel"),
+                   bwd_parts=("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel", "flash_bwd_dkv_sum_kernel"),
+                   judge=flash_judge, flops=train_flops, spread=False, lr_peak=3e-4, state_dtype="int8",
+                   max_gib=72.0, probe_steps=(0, TRAIN_STEPS - 1)),
 }
 
 
+def train_gib(cfg, state_dtype: str, microbatch: int, seq: int) -> float:
+    """The training peak reckoned before the model is built: 12 bytes a
+    parameter (bf16 weights, bf16 gradients until they are added in, f32
+    accumulators and master weights), AdamW's moments (8 bytes in f32, 2
+    in int8), and the loss's working set over a microbatch's logits (bf16
+    logits, their f32 copy, the f32 temporary of logsumexp's exp and the
+    f32 and bf16 gradients: 16 bytes a logit); the activations remat keeps
+    (a layer's input each, one layer's recomputed) are left out."""
+    from repro_torch.models.common import param_count
+    from repro_torch.models.transformer import model_defs
+
+    per = 12 + (2 if state_dtype == "int8" else 8)
+    return (param_count(model_defs(cfg)) * per + 16 * microbatch * seq * cfg.vocab_size) / 2**30
+
+
+HUBERT_UNITS = 500      # HuBERT's k-means units (arXiv:2106.07447 §IV): the labels' classes
+HUBERT_MASK_P = 0.08    # a frame starts a masked span with this probability
+HUBERT_MASK_SPAN = 10   # frames a span
+
+
+def hubert_batches(torch, cfg, seq: int, seed: int):
+    """batch(step) of TRAIN_GLOBAL_BATCH utterances of ``seq`` frames drawn
+    on the card from ``seed``: frames N(0, 1) in d_model, ``labels`` the
+    nearest of HUBERT_UNITS fixed centroids drawn from the seed (HuBERT's
+    k-means units, so the loss can fall), and ``label_mask`` HuBERT's span
+    mask: each frame starts a span of HUBERT_MASK_SPAN masked frames with
+    probability HUBERT_MASK_P; the loss counts the masked frames."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed + 7)
+    centroids = torch.randn(HUBERT_UNITS, cfg.d_model, device="cuda", generator=gen)
+    half_sq = 0.5 * (centroids * centroids).sum(1)
+
+    def batch(step: int) -> dict:
+        frames = torch.randn(TRAIN_GLOBAL_BATCH, seq, cfg.d_model, device="cuda", generator=gen)
+        labels = (frames @ centroids.T - half_sq).argmax(-1).to(torch.int32)  # the nearest centroid
+        starts = (torch.rand(TRAIN_GLOBAL_BATCH, seq, device="cuda", generator=gen) < HUBERT_MASK_P).int()
+        ends = torch.nn.functional.pad(starts.cumsum(1), (HUBERT_MASK_SPAN, 0))[:, :seq]
+        return {"frames": frames, "labels": labels, "label_mask": starts.cumsum(1) - ends > 0}
+
+    return batch
+
+
 def train_path(torch, case: str, fails: Failures, seed: int, record: dict) -> dict:
-    """Phases 15 and 18.  ``TRAIN_CASES[case]``'s arch at its published
+    """Phases 15, 18, 20, 23 and 24.  ``TRAIN_CASES[case]``'s arch at its published
     config (bf16, weights drawn from ``seed``; rwkv6's zero-initialised
     tensors drawn too, ``spread_rwkv_zero_inits``), trained TRAIN_STEPS
     steps through launch/train.py's model and step: data from the port's
@@ -2682,26 +2889,47 @@ def train_path(torch, case: str, fails: Failures, seed: int, record: dict) -> di
     spec_ = TRAIN_CASES[case]
     arch, kops = spec_["arch"], importlib.import_module(spec_["ops"])
     kname = spec_["ops"].split(".")[-2]  # the kernel's package: flash, wkv6
+    seq = spec_.get("seq", TRAIN_SEQ)
     gc.collect()
     torch.cuda.empty_cache()
     cfg = get_config(arch)
     cuts = []
-    if spec_.get("layers"):
-        cuts.append(f"{spec_['layers']} of {cfg.n_layers} layers")
-        cfg = dataclasses.replace(cfg, n_layers=spec_["layers"])
+    layers = spec_.get("layers")
+    if spec_.get("max_gib"):
+        period, mb = len(cfg.layer_pattern), TRAIN_GLOBAL_BATCH // TRAIN_MICROBATCHES
+        reckon = [(n, train_gib(dataclasses.replace(cfg, n_layers=n), spec_["state_dtype"], mb, seq))
+                  for n in range(cfg.n_layers, 0, -1) if n == cfg.n_layers or n % period == 0]
+        layers, gib = next(((n, g) for n, g in reckon if g <= spec_["max_gib"]), reckon[-1])
+        print(f"  reckoned peak at {cfg.n_layers} layers: {reckon[0][1]:.1f} GiB (14 bytes a parameter with "
+              f"{spec_['state_dtype']} moments and the loss's logits over a {mb} x {seq} microbatch), limit "
+              f"{spec_['max_gib']:g} GiB: {layers} layers ({gib:.1f} GiB)", flush=True)
+        if layers == cfg.n_layers:
+            layers = None
+    if layers:
+        cuts.append(f"{layers} of {cfg.n_layers} layers")
+        cfg = dataclasses.replace(cfg, n_layers=layers)
     print(f"  {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated before the model "
           f"(the models before it are freed)", flush=True)
     t0 = time.perf_counter()
-    docs = zipf_documents(TRAIN_DOCS, cfg.vocab_size - 8, seed)
-    ds = build_dataset(docs, PipelineConfig(seq_len=TRAIN_SEQ, min_doc_tokens=8, vocab_size=cfg.vocab_size,
-                                            device="cuda"))
-    loader = ShardedLoader(ds, global_batch=TRAIN_GLOBAL_BATCH, seed=seed)
-    print(f"  data: {len(docs)} documents, {ds.n_tokens:,} tokens packed in {len(ds)} rows of {TRAIN_SEQ}, "
-          f"vocab {ds.vocab.size:,} (of the model's {cfg.vocab_size:,}) in {time.perf_counter() - t0:.1f} s",
-          flush=True)
+    if spec_.get("data") == "frames":
+        next_batch = hubert_batches(torch, cfg, seq, seed)
+        print(f"  data: {TRAIN_GLOBAL_BATCH} utterances of {seq} frames a step drawn on the card, labels the "
+              f"nearest of {HUBERT_UNITS} fixed centroids, spans of {HUBERT_MASK_SPAN} frames masked from starts "
+              f"at p = {HUBERT_MASK_P}", flush=True)
+    else:
+        docs = zipf_documents(TRAIN_DOCS, cfg.vocab_size - 8, seed)
+        ds = build_dataset(docs, PipelineConfig(seq_len=seq, min_doc_tokens=8, vocab_size=cfg.vocab_size,
+                                                device="cuda"))
+        loader = ShardedLoader(ds, global_batch=TRAIN_GLOBAL_BATCH, seed=seed)
+        print(f"  data: {len(docs)} documents, {ds.n_tokens:,} tokens packed in {len(ds)} rows of {seq}, "
+              f"vocab {ds.vocab.size:,} (of the model's {cfg.vocab_size:,}) in {time.perf_counter() - t0:.1f} s",
+              flush=True)
+
+        def next_batch(step: int) -> dict:
+            return batch_on(loader, step, torch.device("cuda"))
     spec = TrainSpec(microbatches=TRAIN_MICROBATCHES, remat=True)
     report: dict = {"arch": arch, "layers": cfg.n_layers, "d_model": cfg.d_model,
-                    "vocab": cfg.vocab_size, "seq": TRAIN_SEQ, "global_batch": TRAIN_GLOBAL_BATCH,
+                    "vocab": cfg.vocab_size, "seq": seq, "global_batch": TRAIN_GLOBAL_BATCH,
                     "microbatches": TRAIN_MICROBATCHES, "remat": True, "cuts": cuts}
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -2736,18 +2964,22 @@ def train_path(torch, case: str, fails: Failures, seed: int, record: dict) -> di
           f"{time.perf_counter() - t0:.1f} s, {torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated; "
           f"{cfg.n_layers} layers, d_model {cfg.d_model}, vocab {cfg.vocab_size} "
           f"({'; '.join(cuts) if cuts else 'nothing cut'})", flush=True)
-    tokens = TRAIN_GLOBAL_BATCH * TRAIN_SEQ
-    flops = spec_["flops"](n_params, cfg, tokens, TRAIN_GLOBAL_BATCH, TRAIN_SEQ)
+    (pattern, repeats), remainder = cfg.scan_groups()
+    remat_layers, n_rem = repeats * len(pattern), len(remainder)
+    tokens = TRAIN_GLOBAL_BATCH * seq
+    unit = "frames" if spec_.get("data") == "frames" else "tokens"
+    flops = spec_["flops"](n_params, cfg, tokens, TRAIN_GLOBAL_BATCH, seq)
     steps = []
     # one call a step held against the plain backward, a different layer
     # and microbatch each step
     per_step = cfg.n_layers * TRAIN_MICROBATCHES
-    probe = BackwardProbe(kops, lambda s: s * per_step // TRAIN_STEPS, spec_["judge"])
+    probed = spec_.get("probe_steps", range(TRAIN_STEPS))
+    probe = BackwardProbe(kops, lambda s: s * per_step // TRAIN_STEPS if s in probed else -1, spec_["judge"])
     witness = GradWitness(step_module)
     path_check = {"calls": 0, "max_abs_err": 0.0, "worst": 0.0, "rel": 0.0}
     kops.reset_launches()
     for s in range(TRAIN_STEPS):
-        batch = batch_on(loader, s, torch.device("cuda"))
+        batch = next_batch(s)
         before = (kops.LAUNCHES, kops.BWD_LAUNCHES)
         torch.cuda.reset_peak_memory_stats()
         held = {}
@@ -2765,11 +2997,12 @@ def train_path(torch, case: str, fails: Failures, seed: int, record: dict) -> di
             events = trace_card(torch, one)
         witness.read()
         params, opt_state, metrics = held["out"]
-        agree = probe.check()
-        path_check["calls"] += 1
-        path_check.update({x: max(path_check[x], agree[x]) for x in ("max_abs_err", "worst", "rel")})
-        fails.check(agree["ok"], f"train step {s}: {kname} backward call {agree['call']} (shape {agree['q']}) "
-                                 f"disagrees with the plain backward in float64 ({agree})")
+        agree = probe.check() if s in probed else probe.skip()
+        if agree:
+            path_check["calls"] += 1
+            path_check.update({x: max(path_check[x], agree[x]) for x in ("max_abs_err", "worst", "rel")})
+            fails.check(agree["ok"], f"train step {s}: {kname} backward call {agree['call']} (shape {agree['q']}) "
+                                     f"disagrees with the plain backward in float64 ({agree})")
         fails.check(not witness.bad and witness.leaves > 0,
                     f"train step {s}: {len(witness.bad)} of {witness.leaves} leaves have a zero or non-finite "
                     f"gradient: {witness.bad[:8]}")
@@ -2811,16 +3044,17 @@ def train_path(torch, case: str, fails: Failures, seed: int, record: dict) -> di
         steps.append(row)
         fails.check(bwd == cfg.n_layers * TRAIN_MICROBATCHES,
                     f"train step {s}: {bwd} {kname} backward launches, not {cfg.n_layers} x {TRAIN_MICROBATCHES}")
-        fails.check(fwd == 2 * cfg.n_layers * TRAIN_MICROBATCHES,
-                    f"train step {s}: {fwd} {kname} forward launches, not 2 x {cfg.n_layers} x {TRAIN_MICROBATCHES} "
-                    f"(remat recomputes each layer's forward)")
-        print(f"  step {s}: loss {loss:.4f}  {row['ms']:.1f} ms  {row['tokens_per_s']:.0f} tokens/s  "
+        fails.check(fwd == (2 * remat_layers + n_rem) * TRAIN_MICROBATCHES,
+                    f"train step {s}: {fwd} {kname} forward launches, not (2 x {remat_layers} + {n_rem}) x "
+                    f"{TRAIN_MICROBATCHES} (remat recomputes each repeat's forward, not the remainder's)")
+        print(f"  step {s}: loss {loss:.4f}  {row['ms']:.1f} ms  {row['tokens_per_s']:.0f} {unit}/s  "
               f"model FLOPs {100 * row['model_flop_share_of_bf16_peak']:.1f}% of the bf16 peak (989 TFLOP/s)  "
               f"peak {row['peak_gib']:.1f} GiB  grad norm {row['grad_norm']:.3g}  lr {row['lr']:.2e}  " + (
                   f"lb_loss {aux['lb_loss']:.4f}  router_z {aux['router_z']:.4f}  " if aux else "") + f"{kname} "
               f"launches {fwd} forward, {bwd} backward; {row['leaves_with_gradient']}/{row['leaves']} leaves "
-              f"with a finite nonzero gradient; backward call {agree['call']} against float64: "
-              f"worst/limit {agree['worst']:.3g}, rel {agree['rel']:.3g}" + (
+              f"with a finite nonzero gradient; " + (
+                  f"backward call {agree['call']} against float64: worst/limit {agree['worst']:.3g}, rel "
+                  f"{agree['rel']:.3g}" if agree else "no backward call held this step") + (
                   f" (SDPA's backward on its inputs: worst/limit {agree['library']['worst']:.3g}, rel "
                   f"{agree['library']['rel']:.3g})" if "library" in agree else "") + (
                   " (the plain backward in f32 on its inputs: worst/limit " + ", ".join(
@@ -2835,6 +3069,8 @@ def train_path(torch, case: str, fails: Failures, seed: int, record: dict) -> di
     report["bwd_check"] = path_check
     report["launches"] = {"forward": kops.LAUNCHES, "backward": kops.BWD_LAUNCHES,
                           "plain_bwd": kops.PLAIN_BWD_CALLS}
+    report["launches_by_dim"] = {"forward": dict(getattr(kops, "LAUNCHES_BY_DIM", {})),
+                                 "backward": dict(getattr(kops, "BWD_LAUNCHES_BY_DIM", {}))}
     if steps[-1].get("top"):
         print("  costliest kernels of the last step: " + "; ".join(
             f"{t['kernel'][:48]} {t['ms']:.1f} ms" for t in steps[-1]["top"][:5]), flush=True)
@@ -2843,7 +3079,7 @@ def train_path(torch, case: str, fails: Failures, seed: int, record: dict) -> di
           f"{np.median([r['ms'] for r in steps]):.1f} ms (median); peak memory {report['peak_gib']:.1f} GiB; "
           f"launches {report['launches']}; on {nvidia_smi_line()}", flush=True)
     record["train" if case == "flash" else f"train_{case}"] = report
-    del model, params, opt_state, step_fn
+    del model, params, opt_state, step_fn, next_batch
     gc.collect()
     torch.cuda.empty_cache()
     return report
@@ -2887,6 +3123,129 @@ def cli_path(fails: Failures, record: dict, arch: str = TRAIN_ARCH) -> dict:
           f"{summary.get('restores_bitwise')}, loss {losses[0]:.4f} -> {losses[-1]:.4f}", flush=True)
     record.setdefault("cli", {})[arch] = {"cmd": cmd, "returncode": proc.returncode, "seconds": dt, **summary}
     return record["cli"][arch]
+
+
+# ---------------------------------------------------------------------------
+# phase 22: hubert-xlarge, the audio encoder, at published width and depth
+# ---------------------------------------------------------------------------
+
+HUBERT_ARCH = "hubert-xlarge"
+# (utterances, frames): 30 s of audio at 50 frames a second, and the
+# reference's prefill_32k length (its dry run takes an audio "prefill")
+HUBERT_SCENARIOS = {"a": (16, 1500), "b": (1, 32768)}
+
+
+def hubert_breakdown(torch, model, batch: dict, kernel: str) -> dict:
+    """One forward's device ms (``ranged_prefill``) split into flash (its
+    kernel and the wrapper's pad copies to head dim 128 and back), the MLP
+    (``mlp_block``: w_in, the exact gelu, w_out), the projections (the rest
+    of ``attention_block``: q, k, v, o and RoPE) and the rest (norms,
+    residual adds, the frontend and the head).  The flash kernel launches
+    through its library, not through a PyTorch op, so no range's device
+    time holds it (on the H100 the flash range read the pad copies alone):
+    flash is its kernel's time and its range's."""
+    from repro_torch.kernels.flash import ops as flash_ops
+    from repro_torch.models import transformer
+
+    parts = {"attention": (transformer, "attention_block"), "mlp": (transformer, "mlp_block"),
+             "flash": (flash_ops, "flash_attention")}
+    out = ranged_prefill(torch, parts, lambda: model(batch), kernel)
+    if out:
+        part = out["parts_ms"]
+        out["flash_range_ms"], out["attention_range_ms"] = part["flash"], part["attention"]
+        out["flash_ms"] += part["flash"]
+        out["parts_ms"] = {"mlp": part["mlp"], "projections": part["attention"] - part["flash"]}
+        out["rest_ms"] = out["device_ms"] - out["flash_ms"] - part["mlp"] - out["parts_ms"]["projections"]
+    return out
+
+
+def encoder_path(torch, flash_ops, plain, agreement, fails: Failures, seed: int, record: dict) -> tuple:
+    """Phase 22: hubert-xlarge at its published width and depth (weights
+    drawn on the card from ``seed``) through ``Model.forward`` under
+    inference mode, for each of HUBERT_SCENARIOS on frames drawn from the
+    seed: one flash launch a layer, not causal; every call of (a) and the
+    first and last layers' calls of (b) held against the plain version; a
+    rerun's logits bitwise equal; logits (B, S, 504) finite; the rerun's
+    wall ms and frames/s; one forward's device ms by part
+    (``hubert_breakdown``); then the flash kernel at each scenario's shape
+    (``flash_at_shapes``: SDPA not causal computes the same function).
+    Returns (flash launches, the timing rows)."""
+    import gc
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.transformer import Model
+
+    cfg = get_config(HUBERT_ARCH)
+    n_layers = cfg.n_layers
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    model = Model(cfg).init_params(gen)
+    torch.cuda.synchronize()
+    n_params = model.n_params()
+    print(f"  {HUBERT_ARCH}: {n_params:,} parameters drawn on the card in {time.perf_counter() - t0:.1f} s "
+          f"({n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads} heads of {cfg.resolved_head_dim}, d_ff "
+          f"{cfg.d_ff}, {cfg.vocab_size} units; nothing cut)", flush=True)
+    rec = flash_recorder(flash_ops, plain, agreement, fails)
+    rec.hold = lambda label, n: label == "a" or n in (0, n_layers - 1)
+    report: dict = {"arch": HUBERT_ARCH, "n_params": n_params, "layers": n_layers}
+    flash_ops.reset_launches()
+    with torch.inference_mode(), rec:
+        for name, (B, S) in HUBERT_SCENARIOS.items():
+            t_scenario = time.perf_counter()
+            batch = {"frames": torch.randn(B, S, cfg.d_model, device="cuda", generator=gen)}
+            outs, walls = [], []
+            for run in ("checked", "timed"):
+                rec.label = name
+                rec.seen.clear()
+                before = flash_ops.LAUNCHES
+                with (contextlib.nullcontext() if run == "checked" else rec.paused()):
+                    torch.cuda.synchronize()
+                    t1 = time.perf_counter()
+                    logits, _ = model(batch)
+                    torch.cuda.synchronize()
+                    walls.append(time.perf_counter() - t1)
+                launched = flash_ops.LAUNCHES - before
+                fails.check(launched == n_layers, f"{HUBERT_ARCH} ({name}, {run}): {launched} flash launches, "
+                                                  f"not {n_layers}")
+                outs.append(logits)
+            fails.check(tuple(outs[0].shape) == (B, S, cfg.vocab_size) and bool(torch.isfinite(outs[0]).all()),
+                        f"{HUBERT_ARCH} ({name}): logits {tuple(outs[0].shape)} not finite or not (B, S, V)")
+            fails.check(bool(torch.equal(outs[0], outs[1])), f"{HUBERT_ARCH} ({name}): a rerun's logits differ")
+            held = sum(st["calls"] for key, st in rec.stats.items() if key[0] == name)
+            fails.check(held == (n_layers if name == "a" else 2),
+                        f"{HUBERT_ARCH} ({name}): {held} flash calls held against the plain version")
+            entry = {"batch": B, "frames": S, "forward_ms": walls[1] * 1e3, "checked_forward_ms": walls[0] * 1e3,
+                     "frames_per_s": B * S / walls[1], "held_calls": held}
+            report[name] = entry
+            del outs, logits
+            entry["seconds"] = time.perf_counter() - t_scenario
+            print(f"  ({name}) {B} x {S} frames ({entry['seconds']:.0f} s): forward {entry['forward_ms']:.1f} ms, "
+                  f"{entry['frames_per_s']:.0f} frames/s; {n_layers} flash launches a forward, not causal, "
+                  f"{held} of them held against the plain version; a rerun's logits bitwise equal, finite",
+                  flush=True)
+    report["launches"] = flash_ops.LAUNCHES
+    report["launches_by_dim"] = dict(flash_ops.LAUNCHES_BY_DIM)
+    report["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    # where one forward's card time goes (these launches are not counted)
+    for name, (B, S) in HUBERT_SCENARIOS.items():
+        with torch.inference_mode():
+            batch = {"frames": torch.randn(B, S, cfg.d_model, device="cuda", generator=gen)}
+            report[name]["parts"] = hubert_breakdown(torch, model, batch, "flash_fwd")
+        print_parts(name, report[name]["parts"], "forward")
+    print(f"flash kernel at {HUBERT_ARCH}'s shapes (head dim 80, padded to 128; not causal):", flush=True)
+    rows = flash_at_shapes(torch, flash_ops, plain, agreement, rec, fails)
+    bad_calls = [k for k, st in rec.stats.items() if not st["ok"]]
+    fails.check(not bad_calls, f"flash calls disagreeing with the plain version: {bad_calls}")
+    print(f"  flash launches on the path: {report['launches']}; peak memory {report['peak_gib']:.1f} GiB", flush=True)
+    record[f"serve_{HUBERT_ARCH}"] = report
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return report["launches"], rows
 
 
 def nvidia_smi_line() -> str:
@@ -3090,8 +3449,9 @@ def main(argv=None) -> int:
     print("flash backward kernel against its plain version:", flush=True)
     record["flash_bwd_matrix"] = flash_bwd_matrix(torch, flash_kernel, flash_attention_bwd_plain, attention_ref,
                                                   bwd_agreement, bwd_exact_agreement, fails, args.seed)
-    bwd_row = flash_bwd_at_train_shape(torch, flash_kernel, flash_attention_bwd_plain, bwd_agreement, args.seed)
-    record["flash_bwd_shape"] = bwd_row
+    bwd_rows = flash_bwd_at_train_shapes(torch, flash_kernel, flash_attention_bwd_plain, bwd_agreement, args.seed)
+    bwd_row = bwd_rows[0]
+    record["flash_bwd_shapes"] = bwd_rows
 
     # 15. training starcoder2-3b at full width
     phase_start[15] = time.perf_counter() - t_start
@@ -3171,6 +3531,47 @@ def main(argv=None) -> int:
     flash_rows = flash_rows + zamba_rows
     print(f"  {time.perf_counter() - t0:.0f} s; phases 1-21 in {time.perf_counter() - t_start:.0f} s", flush=True)
 
+    # 22. hubert-xlarge, the audio encoder, at its published width and depth
+    phase_start[22] = time.perf_counter() - t_start
+    print(f"encoder path: {HUBERT_ARCH} at full width and depth:", flush=True)
+    t0 = time.perf_counter()
+    hubert_launches, hubert_rows = encoder_path(torch, flash_ops, flash_attention_plain, agreement, fails, args.seed,
+                                                record)
+    record["flash_shapes_hubert"] = hubert_rows
+    flash_launches += hubert_launches
+    flash_rows = flash_rows + hubert_rows
+    print(f"  {time.perf_counter() - t0:.0f} s", flush=True)
+
+    # 23. training hubert-xlarge at its published width and depth
+    phase_start[23] = time.perf_counter() - t_start
+    print(f"training path: {HUBERT_ARCH} at full width and depth:", flush=True)
+    t0 = time.perf_counter()
+    hubert_train = train_path(torch, "hubert", fails, args.seed, record)
+    flash_launches += hubert_train["launches"]["forward"]
+    bwd_launches += hubert_train["launches"]["backward"]
+    print(f"  {time.perf_counter() - t0:.0f} s", flush=True)
+
+    # 24. training gemma3-4b at its published width
+    phase_start[24] = time.perf_counter() - t_start
+    print(f"training path: {TRAIN_CASES['gemma3']['arch']} at published width:", flush=True)
+    t0 = time.perf_counter()
+    gemma3_train = train_path(torch, "gemma3", fails, args.seed, record)
+    flash_launches += gemma3_train["launches"]["forward"]
+    bwd_launches += gemma3_train["launches"]["backward"]
+    print(f"  {time.perf_counter() - t0:.0f} s; phases 1-24 in {time.perf_counter() - t_start:.0f} s", flush=True)
+    trains = (train, moe_train, hubert_train, gemma3_train)
+    fwd_by_dim, bwd_by_dim = {}, {}
+    for rep_ in [v for k, v in record.items() if k.startswith("serve_")]:
+        for d, n in rep_.get("launches_by_dim", {}).items():
+            fwd_by_dim[d] = fwd_by_dim.get(d, 0) + n
+    for tr in trains:
+        for d, n in tr["launches_by_dim"]["forward"].items():
+            fwd_by_dim[d] = fwd_by_dim.get(d, 0) + n
+        for d, n in tr["launches_by_dim"]["backward"].items():
+            bwd_by_dim[d] = bwd_by_dim.get(d, 0) + n
+    print(f"flash launches by head dim: forward {dict(sorted(fwd_by_dim.items()))}, backward "
+          f"{dict(sorted(bwd_by_dim.items()))}", flush=True)
+
     # the JSON record: each kernel at the largest shape the main path gave it
     entries = []
     meta = {
@@ -3197,6 +3598,12 @@ def main(argv=None) -> int:
         })
     if fails.check(bool(flash_rows), "no serving-path shape recorded for flash_attention"):
         top = max(flash_rows, key=lambda t: t["bound_ms"])
+        # each head dim at its costliest serving shape, with its launches
+        per_dim = {}
+        for t in flash_rows:
+            d = t["q"][3]
+            if d not in per_dim or t["bound_ms"] > per_dim[d]["bound_ms"]:
+                per_dim[d] = t
         entries.append({
             "name": "flash_attention",
             "route": "cuda",
@@ -3209,6 +3616,12 @@ def main(argv=None) -> int:
             "bound_ms": top["bound_ms"],
             "bound_by": top["bound_by"],
             "library_ms": top["library_ms"],
+            "head_dims": [{"head_dim": d, "shape": {"scenario": t["scenario"], "q": t["q"], "k": t["k"],
+                                                    "causal": t["causal"], "window": t["window"],
+                                                    "softcap": t["softcap"]},
+                           "launches": fwd_by_dim.get(d, 0), "max_abs_err": t["max_abs_err"], "ms": t["ms"],
+                           "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                           "library_ms": t["library_ms"]} for d, t in sorted(per_dim.items())],
         })
     fails.check(flash_launches > 0, "the serving path never launched flash_attention")
     if fails.check(bool(wkv6_rows), "no serving-path shape recorded for wkv6"):
@@ -3235,15 +3648,19 @@ def main(argv=None) -> int:
         "replaces_note": "no TPU kernel: the reference differentiates flash_attention_jnp "
                          "(src/repro/models/attention.py:54) by autodiff",
         "launches": bwd_launches,
-        "max_abs_err": max([r["max_abs_err"] for r in record["flash_bwd_matrix"]]
-                           + [bwd_row["agreement"]["max_abs_err"], train["bwd_check"]["max_abs_err"],
-                              moe_train["bwd_check"]["max_abs_err"]]),
-        "train_path_check": {"starcoder2-3b": train["bwd_check"], "dbrx-132b": moe_train["bwd_check"]},
+        "max_abs_err": max([r["max_abs_err"] for r in record["flash_bwd_matrix"] + bwd_rows]
+                           + [tr["bwd_check"]["max_abs_err"] for tr in trains]),
+        "train_path_check": {tr["arch"]: tr["bwd_check"] for tr in trains},
         "ms": bwd_row["ms"],
         "plain_ms": bwd_row["plain_ms"],
         "bound_ms": bwd_row["bound_ms"],
         "bound_by": bwd_row["bound_by"],
         "library_ms": bwd_row["library_ms"],
+        "head_dims": [{"head_dim": r["head_dim"], "shape": {"label": r["label"], "q": r["q"], "kv_heads": r["kv_heads"],
+                                                            "causal": r["causal"], "window": r["window"]},
+                       "launches": bwd_by_dim.get(r["head_dim"], 0), "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                       "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                       "library_ms": r["library_ms"]} for r in bwd_rows],
     })
     entries.append({
         "name": "wkv6_bwd",
@@ -3266,8 +3683,9 @@ def main(argv=None) -> int:
     fails.check(wkv6_bwd_launches > 0, "the rwkv6 training path never launched the wkv6 backward")
     fails.check(wkv6_bwd_row["agreement"]["ok"], f"wkv6 backward at the training shape disagrees with its plain "
                                                  f"version ({wkv6_bwd_row['agreement']})")
-    fails.check(bwd_row["agreement"]["ok"], f"flash backward at the training shape disagrees with its plain "
-                                            f"version ({bwd_row['agreement']})")
+    for r in bwd_rows:
+        fails.check(r["agreement"]["ok"], f"flash backward at {r['label']}'s training shape disagrees with its "
+                                          f"plain version ({r['agreement']})")
     ends = sorted(phase_start.items()) + [(None, time.perf_counter() - t_start)]
     record["phase_seconds"] = {n: ends[i + 1][1] - t for i, (n, t) in enumerate(ends[:-1])}
     print("seconds a phase: " + ", ".join(f"{n} {t:.0f}" for n, t in record["phase_seconds"].items()), flush=True)

@@ -73,6 +73,19 @@
 //      its query head (B, S, H, D); with G = 1 it writes bf16 dk and dv.
 //   3. flash_bwd_dkv_sum_kernel (G > 1): per kv head, the G partials summed
 //      in head order, dk scaled, each cast to bf16 once.
+//   At D = 256 (BwCfg::SPLIT) the tiles above do not fit (the dq launch's
+//   would take ~393 KB of shared memory, the dkv launch's ~327 KB, and one
+//   warpgroup's dk and dv for 64 keys 256 registers a thread), so a block
+//   owns 64 rows and its two consumer warpgroups split the work: in the dq
+//   launch (64 queries, 2 stages of 64-key tiles: 96 KB + 128 KB) both form
+//   the block's s and dp and each accumulates half of dq's columns (64
+//   registers); in the dkv launch (64 keys, 2 stages of 64-query tiles) both
+//   form s^T, warpgroup 0 accumulates dv (128 registers) and warpgroup 1
+//   forms dp^T and accumulates dk.  The products are those of D <= 128 (the
+//   same instructions, operands and order), so delta and dp still come
+//   from one wgmma and ds still enters dq's product in two bf16 parts; s
+//   (twice in each launch) and dp (twice in the dq launch) are issued more
+//   than at D <= 128.
 //   The grids run longest first: dq's last query tiles (which see the most
 //   keys under the causal mask) of every (b, h) first, dkv's first key
 //   tiles first.  A warpgroup skips the products of a tile none of its rows
@@ -107,6 +120,8 @@
 // launch, one dkv block of 64 keys walking all 12 query heads of its kv
 // head: 128 blocks) took 2.432 ms, and 2.5-5.7 ms in its earlier variants
 // (4 warps a dkv block; 32-key blocks).
+#include <type_traits>
+
 #include "flash_common.cuh"
 
 typedef __nv_bfloat16 bf16;
@@ -117,19 +132,26 @@ struct BwCfg {
     static constexpr int ROWB = ROWE * 2;               // its bytes: the swizzle span
     static constexpr int NCH = D / ROWE;                // column chunks of a row
     static constexpr int LAYOUT = ROWB == 128 ? 1 : 2;  // wgmma descriptor: 128- or 64-byte swizzle
+    // D = 256: the two consumer warpgroups of a block share its 64 rows
+    // (queries in the dq launch, keys in the dkv launch) and split the work
+    // (dq's columns; dv and dk), since one warpgroup's accumulators for 64
+    // rows at D = 256 would take 128 registers a thread and both launches'
+    // tiles at D <= 128's sizes would pass the 227 KB a block may use
+    static constexpr bool SPLIT = D > 128;
     // dq launch: the block's q, dout and out tiles, a ring of k and v tiles
-    static constexpr int DQ_Q = 128;                    // queries of a block: two warpgroups of 64
+    static constexpr int DQ_Q = SPLIT ? 64 : 128;       // queries of a block: two warpgroups of 64, or one shared
     static constexpr int DQ_K = 64;                     // keys of a tile
-    static constexpr int DQ_ST = 3;                     // k and v tiles in flight
+    static constexpr int DQ_ST = SPLIT ? 2 : 3;         // k and v tiles in flight
+    static constexpr int DQ_N = SPLIT ? D / 2 : D;      // dq's columns a warpgroup accumulates
     static constexpr int DQ_QBYTES = DQ_Q * D * 2;
     static constexpr int DQ_KBYTES = DQ_K * D * 2;
     static constexpr int DQ_BAR = 3 * DQ_QBYTES + 2 * DQ_ST * DQ_KBYTES;
     static constexpr size_t DQ_SMEM = 1024 + DQ_BAR + 8 * (1 + 4 * DQ_ST);
     // dkv launch: the block's k and v tiles, a ring of q and dout tiles with
     // their queries' lse (log2 units) and delta
-    static constexpr int KV_K = 128;                    // keys of a block: two warpgroups of 64
+    static constexpr int KV_K = SPLIT ? 64 : 128;       // keys of a block: two warpgroups of 64, or one shared
     static constexpr int KV_Q = 64;                     // queries of a tile
-    static constexpr int KV_ST = 3;                     // q and dout tiles in flight
+    static constexpr int KV_ST = SPLIT ? 2 : 3;         // q and dout tiles in flight
     static constexpr int KV_KBYTES = KV_K * D * 2;
     static constexpr int KV_QBYTES = KV_Q * D * 2;
     static constexpr int KV_STAT = 2 * KV_KBYTES + 2 * KV_ST * KV_QBYTES;
@@ -207,10 +229,11 @@ __device__ __forceinline__ void ds_rows(float (&s)[32], const float (&dp)[32], c
             }
 }
 
-// dkv's p^T (in place of s^T) and ds^T (in place of dp^T) over a 64 x 64
-// tile: keys k_row + 8 hh, queries q_col + 8 i + e, whose lse (log2 units)
-// and delta are lse2[c] and dlt[c] at the tile's column c = q_col - q0.
-template <bool CAP, bool FULL>
+// dkv's p^T (in place of s^T) and, with DS, ds^T (in place of dp^T) over a
+// 64 x 64 tile: keys k_row + 8 hh, queries q_col + 8 i + e, whose lse (log2
+// units) and delta are lse2[c] and dlt[c] at the tile's column c = q_col -
+// q0.
+template <bool CAP, bool FULL, bool DS>
 __device__ __forceinline__ void p_ds_cols(float (&s)[32], float (&dp)[32], const float* lse2, const float* dlt,
                                           int k_row, int q0, int cq, const BwParams& p, float mul, float cap_l2) {
 #pragma unroll
@@ -225,11 +248,11 @@ __device__ __forceinline__ void p_ds_cols(float (&s)[32], float (&dp)[32], const
                 float th;
                 const float x = score_log2<CAP>(s[j], mul, cap_l2, &th);
                 float pv = fast_exp2(x - (e ? l2.y : l2.x));
-                float ds = pv * (dp[j] - (e ? dl.y : dl.x));
+                float ds = DS ? pv * (dp[j] - (e ? dl.y : dl.x)) : 0.f;
                 if (CAP) ds *= 1.f - th * th;
                 if (!FULL && !visible(q0 + 8 * i + cq + e, k_row + 8 * hh, p)) pv = ds = 0.f;
                 s[j] = pv;
-                dp[j] = ds;
+                if (DS) dp[j] = ds;
             }
     }
 }
@@ -309,20 +332,24 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constan
         }
         return;
     }
-    // ---- consumers: warpgroup w owns query rows 64 w .. 64 w + 63 ----
+    // ---- consumers: warpgroup w owns query rows 64 w .. 64 w + 63, or
+    // (SPLIT) both own the block's 64 rows and w dq's columns DQ_N w ..
+    // DQ_N w + DQ_N - 1 ----
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(WG_CONSUMER_REGS));
     const int w = wg - 1;
     const int tw = threadIdx.x - 128 * wg;
     const int warp = tw >> 5, lane = tw & 31, g = lane >> 2;
     const int cq = 2 * (lane & 3);
-    const int row0 = 64 * w + 16 * warp + g;  // this thread's rows: row0 and row0 + 8
+    const int rw = C::SPLIT ? 0 : 64 * w;     // the warpgroup's first row in the block
+    const int row0 = rw + 16 * warp + g;      // this thread's rows: row0 and row0 + 8
     const int qrow = q0 + row0;
+    constexpr int DN = C::DQ_N;
 
-    float dq[D / 2];
+    float dq[DN / 2];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+    for (int i = 0; i < DN / 2; ++i) dq[i] = 0.f;
     if (n_tiles > 0) {
-        const uint32_t qa = q_s + 64 * w * ROWB, da = do_s + 64 * w * ROWB;
+        const uint32_t qa = q_s + rw * ROWB, da = do_s + rw * ROWB;
         mbar_wait(q_full, 0);
 
         // delta: the diagonal of dout . out^T over the warpgroup's rows, by
@@ -336,7 +363,7 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constan
             for (int kk = 0; kk < D / 16; ++kk) {
                 const uint32_t chunk = kk / (C::ROWE / 16), step = (kk % (C::ROWE / 16)) * 32;
                 wgmma_ss(dd, wg_desc(da + chunk * BQ * ROWB + step, 16, 8 * ROWB, C::LAYOUT),
-                         wg_desc(o_s + chunk * BQ * ROWB + 64 * w * ROWB + step, 16, 8 * ROWB, C::LAYOUT), kk > 0);
+                         wg_desc(o_s + chunk * BQ * ROWB + rw * ROWB + step, 16, 8 * ROWB, C::LAYOUT), kk > 0);
             }
             wgmma_commit();
             wgmma_wait<0>();
@@ -355,12 +382,14 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constan
             const int qi = qrow + 8 * hh;
             const int64_t at = ((int64_t)b * p.H + h) * p.S + qi;
             lse2[hh] = qi < p.S ? p.lse[at] * LOG2E : 0.f;
-            if (qi < p.S && cq == 0) p.delta[at] = dlt[hh];
+            if (qi < p.S && cq == 0 && (!C::SPLIT || w == 0)) p.delta[at] = dlt[hh];
         }
 
         const float mul = CAP ? p.scale / p.softcap : p.scale * LOG2E;
         const float cap_l2 = p.softcap * LOG2E;
-        const int w_first = q0 + 64 * w, w_last = min(q0 + 64 * w + 63, p.S - 1);
+        const int w_first = q0 + rw, w_last = min(q0 + rw + 63, p.S - 1);
+        // the k tile's columns this warpgroup's dq reads (SPLIT: its half)
+        const uint32_t kcol = C::SPLIT ? w * (DN / C::ROWE) * BK * ROWB : 0;
         float s[32], dp[32];
         uint32_t hi[4][4], lo[4][4];
         int pend = -1;  // the stage whose k tile the last dq products read
@@ -419,12 +448,13 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constan
             pack_a<false>(hi, s);
             pack_a<true>(lo, s);
             // dq += ds . k: A is ds in registers (two bf16 parts), B the k
-            // tile, MN-major (the leading offset steps over column chunks,
-            // the stride offset over 8 keys); a 16-deep step moves 16 keys
+            // tile's DN columns, MN-major (the leading offset steps over
+            // column chunks, the stride offset over 8 keys); a 16-deep step
+            // moves 16 keys
             wgmma_fence();
 #pragma unroll
             for (int kk = 0; kk < BK / 16; ++kk) {
-                const uint64_t db = wg_desc(kb + kk * 16 * ROWB, BK * ROWB, 8 * ROWB, C::LAYOUT);
+                const uint64_t db = wg_desc(kb + kcol + kk * 16 * ROWB, BK * ROWB, 8 * ROWB, C::LAYOUT);
                 wgmma_rs(dq, hi[kk], db);
                 wgmma_rs(dq, lo[kk], db);
             }
@@ -441,9 +471,9 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constan
     for (int hh = 0; hh < 2; ++hh) {
         const int qi = qrow + 8 * hh;
         if (qi >= p.S) continue;
-        bf16* dst = p.dq + (((int64_t)b * p.S + qi) * p.H + h) * D + cq;
+        bf16* dst = p.dq + (((int64_t)b * p.S + qi) * p.H + h) * D + (C::SPLIT ? w * DN : 0) + cq;
 #pragma unroll
-        for (int i = 0; i < D / 8; ++i)
+        for (int i = 0; i < DN / 8; ++i)
             *reinterpret_cast<__nv_bfloat162*>(dst + 8 * i) =
                 __floats2bfloat162_rn(dq[4 * i + 2 * hh] * p.scale, dq[4 * i + 2 * hh + 1] * p.scale);
     }
@@ -527,108 +557,138 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tk, const __grid_consta
         }
         return;
     }
-    // ---- consumers: warpgroup w owns keys 64 w .. 64 w + 63 ----
+    // ---- consumers: warpgroup w owns keys 64 w .. 64 w + 63 and both dk
+    // and dv, or (SPLIT) both own the block's 64 keys, warpgroup 0 dv and
+    // warpgroup 1 dk ----
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(WG_CONSUMER_REGS));
     const int w = wg - 1;
     const int tw = threadIdx.x - 128 * wg;
     const int warp = tw >> 5, lane = tw & 31, g = lane >> 2;
     const int cq = 2 * (lane & 3);
-    const int krow = k0 + 64 * w + 16 * warp + g;  // this thread's keys: krow and krow + 8
+    const int rw = C::SPLIT ? 0 : 64 * w;      // the warpgroup's first key in the block
+    const int krow = k0 + rw + 16 * warp + g;  // this thread's keys: krow and krow + 8
 
-    float dk[D / 2], dv[D / 2];
+    // the loop over query tiles and the epilogue, for the gradients a
+    // warpgroup owns (dk_tag, dv_tag: std::integral_constant<bool, ...>)
+    auto consume = [&](auto dk_tag, auto dv_tag) {
+        constexpr bool DK = decltype(dk_tag)::value, DV = decltype(dv_tag)::value;
+        float dk[DK ? D / 2 : 1], dv[DV ? D / 2 : 1];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
-    if (n_tiles > 0) {
-        const float mul = CAP ? p.scale / p.softcap : p.scale * LOG2E;
-        const float cap_l2 = p.softcap * LOG2E;
-        const int w_first = k0 + 64 * w, w_last = min(k0 + 64 * w + 63, p.S - 1);
-        const uint32_t ka = k_s + 64 * w * ROWB, va = v_s + 64 * w * ROWB;
-        mbar_wait(kv_full, 0);
-        float s[32], dp[32];
-        uint32_t pa[4][4], dsa[4][4];
-        for (int t = 0; t < n_tiles; ++t) {
-            const int st = t % ST;
-            const uint32_t ph = (t / ST) & 1;
-            const int q0 = q_lo + t * BQ;
-            const int q_last = min(q0 + BQ - 1, p.S - 1);
-            mbar_wait(full(st), ph);
-            if (w_first > w_last || (p.causal && q_last < w_first) ||
-                (p.window > 0 && q0 - w_last >= p.window)) {  // no key of the warpgroup is seen
+        for (int i = 0; i < (DK ? D / 2 : 1); ++i) dk[i] = 0.f;
+#pragma unroll
+        for (int i = 0; i < (DV ? D / 2 : 1); ++i) dv[i] = 0.f;
+        if (n_tiles > 0) {
+            const float mul = CAP ? p.scale / p.softcap : p.scale * LOG2E;
+            const float cap_l2 = p.softcap * LOG2E;
+            const int w_first = k0 + rw, w_last = min(k0 + rw + 63, p.S - 1);
+            const uint32_t ka = k_s + rw * ROWB, va = v_s + rw * ROWB;
+            mbar_wait(kv_full, 0);
+            float s[32], dp[32];
+            uint32_t pa[4][4], dsa[4][4];
+            for (int t = 0; t < n_tiles; ++t) {
+                const int st = t % ST;
+                const uint32_t ph = (t / ST) & 1;
+                const int q0 = q_lo + t * BQ;
+                const int q_last = min(q0 + BQ - 1, p.S - 1);
+                mbar_wait(full(st), ph);
+                if (w_first > w_last || (p.causal && q_last < w_first) ||
+                    (p.window > 0 && q0 - w_last >= p.window)) {  // no key of the warpgroup is seen
+                    release(empty(st), lane);
+                    continue;
+                }
+                // s^T = k . q^T and (for ds) dp^T = v . dout^T, both operands k-major
+                const uint32_t qb = q_s + st * C::KV_QBYTES, dob = do_s + st * C::KV_QBYTES;
+                wgmma_fence();
+#pragma unroll
+                for (int kk = 0; kk < D / 16; ++kk) {
+                    const uint32_t chunk = kk / (C::ROWE / 16), step = (kk % (C::ROWE / 16)) * 32;
+                    wgmma_ss(s, wg_desc(ka + chunk * BK * ROWB + step, 16, 8 * ROWB, C::LAYOUT),
+                             wg_desc(qb + chunk * BQ * ROWB + step, 16, 8 * ROWB, C::LAYOUT), kk > 0);
+                }
+                if constexpr (DK) {
+#pragma unroll
+                    for (int kk = 0; kk < D / 16; ++kk) {
+                        const uint32_t chunk = kk / (C::ROWE / 16), step = (kk % (C::ROWE / 16)) * 32;
+                        wgmma_ss(dp, wg_desc(va + chunk * BK * ROWB + step, 16, 8 * ROWB, C::LAYOUT),
+                                 wg_desc(dob + chunk * BQ * ROWB + step, 16, 8 * ROWB, C::LAYOUT), kk > 0);
+                    }
+                }
+                wgmma_commit();
+                wgmma_wait<0>();
+                fence_regs(s);
+                if constexpr (DK) fence_regs(dp);
+                fence_regs(dk);
+                fence_regs(dv);
+                const float* l2 = stats + 2 * st * BQ;
+                const bool all = w_last - w_first == 63 && q_last - q0 == BQ - 1 && (!p.causal || q0 >= w_last) &&
+                                 (p.window <= 0 || q_last - w_first < p.window);
+                if (all)
+                    p_ds_cols<CAP, true, DK>(s, dp, l2, l2 + BQ, krow, q0, cq, p, mul, cap_l2);
+                else
+                    p_ds_cols<CAP, false, DK>(s, dp, l2, l2 + BQ, krow, q0, cq, p, mul, cap_l2);
+                if constexpr (DV) pack_a<false>(pa, s);
+                if constexpr (DK) pack_a<false>(dsa, dp);
+                // dv += p^T . dout and dk += ds^T . q: A in registers, B the
+                // query tile, MN-major; a 16-deep step moves 16 queries
+                wgmma_fence();
+                if constexpr (DV) {
+#pragma unroll
+                    for (int kk = 0; kk < BQ / 16; ++kk)
+                        wgmma_rs(dv, pa[kk], wg_desc(dob + kk * 16 * ROWB, BQ * ROWB, 8 * ROWB, C::LAYOUT));
+                }
+                if constexpr (DK) {
+#pragma unroll
+                    for (int kk = 0; kk < BQ / 16; ++kk)
+                        wgmma_rs(dk, dsa[kk], wg_desc(qb + kk * 16 * ROWB, BQ * ROWB, 8 * ROWB, C::LAYOUT));
+                }
+                wgmma_commit();
+                wgmma_wait<0>();
+                fence_regs(dk);
+                fence_regs(dv);
+                if constexpr (DV) fence_regs(pa);
+                if constexpr (DK) fence_regs(dsa);
                 release(empty(st), lane);
-                continue;
-            }
-            // s^T = k . q^T and dp^T = v . dout^T, both operands k-major
-            const uint32_t qb = q_s + st * C::KV_QBYTES, dob = do_s + st * C::KV_QBYTES;
-            wgmma_fence();
-#pragma unroll
-            for (int kk = 0; kk < D / 16; ++kk) {
-                const uint32_t chunk = kk / (C::ROWE / 16), step = (kk % (C::ROWE / 16)) * 32;
-                wgmma_ss(s, wg_desc(ka + chunk * BK * ROWB + step, 16, 8 * ROWB, C::LAYOUT),
-                         wg_desc(qb + chunk * BQ * ROWB + step, 16, 8 * ROWB, C::LAYOUT), kk > 0);
-            }
-#pragma unroll
-            for (int kk = 0; kk < D / 16; ++kk) {
-                const uint32_t chunk = kk / (C::ROWE / 16), step = (kk % (C::ROWE / 16)) * 32;
-                wgmma_ss(dp, wg_desc(va + chunk * BK * ROWB + step, 16, 8 * ROWB, C::LAYOUT),
-                         wg_desc(dob + chunk * BQ * ROWB + step, 16, 8 * ROWB, C::LAYOUT), kk > 0);
-            }
-            wgmma_commit();
-            wgmma_wait<0>();
-            fence_regs(s);
-            fence_regs(dp);
-            fence_regs(dk);
-            fence_regs(dv);
-            const float* l2 = stats + 2 * st * BQ;
-            const bool all = w_last - w_first == 63 && q_last - q0 == BQ - 1 && (!p.causal || q0 >= w_last) &&
-                             (p.window <= 0 || q_last - w_first < p.window);
-            if (all)
-                p_ds_cols<CAP, true>(s, dp, l2, l2 + BQ, krow, q0, cq, p, mul, cap_l2);
-            else
-                p_ds_cols<CAP, false>(s, dp, l2, l2 + BQ, krow, q0, cq, p, mul, cap_l2);
-            pack_a<false>(pa, s);
-            pack_a<false>(dsa, dp);
-            // dv += p^T . dout and dk += ds^T . q: A in registers, B the
-            // query tile, MN-major; a 16-deep step moves 16 queries
-            wgmma_fence();
-#pragma unroll
-            for (int kk = 0; kk < BQ / 16; ++kk)
-                wgmma_rs(dv, pa[kk], wg_desc(dob + kk * 16 * ROWB, BQ * ROWB, 8 * ROWB, C::LAYOUT));
-#pragma unroll
-            for (int kk = 0; kk < BQ / 16; ++kk)
-                wgmma_rs(dk, dsa[kk], wg_desc(qb + kk * 16 * ROWB, BQ * ROWB, 8 * ROWB, C::LAYOUT));
-            wgmma_commit();
-            wgmma_wait<0>();
-            fence_regs(dk);
-            fence_regs(dv);
-            fence_regs(pa);
-            fence_regs(dsa);
-            release(empty(st), lane);
-        }
-    }
-    // G = 1: dk = scale * (ds^T . q) and dv in bf16; else this head's f32
-    // partials, which flash_bwd_dkv_sum_kernel adds
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-        const int kj = krow + 8 * hh;
-        if (kj >= p.S) continue;
-        if (p.dk_part == nullptr) {
-            const int64_t at = (((int64_t)b * p.S + kj) * p.Hkv + hk) * D + cq;
-#pragma unroll
-            for (int i = 0; i < D / 8; ++i) {
-                *reinterpret_cast<__nv_bfloat162*>(p.dk + at + 8 * i) =
-                    __floats2bfloat162_rn(dk[4 * i + 2 * hh] * p.scale, dk[4 * i + 2 * hh + 1] * p.scale);
-                *reinterpret_cast<__nv_bfloat162*>(p.dv + at + 8 * i) =
-                    __floats2bfloat162_rn(dv[4 * i + 2 * hh], dv[4 * i + 2 * hh + 1]);
-            }
-        } else {
-            const int64_t at = (((int64_t)b * p.S + kj) * p.H + h) * D + cq;
-#pragma unroll
-            for (int i = 0; i < D / 8; ++i) {
-                *reinterpret_cast<float2*>(p.dk_part + at + 8 * i) = make_float2(dk[4 * i + 2 * hh], dk[4 * i + 2 * hh + 1]);
-                *reinterpret_cast<float2*>(p.dv_part + at + 8 * i) = make_float2(dv[4 * i + 2 * hh], dv[4 * i + 2 * hh + 1]);
             }
         }
-    }
+        // G = 1: dk = scale * (ds^T . q) and dv in bf16; else this head's
+        // f32 partials, which flash_bwd_dkv_sum_kernel adds
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+            const int kj = krow + 8 * hh;
+            if (kj >= p.S) continue;
+            if (p.dk_part == nullptr) {
+                const int64_t at = (((int64_t)b * p.S + kj) * p.Hkv + hk) * D + cq;
+#pragma unroll
+                for (int i = 0; i < D / 8; ++i) {
+                    if constexpr (DK)
+                        *reinterpret_cast<__nv_bfloat162*>(p.dk + at + 8 * i) =
+                            __floats2bfloat162_rn(dk[4 * i + 2 * hh] * p.scale, dk[4 * i + 2 * hh + 1] * p.scale);
+                    if constexpr (DV)
+                        *reinterpret_cast<__nv_bfloat162*>(p.dv + at + 8 * i) =
+                            __floats2bfloat162_rn(dv[4 * i + 2 * hh], dv[4 * i + 2 * hh + 1]);
+                }
+            } else {
+                const int64_t at = (((int64_t)b * p.S + kj) * p.H + h) * D + cq;
+#pragma unroll
+                for (int i = 0; i < D / 8; ++i) {
+                    if constexpr (DK)
+                        *reinterpret_cast<float2*>(p.dk_part + at + 8 * i) =
+                            make_float2(dk[4 * i + 2 * hh], dk[4 * i + 2 * hh + 1]);
+                    if constexpr (DV)
+                        *reinterpret_cast<float2*>(p.dv_part + at + 8 * i) =
+                            make_float2(dv[4 * i + 2 * hh], dv[4 * i + 2 * hh + 1]);
+                }
+            }
+        }
+    };
+    using yes = std::integral_constant<bool, true>;
+    using no = std::integral_constant<bool, false>;
+    if constexpr (!C::SPLIT)
+        consume(yes{}, yes{});
+    else if (w == 0)
+        consume(no{}, yes{});
+    else
+        consume(yes{}, no{});
 }
 
 // dk and dv of each (b, key, kv head): the partials of its G query heads
@@ -719,7 +779,7 @@ static int launch_bwd(const void* q, const void* k, const void* v, const void* o
 // natural log: flash_fwd_lse_launch's) as the header states.  `work` is f32
 // scratch: delta (B * H * S floats, rounded up to a multiple of 4), then,
 // when H > Hkv, the partial dk and dv (B * S * H * D floats each).  D is
-// 32, 64 or 128 (the wrapper pads 16 to 32).  Returns 0, a cudaError_t,
+// 32, 64, 128 or 256 (the wrapper pads 16 to 32, and 80 and 112 to 128).  Returns 0, a cudaError_t,
 // FA_MAP_ERROR + the CUresult of a tensor map's encoding, or
 // cudaErrorInvalidValue for a head dim the library is not built for.
 extern "C" int flash_bwd_launch(const void* q, const void* k, const void* v, const void* out,
@@ -737,6 +797,7 @@ extern "C" int flash_bwd_launch(const void* q, const void* k, const void* v, con
         case 32: return launch_bwd<32>(BW_ARGS);
         case 64: return launch_bwd<64>(BW_ARGS);
         case 128: return launch_bwd<128>(BW_ARGS);
+        case 256: return launch_bwd<256>(BW_ARGS);
     }
 #undef BW_ARGS
     return (int)cudaErrorInvalidValue;

@@ -21,8 +21,10 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_fwd.cu"
 BWD_SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_bwd.cu"
 
 HEAD_DIMS = (32, 64, 128, 256)  # the head dims the kernel is built for
-BWD_HEAD_DIMS = (16, 32, 64, 128)  # the head dims the backward takes (16 padded to 32)
-_BWD_BUILT = (32, 64, 128)  # the head dims the backward library is built for
+# the head dims the backward takes: 16 padded to 32, and 80 (hubert-xlarge)
+# and 112 (zamba2-7b's shared blocks) padded to 128
+BWD_HEAD_DIMS = (16, 32, 64, 80, 112, 128, 256)
+_BWD_BUILT = (32, 64, 128, 256)  # the head dims the backward library is built for
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -183,9 +185,10 @@ def launch_bwd(
     """One backward on CUDA tensors the caller has checked: bf16 q, out,
     dout (B, S, H, D) and k, v (B, S, Hkv, D), contiguous, on one device, D
     in BWD_HEAD_DIMS, and the forward's lse (B, H, S) f32 (``launch(...,
-    with_lse=True)``).  A head dim the library is not built for (16) is
-    zero-padded to 32 (the padded features add zeros to every score, to
-    delta and to dq, dk, dv's padded columns) and cut back.  dq, dk, dv and
+    with_lse=True)``).  A head dim the library is not built for (16, 80,
+    112) is zero-padded to the next one it is (the padded features add
+    zeros to every score, to delta and to dq, dk, dv's padded columns) and
+    cut back.  dq, dk, dv and
     the scratch (``bwd_work_floats``) are allocated here; the kernels run on
     the current stream.  Returns (dq, dk, dv) in bf16."""
     B, S, H, D = q.shape

@@ -18,15 +18,20 @@ from .ref import flash_attention_bwd_plain, flash_attention_plain
 # gradient went through them: LAUNCHES counts the forward, BWD_LAUNCHES the
 # backward.  Only the CUDA path counts; the plain versions on the CPU launch
 # nothing.  PLAIN_BWD_CALLS counts the plain backward's calls, so a run on
-# the card can show it never took one.
+# the card can show it never took one.  LAUNCHES_BY_DIM and
+# BWD_LAUNCHES_BY_DIM split the two counts by the caller's head dim.
 LAUNCHES = 0
 BWD_LAUNCHES = 0
 PLAIN_BWD_CALLS = 0
+LAUNCHES_BY_DIM: dict = {}
+BWD_LAUNCHES_BY_DIM: dict = {}
 
 
 def reset_launches() -> None:
     global LAUNCHES, BWD_LAUNCHES, PLAIN_BWD_CALLS
     LAUNCHES = BWD_LAUNCHES = PLAIN_BWD_CALLS = 0
+    LAUNCHES_BY_DIM.clear()
+    BWD_LAUNCHES_BY_DIM.clear()
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -63,6 +68,7 @@ def _forward(q, k, v, causal, window, scale, logit_softcap, with_lse: bool = Fal
     res = kernel.launch(q, k, v, causal=causal, window=window, scale=scale, logit_softcap=logit_softcap,
                         with_lse=with_lse)
     LAUNCHES += 1
+    LAUNCHES_BY_DIM[q.shape[3]] = LAUNCHES_BY_DIM.get(q.shape[3], 0) + 1
     return res
 
 
@@ -88,6 +94,7 @@ def _backward(q, k, v, out, lse, dout, causal, window, scale, logit_softcap) -> 
         return flash_attention_bwd_plain(q, k, v, dout, out, **kw)
     grads = kernel.launch_bwd(q, k, v, out, dout.contiguous(), lse, **kw)
     BWD_LAUNCHES += 1
+    BWD_LAUNCHES_BY_DIM[q.shape[3]] = BWD_LAUNCHES_BY_DIM.get(q.shape[3], 0) + 1
     return grads
 
 

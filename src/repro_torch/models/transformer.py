@@ -1,8 +1,11 @@
 # Model assembly: parameter-definition trees, the layer stacker (pattern
 # periods with stacked parameters, plus a remainder), and the forward /
 # prefill / decode entry points for the attention families (with a dense
-# or a mixture-of-experts feed-forward), rwkv6 and zamba2 (Mamba2 layers
-# with shared attention blocks).
+# or a mixture-of-experts feed-forward), rwkv6, zamba2 (Mamba2 layers with
+# shared attention blocks) and the audio encoder (hubert-xlarge: precomputed
+# frame embeddings through one ``frontend`` projection, bidirectional
+# layers, a ``head`` over its units, and a loss on ``labels`` under an
+# optional ``label_mask``, as the JAX package's stub frontend has it).
 #
 # Heterogeneous layer patterns (gemma local:global alternation) stack one
 # tensor per pattern position with a leading ``repeats`` axis, as the JAX
@@ -42,20 +45,7 @@ from .moe import moe_block, moe_defs
 from .rwkv6 import rwkv6_channel_defs, rwkv6_channel_mix, rwkv6_defs, rwkv6_time_mix
 
 ATTN_KINDS = ("global", "local", "chunked", "bidir")
-PORTED_KINDS = ATTN_KINDS + ("rwkv", "mamba2")
 AUX_KEYS = ("lb_loss", "router_z")
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} not yet ported (ROADMAP A10)")
-
-
-def _check_ported(cfg: ArchConfig) -> None:
-    if cfg.family == "audio":
-        raise _not_ported("the audio frontend")
-    for kind in set(cfg.layer_kinds()):
-        if kind not in PORTED_KINDS:
-            raise _not_ported(f"the {kind} layer")
 
 
 # ---------------------------------------------------------------------------
@@ -105,15 +95,20 @@ def shared_block_defs(cfg: ArchConfig) -> Dict[str, Any]:
 
 
 def model_defs(cfg: ArchConfig) -> Dict[str, Any]:
-    _check_ported(cfg)
     d, V = cfg.d_model, cfg.vocab_size
     (pattern, repeats), remainder = cfg.scan_groups()
     defs: Dict[str, Any] = {
         "final_norm": ParamDef((d,), ("embed",), init="zeros"),
-        "embed": ParamDef((V, d), ("vocab", "embed")),
     }
-    if not cfg.tie_embeddings:
-        defs["lm_head"] = ParamDef((d, V), ("embed", "vocab"))
+    if cfg.family == "audio":
+        # the modality frontend is a stub, as in the JAX package: frame
+        # embeddings come precomputed and one projection adapts them
+        defs["frontend"] = ParamDef((d, d), ("embed", "embed_out"))
+        defs["head"] = ParamDef((d, V), ("embed", "vocab"))
+    else:
+        defs["embed"] = ParamDef((V, d), ("vocab", "embed"))
+        if not cfg.tie_embeddings:
+            defs["lm_head"] = ParamDef((d, V), ("embed", "vocab"))
     if repeats > 0:
         defs["groups"] = {
             f"pos{i}": tree_stack_defs(block_defs(cfg, kind), repeats)
@@ -151,7 +146,7 @@ def apply_block(
     if kind == "mamba2":
         return _mamba2_block(p, x, cfg, cache, prefill)
     if kind not in ATTN_KINDS:
-        raise _not_ported(f"the {kind} layer")
+        raise ValueError(f"unknown layer kind {kind}")
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     attn_out, new_cache = attention_block(
         p["attn"], h, cfg, kind,
@@ -300,7 +295,6 @@ def _block_cache_shapes(cfg: ArchConfig, kind: str, batch: int, max_seq: int,
 
 def cache_abstract(cfg: ArchConfig, batch: int, max_seq: int, quantized: bool = False) -> Dict[str, Any]:
     """The cache tree with (shape, dtype) leaves."""
-    _check_ported(cfg)
     (pattern, repeats), remainder = cfg.scan_groups()
     out: Dict[str, Any] = {}
     if repeats > 0:
@@ -362,7 +356,10 @@ def cache_init(cfg: ArchConfig, batch: int, max_seq: int, quantized: bool = Fals
 
 def embed_tokens(params: Dict[str, Any], batch: Dict[str, torch.Tensor], cfg: ArchConfig) -> torch.Tensor:
     if cfg.family == "audio":
-        raise _not_ported("the audio frontend")
+        # frames rounded to bf16, then promoted to the weights' type as
+        # jnp's matmul promotes them (f32 weights take bf16 frames in f32)
+        frames, w = batch["frames"].to(torch.bfloat16), params["frontend"]
+        return frames.to(torch.promote_types(frames.dtype, w.dtype)) @ w
     tok = batch["tokens"]
     x = params["embed"][tok.long()]
     if "patch_embeds" in batch:  # VLM stub frontend: positionwise merge
@@ -467,7 +464,9 @@ def forward(
 
 
 def _project_logits(params: Dict[str, Any], x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
-    if cfg.tie_embeddings:
+    if cfg.family == "audio":
+        logits = x @ params["head"]
+    elif cfg.tie_embeddings:
         logits = x @ params["embed"].T
     else:
         logits = x @ params["lm_head"]
@@ -567,13 +566,21 @@ def decode_step(
 def lm_loss(
     params: Dict[str, Any], batch: Dict[str, torch.Tensor], cfg: ArchConfig, *, remat: bool = False
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The mean next-token nll under ``loss_mask`` (text), or the audio
+    encoder's nll of ``labels`` at each frame under ``label_mask``, unshifted;
+    MoE models add their aux term."""
     logits, aux = forward(params, batch, cfg, remat=remat)
-    labels = batch["tokens"][:, 1:].long()
-    logits = logits[:, :-1]
-    mask = batch.get("loss_mask")
-    if mask is None:
-        mask = torch.ones(batch["tokens"].shape, device=logits.device)
-    mask = mask[:, 1:].float()
+    if cfg.family == "audio":
+        labels = batch["labels"].long()
+        mask = batch.get("label_mask")
+        mask = torch.ones(labels.shape, device=logits.device) if mask is None else mask.float()
+    else:
+        labels = batch["tokens"][:, 1:].long()
+        logits = logits[:, :-1]
+        mask = batch.get("loss_mask")
+        if mask is None:
+            mask = torch.ones(batch["tokens"].shape, device=logits.device)
+        mask = mask[:, 1:].float()
     logits32 = logits.float()
     lse = torch.logsumexp(logits32, dim=-1)
     ll = torch.gather(logits32, -1, labels[..., None])[..., 0]

@@ -1213,7 +1213,7 @@ def _bwd_inputs(gen, B, S, Hkv, G, D, device):
 @pytest.mark.parametrize("cap,q_mul", [(0.0, 1), (50.0, 1), (50.0, 32), (50.0, 64)])
 @pytest.mark.parametrize("causal,window", [(True, 0), (True, 40), (False, 0), (False, 40)])
 @pytest.mark.parametrize("G", [1, 12])
-@pytest.mark.parametrize("D", [16, 64, 128])
+@pytest.mark.parametrize("D", [16, 64, 80, 112, 128, 256])
 def test_flash_bwd_kernel_matches_plain(cuda, D, G, causal, window, cap, q_mul, S):
     """dq, dk, dv of the backward kernel against the plain version in
     float64 on the same bf16 inputs and forward output, within
@@ -1240,6 +1240,56 @@ def test_flash_bwd_kernel_matches_plain(cuda, D, G, causal, window, cap, q_mul, 
     held = slice(None) if q_mul == 1 else slice(2, 3)
     assert bwd_exact_agreement(a[held], exact[held])["ok"]
     assert all(_bitwise(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("S", [1000, 2100])
+@pytest.mark.parametrize("cap", [0.0, 50.0])
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 1024), (False, 0), (False, 1024)])
+@pytest.mark.parametrize("G", [1, 2])
+def test_flash_bwd_kernel_at_head_dim_256(cuda, G, causal, window, cap, S):
+    """D = 256 (gemma2-9b's and gemma3-4b's heads; its own tiles, the two
+    warpgroups of a block splitting the work) at gemma3's local window of
+    1024 and gemma2's softcap of 50, GQA groups 1 and 2, S ragged against
+    the 64-row tiles: within ref.BWD_TOL of the plain version in float64,
+    within ref.BWD_EXACT_REL of the exact gradient, reruns bitwise equal."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(S + 10 * G + window)
+    q, k, v, dout = _bwd_inputs(gen, 1, S, 2, G, 256, cuda)
+    kw = dict(causal=causal, window=window, scale=256 ** -0.5, logit_softcap=cap)
+    out, lse = flash_kernel.launch(q, k, v, **kw, with_lse=True)
+    a = flash_kernel.launch_bwd(q, k, v, out, dout, lse, **kw)
+    b = flash_kernel.launch_bwd(q, k, v, out, dout, lse, **kw)
+    want = flash_attention_bwd_plain(q.double(), k.double(), v.double(), dout.double(), out.double(), **kw)
+    exact = flash_attention_bwd_plain(q.double(), k.double(), v.double(), dout.double(), **kw)
+    torch.cuda.synchronize()
+    agree = bwd_agreement(a, want)
+    assert agree["ok"], agree
+    assert bwd_exact_agreement(a, exact)["ok"]
+    assert all(_bitwise(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("D", [80, 112, 256])
+def test_flash_attention_gradient_at_the_new_head_dims(cuda, D):
+    """ops.flash_attention's gradient at hubert-xlarge's 80 (not causal),
+    zamba2's 112 and gemma3's 256 (causal): one forward and one backward
+    launch, no plain backward, the head dim padded and cut back (80 and
+    112), the gradients within ref.BWD_TOL of the plain backward."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(D)
+    q, k, v, dout = _bwd_inputs(gen, 2, 333, 2, 2, D, cuda)
+    kw = dict(causal=D != 80, window=0, scale=D ** -0.5, logit_softcap=0.0)
+    flash_ops.reset_launches()
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = flash_ops.flash_attention(*leaves, **kw)
+    out.backward(dout)
+    assert (flash_ops.LAUNCHES, flash_ops.BWD_LAUNCHES, flash_ops.PLAIN_BWD_CALLS) == (1, 1, 0)
+    got = [t.grad for t in leaves]
+    assert [tuple(g.shape) for g in got] == [tuple(t.shape) for t in (q, k, v)]
+    want = flash_attention_bwd_plain(q.double(), k.double(), v.double(), dout.double(), out.detach().double(), **kw)
+    agree = bwd_agreement(got, want)
+    assert agree["ok"], agree
 
 
 @pytest.mark.requires_cuda
@@ -1359,7 +1409,7 @@ def test_flash_attention_gradient_on_the_card(cuda, cap):
 
 @pytest.mark.requires_cuda
 def test_flash_gradient_raises_where_the_kernel_is_not_built(cuda):
-    q = torch.zeros(1, 8, 2, 256, device=cuda, dtype=torch.bfloat16, requires_grad=True)
+    q = torch.zeros(1, 8, 2, 96, device=cuda, dtype=torch.bfloat16, requires_grad=True)
     with pytest.raises(ValueError, match="head dims"):
         flash_ops.flash_attention(q, q.detach()[:, :, :1], q.detach()[:, :, :1])
     q32 = torch.zeros(1, 8, 2, 64, device=cuda, requires_grad=True)
@@ -1477,6 +1527,48 @@ def test_train_step_on_the_card_runs_the_backward_kernel(cuda):
     for path, w in want.items():
         g = got[path].cpu().double()
         rel = float((g - w.double()).norm() / w.double().norm())
+        assert rel <= 3e-2, (path, rel)
+
+
+@pytest.mark.requires_cuda
+def test_hubert_on_the_card_matches_the_cpu(cuda):
+    """Reduced hubert-xlarge (frames, bidirectional layers, the exact gelu's
+    table on the card): one flash launch a layer, not causal, and logits
+    within the bf16 prefill tolerance of the CPU's; one value_and_grad on
+    frames, labels and a label_mask launches the backward kernel once per
+    layer and microbatch, and its loss and gradients agree with the CPU's
+    within the train tests' tolerance."""
+    from repro_torch.models.common import gelu
+    from repro_torch.train.step import TrainSpec, value_and_grad
+
+    words = torch.arange(-32768, 32768, dtype=torch.int32).to(torch.int16).view(torch.bfloat16)
+    assert torch.equal(gelu(words.to(cuda)).cpu().view(torch.int16), gelu(words).view(torch.int16))
+    cfg = reduced_config(get_config("hubert-xlarge"))
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(0)
+    card = Model(cfg).init_params(gen)
+    host = Model(cfg, device="cpu")
+    host.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    rng = np.random.default_rng(3)
+    batch = {"frames": rng.standard_normal((4, 40, cfg.d_model)).astype(np.float32),
+             "labels": rng.integers(0, cfg.vocab_size, (4, 40)).astype(np.int32),
+             "label_mask": rng.random((4, 40)) < 0.5}
+    on_card = {k: torch.from_numpy(v).to(cuda) for k, v in batch.items()}
+    on_host = {k: torch.from_numpy(v) for k, v in batch.items()}
+    flash_ops.reset_launches()
+    with torch.no_grad():
+        got = card({"frames": on_card["frames"]})[0]
+    assert flash_ops.LAUNCHES == cfg.n_layers
+    want = host({"frames": on_host["frames"]})[0]
+    torch.testing.assert_close(got.cpu().float(), want.float(), rtol=5e-2, atol=5e-2)
+    spec = TrainSpec(microbatches=2, remat=True)
+    flash_ops.reset_launches()
+    loss, _, grads = value_and_grad(card, card.params, on_card, spec)
+    assert flash_ops.BWD_LAUNCHES == cfg.n_layers * 2 and flash_ops.PLAIN_BWD_CALLS == 0
+    want_loss, _, want_grads = value_and_grad(host, host.params, on_host, spec)
+    assert abs(float(loss) - float(want_loss)) <= 2e-3 * abs(float(want_loss))
+    for path, w in want_grads.items():
+        rel = float((grads[path].cpu().double() - w.double()).norm() / w.double().norm())
         assert rel <= 3e-2, (path, rel)
 
 

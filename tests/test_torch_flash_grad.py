@@ -77,6 +77,20 @@ def test_plain_backward_matches_jax_and_autograd(causal, window, cap, G, S):
         torch.testing.assert_close(g, t.grad, **TORCH_TOL)
 
 
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("D", [80, 112, 256])
+def test_plain_backward_at_the_padded_and_wide_head_dims(D, causal):
+    """The head dims the card's backward takes beyond its tiles' own:
+    hubert-xlarge's 80 (not causal), zamba2's 112 (both padded to 128 on the
+    card) and gemma's 256, against jax.vjp of flash_attention_jnp at the
+    head dim's own scale, GQA of 2, S ragged against the 16-row tiles."""
+    q, k, v, dout = _inputs(D + causal, 1, 37, 2, 2, D)
+    kw = dict(causal=causal, window=0, scale=D ** -0.5, logit_softcap=0.0)
+    got = flash_attention_bwd_plain(*(torch.from_numpy(a) for a in (q, k, v, dout)), **kw, q_block=8)
+    for g, w in zip(got, _jax_grads(q, k, v, dout, causal, 0, D ** -0.5, 0.0)):
+        np.testing.assert_allclose(g.numpy(), w, **JAX_TOL)
+
+
 @pytest.mark.parametrize("causal,window,cap", CASES)
 def test_wrapper_gradient_on_the_cpu_is_the_plain_backward(causal, window, cap):
     q, k, v, dout = _inputs(5, 1, 21, 2, 2, 8)

@@ -1,7 +1,12 @@
 # The port's LM serving path on the CPU against the JAX package, on reduced
 # configs of gemma2-9b, gemma3-4b, starcoder2-3b, qwen2-vl-72b (its M-RoPE
-# positions, text only), starcoder2-15b and the MoE models dbrx-132b and
-# llama4-scout (chunked layers) with the reference's own weights
+# positions, text only), starcoder2-15b, the MoE models dbrx-132b and
+# llama4-scout (chunked layers), zamba2-7b and the audio encoder
+# hubert-xlarge (frames drawn from a seed in place of tokens; it has no
+# decode shapes, supports_decode=False, so its generation and
+# decode-against-forward tests skip as the reference's own do, while one
+# decode step through its bf16 and int8 caches is held to the reference's
+# decode step on the same frame) with the reference's own weights
 # (Model.init_params(PRNGKey)) carried across by params_from_jax: forward
 # logits, prefill's last logits and caches at S > window (so local layers
 # mask by their window; llama4's prompt is longer than its reduced chunk,
@@ -52,7 +57,7 @@ cap_torch_threads()
 PREFILL_TOL = dict(rtol=5e-2, atol=5e-2)
 DECODE_TOL = dict(rtol=0.15, atol=0.15)
 ARCHS = ["gemma2-9b", "gemma3-4b", "starcoder2-3b", "qwen2-vl-72b", "starcoder2-15b", "dbrx-132b",
-         "llama4-scout-17b-a16e", "zamba2-7b"]
+         "llama4-scout-17b-a16e", "zamba2-7b", "hubert-xlarge"]
 MOE_DECODE_CAPACITY = 8.0  # the reference's golden check's: C = T
 
 
@@ -70,8 +75,24 @@ def _tokens(vocab, B, S, seed):
     return np.random.default_rng(seed).integers(4, vocab, (B, S)).astype(np.int32)
 
 
+def _frames(d, B, S, seed):
+    return np.random.default_rng(seed).standard_normal((B, S, d)).astype(np.float32)
+
+
 def _numpy_tree(tree):
     return jax.tree.map(np.asarray, tree)
+
+
+def _inputs(ref, t0=0, t1=None) -> dict:
+    """The shared inputs at positions t0..t1 as the port takes them: tokens,
+    or an audio model's frames."""
+    return {k: torch.from_numpy(np.ascontiguousarray(v[:, t0:t1])) for k, v in ref["inputs"].items()}
+
+
+def _skip_without_decode(cfg) -> None:
+    if not cfg.supports_decode:
+        pytest.skip(f"{cfg.arch_id} is encoder-only: no decode shapes (supports_decode=False), "
+                    "as in the reference's own tests")
 
 
 PROMPT, NEW = 24, 8  # prompts beyond the reduced window of 16; decode at 24..31
@@ -97,18 +118,38 @@ def case(request):
     model = Model(base.reduced_config(base.get_config(request.param)), device="cpu")
     model.load_state_dict(params_from_jax(_numpy_tree(params)), strict=True)
     prompt = PROMPTS.get(request.param, PROMPT)
-    toks = _tokens(cfg.vocab_size, 2, prompt, 1)  # reduced window 16 < prompt
+    if cfg.family == "audio":
+        inputs = {"frames": _frames(cfg.d_model, 2, prompt + 1, 1)}  # the last frame: one decode step
+    else:
+        inputs = {"tokens": _tokens(cfg.vocab_size, 2, prompt, 1)}  # reduced window 16 < prompt
+    batch = {k: jnp.asarray(v[:, :prompt]) for k, v in inputs.items()}
     routing: dict = {}
 
     def recording(name):
         return reference_routing(routing.setdefault(name, []))
 
     with recording("forward"):
-        logits, _ = jax.jit(lambda p, b: jm.forward(p, b))(params, {"tokens": jnp.asarray(toks)})
+        logits, _ = jax.jit(lambda p, b: jm.forward(p, b))(params, batch)
     with recording("prefill"):
-        last, cache = jax.jit(lambda p, b: jax_prefill(p, b, cfg, False))(params, {"tokens": jnp.asarray(toks)})
+        last, cache = jax.jit(lambda p, b: jax_prefill(p, b, cfg, False))(params, batch)
     with recording("qprefill"):
-        _, qcache = jax.jit(lambda p, b: jax_prefill(p, b, cfg, True))(params, {"tokens": jnp.asarray(toks)})
+        _, qcache = jax.jit(lambda p, b: jax_prefill(p, b, cfg, True))(params, batch)
+    common = dict(inputs=inputs, logits=logits, last=last, cache=_numpy_tree(cache), qcache=_numpy_tree(qcache),
+                  quantized=_numpy_tree(jax_quantize_kv(cache)), n_params=jm.n_params(), params=_numpy_tree(params),
+                  prompt=prompt, routing=routing)
+    step = jax.jit(lambda p, c, b: jm.decode_step(p, c, b))
+    if not cfg.supports_decode:
+        # the reference's decode step on the next frame, through the bf16
+        # and the int8 caches padded by one position
+        nxt = {"frames": jnp.asarray(inputs["frames"][:, prompt:]), "pos": jnp.asarray(prompt)}
+        pads = []
+        for c, quantized in ((cache, False), (qcache, True)):
+            full = jm.cache_init(2, prompt + 1, quantized=quantized)
+            pads.append(jax.tree.map(lambda a, b: jnp.pad(a, [(0, y - x) for x, y in zip(a.shape, b.shape)]), c, full))
+        with recording("qdecode"):
+            qlogits = step(params, pads[1], nxt)[0]
+        return cfg, model, dict(common, alogits=step(params, pads[0], nxt)[0], qlogits=qlogits)
+    toks = inputs["tokens"]
     # the reference's generate loop (serve/step.py), step by step, with each
     # step's logits; the decode step is the one its generate jits
     full = jm.cache_init(2, prompt + NEW)
@@ -125,8 +166,7 @@ def case(request):
     qfull = jm.cache_init(2, prompt + 1, quantized=True)
     qpad = jax.tree.map(lambda a, b: jnp.pad(a, [(0, y - x) for x, y in zip(a.shape, b.shape)]), qcache, qfull)
     with recording("qdecode"):
-        qlogits, _ = jax.jit(lambda p, c, b: jm.decode_step(p, c, b))(
-            params, qpad, {"tokens": jnp.asarray(toks[:, -1:]), "pos": jnp.asarray(prompt)})
+        qlogits, _ = step(params, qpad, {"tokens": jnp.asarray(toks[:, -1:]), "pos": jnp.asarray(prompt)})
     # the yardsticks of decode from an empty cache: the forward at the
     # decode config, and past a chunk the reference's own decode; a
     # decode step routes each token as the forward does where nothing drops
@@ -148,13 +188,8 @@ def case(request):
                 lg, dcache = dstep(params, dcache, {"tokens": jnp.asarray(toks[:, t : t + 1]), "pos": jnp.asarray(t)})
                 tf_logits.append(lg[:, 0])
         tf_logits = jnp.stack(tf_logits, axis=1)
-    ref = dict(
-        toks=toks, logits=logits, last=last, cache=_numpy_tree(cache), qcache=_numpy_tree(qcache),
-        quantized=_numpy_tree(jax_quantize_kv(cache)), qlogits=qlogits,
-        gen_toks=np.asarray(jnp.concatenate(gen_toks, axis=1)), gen_logits=gen_logits,
-        n_params=jm.n_params(), params=_numpy_tree(params), prompt=prompt, dlogits=dlogits, tf_logits=tf_logits,
-        routing=routing,
-    )
+    ref = dict(common, toks=toks, qlogits=qlogits, gen_toks=np.asarray(jnp.concatenate(gen_toks, axis=1)),
+               gen_logits=gen_logits, dlogits=dlogits, tf_logits=tf_logits)
     return cfg, model, ref
 
 
@@ -211,13 +246,13 @@ def test_param_names_and_counts(case):
 
 def test_forward_and_prefill_match(case):
     cfg, model, ref = case
-    toks = torch.from_numpy(ref["toks"])
+    batch = _inputs(ref, 0, ref["prompt"])
     with _routed(ref, "forward"):
-        got, _ = model({"tokens": toks})
+        got, _ = model(batch)
     assert got.shape == ref["logits"].shape and got.dtype == torch.bfloat16
     _close(got, ref["logits"], PREFILL_TOL)
     with _routed(ref, "prefill"):
-        got_last, got_cache = make_prefill_step(model)({"tokens": toks})
+        got_last, got_cache = make_prefill_step(model)(batch)
     _close(got_last, ref["last"][:, -1], PREFILL_TOL)
     want_leaves = dict(tree_leaves(cache_from_jax(ref["cache"])))
     got_leaves = dict(tree_leaves(got_cache))
@@ -239,6 +274,7 @@ def test_generate_greedy_matches_teacher_forced(case):
     """The port's logits at every step, fed the reference's tokens, match the
     reference's; each of the port's tokens is the argmax of its step."""
     cfg, model, ref = case
+    _skip_without_decode(cfg)
     prompt = ref["prompt"]
     prompts = torch.from_numpy(ref["toks"])
     with _routed(ref, "prefill", "decode"):
@@ -262,6 +298,7 @@ def test_decode_step_matches_forward(case):
     two compute the same function (the header says where), and past a
     chunk with the reference's own decode."""
     cfg, model, ref = case
+    _skip_without_decode(cfg)
     toks, prompt = ref["toks"], ref["prompt"]
     dcfg = _decode_config(cfg)
     if dcfg is not cfg:
@@ -291,9 +328,9 @@ def test_int8_cache_branch(case):
     for name in want:
         assert got[name].dtype == want[name].dtype and torch.equal(got[name], want[name]), name
     # the quantized prefill: the same layout, and the first layers' values
-    toks = torch.from_numpy(ref["toks"])
+    prompt = ref["prompt"]
     with _routed(ref, "qprefill"):
-        _, tq = model.prefill({"tokens": toks}, quantize_cache=True)
+        _, tq = model.prefill(_inputs(ref, 0, prompt), quantize_cache=True)
     want = dict(tree_leaves(cache_from_jax(ref["qcache"])))
     got = dict(tree_leaves(tq))
     assert want.keys() == got.keys()
@@ -303,11 +340,12 @@ def test_int8_cache_branch(case):
         for kv in "kv":
             deq = [c[f"{group}.{kv}_q"][r].float() * c[f"{group}.{kv}_s"][r].float() for c in (got, want)]
             _close(deq[0], deq[1], PREFILL_TOL)
-    # decode through the int8 branch, padded to one more position
-    prompt = ref["prompt"]
+    # decode through the int8 branch, padded to one more position (an
+    # audio model's next frame; a text model's last prompt token again)
     tpad = pad_cache(tq, model.cache_init(2, prompt + 1, quantized=True))
+    nxt = _inputs(ref, prompt) if cfg.family == "audio" else _inputs(ref, prompt - 1, prompt)
     with _routed(ref, "qdecode"):
-        got_lg, _ = model.decode_step(tpad, {"tokens": toks[:, -1:], "pos": prompt})
+        got_lg, _ = model.decode_step(tpad, {**nxt, "pos": prompt})
     _close(got_lg, ref["qlogits"], DECODE_TOL)
     assert cache_bytes(tq) < cache_bytes(dequantize_kv(tq))
 
@@ -342,9 +380,45 @@ def test_serve_cli_runs_moe_on_the_cpu(arch):
     assert out["done"] >= 2 and out["tokens"] > 0
 
 
-def test_not_ported_families_raise():
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        Model(base.reduced_config(base.get_config("hubert-xlarge")), device="cpu")
+@pytest.mark.parametrize("case", ["hubert-xlarge"], indirect=True)
+def test_audio_decode_step_matches_the_references(case):
+    """An audio config's prefill caches and decode step do what the
+    reference's do (it raises for neither): the next frame's logits through
+    the prefill's bf16 cache, padded by one position, within the decode
+    tolerance of the reference's decode step."""
+    cfg, model, ref = case
+    prompt = ref["prompt"]
+    _, cache = model.prefill(_inputs(ref, 0, prompt))
+    got, _ = model.decode_step(pad_cache(cache, model.cache_init(2, prompt + 1)), {**_inputs(ref, prompt),
+                                                                                   "pos": prompt})
+    assert got.shape == (2, 1, cfg.vocab_size)
+    _close(got, ref["alogits"], DECODE_TOL)
+
+
+def test_hubert_builds_with_the_references_names_and_counts():
+    """hubert-xlarge's definitions (the frontend projection and the head in
+    place of an embedding and an lm head) count the reference's parameters
+    at the published size, nothing allocated; the reduced model builds on
+    the CPU with the reference's names and shapes and takes every leaf of
+    its tree."""
+    import math
+
+    from repro.models.transformer import model_defs as jax_model_defs
+    from repro_torch.models.transformer import model_defs
+
+    cfg, jcfg = base.get_config("hubert-xlarge"), jax_base.get_config("hubert-xlarge")
+    want = {p: tuple(d.shape) for p, d in tree_leaves(jax_model_defs(jcfg))}
+    got = {p: tuple(d.shape) for p, d in tree_leaves(model_defs(cfg))}
+    assert got == want
+    assert got["frontend"] == (1280, 1280) and got["head"] == (1280, 504)
+    assert not {"embed", "lm_head"} & set(got)
+    assert sum(math.prod(s) for s in got.values()) == 946_126_080
+    model = Model(base.reduced_config(cfg), device="cpu")
+    jm = JaxModel(jax_base.reduced_config(jcfg))
+    state = params_from_jax(_numpy_tree(jax.jit(jm.init_params)(jax.random.PRNGKey(1))))
+    assert {k: tuple(v.shape) for k, v in state.items()} == {k: tuple(p.shape) for k, p in model.state_dict().items()}
+    model.load_state_dict(state, strict=True)
+    assert model.n_params() == jm.n_params()
 
 
 def test_zamba2_builds_with_the_references_names_and_counts():
@@ -401,3 +475,66 @@ def test_reset_lane_zeroes_one_lane_of_a_zamba2_cache():
         ax = axis[name.split(".")[0]]
         assert bool((t.select(ax, 1) == 0).all()), name
         assert bool((t.select(ax, 0) == 1).all()) and bool((t.select(ax, 2) == 1).all()), name
+
+
+def _bf16_bits(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.contiguous().view(torch.int16).numpy()
+    return np.asarray(x).view(np.int16)
+
+
+def test_exact_gelu_rounds_as_the_compiled_reference():
+    """C43: jax.nn.gelu(approximate=False) on bf16, as the compiled reference
+    computes it (XLA's f32 expansion of erfc, its argument unrounded, erfc
+    and 0.5 x rounded to bf16), bit for bit over every bf16 value x with
+    2^-100 <= |x| <= 8 (smaller ones reach f32 subnormals, which the
+    compiled reference flushes to zero), through the port's table (bf16)
+    and through its steps; F.gelu misses a few percent of them."""
+    import torch.nn.functional as F
+
+    from repro_torch.models.common import _gelu_steps, gelu
+
+    words = np.arange(-32768, 32768, dtype=np.int64).astype(np.int16)
+    vals = words.view(jnp.bfloat16)
+    mag = np.abs(vals.astype(np.float32))
+    vals = vals[(mag <= 8.0) & (mag >= 2.0 ** -100)]
+    want = _bf16_bits(jax.jit(lambda v: jax.nn.gelu(v, approximate=False))(vals))
+    x = torch.from_numpy(vals.view(np.int16).copy()).view(torch.bfloat16)
+    np.testing.assert_array_equal(_bf16_bits(gelu(x)), want)
+    np.testing.assert_array_equal(_bf16_bits(_gelu_steps(x)), want)
+    assert (_bf16_bits(F.gelu(x)) != want).mean() > 0.01
+
+
+def test_exact_gelu_gradient_matches_jax():
+    """The exact gelu's gradient (its own backward) against jax.grad of
+    jax.nn.gelu(approximate=False) in f32, within 1e-6."""
+    from repro_torch.models.common import gelu
+
+    xs = np.linspace(-9.0, 9.0, 4001).astype(np.float32)
+    want = np.asarray(jax.vmap(jax.grad(lambda v: jax.nn.gelu(v, approximate=False)))(xs))
+    x = torch.from_numpy(xs).requires_grad_()
+    gelu(x).sum().backward()
+    np.testing.assert_allclose(x.grad.numpy(), want, rtol=1e-6, atol=1e-6)
+
+
+def test_hubert_mlp_matches_the_compiled_reference_bit_for_bit():
+    """hubert-xlarge's MLP (w_in, exact gelu, w_out) on reduced shapes
+    against the jitted reference's mlp_block, bit for bit; with F.gelu in
+    its place half the outputs differ."""
+    import torch.nn.functional as F
+
+    from repro.models.mlp import mlp_block as jax_mlp_block
+    from repro_torch.models import mlp
+
+    jcfg = jax_base.reduced_config(jax_base.get_config("hubert-xlarge"))
+    cfg = base.reduced_config(base.get_config("hubert-xlarge"))
+    rng = np.random.default_rng(43)
+    p = {"w_in": (0.1 * rng.standard_normal((64, 128))).astype(jnp.bfloat16),
+         "w_out": (0.1 * rng.standard_normal((128, 64))).astype(jnp.bfloat16)}
+    h = rng.standard_normal((2, 24, 64)).astype(jnp.bfloat16)
+    want = _bf16_bits(jax.jit(lambda p, h: jax_mlp_block(p, h, jcfg))(p, h))
+    tp = {k: torch.from_numpy(v.view(np.int16).copy()).view(torch.bfloat16) for k, v in p.items()}
+    th = torch.from_numpy(h.view(np.int16).copy()).view(torch.bfloat16)
+    np.testing.assert_array_equal(_bf16_bits(mlp.mlp_block(tp, th, cfg)), want)
+    once = _bf16_bits(F.gelu(th @ tp["w_in"]) @ tp["w_out"])
+    assert (once != want).mean() > 0.1

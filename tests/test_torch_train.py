@@ -33,7 +33,17 @@
 # the f32 value (0.00078 and 0.00346 against 0.00344).  So rwkv6's check
 # takes the f32 gradient as a witness: both packages in f32 agree within
 # F32_GRAD_REL, and an element past GRAD_TOL fails only where the port's
-# bf16 value is no nearer the witness than the reference's.
+# bf16 value is no nearer the witness than the reference's.  Reduced
+# gemma3-4b (7 layers; QK-norm and post-norms) carries more bf16 noise:
+# both packages' bf16 gradients lie 1.3-3.4% from the f32 one and from each
+# other up to 4.0%, and at an element where the f32 value lies between
+# them (the embedding's row of a token seen once: -0.0037, -0.0079 and
+# -0.0122) by 2x GRAD_TOL; in f32 the two agree within F32_GRAD_REL on
+# every leaf.  So its leaves are held within GRAD_OF's 5e-2 relative of the
+# reference's, and each element within 0.25 of the f32 witness itself (the
+# port reads up to 1.25x GRAD_TOL there, the reference 1.69x); a gradient
+# 10% off or a row dropped still fails.  Reduced hubert-xlarge's leaves
+# differ by 0.5-0.8%.
 import dataclasses
 import os
 import subprocess
@@ -69,12 +79,20 @@ cap_torch_threads()
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TRAIN_ARCHS = ["starcoder2-3b", "rwkv6-3b"]
+# the train step's gradient is also held for gemma3-4b (QK-norm, 5:1
+# local:global, head dim 256 at full size) and the audio encoder
+# hubert-xlarge (frames, labels and a label_mask; exact gelu)
+GRAD_ARCHS = TRAIN_ARCHS + ["gemma3-4b", "hubert-xlarge"]
 MOE_ARCHS = ["dbrx-132b", "llama4-scout-17b-a16e"]
 STATE_TOL = dict(rtol=1e-6, atol=1e-6)
 LOSS_REL = 2e-3
 GRAD_REL = 3e-2
 GRAD_TOL = 0.15  # per element: |got - want| <= GRAD_TOL * (|want| + rms(want's leaf))
 F32_GRAD_REL = 1e-4  # both packages in f32 (rwkv6): 3.6e-6 to 1.0e-5 read
+# (relative, per element against the f32 witness) in place of GRAD_REL,
+# GRAD_TOL: the header says why
+GRAD_OF = {"gemma3-4b": (5e-2, 0.25)}
+WITNESSED = ("rwkv6-3b", "gemma3-4b")  # archs whose per-element check takes the f32 witness
 
 
 def _np(x) -> np.ndarray:
@@ -254,6 +272,24 @@ def _batch(vocab, B, S, seed):
     return {"tokens": toks, "loss_mask": mask}
 
 
+def _audio_batch(cfg, B, S, seed):
+    """Frames, a unit label per frame and HuBERT's span mask (span starts
+    with p = 0.08, spans of 10 frames; at least one span a row): the loss
+    counts the masked frames only."""
+    rng = np.random.default_rng(seed)
+    mask = np.zeros((B, S), bool)
+    for row in mask:
+        starts = np.flatnonzero(rng.random(S) < 0.08)
+        for t in (starts if len(starts) else [rng.integers(S)]):
+            row[t:t + 10] = True
+    return {"frames": rng.standard_normal((B, S, cfg.d_model)).astype(np.float32),
+            "labels": rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32), "label_mask": mask}
+
+
+def _train_batch(cfg, B, S, seed):
+    return _audio_batch(cfg, B, S, seed) if cfg.family == "audio" else _batch(cfg.vocab_size, B, S, seed)
+
+
 @pytest.mark.parametrize("state_dtype", ["f32", "int8"])
 def test_checkpoints_restore_across_packages(reference, tmp_path, state_dtype):
     cfg, jm, params, model = reference
@@ -303,7 +339,7 @@ def _jax_grads(jm, params, batch, n_mb, metrics=None):
     (as its train_step accumulates them: f32 sums divided by n_mb); each
     microbatch's metrics appended to ``metrics`` when given."""
     vg = jax.jit(jax.value_and_grad(lambda p, b: jm.loss(p, b, remat=False), has_aux=True))
-    B = batch["tokens"].shape[0]
+    B = next(iter(batch.values())).shape[0]
     losses, acc = [], None
     for i in range(n_mb):
         mb = {k: jnp.asarray(v[i * B // n_mb:(i + 1) * B // n_mb]) for k, v in batch.items()}
@@ -316,24 +352,29 @@ def _jax_grads(jm, params, batch, n_mb, metrics=None):
     return float(np.float32(sum(np.float32(x) for x in losses)) / n_mb), jax.tree.map(lambda a: a / n_mb, acc)
 
 
-def _grads_agree(got: dict, want: dict, witness: dict = None) -> list:
+def _grads_agree(got: dict, want: dict, witness: dict = None, limits: tuple = None) -> list:
     """The leaves whose gradient misses GRAD_REL or GRAD_TOL.  With a
     ``witness`` (the gradient in f32, where both packages agree within
     F32_GRAD_REL), an element past GRAD_TOL counts only where the port's
     bf16 value lies no nearer to the witness than the reference's: the
     reference's own bf16 rounding put it outside (GRAD_REL holds
-    regardless)."""
+    regardless).  With ``limits`` (GRAD_OF's) the relative limit is its
+    first, and each element is held against the witness within its second."""
     bad = []
     for path, w in want.items():
         g, w = got[path].double().numpy(), np.asarray(w, np.float64)
         d = np.abs(g - w)
         rel = np.linalg.norm(d) / max(np.linalg.norm(w), 1e-30)
         rms = np.sqrt(np.mean(w ** 2))
-        out = d > GRAD_TOL * (np.abs(w) + rms)
-        if witness is not None:
+        if limits is not None:
+            f = np.asarray(witness[path], np.float64)
+            out = np.abs(g - f) > limits[1] * (np.abs(f) + np.sqrt(np.mean(f ** 2)))
+        else:
+            out = d > GRAD_TOL * (np.abs(w) + rms)
+        if witness is not None and limits is None:
             f = np.asarray(witness[path], np.float64)
             out &= np.abs(g - f) >= np.abs(w - f)
-        if rel > GRAD_REL or np.any(out):
+        if rel > (GRAD_REL if limits is None else limits[0]) or np.any(out):
             bad.append((path, rel))
     return bad
 
@@ -368,23 +409,24 @@ def _f32_witness(arch, batch, n_mb, routing=None):
 
 
 @pytest.mark.parametrize("n_mb", [1, 2])
-@pytest.mark.parametrize("arch", TRAIN_ARCHS)
+@pytest.mark.parametrize("arch", GRAD_ARCHS)
 def test_train_step_gradients_match_value_and_grad(arch, n_mb):
     cfg, jm, params, model = _reference(arch)
-    batch = _batch(cfg.vocab_size, 4, 24, 3)
+    batch = _train_batch(cfg, 4, 24, 3)
     want_loss, want = _jax_grads(jm, params, batch, n_mb)
     tbatch = {k: torch.from_numpy(v) for k, v in batch.items()}
     from repro_torch.kernels.wkv6 import ops as wkv6_ops
 
-    # rwkv6: the same weights in f32 through both packages agree within
-    # F32_GRAD_REL, and witness which bf16 side rounds more
-    witness = _f32_witness(arch, batch, n_mb) if arch == "rwkv6-3b" else None
+    # rwkv6, gemma3: the same weights in f32 through both packages agree
+    # within F32_GRAD_REL, and witness which bf16 side rounds more
+    witness = _f32_witness(arch, batch, n_mb) if arch in WITNESSED else None
+    limits = GRAD_OF.get(arch)
     wkv6_ops.reset_launches()
     loss, _, got = value_and_grad(model, model.params, tbatch, TrainSpec(microbatches=n_mb, remat=True))
     assert abs(float(loss) - want_loss) <= LOSS_REL * abs(want_loss)
     want_flat = {p: np.asarray(w) for p, w in _flat_jax(want).items()}
     assert set(got) == set(want_flat)
-    assert _grads_agree(got, want_flat, witness) == []
+    assert _grads_agree(got, want_flat, witness, limits) == []
     if arch == "rwkv6-3b":
         # each layer's time-mix took its gradient through the WKV6 Function
         # (on the CPU its plain backward), and every leaf of every layer moved
@@ -393,13 +435,20 @@ def test_train_step_gradients_match_value_and_grad(arch, n_mb):
         for path, g in got.items():
             parts = list(g) if path.startswith("groups.") else [g]
             assert all(float(x.abs().max()) > 0 for x in parts), path
+    if cfg.family == "audio":
+        # the frontend and the head take their gradient through the frames'
+        # projection and the masked frames' nll
+        assert float(got["frontend"].abs().max()) > 0 and float(got["head"].abs().max()) > 0
     # the check fails a gradient scaled by 1.1 and one with a layer dropped
-    path = "groups.pos0.mlp.w_in" if arch != "rwkv6-3b" else "groups.pos0.tmix.wk"
+    path = {"rwkv6-3b": "groups.pos0.tmix.wk", "gemma3-4b": "groups.pos0.mlp.w_up"}.get(arch, "groups.pos0.mlp.w_in")
     scaled = dict(got, **{path: got[path] * 1.1})
-    assert [p for p, _ in _grads_agree(scaled, want_flat, witness)] == [path]
+    assert [p for p, _ in _grads_agree(scaled, want_flat, witness, limits)] == [path]
     dropped = dict(got, **{path: got[path].clone()})
-    dropped[path][1] = 0
-    assert [p for p, _ in _grads_agree(dropped, want_flat, witness)] == [path]
+    if dropped[path].shape[0] > 1:
+        dropped[path][1] = 0  # a layer's slice
+    else:
+        dropped[path][0, 0] = 0  # one row of the only layer (gemma3's six-layer period, one repeat)
+    assert [p for p, _ in _grads_agree(dropped, want_flat, witness, limits)] == [path]
 
 
 @pytest.mark.parametrize("arch", MOE_ARCHS)
