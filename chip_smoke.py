@@ -253,12 +253,42 @@ Phases, each of which must pass for the exit code to be 0:
    peak (``train_gib``: 14 bytes a parameter and the loss's logits) fits
    72 GiB, else over the whole periods that do (the depth is printed): the
    flash backward at head dim 256 once per layer and microbatch, its checks
-   those of phase 15.
+   those of phase 15;
+25. training zamba2-7b at its published width (d_model 3584, 112 SSM heads
+   of 64, two shared blocks of 32 heads of 112) as phase 24 trains gemma3-4b
+   (int8 AdamW moments, 6 steps of 8 x 2048 in 4 microbatches) over the
+   whole scan steps (6 Mamba2 layers and one shared invocation, the two
+   shared blocks alternating) whose reckoned peak fits 72 GiB
+   (``train_gib`` and a recomputed step's Mamba2 activations,
+   ``TRAIN_CASES["zamba2"]``; the depth is printed), a_log, dt_bias,
+   conv_b and norm drawn as phase 21 draws them: the flash backward at
+   head dim 112 once a shared invocation and microbatch, the plain
+   backward never, one call at the first and last steps within
+   ``ref.BWD_TOL`` of the plain backward in float64 (SDPA's backward on
+   its inputs printed beside it), every leaf (each layer's and each shared
+   block's slice) a finite nonzero gradient, the loss falling;
+26. the serving path at qwen2-vl-72b's published width (d_model 8192, 64
+   heads over 8 kv heads of 128, vocabulary 152,064) over the layers whose
+   weights fit MOE_WEIGHT_GIB (``moe_depth``; printed), each prompt led by
+   a 16 x 16 grid of patch embeddings drawn from ``--seed`` (the stub
+   frontend's ``patch_embeds`` and ``patch_mask``) with 3-axis M-RoPE
+   positions: (a) 8 requests of 2048 prompt tokens and 64 new ones, run
+   twice with bitwise-equal tokens and once eagerly (equal to the graph's),
+   one flash launch a layer and prefill, every flash call held against the
+   plain version, every step's logits finite; then the one-card mesh: a
+   (1, 1) DeviceMesh over ("data", "model") on a one-process NCCL group
+   (``launch/mesh.make_smoke_mesh``), the specs the JAX package's dry run
+   installs for a prefill cell (``sharding.prefill_specs``: the hidden
+   layout, and the MoE pins) installed, and a reduced dbrx-132b's and
+   zamba2-7b's forward and prefill bitwise equal to those without them;
+27. the serving path at starcoder2-15b's published width and depth (40
+   layers, d_model 6144, 48 heads over 4 kv heads of 128; 15.96 B
+   parameters, ~32 GB in bf16) with phase 26's checks.
 
 Phases 12 and 13 count their own segreduce launches (a CUDA graph's replay
 counts the launches it captured); the kernels' line adds them to phase 4's,
 and phase 18's wkv6 forward launches to phase 10's; phases 19-24's flash
-launches join phases 7 and 15's, phases 20, 23 and 24's backward phase
+launches join phases 7 and 15's, phases 20 and 23-25's backward phase
 15's; the flash entries list each head dim with its launches, its
 costliest shape's time, bound, plain and library times.
 
@@ -266,9 +296,10 @@ What is cut from TPC-H: Q15 keeps only its revenue view (no outer max or
 supplier join); Q13 keeps its inner aggregate (no outer join's zero-count
 customers, no comment filter); Q2 keeps only its inner MIN (no region
 joins); dbgen is replaced by numpy.  Nothing of gemma2-9b, rwkv6-3b,
-starcoder2-3b, zamba2-7b or hubert-xlarge is cut; their weights are random,
-and hubert's frames are drawn, its conv waveform frontend a stub as in the
-reference.
+starcoder2-3b, starcoder2-15b or hubert-xlarge is cut, nor zamba2-7b's
+serving; their weights are random, and hubert's frames are drawn, its conv
+waveform frontend a stub as in the reference, as are qwen2-vl's patch
+embeddings.
 
 What is cut to keep the script inside its time with phases 22-24 added:
 phase 6 runs f32 only up to 2047 (bf16, the serving type, at 8191 too);
@@ -277,10 +308,14 @@ the first and last layers' calls of (b)'s (and of its consistency prefill)
 against the plain version, and read where the card time goes for (a)
 only; phase 9 runs the 16385-token prompt at head size 64 only (rwkv6-3b's);
 phase 12 runs K = 8 'guided' over Q15 and Q13 SQL only; phase 17 runs S =
-2048 at (B, H) = (2, 40) only; phases 23 and 24 hold one backward call
-against the plain backward in float64 at their first and last steps.  dbrx-132b (132 B
-parameters) and llama4-scout (109 B) do not fit one card: phases 19 and 20
-cut their depth only, to the layers printed.
+2048 at (B, H) = (2, 40) only; phases 23-25 hold one backward call
+against the plain backward in float64 at their first and last steps;
+phases 26 and 27 serve scenario (a) only, and do not read where the card
+time goes (no profile).  dbrx-132b (132 B
+parameters), llama4-scout (109 B) and qwen2-vl-72b (72.7 B) do not fit one
+card: phases 19, 20 and 26 cut their depth only, to the layers printed;
+zamba2-7b's training state (14 bytes a parameter, 98 GB) does not either:
+phase 25 trains the whole scan steps printed.
 
 The last lines are the kernels' JSON record and {"ok": true, "device": ...}.
 The script exits non-zero, printing neither, without a CUDA device or
@@ -306,6 +341,7 @@ F32_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
 BF16_OPS_PER_S = 989e12     # H100 SXM bf16 tensor cores, dense
 TF32_OPS_PER_S = 495e12     # H100 SXM tf32 tensor cores, dense
 DECODE_TOL = 0.15           # the JAX package's decode-consistency tolerance
+PHASE_BUDGET_S = 1050       # the phases' aim, inside the 1,200 s limit with the machine's own start
 # the first decode step's largest logit error over its largest |logit|, as
 # read on sound runs: 0.0122 / 0.539 = 0.023 (gemma2-9b, scenario (b), seed 0,
 # NVIDIA H100 80GB HBM3 at 700 W)
@@ -336,6 +372,16 @@ MOE_WEIGHT_GIB = 56.0
 # phase 21: zamba2 is subquadratic, so (b) is twice gemma2's prompt
 ZAMBA2_ARCH = "zamba2-7b"
 ZAMBA2_SCENARIOS = {"a": (8, 2048, 64), "b": (1, 16384, 16)}
+# phases 26 and 27: qwen2-vl-72b at published width over the layers whose
+# weights fit MOE_WEIGHT_GIB (``moe_depth``), its prompts led by a
+# VLM_GRID x VLM_GRID grid of patch embeddings; starcoder2-15b whole
+VLM_ARCH = "qwen2-vl-72b"
+VLM_SCENARIOS = {"a": (8, 2048, 64)}
+VLM_GRID = 16
+CODE_ARCH = "starcoder2-15b"
+CODE_SCENARIOS = {"a": (8, 2048, 64)}
+# phase 26's mesh check: reduced models forward with and without the specs
+MESH_ARCHS = ("dbrx-132b", "zamba2-7b")
 WKV6_HEAD_SIZES = (16, 64)
 # 53 = 3 L + 5 and 207-209 = 13 L - 1, 13 L, 13 L + 1 for segments of
 # L = 16 tokens (the shortest the sequence-parallel form cuts: one long
@@ -1536,7 +1582,7 @@ def first_step_vs_prefill(torch, model, prompts, res, ops, rec: CallRecorder, n_
 
 def serve_path(torch, arch: str, scenarios_spec: dict, ops, rec: CallRecorder, kernel: str, fails: Failures,
                seed: int, record: dict, prepare=None, n_layers: int = 0, moe=None, per_prefill=None,
-               breakdown=None):
+               breakdown=None, inputs=None, profile: bool = True, all_logits: bool = False):
     """``generate`` at ``arch``'s full width (over its first ``n_layers``
     layers where given) for each scenario (batch, prompt, new tokens),
     twice, through the kernel that ``rec`` wraps on ``ops``: one launch per
@@ -1552,7 +1598,12 @@ def serve_path(torch, arch: str, scenarios_spec: dict, ops, rec: CallRecorder, k
     part (``moe_breakdown``).  ``breakdown(model, prompts)``, where given,
     reads the first scenario's prefill by part (a dict with ``device_ms``,
     printed by ``print_parts``; one profile of a whole prefill with its
-    host ops takes ~15 s at zamba2's size)."""
+    host ops takes ~15 s at zamba2's size).  ``inputs(cfg, B, S)``, where
+    given, makes the prefill's inputs beside the tokens (a VLM's patches and
+    3-axis positions; scenario (b)'s consistency prefill does not take
+    them).  ``profile=False`` leaves out where the card time goes;
+    ``all_logits`` holds every scenario's logits finite (else (b)'s, which
+    it keeps for its consistency check)."""
     import dataclasses
 
     from repro_torch.configs.base import get_config
@@ -1592,15 +1643,18 @@ def serve_path(torch, arch: str, scenarios_spec: dict, ops, rec: CallRecorder, k
         for name, (prompt_np, new) in scenarios.items():
             t_scenario = time.perf_counter()
             prompts = torch.from_numpy(prompt_np).cuda()
+            extra = inputs(cfg, *prompt_np.shape) if inputs is not None else None
+            assert extra is None or name != "b", "scenario (b)'s consistency prefill takes tokens only"
             runs = []
+            keep = name == "b" or all_logits
             for run in ("checked", "timed", "eager"):
                 rec.label = name
                 before = ops.LAUNCHES
                 if run == "checked":
-                    res = generate(model, prompts, new, keep_logits=(name == "b"))
+                    res = generate(model, prompts, new, keep_logits=keep, inputs=extra)
                 else:
                     with rec.paused():
-                        res = generate(model, prompts, new, keep_logits=(name == "b"), graph=run != "eager")
+                        res = generate(model, prompts, new, keep_logits=keep, graph=run != "eager", inputs=extra)
                 launched = ops.LAUNCHES - before
                 fails.check(launched == launches_per_prefill,
                             f"serve {arch} ({name}, {run}): {launched} {rec.name} launches, "
@@ -1657,7 +1711,7 @@ def serve_path(torch, arch: str, scenarios_spec: dict, ops, rec: CallRecorder, k
     # where the first scenario's card time goes (these launches are not
     # counted; (b)'s readings are cut for time)
     with torch.inference_mode():
-        for name, (prompt_np, _) in list(scenarios.items())[:1]:
+        for name, (prompt_np, _) in list(scenarios.items())[:1 if profile else 0]:
             t_profile = time.perf_counter()
             if moe is not None:
                 prompts = torch.from_numpy(prompt_np).cuda()
@@ -2715,7 +2769,7 @@ class GradWitness:
     def _parts(path: str, g):
         """(rows, names): one row a layer of a stacked leaf, and one a layer
         and expert of an MoE leaf."""
-        stacked = path.startswith("groups.")
+        stacked = path.startswith(("groups.", "shared."))  # layers, or zamba2's shared blocks
         g = g if stacked else g[None]
         leaf = path.split(".")[-1]
         if ".moe." in path and leaf == "router":
@@ -2739,6 +2793,40 @@ class GradWitness:
         self.bad = [n for n, f in zip(names, ok) if not f]
 
 
+def zamba2_train_flops(n_params: int, cfg, tokens: int, B: int, S: int) -> float:
+    """Model FLOPs of one zamba2 training step: 6 per parameter and token,
+    and each shared invocation's causal attention, 12 D a pair and head
+    with the backward (the SSD's products and remat not counted)."""
+    return (6.0 * n_params * tokens
+            + 3 * 4.0 * cfg.resolved_head_dim * unmasked_pairs(S, S, True, 0) * cfg.n_heads * B
+            * shared_invocations(cfg))
+
+
+def layer_calls(cfg) -> tuple:
+    """The kernel's calls in one forward: (in the repeats, which remat
+    recomputes; in the remainder), one a layer."""
+    (pattern, repeats), remainder = cfg.scan_groups()
+    return repeats * len(pattern), len(remainder)
+
+
+def shared_calls(cfg) -> tuple:
+    """zamba2's flash calls in one forward: one a shared invocation, (in the
+    repeats, in the remainder)."""
+    from repro_torch.models.transformer import _shared_layout
+
+    (_, repeats), _ = cfg.scan_groups()
+    per_step, rem = _shared_layout(cfg)
+    return repeats * per_step, rem
+
+
+def spread_mamba2_inits(torch, model, gen) -> None:
+    """a_log, dt_bias, conv_b and norm drawn as Mamba2 publishes them
+    (phase 21's draw)."""
+    from repro_torch.models import mamba2
+
+    mamba2.spread_zero_inits_(model.named_parameters(), gen)
+
+
 def rwkv6_train_flops(n_params: int, cfg, tokens: int, B: int, S: int) -> float:
     """Model FLOPs of one rwkv6 training step: 6 per parameter and token,
     and the WKV's two state products (4 K^2 a token and head forward),
@@ -2757,12 +2845,13 @@ def moe_train_flops(n_params: int, cfg, tokens: int, B: int, S: int) -> float:
     return train_flops(int(n_params - stacks * (m.n_experts - m.top_k) / m.n_experts), cfg, tokens, B, S)
 
 
-# What phases 15, 18 and 20 train, and what each watches: the kernel ops
+# What phases 15, 18, 20 and 23-25 train, and what each watches: the kernel ops
 # whose forward and backward launches a step are counted, the names of the
 # device kernels of its forward and of its backward in a trace, the
-# probe's judge, the model FLOPs, what is drawn after the weights,
-# AdamW's peak rate, and where the card cannot hold the whole model, the
-# layers kept and the optimizer state's type.  rwkv6 takes AdamWConfig's own default peak: at the
+# probe's judge, the model FLOPs, what is drawn after the weights
+# (``prepare``), the kernel's calls a forward (``calls``, one a layer
+# unless named), AdamW's peak rate, and where the card cannot hold the
+# whole model, the layers kept and the optimizer state's type.  rwkv6 takes AdamWConfig's own default peak: at the
 # JAX launcher's 3e-3 its drawn weights' first step (gradient norm ~4e4)
 # doubles the loss and six steps end above the first even through the
 # exact (float64) WKV6 backward, so the check failed a right gradient;
@@ -2773,11 +2862,11 @@ TRAIN_CASES = {
     "flash": dict(arch=TRAIN_ARCH, ops="repro_torch.kernels.flash.ops",
                   fwd_parts=("flash_fwd_kernel", "flash_fwd_wgmma_kernel"),
                   bwd_parts=("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel", "flash_bwd_dkv_sum_kernel"),
-                  judge=flash_judge, flops=train_flops, spread=False, lr_peak=3e-3),
+                  judge=flash_judge, flops=train_flops, lr_peak=3e-3),
     "wkv6": dict(arch="rwkv6-3b", ops="repro_torch.kernels.wkv6.ops",
                  fwd_parts=("wkv6_chunks", "wkv6_states", "wkv6_carry"),
                  bwd_parts=("wkv6_bwd_states", "wkv6_bwd_carry", "wkv6_bwd_chunks", "wkv6_bwd_du"),
-                 judge=wkv6_judge, flops=rwkv6_train_flops, spread=True, lr_peak=3e-4),
+                 judge=wkv6_judge, flops=rwkv6_train_flops, prepare=spread_rwkv_zero_inits, lr_peak=3e-4),
     # dbrx-132b at one layer (one whole period of its pattern): the port's
     # training keeps bf16 weights, f32 gradient accumulators and f32 master
     # weights, and bf16 gradients until they are added in, 12 bytes a
@@ -2791,7 +2880,7 @@ TRAIN_CASES = {
     "moe": dict(arch="dbrx-132b", ops="repro_torch.kernels.flash.ops",
                 fwd_parts=("flash_fwd_kernel", "flash_fwd_wgmma_kernel"),
                 bwd_parts=("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel", "flash_bwd_dkv_sum_kernel"),
-                judge=flash_judge, flops=moe_train_flops, spread=False, lr_peak=1e-4, layers=1,
+                judge=flash_judge, flops=moe_train_flops, lr_peak=1e-4, layers=1,
                 state_dtype="int8"),
     # hubert-xlarge on the reference's train_4k length, on HuBERT's masked
     # unit prediction (``hubert_batches``), with f32 AdamW state (0.946 B
@@ -2799,7 +2888,7 @@ TRAIN_CASES = {
     "hubert": dict(arch="hubert-xlarge", ops="repro_torch.kernels.flash.ops",
                    fwd_parts=("flash_fwd_kernel", "flash_fwd_wgmma_kernel"),
                    bwd_parts=("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel", "flash_bwd_dkv_sum_kernel"),
-                   judge=flash_judge, flops=train_flops, spread=False, lr_peak=3e-4, data="frames", seq=4096,
+                   judge=flash_judge, flops=train_flops, lr_peak=3e-4, data="frames", seq=4096,
                    probe_steps=(0, TRAIN_STEPS - 1)),
     # gemma3-4b as dbrx trains: int8 AdamW moments, 14 bytes a parameter;
     # every layer if ``train_gib``'s reckoning fits max_gib, else the whole
@@ -2810,8 +2899,26 @@ TRAIN_CASES = {
     "gemma3": dict(arch="gemma3-4b", ops="repro_torch.kernels.flash.ops",
                    fwd_parts=("flash_fwd_kernel", "flash_fwd_wgmma_kernel"),
                    bwd_parts=("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel", "flash_bwd_dkv_sum_kernel"),
-                   judge=flash_judge, flops=train_flops, spread=False, lr_peak=3e-4, state_dtype="int8",
+                   judge=flash_judge, flops=train_flops, lr_peak=3e-4, state_dtype="int8",
                    max_gib=72.0, probe_steps=(0, TRAIN_STEPS - 1)),
+    # zamba2-7b as gemma3-4b trains, over whole scan steps (6 Mamba2 layers
+    # and one shared invocation, the two shared blocks alternating): the
+    # flash backward at head dim 112 once a shared invocation and
+    # microbatch; its a_log, dt_bias, conv_b and norm drawn as phase 21
+    # draws them.  Its peak rate is 1e-5: at 3e-4, 1e-4 and 3e-5 the loss
+    # fell for two to four steps and then rose (to 29.9 at 3e-4, whose last
+    # step's gradient was nan), at 1e-5 it fell at every step
+    # (scripts/zamba2_train_rates.py; NVIDIA H100 80GB HBM3, 700 W).  The
+    # reckoning adds ``act_gib`` for what train_gib leaves out and zamba2
+    # holds: the recomputed step's Mamba2 activations (the SSD's f32 chunk
+    # matrices, states and inputs, the conv's partial sums; 48 layers
+    # reckoned at 59.8 GiB without them peaked at 73.3 GiB on that card)
+    "zamba2": dict(arch="zamba2-7b", ops="repro_torch.kernels.flash.ops",
+                   fwd_parts=("flash_fwd_kernel", "flash_fwd_wgmma_kernel"),
+                   bwd_parts=("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel", "flash_bwd_dkv_sum_kernel"),
+                   judge=flash_judge, flops=zamba2_train_flops, prepare=spread_mamba2_inits, calls=shared_calls,
+                   lr_peak=1e-5, state_dtype="int8", max_gib=72.0, act_gib=14.0,
+                   probe_steps=(0, TRAIN_STEPS - 1)),
 }
 
 
@@ -2858,16 +2965,16 @@ def hubert_batches(torch, cfg, seq: int, seed: int):
 
 
 def train_path(torch, case: str, fails: Failures, seed: int, record: dict) -> dict:
-    """Phases 15, 18, 20, 23 and 24.  ``TRAIN_CASES[case]``'s arch at its published
-    config (bf16, weights drawn from ``seed``; rwkv6's zero-initialised
-    tensors drawn too, ``spread_rwkv_zero_inits``), trained TRAIN_STEPS
+    """Phases 15, 18, 20 and 23-25.  ``TRAIN_CASES[case]``'s arch at its published
+    config (bf16, weights drawn from ``seed``; the tensors rwkv6 and zamba2
+    initialise to constants drawn too, the case's ``prepare``), trained TRAIN_STEPS
     steps through launch/train.py's model and step: data from the port's
     pipeline over Zipf documents from ``seed`` packed at TRAIN_SEQ, global
     batch TRAIN_GLOBAL_BATCH in TRAIN_MICROBATCHES microbatches, remat on,
     the JAX package's launch/train.py AdamWConfig at the case's peak
     rate with f32 state (int8 state, said so, if the card cannot hold
     f32).  Checks: finite loss that falls from the first step to the last, the kernel's backward launches =
-    layers x microbatches a step and its forward twice that (remat), no
+    its calls a forward x microbatches a step and its forward twice that (remat), no
     plain backward, every leaf (each layer of a stacked one) a finite,
     nonzero gradient each step (GradWitness), and one backward kernel call
     a step (a real layer's inputs and gradient) within its ref.BWD_TOL of
@@ -2897,11 +3004,13 @@ def train_path(torch, case: str, fails: Failures, seed: int, record: dict) -> di
     layers = spec_.get("layers")
     if spec_.get("max_gib"):
         period, mb = len(cfg.layer_pattern), TRAIN_GLOBAL_BATCH // TRAIN_MICROBATCHES
-        reckon = [(n, train_gib(dataclasses.replace(cfg, n_layers=n), spec_["state_dtype"], mb, seq))
+        act = spec_.get("act_gib", 0.0)
+        reckon = [(n, train_gib(dataclasses.replace(cfg, n_layers=n), spec_["state_dtype"], mb, seq) + act)
                   for n in range(cfg.n_layers, 0, -1) if n == cfg.n_layers or n % period == 0]
         layers, gib = next(((n, g) for n, g in reckon if g <= spec_["max_gib"]), reckon[-1])
         print(f"  reckoned peak at {cfg.n_layers} layers: {reckon[0][1]:.1f} GiB (14 bytes a parameter with "
-              f"{spec_['state_dtype']} moments and the loss's logits over a {mb} x {seq} microbatch), limit "
+              f"{spec_['state_dtype']} moments and the loss's logits over a {mb} x {seq} microbatch"
+              + (f", and {act:g} GiB of a recomputed step's activations" if act else "") + "), limit "
               f"{spec_['max_gib']:g} GiB: {layers} layers ({gib:.1f} GiB)", flush=True)
         if layers == cfg.n_layers:
             layers = None
@@ -2934,10 +3043,10 @@ def train_path(torch, case: str, fails: Failures, seed: int, record: dict) -> di
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     model = build_model(cfg, torch.device("cuda"), seed)
-    if spec_["spread"]:
+    if spec_.get("prepare"):
         gen = torch.Generator(device="cuda")
         gen.manual_seed(seed + 1)
-        spread_rwkv_zero_inits(torch, model, gen)
+        spec_["prepare"](torch, model, gen)
     params = model.params
     n_params = model.n_params()
     state_dtype = spec_.get("state_dtype", "f32")
@@ -2964,15 +3073,14 @@ def train_path(torch, case: str, fails: Failures, seed: int, record: dict) -> di
           f"{time.perf_counter() - t0:.1f} s, {torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated; "
           f"{cfg.n_layers} layers, d_model {cfg.d_model}, vocab {cfg.vocab_size} "
           f"({'; '.join(cuts) if cuts else 'nothing cut'})", flush=True)
-    (pattern, repeats), remainder = cfg.scan_groups()
-    remat_layers, n_rem = repeats * len(pattern), len(remainder)
+    remat_calls, rem_calls = spec_.get("calls", layer_calls)(cfg)
     tokens = TRAIN_GLOBAL_BATCH * seq
     unit = "frames" if spec_.get("data") == "frames" else "tokens"
     flops = spec_["flops"](n_params, cfg, tokens, TRAIN_GLOBAL_BATCH, seq)
     steps = []
     # one call a step held against the plain backward, a different layer
     # and microbatch each step
-    per_step = cfg.n_layers * TRAIN_MICROBATCHES
+    per_step = (remat_calls + rem_calls) * TRAIN_MICROBATCHES
     probed = spec_.get("probe_steps", range(TRAIN_STEPS))
     probe = BackwardProbe(kops, lambda s: s * per_step // TRAIN_STEPS if s in probed else -1, spec_["judge"])
     witness = GradWitness(step_module)
@@ -3042,10 +3150,11 @@ def train_path(torch, case: str, fails: Failures, seed: int, record: dict) -> di
                     f"device time (backward launches: " + ", ".join(
                         f"{k} {v:.1f} ms" for k, v in row["bwd_launch_ms"].items()) + ")")
         steps.append(row)
-        fails.check(bwd == cfg.n_layers * TRAIN_MICROBATCHES,
-                    f"train step {s}: {bwd} {kname} backward launches, not {cfg.n_layers} x {TRAIN_MICROBATCHES}")
-        fails.check(fwd == (2 * remat_layers + n_rem) * TRAIN_MICROBATCHES,
-                    f"train step {s}: {fwd} {kname} forward launches, not (2 x {remat_layers} + {n_rem}) x "
+        fails.check(bwd == (remat_calls + rem_calls) * TRAIN_MICROBATCHES,
+                    f"train step {s}: {bwd} {kname} backward launches, not {remat_calls + rem_calls} x "
+                    f"{TRAIN_MICROBATCHES}")
+        fails.check(fwd == (2 * remat_calls + rem_calls) * TRAIN_MICROBATCHES,
+                    f"train step {s}: {fwd} {kname} forward launches, not (2 x {remat_calls} + {rem_calls}) x "
                     f"{TRAIN_MICROBATCHES} (remat recomputes each repeat's forward, not the remainder's)")
         print(f"  step {s}: loss {loss:.4f}  {row['ms']:.1f} ms  {row['tokens_per_s']:.0f} {unit}/s  "
               f"model FLOPs {100 * row['model_flop_share_of_bf16_peak']:.1f}% of the bf16 peak (989 TFLOP/s)  "
@@ -3246,6 +3355,80 @@ def encoder_path(torch, flash_ops, plain, agreement, fails: Failures, seed: int,
     gc.collect()
     torch.cuda.empty_cache()
     return report["launches"], rows
+
+
+# ---------------------------------------------------------------------------
+# phases 26 and 27: serving qwen2-vl-72b and starcoder2-15b; the one-card mesh
+# ---------------------------------------------------------------------------
+
+
+def vlm_inputs(torch, seed: int):
+    """inputs(cfg, B, S) for serve_path: each request's positions 1 to
+    VLM_GRID^2 hold an image's patch embeddings (the reference's stub
+    frontend merges them by ``patch_mask``), drawn on the card from
+    ``seed`` at the embedding table's scale; M-RoPE positions (3, B, S)
+    give the image's patches (1, 1 + row, 1 + column) and every text token
+    its index on all three axes (where decode goes on)."""
+    def make(cfg, B: int, S: int) -> dict:
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(seed + 11)
+        n = VLM_GRID * VLM_GRID
+        embeds = torch.randn(B, S, cfg.d_model, device="cuda", generator=gen).mul_(cfg.vocab_size ** -0.5)
+        mask = torch.zeros(B, S, dtype=torch.bool, device="cuda")
+        mask[:, 1:1 + n] = True
+        pos = torch.arange(S, dtype=torch.int32, device="cuda").repeat(3, 1)
+        grid = torch.arange(n, dtype=torch.int32, device="cuda")
+        pos[:, 1:1 + n] = torch.stack([torch.ones_like(grid), 1 + grid // VLM_GRID, 1 + grid % VLM_GRID])
+        return {"patch_embeds": embeds.to(torch.bfloat16), "patch_mask": mask,
+                "positions": pos[:, None].expand(3, B, S).contiguous()}
+
+    return make
+
+
+def mesh_path(torch, fails: Failures, seed: int, record: dict) -> dict:
+    """The one-card DeviceMesh (launch/mesh.make_smoke_mesh: a one-process
+    NCCL group from a HashStore) with the specs the JAX package's dry run
+    installs for a prefill cell (``sharding.prefill_specs``: the hidden
+    layout, and the MoE pins for an MoE arch), and a reduced forward and
+    prefill of each of MESH_ARCHS with and without them: bitwise equal."""
+    import torch.distributed as dist
+
+    from repro_torch.configs.base import get_config, reduced_config
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch import sharding
+    from repro_torch.models import shardctx
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.models.transformer import Model
+
+    started = not dist.is_initialized()
+    mesh = mesh_mod.make_smoke_mesh()
+    report = {"mesh": str(mesh), "backend": dist.get_backend()}
+    try:
+        for arch in MESH_ARCHS:
+            cfg = reduced_config(get_config(arch))
+            gen = torch.Generator(device="cuda")
+            gen.manual_seed(seed)
+            model = Model(cfg).init_params(gen)
+            toks = torch.randint(4, cfg.vocab_size, (4, 96), device="cuda", generator=gen, dtype=torch.int32)
+            specs = sharding.prefill_specs(mesh, cfg)
+            outs = []
+            for installed in ({}, specs):
+                with shardctx.installed(installed, mesh), torch.inference_mode():
+                    logits, _ = model({"tokens": toks})
+                    last, cache = model.prefill({"tokens": toks})
+                outs.append([logits, last] + [t for _, t in tree_leaves(cache)])
+            equal = all(bool(torch.equal(a, b)) for a, b in zip(*outs))
+            fails.check(equal and len(outs[0]) == len(outs[1]),
+                        f"mesh: reduced {arch}'s outputs differ with the one-device specs installed")
+            report[arch] = {"specs": {k: list(v) for k, v in specs.items()}, "bitwise_equal": equal}
+            print(f"  reduced {arch} on {mesh} ({report['backend']}): forward and prefill with "
+                  f"{sorted(specs)} installed bitwise equal to without: {equal}", flush=True)
+            del model
+    finally:
+        if started:
+            dist.destroy_process_group()
+    record["mesh"] = report
+    return report
 
 
 def nvidia_smi_line() -> str:
@@ -3522,7 +3705,7 @@ def main(argv=None) -> int:
     zamba_rec = flash_recorder(flash_ops, flash_attention_plain, agreement, fails)
     flash_launches += serve_path(
         torch, ZAMBA2_ARCH, ZAMBA2_SCENARIOS, flash_ops, zamba_rec, "flash_fwd", fails, args.seed, record,
-        prepare=lambda m, g: mamba2.spread_zero_inits_(m.named_parameters(), g), per_prefill=shared_invocations,
+        prepare=lambda m, g: spread_mamba2_inits(torch, m, g), per_prefill=shared_invocations,
         breakdown=lambda m, p: zamba2_breakdown(torch, m, p, "flash_fwd"))
     print(f"flash kernel at {ZAMBA2_ARCH}'s shapes (head dim 112, padded to 128; SSD chunk 64, states passed "
           f"{mamba2.STATE_BLOCK} chunks a product):", flush=True)
@@ -3559,7 +3742,44 @@ def main(argv=None) -> int:
     flash_launches += gemma3_train["launches"]["forward"]
     bwd_launches += gemma3_train["launches"]["backward"]
     print(f"  {time.perf_counter() - t0:.0f} s; phases 1-24 in {time.perf_counter() - t_start:.0f} s", flush=True)
-    trains = (train, moe_train, hubert_train, gemma3_train)
+
+    # 25. training zamba2-7b at its published width over the scan steps that fit
+    phase_start[25] = time.perf_counter() - t_start
+    print(f"training path: {ZAMBA2_ARCH} at published width:", flush=True)
+    t0 = time.perf_counter()
+    zamba2_train = train_path(torch, "zamba2", fails, args.seed, record)
+    flash_launches += zamba2_train["launches"]["forward"]
+    bwd_launches += zamba2_train["launches"]["backward"]
+    print(f"  {time.perf_counter() - t0:.0f} s", flush=True)
+
+    # 26. qwen2-vl-72b at published width over the layers that fit, and the
+    # one-card mesh
+    phase_start[26] = time.perf_counter() - t_start
+    t0 = time.perf_counter()
+    cfg = get_config(VLM_ARCH)
+    layers, layer_b, outer_b = moe_depth(cfg, MOE_WEIGHT_GIB, len(cfg.layer_pattern))
+    print(f"serving path: {VLM_ARCH} at published width over {layers} of {cfg.n_layers} layers "
+          f"({layer_b / 1e9:.3f} GB a layer, {outer_b / 1e9:.3f} GB embedding and head: {layers} layers fit "
+          f"{MOE_WEIGHT_GIB:g} GiB of weights), prompts led by {VLM_GRID} x {VLM_GRID} patch embeddings with "
+          f"3-axis positions:", flush=True)
+    vlm_rec = flash_recorder(flash_ops, flash_attention_plain, agreement, fails)
+    flash_launches += serve_path(torch, VLM_ARCH, VLM_SCENARIOS, flash_ops, vlm_rec, "flash_fwd", fails, args.seed,
+                                 record, n_layers=layers, inputs=vlm_inputs(torch, args.seed), profile=False,
+                                 all_logits=True)
+    print(f"one-card mesh with a prefill cell's specs: on {nvidia_smi_line()}", flush=True)
+    mesh_path(torch, fails, args.seed, record)
+    print(f"  {time.perf_counter() - t0:.0f} s", flush=True)
+
+    # 27. starcoder2-15b at its published width and depth
+    phase_start[27] = time.perf_counter() - t_start
+    print(f"serving path: {CODE_ARCH} at full width and depth:", flush=True)
+    t0 = time.perf_counter()
+    code_rec = flash_recorder(flash_ops, flash_attention_plain, agreement, fails)
+    flash_launches += serve_path(torch, CODE_ARCH, CODE_SCENARIOS, flash_ops, code_rec, "flash_fwd", fails,
+                                 args.seed, record, profile=False, all_logits=True)
+    print(f"  {time.perf_counter() - t0:.0f} s; phases 1-27 in {time.perf_counter() - t_start:.0f} s; on "
+          f"{nvidia_smi_line()}", flush=True)
+    trains = (train, moe_train, hubert_train, gemma3_train, zamba2_train)
     fwd_by_dim, bwd_by_dim = {}, {}
     for rep_ in [v for k, v in record.items() if k.startswith("serve_")]:
         for d, n in rep_.get("launches_by_dim", {}).items():
@@ -3689,6 +3909,8 @@ def main(argv=None) -> int:
     ends = sorted(phase_start.items()) + [(None, time.perf_counter() - t_start)]
     record["phase_seconds"] = {n: ends[i + 1][1] - t for i, (n, t) in enumerate(ends[:-1])}
     print("seconds a phase: " + ", ".join(f"{n} {t:.0f}" for n, t in record["phase_seconds"].items()), flush=True)
+    print(f"sum of phases: {sum(record['phase_seconds'].values()):.0f} s (aim: at most {PHASE_BUDGET_S} s of the "
+          f"1,200 s limit)", flush=True)
     record["failures"] = fails.items
     os.makedirs(os.path.dirname(args.out), exist_ok=True)
     with open(args.out, "w") as fh:

@@ -9,6 +9,8 @@
 # the last checkpoint and goes on from it.  At the end it restores its
 # final checkpoint and holds it bitwise against the state in memory.  An
 # MoE model also logs its lb_loss and router_z (the loss includes them).
+# --grad-compress is accepted and changes nothing, as in the JAX package's
+# launcher, which never reads it.
 #
 #   PYTHONPATH=src python -m repro_torch.launch.train --arch starcoder2-3b \
 #       --steps 100 --reduced --fail-at 40
@@ -165,6 +167,9 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     ap.add_argument("--ckpt-every", type=int, default=20)
     ap.add_argument("--fail-at", type=int, default=-1,
                     help="simulate a worker failure at this step (restart from ckpt)")
+    ap.add_argument("--grad-compress", action="store_true",
+                    help="int8+error-feedback gradient sync on the pod axis (accepted as the JAX package's "
+                         "launcher accepts it, and unused as there: one card has no pod axis)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu'")
     return ap.parse_args(argv)

@@ -1,15 +1,17 @@
 # Shared model machinery: parameter definition trees (shape + dtype +
-# logical axes, kept for parity with the JAX package's trees), their
+# logical axes, which launch/sharding.py maps onto a mesh), their
 # initialisation from an explicit generator, norms, RoPE / M-RoPE,
 # activations and soft-capping.
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Any, Callable, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from .shardctx import PartitionSpec
 
 # ---------------------------------------------------------------------------
 # Parameter definition trees
@@ -30,6 +32,10 @@ class ParamDef:
 
     def __post_init__(self):
         assert len(self.shape) == len(self.axes), (self.shape, self.axes)
+
+
+def is_param_def(x: Any) -> bool:
+    return isinstance(x, ParamDef)
 
 
 def tree_leaves(tree: Any, prefix: str = "") -> List[Tuple[str, Any]]:
@@ -53,6 +59,22 @@ def tree_map(fn: Callable[[Any], Any], tree: Any) -> Any:
     if isinstance(tree, (list, tuple)):
         return [tree_map(fn, v) for v in tree]
     return fn(tree)
+
+
+def tree_abstract(defs: Any) -> Any:
+    """The tree's leaves as tensors on the meta device: shapes and dtypes,
+    nothing allocated."""
+    return tree_map(lambda d: torch.empty(d.shape, dtype=d.dtype, device="meta"), defs)
+
+
+def tree_partition_specs(defs: Any, rules: Dict[str, Optional[str]]) -> Any:
+    """logical axes -> PartitionSpec via ``rules`` (logical -> mesh axis or
+    None).  Unknown logical axes are replicated."""
+    return tree_map(lambda d: PartitionSpec(*[rules.get(a) if a is not None else None for a in d.axes]), defs)
+
+
+def tree_logical_axes(defs: Any) -> Any:
+    return tree_map(lambda d: d.axes, defs)
 
 
 def stack_defs(d: ParamDef, n: int, axis_name: Optional[str] = "layers") -> ParamDef:

@@ -195,12 +195,17 @@ def _lower(L: int, device, strict: bool) -> torch.Tensor:
     return idx[None, :] < idx[:, None] if strict else idx[None, :] <= idx[:, None]
 
 
-def _decay_matrix(rows: torch.Tensor, cols: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+def _decay_matrix(rows: torch.Tensor, cols: torch.Tensor, mask: torch.Tensor,
+                  inplace: bool = True) -> torch.Tensor:
     """exp(rows_i - cols_j) where ``mask``, else 0: the masked differences
     (positive above the diagonal, where they could overflow) are set to
     -inf before the exp, as the reference's inner where keeps them from
-    it; in place, one buffer."""
+    it; in place, one buffer, unless ``inplace`` is False (autograd keeps
+    exp's output for its backward, so a caller that scales the matrix
+    needs it out of place)."""
     diff = rows[..., :, None] - cols[..., None, :]
+    if not inplace:
+        return diff.masked_fill(~mask, float("-inf")).exp()
     return diff.masked_fill_(~mask, float("-inf")).exp_()
 
 
@@ -225,10 +230,13 @@ def ssd_batched(xdt: torch.Tensor, log_decay: torch.Tensor, Bg: torch.Tensor, Cg
     cum = cum.reshape(B, n, L, G, rep).permute(0, 1, 3, 4, 2)  # (B,n,G,rep,L)
     total = cum[..., -1]  # (B,n,G,rep)
 
-    # intra-chunk: y_i = sum_{j<=i} e^{cum_i - cum_j} (C_i . B_j) xdt_j
-    D = _decay_matrix(cum, cum, _lower(L, xdt.device, strict=False))  # (B,n,G,rep,L,L)
+    # intra-chunk: y_i = sum_{j<=i} e^{cum_i - cum_j} (C_i . B_j) xdt_j; a
+    # gradient needs D and its scaled form as tensors of their own (C45),
+    # serving scales the one buffer in place
+    grad = torch.is_grad_enabled() and any(t.requires_grad for t in (xdt, log_decay, Bg, Cg, S0))
+    D = _decay_matrix(cum, cum, _lower(L, xdt.device, strict=False), inplace=not grad)  # (B,n,G,rep,L,L)
     cb = (c @ b.transpose(-1, -2))[:, :, :, None]  # (B,n,G,1,L,L)
-    y = D.mul_(cb) @ x  # (B,n,G,rep,L,P)
+    y = (D * cb if grad else D.mul_(cb)) @ x  # (B,n,G,rep,L,P)
     # each chunk's state from zero: sum_j e^{total - cum_j} xdt_j B_j^T
     xw = x * torch.exp(total[..., None] - cum)[..., None]
     kv = xw.transpose(-1, -2).reshape(B, n, G, rep * P, L) @ b  # (B,n,G,rep*P,N)

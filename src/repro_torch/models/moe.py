@@ -24,6 +24,7 @@ from typing import Dict, NamedTuple, Tuple
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from . import shardctx
 from .common import ParamDef, activation_fn
 
 
@@ -174,8 +175,10 @@ def experts(p: Dict[str, torch.Tensor], xin: torch.Tensor, act) -> torch.Tensor:
     ns, E, C, d = xin.shape
     xe = xin.transpose(0, 1).reshape(E, ns * C, d)
     h = act(torch.bmm(xe, p["w_gate"])) * torch.bmm(xe, p["w_up"])
+    # the pins see h and y as the JAX package's (ns, E, C, .) buffers
+    h = shardctx.constrain(h.reshape(E, ns, C, -1).transpose(0, 1), "moe_h").transpose(0, 1).reshape(E, ns * C, -1)
     y = torch.bmm(h, p["w_down"])
-    return y.reshape(E, ns, C, d).transpose(0, 1).reshape(ns, E * C, d)
+    return shardctx.constrain(y.reshape(E, ns, C, d).transpose(0, 1), "moe_y").reshape(ns, E * C, d)
 
 
 def moe_block(
@@ -192,10 +195,10 @@ def moe_block(
     ns, C = capacity(cfg, T)
     Tl = T // ns
     r = route(logits.reshape(ns, Tl, E), E=E, K=K, C=C, dtype=xt.dtype)
-    # the reference pins the sharding of xin, h and y here
-    # (shardctx.constrain); at one device those are identities, and they
-    # return with the mesh layer
-    y = experts(p, dispatch(xt.reshape(ns, Tl, d), r, E, C), act)
+    # the expert buffers' sharding is pinned by the launcher (xin here, h
+    # and y in experts): EP puts the experts on 'model', TP the hidden dim
+    xin = shardctx.constrain(dispatch(xt.reshape(ns, Tl, d), r, E, C), "moe_xin")
+    y = experts(p, xin, act)
     out = combine(y, r).reshape(B, S, d).to(x.dtype)
     if m.shared_expert_d_ff:
         out = out + shared_expert(p, xt, act).reshape(B, S, d).to(x.dtype)

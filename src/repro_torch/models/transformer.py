@@ -28,6 +28,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
+from . import shardctx
 from .attention import AttnInputs, attention_block, attention_defs, init_cache_shape
 from .common import (
     ParamDef,
@@ -35,6 +36,7 @@ from .common import (
     param_count,
     rms_norm,
     softcap,
+    tree_abstract,
     tree_leaves,
     tree_map,
     tree_stack_defs,
@@ -218,12 +220,13 @@ def _mamba2_block(
     tensors in place, as in the rwkv block."""
     if prefill and cache is None:
         cache = mamba2_init_state(cfg, x.shape[0], device=x.device)
-    h = rms_norm(x, p["ln1"], cfg.norm_eps).to(torch.bfloat16)
+    dt = p["ln1"].dtype  # the weights' type: bf16, or f32 for a model in f32
+    h = rms_norm(x, p["ln1"], cfg.norm_eps).to(dt)
     m_out, new_state = mamba2_block(p["mamba"], h, cfg, state=cache)
     if cache is not None:
         for name, value in new_state.items():
             cache[name].copy_(value)
-    return x.to(torch.bfloat16).float() + m_out.float(), cache, {}
+    return x.to(dt).float() + m_out.float(), cache, {}
 
 
 def apply_shared_block(
@@ -318,6 +321,52 @@ def cache_abstract(cfg: ArchConfig, batch: int, max_seq: int, quantized: bool = 
     return out
 
 
+def _block_cache_axes(cfg: ArchConfig, kind: str, quantized: bool = False) -> Dict[str, Tuple[Optional[str], ...]]:
+    """Logical axis names for each cache leaf (mirrors _block_cache_shapes);
+    read by the launcher's sharding rules."""
+    if kind in ATTN_KINDS:
+        ax = ("batch", "kv_seq", "kv_heads", "head_dim")
+        if quantized:
+            sax = ("batch", "kv_seq", "kv_heads", None)
+            return {"k_q": ax, "k_s": sax, "v_q": ax, "v_s": sax}
+        return {"k": ax, "v": ax}
+    if kind == "rwkv":
+        return {
+            "wkv": ("batch", "heads", "key_dim", "value_dim"),
+            "shift_t": ("batch", "act_embed"),
+            "shift_c": ("batch", "act_embed"),
+        }
+    if kind == "mamba2":
+        return {
+            "conv": ("batch", None, "ssm_act"),
+            "ssm": ("batch", "heads", "head_dim", "state"),
+        }
+    raise ValueError(kind)
+
+
+def cache_axes(cfg: ArchConfig, quantized: bool = False) -> Dict[str, Any]:
+    """Logical axes tree congruent with cache_abstract."""
+    (pattern, repeats), remainder = cfg.scan_groups()
+
+    def stack(tree, extra=("layers",)):
+        return {name: tuple(extra) + ax for name, ax in tree.items()}
+
+    out: Dict[str, Any] = {}
+    if repeats > 0:
+        out["groups"] = {
+            f"pos{i}": stack(_block_cache_axes(cfg, kind, quantized))
+            for i, kind in enumerate(pattern)
+        }
+    if remainder:
+        out["remainder"] = [_block_cache_axes(cfg, kind, quantized) for kind in remainder]
+    per_step, rem_inv = _shared_layout(cfg)
+    if per_step:
+        out["shared"] = stack(_block_cache_axes(cfg, "global", quantized), extra=("layers", None))
+    if rem_inv:
+        out["shared_rem"] = [_block_cache_axes(cfg, "global", quantized) for _ in range(rem_inv)]
+    return out
+
+
 def _shared_layout(cfg: ArchConfig) -> Tuple[int, int]:
     """(shared invocations a repeat of the pattern, invocations among the
     remainder layers)."""
@@ -343,7 +392,9 @@ def _map_shapes(fn, tree: Any) -> Any:
 
 def cache_init(cfg: ArchConfig, batch: int, max_seq: int, quantized: bool = False,
                device: Any = None) -> Dict[str, Any]:
-    """A zero cache on ``device`` (the card unless the caller asks for the CPU)."""
+    """A zero cache on ``device`` (the card unless the caller asks for the
+    CPU; on ``"meta"`` the abstract cache: shapes and dtypes, nothing
+    allocated)."""
     dev = resolve_device(device)
     return _map_shapes(lambda sd: torch.zeros(sd[0], dtype=sd[1], device=dev),
                        cache_abstract(cfg, batch, max_seq, quantized))
@@ -426,8 +477,11 @@ def forward(
     the JAX package sums them over its scan and the remainder.  ``remat``
     recomputes each repeat of the layer pattern in the backward
     (torch.utils.checkpoint), as the JAX package checkpoints each step of
-    its scan; the remainder layers are not recomputed, as there."""
-    x = embed_tokens(params, batch, cfg)
+    its scan; the remainder layers are not recomputed, as there.  The
+    residual stream is pinned to the installed layout (shardctx) after the
+    embedding and after each layer of a repeat, where the JAX package pins
+    it."""
+    x = shardctx.constrain_hidden(embed_tokens(params, batch, cfg))
     embed0 = x
     B, S, _ = x.shape
     positions = _positions_of(batch, cfg, B, S, x.device)
@@ -447,6 +501,8 @@ def forward(
                 acc = acc + torch.stack([aux[k] for k in AUX_KEYS])
             if shared is not None:
                 x, _ = apply_shared_block(_layer(params["shared"], shared[0]), x, embed0, cfg, positions)
+            if r is not None:
+                x = shardctx.constrain_hidden(x)
         # a repeat ends rounded (the reference's scan carries bf16); the
         # remainder's last sum reaches the final norm unrounded (C42)
         return (x if r is None else x.to(embed0.dtype)), acc
@@ -488,7 +544,7 @@ def prefill_forward(
     """Forward pass that also materializes decode caches (serving prefill).
     Returns (last-position logits (B, 1, V), cache): full (B, S, V) logits
     at 32k x 256k vocab would be hundreds of GB."""
-    x = embed_tokens(params, batch, cfg)
+    x = shardctx.constrain_hidden(embed_tokens(params, batch, cfg))
     embed0 = x
     B, S, _ = x.shape
     positions = _positions_of(batch, cfg, B, S, x.device)
@@ -653,6 +709,11 @@ class Model(nn.Module):
 
     def defs(self) -> Dict[str, Any]:
         return self._defs
+
+    def abstract_params(self) -> Dict[str, Any]:
+        """The parameter tree as tensors on the meta device (build the model
+        on ``device="meta"`` to allocate nothing at all)."""
+        return tree_abstract(self._defs)
 
     def n_params(self) -> int:
         return param_count(self._defs)

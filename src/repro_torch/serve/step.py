@@ -179,19 +179,23 @@ def generate(
     feed: Optional[torch.Tensor] = None,
     keep_logits: bool = False,
     graph: bool = True,
+    inputs: Optional[Dict[str, torch.Tensor]] = None,
 ) -> GenerationResult:
     """Batched generation: one prefill, then ``max_new_tokens - 1`` decode
     steps.  The first token is the argmax of the prefill logits.  ``feed``
     (B, max_new_tokens), when given, is what each step feeds on instead of
     its own pick (teacher forcing); the result's tokens are still the
     picks.  ``keep_logits`` keeps each step's logits in f32.  ``graph``
-    replays the decode step as a CUDA graph on a card (make_decode_step)."""
+    replays the decode step as a CUDA graph on a card (make_decode_step).
+    ``inputs`` are the prefill's inputs beside the tokens, as
+    prefill_forward takes them (a VLM's patch_embeds, patch_mask and 3-axis
+    positions)."""
     B, Sp = prompts.shape
     device = model.device
     prompts = prompts.to(device)
     max_seq = Sp + max_new_tokens
     t0 = time.perf_counter()
-    logits, pcache = model.prefill({"tokens": prompts})
+    logits, pcache = model.prefill({"tokens": prompts, **(inputs or {})})
     cache = pad_cache(pcache, model.cache_init(B, max_seq))
     tok = torch.argmax(logits[:, -1].float(), dim=-1)[:, None].to(torch.int32)
     _sync(device)

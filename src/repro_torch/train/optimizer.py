@@ -110,6 +110,23 @@ def adamw_init(params: Any, state_dtype: str = "f32") -> AdamWState:
     return AdamWState(torch.zeros((), dtype=torch.int32, device=device), master, zeros(), zeros())
 
 
+def adamw_init_abstract(params_abs: Any, state_dtype: str = "f32") -> AdamWState:
+    """The optimizer state of ``params_abs`` (tensors of any device, the meta
+    device's among them) as tensors on the meta device: nothing allocated."""
+    def meta(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    def f32():
+        return tree_map(lambda p: meta(p.shape, torch.float32), params_abs)
+
+    if state_dtype == "int8":
+        def mk():
+            return tree_map(lambda p: {"q": meta(p.shape, torch.int8),
+                                       "s": meta(_scale_shape(tuple(p.shape)), torch.float32)}, params_abs)
+        return AdamWState(meta((), torch.int32), f32(), mk(), mk())
+    return AdamWState(meta((), torch.int32), f32(), f32(), f32())
+
+
 def global_norm(tree: Any) -> torch.Tensor:
     return torch.sqrt(sum(_norm_sq(leaf) for _, leaf in tree_leaves(tree)))
 

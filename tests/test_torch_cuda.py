@@ -30,7 +30,11 @@
 # and a reduced zamba2 (Mamba2 layers, shared attention blocks) whose
 # prefill runs the kernel once a shared invocation and matches the CPU,
 # whose graph decode equals its eager decode, and which the serving CLI
-# serves.  This file imports neither jax nor the JAX package, so it runs
+# serves; a reduced zamba2 train step through the flash backward at head
+# dim 112, each call against the plain backward in float64; and the
+# one-card DeviceMesh (NCCL, world size 1), a prefill cell's specs leaving
+# reduced dbrx's and zamba2's outputs bit for bit.  This file imports
+# neither jax nor the JAX package, so it runs
 # on a machine that has only the port:
 #
 #     PYTHONPATH=src python -m pytest tests/test_torch_cuda.py -q
@@ -1644,3 +1648,92 @@ def test_moe_train_step_gradients_repeat_bitwise(cuda):
     assert torch.equal(runs[0][0], runs[1][0])
     for path, g in runs[0][2].items():
         assert torch.equal(g, runs[1][2][path]), path
+
+
+@pytest.mark.requires_cuda
+def test_zamba2_train_step_on_the_card_runs_the_backward_at_head_dim_112(cuda, monkeypatch):
+    """Reduced zamba2-7b with its shared blocks' published head dim of 112:
+    one value_and_grad on the card (remat, two microbatches) launches the
+    flash backward at 112 (padded to 128) once a shared invocation and
+    microbatch and never the plain one; each call's dq, dk, dv within
+    ``ref.BWD_TOL`` of the plain backward in float64 given the same output;
+    the loss within the train tests' tolerance of the same weights' on the
+    CPU, and every leaf, each shared block's slice and each layer's, a
+    finite nonzero gradient."""
+    from repro_torch.train.step import TrainSpec, value_and_grad
+
+    cfg = dataclasses.replace(reduced_config(get_config("zamba2-7b")), head_dim=112)
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(0)
+    card = Model(cfg).init_params(gen)
+    mamba2.spread_zero_inits_(card.named_parameters(), gen)
+    host = Model(cfg, device="cpu")
+    host.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    toks = np.random.default_rng(4).integers(4, cfg.vocab_size, (4, 128)).astype(np.int32)
+    calls = []
+    real = flash_ops._backward
+
+    def held(*args):
+        grads = real(*args)
+        calls.append(([a.clone() if hasattr(a, "clone") else a for a in args], [g.clone() for g in grads]))
+        return grads
+
+    monkeypatch.setattr(flash_ops, "_backward", held)
+    spec = TrainSpec(microbatches=2, remat=True)
+    flash_ops.reset_launches()
+    loss, _, got = value_and_grad(card, card.params, {"tokens": torch.from_numpy(toks).to(cuda)}, spec)
+    invocations = 3  # after layers 2, 4 and 6 of the reduced pattern
+    assert flash_ops.BWD_LAUNCHES_BY_DIM == {112: invocations * 2} and flash_ops.PLAIN_BWD_CALLS == 0
+    assert flash_ops.LAUNCHES_BY_DIM == {112: 2 * invocations * 2}
+    assert len(calls) == invocations * 2
+    for args, grads in calls:
+        q, k, v, out, _, dout, causal, window, scale, cap = args
+        want = flash_attention_bwd_plain(q.double(), k.double(), v.double(), dout.double(), out.double(),
+                                         causal=causal, window=window, scale=scale, logit_softcap=cap)
+        agree = bwd_agreement(grads, want)
+        assert agree["ok"], agree
+    monkeypatch.setattr(flash_ops, "_backward", real)
+    want_loss, _, _ = value_and_grad(host, host.params, {"tokens": torch.from_numpy(toks)}, spec)
+    assert abs(float(loss) - float(want_loss)) <= 2e-3 * abs(float(want_loss))
+    for path, g in got.items():
+        parts = g if path.startswith(("groups.", "shared.")) else g[None]
+        for i, part in enumerate(parts):
+            assert bool(torch.isfinite(part).all()) and float(part.abs().max()) > 0, (path, i)
+
+
+@pytest.mark.requires_cuda
+def test_smoke_mesh_on_the_card_leaves_outputs_bitwise(cuda):
+    """launch/mesh.make_smoke_mesh on the card: a (1, 1) DeviceMesh over
+    ("data", "model") on a one-process NCCL group; with the specs a prefill
+    cell installs (sharding.prefill_specs), reduced dbrx-132b's and
+    zamba2-7b's forward and prefill bitwise equal to without them."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch import sharding
+    from repro_torch.models import shardctx
+    from repro_torch.models.common import tree_leaves
+
+    started = not dist.is_initialized()
+    mesh = mesh_mod.make_smoke_mesh()
+    try:
+        assert mesh.device_type == "cuda" and mesh.mesh_dim_names == ("data", "model")
+        assert tuple(mesh.shape) == (1, 1) and dist.get_backend() == "nccl" and dist.get_world_size() == 1
+        for arch in ("dbrx-132b", "zamba2-7b"):
+            cfg = reduced_config(get_config(arch))
+            gen = torch.Generator(device=cuda)
+            gen.manual_seed(1)
+            model = Model(cfg).init_params(gen)
+            toks = torch.randint(4, cfg.vocab_size, (4, 64), device=cuda, generator=gen, dtype=torch.int32)
+            outs = []
+            for specs in ({}, sharding.prefill_specs(mesh, cfg)):
+                with shardctx.installed(specs, mesh), torch.inference_mode():
+                    logits, _ = model({"tokens": toks})
+                    last, cache = model.prefill({"tokens": toks})
+                outs.append([logits, last] + [t for _, t in tree_leaves(cache)])
+            assert len(outs[0]) == len(outs[1])
+            for a, b in zip(*outs):
+                assert torch.equal(a, b), arch
+    finally:
+        if started:
+            dist.destroy_process_group()

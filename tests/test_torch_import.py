@@ -60,6 +60,10 @@ import repro_torch.train.grad_compress
 import repro_torch.train.checkpoint
 import repro_torch.train.step
 import repro_torch.launch.train
+import repro_torch.models.shardctx
+import repro_torch.launch.mesh
+import repro_torch.launch.sharding
+import repro_torch.launch.specs
 from repro_torch import QueryServer
 from repro_torch.configs.base import list_archs
 assert len(list_archs()) == 10
