@@ -283,7 +283,19 @@ Phases, each of which must pass for the exit code to be 0:
    zamba2-7b's forward and prefill bitwise equal to those without them;
 27. the serving path at starcoder2-15b's published width and depth (40
    layers, d_model 6144, 48 heads over 4 kv heads of 128; 15.96 B
-   parameters, ~32 GB in bf16) with phase 26's checks.
+   parameters, ~32 GB in bf16) with phase 26's checks;
+28. the dry run's reckoning (``launch/dryrun.run_cell`` on the meta
+   device, H100 SXM5 constants) against the card: on the (1, 1) stand-in at
+   each phase's own shape, phase 15's starcoder2-3b train step (8 x 2048 in
+   4 microbatches, remat) and gemma2-9b's and rwkv6-3b's prefill at (a)
+   (run once more here, after a warm-up, with the weights the model
+   declares): each kernel's calls equal to the card's launches for that
+   step or prefill, the reckoned peak_device_bytes within 10% of
+   max_memory_allocated over it, the reckoned bound max(compute, memory)
+   no greater than its device time; then one production cell of each
+   kind on both meshes (starcoder2-15b train_4k, gemma2-9b prefill_32k,
+   zamba2-7b decode_32k, rwkv6-3b long_500k) with its trace time and
+   terms; the records go to the ``reckoning`` folder beside ``--out``.
 
 Phases 12 and 13 count their own segreduce launches (a CUDA graph's replay
 counts the launches it captured); the kernels' line adds them to phase 4's,
@@ -336,9 +348,13 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
 
-HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
+if os.path.isdir(os.path.join(SRC, "repro_torch")):
+    sys.path.insert(0, SRC)
+try:  # the H100 SXM's device memory rate and bf16 dense tensor-core peak, kept with the roofline's
+    from repro_torch.roofline.analysis import HBM_BW as HBM_BYTES_PER_S, PEAK_FLOPS as BF16_OPS_PER_S
+except ImportError:  # outside a checkout: main() says so and exits
+    HBM_BYTES_PER_S = BF16_OPS_PER_S = None
 F32_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
-BF16_OPS_PER_S = 989e12     # H100 SXM bf16 tensor cores, dense
 TF32_OPS_PER_S = 495e12     # H100 SXM tf32 tensor cores, dense
 DECODE_TOL = 0.15           # the JAX package's decode-consistency tolerance
 PHASE_BUDGET_S = 1050       # the phases' aim, inside the 1,200 s limit with the machine's own start
@@ -3431,6 +3447,145 @@ def mesh_path(torch, fails: Failures, seed: int, record: dict) -> dict:
     return report
 
 
+# ---------------------------------------------------------------------------
+# phase 28: the dry run's reckoning against the card
+# ---------------------------------------------------------------------------
+
+# the reckoned peak against the card's max_memory_allocated over the step
+RECKON_PEAK_TOL = 0.10
+# one cell of each kind on both production meshes
+RECKON_PRODUCTION = (("starcoder2-15b", "train_4k"), ("gemma2-9b", "prefill_32k"), ("zamba2-7b", "decode_32k"),
+                     ("rwkv6-3b", "long_500k"))
+
+
+def reckon_one_card(arch: str, cell, out_dir: str, probe=None) -> dict:
+    """launch/dryrun.run_cell of ``arch`` at ``cell`` on the (1, 1) stand-in
+    of the production axes, its record written to ``out_dir``."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import ProductionMesh
+
+    return dryrun.run_cell(arch, cell, False, out_dir, probe=probe, tag="one_card",
+                           mesh=ProductionMesh(("data", "model"), (1, 1)))
+
+
+def card_prefill(torch, arch: str, B: int, S: int, kops, seed: int) -> dict:
+    """One prefill of ``arch`` at full width on B x S tokens (weights as the
+    model declares them, not drawn: the memory, the launches and the time
+    do not depend on their values), after one to warm up: its kernel
+    launches, the card's max_memory_allocated over it and its device ms."""
+    import gc
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.transformer import Model
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = Model(get_config(arch))
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    tokens = torch.randint(4, model.cfg.vocab_size, (B, S), dtype=torch.int32, device="cuda", generator=gen)
+
+    def prefill():
+        with torch.inference_mode():
+            out = model.prefill({"tokens": tokens})
+        torch.cuda.synchronize()
+        return out
+
+    prefill()  # to warm up; its outputs are dropped
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = kops.LAUNCHES
+    events = trace_card(torch, prefill)
+    reading = {"launches": kops.LAUNCHES - before, "peak_bytes": torch.cuda.max_memory_allocated(),
+               "device_ms": sum(device_us(ev) for ev in events) / 1e3 if events is not None else None}
+    del model, tokens
+    gc.collect()
+    torch.cuda.empty_cache()
+    return reading
+
+
+def reckoning_path(torch, fails: Failures, record: dict, train_report: dict, flash_ops, wkv6_ops, seed: int,
+                   out_dir: str) -> dict:
+    """Phase 28: launch/dryrun.run_cell reckons three one-card cells that
+    earlier phases run, on the (1, 1) stand-in at each phase's own shape,
+    and each is held against the card: phase 15's starcoder2-3b train step
+    (its steps' readings), and gemma2-9b's and rwkv6-3b's prefill at (a)
+    (run here once more).  Each kernel's calls equal the card's launches,
+    the reckoned peak_device_bytes lies within RECKON_PEAK_TOL of
+    max_memory_allocated over the step, and the reckoned bound, max(compute,
+    memory) from the H100 SXM5 constants, is no greater than the step's
+    device time.  Then one production cell of each kind on both meshes,
+    with its trace time and terms."""
+    import dataclasses
+
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.launch import dryrun
+    from repro_torch.roofline import analysis
+
+    report: dict = {"cells": [], "production": []}
+    cells = [
+        ("starcoder2-3b", ShapeCell("phase15_train", TRAIN_SEQ, TRAIN_GLOBAL_BATCH, "train"),
+         {"microbatches": TRAIN_MICROBATCHES}, None),
+        (SERVE_ARCH, ShapeCell("phase7_prefill_a", SERVE_SCENARIOS["a"][1], SERVE_SCENARIOS["a"][0], "prefill"),
+         None, flash_ops),
+        (RWKV_ARCH, ShapeCell("phase10_prefill_a", RWKV_SCENARIOS["a"][1], RWKV_SCENARIOS["a"][0], "prefill"),
+         None, wkv6_ops),
+    ]
+    for arch, cell, probe, kops in cells:
+        rec = reckon_one_card(arch, cell, out_dir, probe)
+        row = analysis.analyze_record(rec, cell=cell)
+        bound_ms = max(row.compute_s, row.memory_s) * 1e3
+        calls = {k: v["calls"] for k, v in rec["ops"]["kernels"].items()}
+        if kops is None:  # phase 15's steps after the first (the accumulators held)
+            steps = train_report["steps"][1:]
+            last = steps[-1]
+            card = {"launches": {"flash_attention": last["fwd_launches"], "flash_attention_bwd": last["bwd_launches"]},
+                    "peak_bytes": last["peak_gib"] * 2**30, "device_ms": last.get("device_ms"),
+                    "steps_peak_gib": [r["peak_gib"] for r in steps]}
+        else:
+            reading = card_prefill(torch, arch, cell.global_batch, cell.seq_len, kops, seed)
+            name = "flash_attention" if kops is flash_ops else "wkv6"
+            card = dict(reading, launches={name: reading["launches"]})
+        peak = rec["memory"]["peak_device_bytes"]
+        entry = {"arch": arch, "cell": dataclasses.asdict(cell), "t_trace_s": rec["t_trace_s"], "calls": calls,
+                 "card": card, "reckoned_peak_bytes": peak, "peak_ratio": peak / card["peak_bytes"],
+                 "compute_ms": row.compute_s * 1e3, "memory_ms": row.memory_s * 1e3,
+                 "memory_fused_ms": row.memory_fused_s * 1e3, "bound_ms": bound_ms,
+                 "bound_over_device": bound_ms / card["device_ms"] if card["device_ms"] else None}
+        report["cells"].append(entry)
+        fails.check(calls == {k: float(v) for k, v in card["launches"].items()},
+                    f"reckoning {arch} {cell.name}: kernel calls {calls} differ from the card's launches "
+                    f"{card['launches']}")
+        fails.check(abs(entry["peak_ratio"] - 1) <= RECKON_PEAK_TOL,
+                    f"reckoning {arch} {cell.name}: reckoned peak {peak / 2**30:.2f} GiB is not within "
+                    f"{RECKON_PEAK_TOL:.0%} of the card's {card['peak_bytes'] / 2**30:.2f} GiB")
+        fails.check(card["device_ms"] is not None and bound_ms <= card["device_ms"],
+                    f"reckoning {arch} {cell.name}: the reckoned bound {bound_ms:.1f} ms exceeds the device time "
+                    f"{card['device_ms']} ms")
+        device = "not measured" if card["device_ms"] is None else (
+            f"{card['device_ms']:.1f} ms of device time (ratio {entry['bound_over_device']:.4f})")
+        print(f"  {arch} {cell.name} ({cell.global_batch} x {cell.seq_len}; traced in {rec['t_trace_s']} s): "
+              f"kernel calls {calls}, card {card['launches']}; peak reckoned {peak / 2**30:.2f} GiB, card "
+              f"{card['peak_bytes'] / 2**30:.2f} GiB (ratio {entry['peak_ratio']:.4f}); bound {bound_ms:.1f} ms "
+              f"(compute {entry['compute_ms']:.1f}, memory {entry['memory_ms']:.1f}, fused "
+              f"{entry['memory_fused_ms']:.1f}) against {device}", flush=True)
+    for arch, shape in RECKON_PRODUCTION:
+        for multi_pod in (False, True):
+            rec = dryrun.run_cell(arch, shape, multi_pod, out_dir)
+            row = analysis.analyze_record(rec)
+            entry = {"arch": arch, "shape": shape, "mesh": rec["mesh"], "t_trace_s": rec["t_trace_s"],
+                     "peak_gb": row.peak_gb, "compute_s": row.compute_s, "memory_s": row.memory_s,
+                     "memory_fused_s": row.memory_fused_s, "collective_s": row.collective_s,
+                     "dominant": row.dominant}
+            report["production"].append(entry)
+            print(f"  {arch} {shape} on {rec['mesh']} (H100 SXM5 constants; traced in {rec['t_trace_s']} s): "
+                  f"{row.peak_gb:.2f} GB a device, compute {row.compute_s:.4f} s, memory {row.memory_s:.4f} s "
+                  f"(fused {row.memory_fused_s:.4f}), collective {row.collective_s:.4f} s: {row.dominant}",
+                  flush=True)
+    record["reckoning"] = report
+    return report
+
+
 def nvidia_smi_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -3454,10 +3609,9 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device — the port's smoke run needs one card", file=sys.stderr)
         return 2
-    if not os.path.isdir(os.path.join(SRC, "repro_torch")):
+    if not os.path.isdir(os.path.join(SRC, "repro_torch")) or HBM_BYTES_PER_S is None:
         print(f"chip_smoke: {SRC}/repro_torch not found — run from a checkout", file=sys.stderr)
         return 2
-    sys.path.insert(0, SRC)
     import repro_torch
     from repro_torch.kernels.flash import kernel as flash_kernel
     from repro_torch.kernels.flash import ops as flash_ops
@@ -3779,6 +3933,13 @@ def main(argv=None) -> int:
                                  args.seed, record, profile=False, all_logits=True)
     print(f"  {time.perf_counter() - t0:.0f} s; phases 1-27 in {time.perf_counter() - t_start:.0f} s; on "
           f"{nvidia_smi_line()}", flush=True)
+    # 28. the dry run's reckoning against the card
+    phase_start[28] = time.perf_counter() - t_start
+    print("the dry run's reckoning (launch/dryrun.py, meta device) against the card:", flush=True)
+    t0 = time.perf_counter()
+    reckoning_path(torch, fails, record, train, flash_ops, wkv6_ops, args.seed,
+                   os.path.join(os.path.dirname(args.out), "reckoning"))
+    print(f"  {time.perf_counter() - t0:.0f} s; on {nvidia_smi_line()}", flush=True)
     trains = (train, moe_train, hubert_train, gemma3_train, zamba2_train)
     fwd_by_dim, bwd_by_dim = {}, {}
     for rep_ in [v for k, v in record.items() if k.startswith("serve_")]:

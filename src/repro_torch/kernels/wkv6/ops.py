@@ -4,7 +4,10 @@
 # (kernel.py, csrc/wkv6.cu and csrc/wkv6_bwd.cu) or raises.  There is no
 # fallback from the card to the plain versions.  When an input requires
 # grad, the call goes through the autograd Function ``WKV6``; without a
-# gradient (serving) the forward launches alone.
+# gradient (serving) the forward launches alone.  On the meta device (the
+# dry run, launch/dryrun.py) each route returns outputs of the card path's
+# shapes and types and computes nothing: it reports the call, the kernel's
+# products and its bytes to the active op counter (roofline/op_count.py).
 from __future__ import annotations
 
 from typing import Optional, Tuple
@@ -22,6 +25,9 @@ from .ref import wkv6_bwd_plain, wkv6_plain
 LAUNCHES = 0
 BWD_LAUNCHES = 0
 PLAIN_BWD_CALLS = 0
+# the SMs of the card the meta route reckons (H100 SXM5), which decide the
+# forward's segments
+H100_SMS = 132
 
 
 def reset_launches() -> None:
@@ -51,12 +57,60 @@ def _check(r, k, v, log_w, u, S0) -> None:
         raise ValueError(f"wkv6's inputs lie on {sorted(map(str, devices))}")
 
 
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def _meta_forward(r, k, v, log_w, u, S0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The meta route of the forward: what kernel.launch allocates (u in
+    f32, y, the final state, and the segments' states where an H100's SMs
+    cut the sequence), and the call reported with its products, the state's
+    share of y and its update, two K x K products a token and head (4 K^2
+    FLOPs, the tensor-core count of the kernel's bound in PERF.md; split
+    TF32's three passes a product not counted), and its bytes."""
+    from repro_torch.roofline import op_count
+
+    B, S, H, K = r.shape
+    u32 = u.to(torch.float32).contiguous()
+    y = torch.empty((B, S, H, K), dtype=torch.float32, device=r.device)
+    s_out = torch.empty((B, H, K, K), dtype=torch.float32, device=r.device)
+    n_seg = kernel.segments(B, H, S, K, H100_SMS)
+    parts = () if n_seg == 1 else (torch.empty((B, H, n_seg, K, K), dtype=torch.float32, device=r.device),
+                                   torch.empty((B, H, n_seg, K), dtype=torch.float32, device=r.device))
+    op_count.report_kernel("wkv6", 4.0 * K * K * B * S * H, _nbytes(r, k, v, log_w, u, S0, y, s_out))
+    del u32, parts
+    return y, s_out
+
+
+def _meta_backward(r, k, v, log_w, u, S0, dy, dS_out) -> tuple:
+    """The meta route of the backward: what kernel.launch_bwd allocates (u
+    in f32, the workspace of ``bwd_work_floats``, the gradients), and the
+    call reported with the gradient's five K x K products a token and head
+    (10 K^2 FLOPs, the tensor-core count of the backward's bound) and its
+    bytes."""
+    from repro_torch.roofline import op_count
+
+    B, S, H, K = r.shape
+    u32 = u.to(torch.float32).contiguous()
+    work = torch.empty(kernel.bwd_work_floats(B, S, H, K), dtype=torch.float32, device=r.device)
+    grads = (torch.empty_like(r), torch.empty_like(k), torch.empty_like(v),
+             torch.empty((B, S, H, K), dtype=torch.float32, device=r.device),
+             torch.empty((H, K), dtype=u.dtype, device=r.device),
+             torch.empty((B, H, K, K), dtype=torch.float32, device=r.device))
+    op_count.report_kernel("wkv6_bwd", 10.0 * K * K * B * S * H,
+                           _nbytes(r, k, v, log_w, u, S0, dy, dS_out, *grads))
+    del u32, work
+    return grads
+
+
 def _forward(r, k, v, log_w, u, S0) -> Tuple[torch.Tensor, torch.Tensor]:
     global LAUNCHES
+    if r.device.type == "meta":
+        return _meta_forward(r, k, v, log_w, u, S0)
     if r.device.type == "cpu":
         return wkv6_plain(r, k, v, log_w, u, S0)
     if r.device.type != "cuda":
-        raise ValueError(f"wkv6 runs on the CPU or a CUDA device, not {r.device}")
+        raise ValueError(f"wkv6 runs on the CPU, a CUDA device or meta, not {r.device}")
     for t in (r, k, v, log_w) + (() if S0 is None else (S0,)):
         if not t.is_contiguous():
             raise ValueError("wkv6 takes contiguous tensors on CUDA")
@@ -86,7 +140,11 @@ def _backward(r, k, v, log_w, u, S0, dy, dS_out) -> tuple:
         dt = torch.float64 if r.dtype == torch.float64 else torch.float32
         dr, dk, dv, dlw, du, ds0 = wkv6_bwd_plain(r, k, v, log_w, u, S0, dy.to(dt), dS_out, dtype=dt)
         return dr.to(r.dtype), dk.to(k.dtype), dv.to(v.dtype), dlw.to(log_w.dtype), du.to(u.dtype), ds0
+    if r.device.type not in ("cuda", "meta"):
+        raise ValueError(f"wkv6's gradient runs on the CPU, a CUDA device or meta, not {r.device}")
     dS_out = None if dS_out is None else dS_out.float().contiguous()
+    if r.device.type == "meta":
+        return _meta_backward(r, k, v, log_w, u, S0, dy.float().contiguous(), dS_out)
     grads = kernel.launch_bwd(r, k, v, log_w, u, S0, dy.float().contiguous(), dS_out)
     BWD_LAUNCHES += 1
     return grads

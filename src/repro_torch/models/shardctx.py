@@ -8,6 +8,10 @@
 # over a mesh of one device every pin is the identity, and a spec over a
 # larger mesh is refused when it is installed, never silently dropped.
 # With nothing installed each pin returns its input, as in the JAX package.
+# The dry run (launch/dryrun.py) reckons a production mesh on the meta
+# device: under ``reckoning(mesh)`` a spec over that stand-in is accepted,
+# and each pin reports its tensor and spec to the active op counter
+# (roofline/op_count.py) and returns its input unchanged.
 from __future__ import annotations
 
 import contextlib
@@ -31,6 +35,7 @@ class PartitionSpec(tuple):
 
 _HIDDEN_SPEC: Optional[PartitionSpec] = None  # for (B, S, d) residual activations
 _SPECS: Dict[str, PartitionSpec] = {}  # named constraint points (moe_xin, moe_h, ...)
+_RECKONING: Any = None  # the stand-in mesh the dry run reckons over
 
 
 def mesh_axis_names(mesh: Any) -> Tuple[str, ...]:
@@ -60,7 +65,7 @@ def _checked(spec: Optional[PartitionSpec], mesh: Any) -> Optional[PartitionSpec
     if unknown:
         raise ValueError(f"shardctx: {spec!r} names axes {unknown} that the mesh {sizes} lacks")
     devices = math.prod(sizes.values())
-    if devices > 1:
+    if devices > 1 and not (_RECKONING is not None and mesh is _RECKONING):
         raise ValueError(f"shardctx: {spec!r} is over a mesh of {devices} devices {sizes}; the port runs "
                          "one card, and a layout over more devices is refused, not ignored")
     return PartitionSpec(*spec)
@@ -78,15 +83,38 @@ def set_spec(name: str, spec: Optional[PartitionSpec], mesh: Any = None) -> None
         _SPECS[name] = _checked(spec, mesh)
 
 
-def _pin(x: torch.Tensor, spec: Optional[PartitionSpec]) -> torch.Tensor:
-    """x under ``spec`` on a mesh of one device: x itself."""
+def _pin(x: torch.Tensor, spec: Optional[PartitionSpec], name: str) -> torch.Tensor:
+    """x under ``spec`` on a mesh of one device, or reckoned: x itself."""
     if spec is not None and len(spec) > x.dim():
         raise ValueError(f"shardctx: {spec!r} has more entries than the tensor's {x.dim()} dimensions")
+    if spec is not None and _RECKONING is not None:
+        from repro_torch.roofline import op_count
+
+        op_count.report_pin(name, x, spec)
     return x
 
 
 def constrain(x: torch.Tensor, name: str) -> torch.Tensor:
-    return _pin(x, _SPECS.get(name))
+    return _pin(x, _SPECS.get(name), name)
+
+
+@contextlib.contextmanager
+def reckoning(mesh: Any):
+    """For the dry run: specs over ``mesh``, a production mesh's stand-in
+    (``launch/mesh.ProductionMesh``), are accepted for the block, and each
+    pin reports (name, shape, dtype, spec) to the active op counter.  A
+    torch DeviceMesh of more than one device is refused here too."""
+    global _RECKONING
+    devices = math.prod(mesh_axis_sizes(mesh).values())
+    if not isinstance(mesh.shape, Mapping) and devices > 1:
+        raise ValueError(f"shardctx: a DeviceMesh of {devices} devices is refused; the port runs one card, "
+                         "and the dry run reckons a production mesh's stand-in")
+    prev = _RECKONING
+    _RECKONING = mesh
+    try:
+        yield
+    finally:
+        _RECKONING = prev
 
 
 @contextlib.contextmanager
@@ -122,4 +150,4 @@ def installed(specs: Dict[str, PartitionSpec], mesh: Any):
 def constrain_hidden(x: torch.Tensor) -> torch.Tensor:
     """Pin a (B, S, d) activation to the installed layout (the identity when
     none is installed, and on a mesh of one device)."""
-    return _pin(x, _HIDDEN_SPEC)
+    return _pin(x, _HIDDEN_SPEC, "hidden")

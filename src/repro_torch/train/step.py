@@ -100,6 +100,39 @@ def split_microbatches(batch: Dict[str, torch.Tensor], n_mb: int) -> List[Dict[s
     return [{k: v[i] for k, v in parts.items()} for i in range(n_mb)]
 
 
+def zeroed_accumulators(params: Dict[str, Any], spec: TrainSpec,
+                        acc: Optional[Dict[str, torch.Tensor]] = None) -> Dict[str, torch.Tensor]:
+    """The gradient accumulators of a step, keyed by parameter path in
+    ``spec.accum_dtype``: ``acc`` zeroed, or new zeros."""
+    if acc is None:
+        return {path: torch.zeros(p.shape, dtype=spec.accum_dtype, device=p.device)
+                for path, p in tree_leaves(params)}
+    for t in acc.values():
+        t.zero_()
+    return acc
+
+
+def microbatch_grad(
+    model: Model, params: Dict[str, Any], mb: Dict[str, torch.Tensor], spec: TrainSpec,
+    acc: Dict[str, torch.Tensor],
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One microbatch's loss and metrics (detached); its gradient is added
+    into ``acc``."""
+    tree, pairs = _grad_leaves(params)
+    loss, metrics = lm_loss(tree, mb, model.cfg, remat=spec.remat)
+    loss.backward()
+    _accumulate(acc, pairs)
+    return loss.detach(), {k: v.detach() for k, v in metrics.items()}
+
+
+def averaged(acc: Dict[str, torch.Tensor], n_mb: int) -> Dict[str, torch.Tensor]:
+    """The accumulated gradient divided by the microbatch count, in place."""
+    if n_mb > 1:
+        for t in acc.values():
+            t.div_(n_mb)
+    return acc
+
+
 def value_and_grad(
     model: Model, params: Dict[str, Any], batch: Dict[str, torch.Tensor], spec: TrainSpec,
     acc: Optional[Dict[str, torch.Tensor]] = None,
@@ -109,28 +142,24 @@ def value_and_grad(
     parameter path, in ``spec.accum_dtype``: the JAX package's
     value_and_grad of lm_loss, accumulated and divided as its train_step
     does.  ``acc`` holds accumulators to reuse (zeroed here)."""
-    if acc is None:
-        acc = {path: torch.zeros(p.shape, dtype=spec.accum_dtype, device=p.device)
-               for path, p in tree_leaves(params)}
-    else:
-        for t in acc.values():
-            t.zero_()
+    acc = zeroed_accumulators(params, spec, acc)
     n_mb = spec.microbatches
     loss_sum = torch.zeros((), dtype=torch.float32, device=model.device)
     metric_sums: Dict[str, torch.Tensor] = {}
     for mb in split_microbatches(batch, n_mb):
-        tree, pairs = _grad_leaves(params)
-        loss, metrics = lm_loss(tree, mb, model.cfg, remat=spec.remat)
-        loss.backward()
-        _accumulate(acc, pairs)
-        loss_sum = loss_sum + loss.detach()
+        loss, metrics = microbatch_grad(model, params, mb, spec, acc)
+        loss_sum = loss_sum + loss
         for k, v in metrics.items():
-            metric_sums[k] = metric_sums.get(k, 0.0) + v.detach()
-    if n_mb > 1:
-        for t in acc.values():
-            t.div_(n_mb)
+            metric_sums[k] = metric_sums.get(k, 0.0) + v
     metrics = {k: v / n_mb for k, v in metric_sums.items()}
-    return loss_sum / n_mb, metrics, acc
+    return loss_sum / n_mb, metrics, averaged(acc, n_mb)
+
+
+def update(opt_cfg: AdamWConfig, params: Any, opt_state: AdamWState,
+           grads: Dict[str, torch.Tensor]) -> Tuple[Any, AdamWState, Dict[str, torch.Tensor]]:
+    """AdamW's update of ``params`` and ``opt_state`` (in place) by the
+    gradient keyed by parameter path."""
+    return adamw_update(opt_cfg, _tree_from_paths(params, grads), opt_state, params)
 
 
 def make_train_step(
@@ -141,14 +170,15 @@ def make_train_step(
     dim is split into ``spec.microbatches`` accumulation steps, bounding
     activation memory; the parameters and the optimizer state are updated
     in place (optimizer.adamw_update).  The f32 accumulators are allocated
-    at the first step and kept."""
+    at the first step and kept.  A step is zeroed_accumulators, then
+    microbatch_grad for each microbatch, averaged and update (the dry run,
+    launch/dryrun.py, traces those parts)."""
     held: Dict[str, Any] = {}
 
     def train_step(params, opt_state: AdamWState, batch):
         loss, metrics, grads = value_and_grad(model, params, batch, spec, held.get("acc"))
         held["acc"] = grads
-        grad_tree = _tree_from_paths(params, grads)
-        new_params, new_state, opt_metrics = adamw_update(opt_cfg, grad_tree, opt_state, params)
+        new_params, new_state, opt_metrics = update(opt_cfg, params, opt_state, grads)
         metrics = dict(metrics)
         metrics.update(opt_metrics)
         metrics["loss"] = loss

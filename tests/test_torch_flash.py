@@ -168,8 +168,24 @@ def test_cpu_tensors_launch_nothing_and_bad_inputs_raise():
         ops.flash_attention(q, k, torch.zeros(1, 5, 1, 8))
     with pytest.raises(TypeError):
         ops.flash_attention(q, k.to(torch.bfloat16), v)
-    with pytest.raises(ValueError):
-        ops.flash_attention(q.to("meta"), k.to("meta"), v.to("meta"))
+    # meta takes the dry run's route (an output of the card path's shape, no
+    # computation); a device the wrapper does not run on is refused
+    out = ops.flash_attention(q.to("meta"), k.to("meta"), v.to("meta"))
+    assert out.device.type == "meta" and out.shape == q.shape and ops.LAUNCHES == 0
+    with pytest.raises(ValueError, match="not xpu"):
+        ops.flash_attention(*(_Elsewhere.of(t) for t in (q, k, v)))
+
+
+class _Elsewhere(torch.Tensor):
+    """A CPU tensor that says it lies on an XPU."""
+
+    @staticmethod
+    def of(t: torch.Tensor) -> "_Elsewhere":
+        return torch.Tensor._make_subclass(_Elsewhere, t)
+
+    @property
+    def device(self) -> torch.device:
+        return torch.device("xpu")
 
 
 @pytest.mark.parametrize("D", kernel.HEAD_DIMS)

@@ -64,6 +64,9 @@ import repro_torch.models.shardctx
 import repro_torch.launch.mesh
 import repro_torch.launch.sharding
 import repro_torch.launch.specs
+import repro_torch.launch.dryrun
+import repro_torch.roofline.op_count
+import repro_torch.roofline.analysis
 from repro_torch import QueryServer
 from repro_torch.configs.base import list_archs
 assert len(list_archs()) == 10

@@ -188,8 +188,24 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         ops.wkv6(r, k, v, lw.double(), u)
     with pytest.raises(TypeError):
         ops.wkv6(r, k.to(torch.bfloat16), v, lw, u)
-    with pytest.raises(ValueError, match="meta"):
-        ops.wkv6(*(t.to("meta") for t in (r, k, v, lw, u)))
+    # meta takes the dry run's route (outputs of the card path's shapes, no
+    # computation); a device the wrapper does not run on is refused
+    y, s_out = ops.wkv6(*(t.to("meta") for t in (r, k, v, lw, u)))
+    assert y.device.type == "meta" and y.shape == r.shape and s_out.shape == s0.shape
+    with pytest.raises(ValueError, match="not xpu"):
+        ops.wkv6(*(_Elsewhere.of(t) for t in (r, k, v, lw, u)))
+
+
+class _Elsewhere(torch.Tensor):
+    """A CPU tensor that says it lies on an XPU."""
+
+    @staticmethod
+    def of(t: torch.Tensor) -> "_Elsewhere":
+        return torch.Tensor._make_subclass(_Elsewhere, t)
+
+    @property
+    def device(self) -> torch.device:
+        return torch.device("xpu")
 
 
 def test_row_split_fills_the_card():
