@@ -295,13 +295,39 @@ Phases, each of which must pass for the exit code to be 0:
    no greater than its device time; then one production cell of each
    kind on both meshes (starcoder2-15b train_4k, gemma2-9b prefill_32k,
    zamba2-7b decode_32k, rwkv6-3b long_500k) with its trace time and
-   terms; the records go to the ``reckoning`` folder beside ``--out``.
+   terms; the records go to the ``reckoning`` folder beside ``--out``;
+29. the port's examples and tools, in process through each file's
+   ``main(argv)``: examples/torch_quickstart.py (SQL, MapReduce as a
+   plan-cache hit, the raw plan and the ReferenceInterpreter agree; each
+   query's agg_method and segreduce launches printed);
+   examples/torch_bigdata_sql.py at 2,000,000 rows (the size the JAX
+   package's example names), its 9 queries and 2 MapReduce jobs each held
+   against a numpy oracle (``weblog_oracle``: integers exactly, float sums
+   within rtol 1e-4), the repeated url query and the url MapReduce job
+   plan-cache hits, the scheduler's coverage; examples/torch_serve_lm.py
+   --full (gemma2-9b at published width, 4 x 2048 + 32) run twice: 42 flash
+   launches a prefill, the first run's prefills' first and last layers'
+   calls held against the plain version, the second run unchecked (its
+   times are the ones reported), greedy tokens bitwise equal, finite
+   logits, the int8 cache's bytes and error printed;
+   examples/torch_train_lm.py --full (75.9M parameters, head dim 64) over
+   75 steps with a failure at 60 in a temporary directory: the first
+   step's first and last layers' flash calls held against the plain
+   version, and one backward call of the first and of the last step
+   against the plain backward in float64, one restore from step 50, the
+   end at 75, a finite falling loss, the flash backward once a layer and
+   step and the plain backward never, the final checkpoint restored
+   bitwise; then
+   scripts/torch_irlint.py --demo's exit code, scripts/torch_trace_summary.py
+   over a trace the quickstart's session saved under ``Session.profile()``,
+   and scripts/torch_probe.py starcoder2-3b train_4k.
 
 Phases 12 and 13 count their own segreduce launches (a CUDA graph's replay
 counts the launches it captured); the kernels' line adds them to phase 4's,
 and phase 18's wkv6 forward launches to phase 10's; phases 19-24's flash
 launches join phases 7 and 15's, phases 20 and 23-25's backward phase
-15's; the flash entries list each head dim with its launches, its
+15's, and phase 29's segreduce, flash and flash backward launches join
+them too; the flash entries list each head dim with its launches, its
 costliest shape's time, bound, plain and library times.
 
 What is cut from TPC-H: Q15 keeps only its revenue view (no outer max or
@@ -327,7 +353,12 @@ time goes (no profile).  dbrx-132b (132 B
 parameters), llama4-scout (109 B) and qwen2-vl-72b (72.7 B) do not fit one
 card: phases 19, 20 and 26 cut their depth only, to the layers printed;
 zamba2-7b's training state (14 bytes a parameter, 98 GB) does not either:
-phase 25 trains the whole scan steps printed.
+phase 25 trains the whole scan steps printed.  Phase 29 holds the web-log
+results against numpy, not against the ReferenceInterpreter, which walks
+rows in Python (seconds a query at 2,000,000 rows; tests/test_torch_examples.py
+holds ``weblog_oracle`` against it on the CPU), and holds only the first and
+last layers' flash calls of the first serving run's prefills and of the
+training run's first step, and two of its 1,020 backward calls.
 
 The last lines are the kernels' JSON record and {"ok": true, "device": ...}.
 The script exits non-zero, printing neither, without a CUDA device or
@@ -1408,7 +1439,7 @@ class CallRecorder:
             key = self.key(self.label, args, kw)
             st = self.stats.setdefault(key, {"calls": 0, "ok": True, "max_abs_err": 0.0, "worst": 0.0, "rel": 0.0})
             if key not in self.inputs or agree["worst"] > st["worst"]:
-                self.inputs[key] = (tuple(a.clone() if hasattr(a, "clone") else a for a in args), dict(kw))
+                self.inputs[key] = (tuple(a.detach().clone() if hasattr(a, "clone") else a for a in args), dict(kw))
             st["calls"] += 1
             st["ok"] = st["ok"] and agree["ok"]
             for x in ("max_abs_err", "worst", "rel"):
@@ -1434,8 +1465,11 @@ class CallRecorder:
 
 
 def flash_recorder(flash_ops, plain, agreement, fails: Failures) -> CallRecorder:
+    import torch
+
     def compare(args, kw, out):
-        return agreement(out, plain(*args, **kw))
+        with torch.no_grad():  # a training forward's check adds nothing to its graph
+            return agreement(out.detach(), plain(*args, **kw))
 
     def key(label, args, kw):
         q, k = args[0], args[1]
@@ -3586,6 +3620,362 @@ def reckoning_path(torch, fails: Failures, record: dict, train_report: dict, fla
     return report
 
 
+# ---------------------------------------------------------------------------
+# phase 29: the port's examples and command-line tools on the card
+# ---------------------------------------------------------------------------
+
+EXAMPLE_ROWS = 2_000_000  # the size examples/bigdata_sql.py's header names
+EXAMPLE_SERVE = ["--full", "--batch", "4", "--prompt-len", "2048", "--new", "32"]
+EXAMPLE_TRAIN_STEPS, EXAMPLE_TRAIN_FAIL = 75, 60
+EXAMPLE_TRAIN = ["--full", "--steps", str(EXAMPLE_TRAIN_STEPS), "--fail-at-step", str(EXAMPLE_TRAIN_FAIL)]
+EXAMPLE_TRAIN_RESTORE = 50  # the latest checkpoint at step 60 (one every 25 steps)
+# the steps run: up to the failure, then again from the restored checkpoint
+EXAMPLE_TRAIN_RUN = EXAMPLE_TRAIN_FAIL + EXAMPLE_TRAIN_STEPS - EXAMPLE_TRAIN_RESTORE
+EXAMPLE_PROBE = ["starcoder2-3b", "train_4k", "phase29"]
+# scripts/irlint.py --demo of the JAX package exits 1 (three lint warnings);
+# tests/test_torch_examples.py holds the port's tool to it
+IRLINT_DEMO_RC = 1
+WEBLOG_RTOL = 1e-4  # float sums against float64
+
+
+def load_file(rel: str):
+    """A file of the repo's examples/ or scripts/ (neither is a package) as a
+    module."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(os.path.splitext(os.path.basename(rel))[0], os.path.join(ROOT, rel))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def weblog_oracle(tables: dict) -> list:
+    """The results of examples/torch_bigdata_sql.py's 9 queries and 2
+    MapReduce jobs, in their order, by numpy from its tables: lists of row
+    tuples (a url as its dictionary code, its place among the sorted
+    distinct urls; float sums in float64), the SUM of bytes an int wrapped
+    to int32 as the engine wraps it (ROADMAP C5), and for the top-5 query
+    ``{"limit": 5, "counts": {url: count}}``."""
+    logs, servers, mirrors = tables["logs"], tables["servers"], tables["mirrors"]
+    urls = logs["url"].tolist()
+    code = {u: i for i, u in enumerate(sorted(set(urls)))}
+    url = np.fromiter(map(code.__getitem__, urls), dtype=np.int64, count=len(urls))
+    status, sid = logs["status"], logs["server_id"]
+    latency = logs["latency"].astype(np.float64)
+
+    def by_key(keys, *aggs) -> list:
+        ks, inv = np.unique(keys, return_inverse=True)
+        cols = []
+        for how, v in aggs:
+            if how == "count":
+                cols.append(np.bincount(inv, minlength=len(ks)).tolist())
+            elif how == "sum":
+                cols.append(np.bincount(inv, weights=v, minlength=len(ks)).tolist())
+            else:
+                m = np.full(len(ks), -np.inf)
+                np.maximum.at(m, inv, v)
+                cols.append(m.tolist())
+        return [tuple([k] + [c[i] for c in cols]) for i, k in enumerate(ks.tolist())]
+
+    # the star join: each log row's server's region (ids unique)
+    region = np.full(int(servers["id"].max()) + 1, -1, dtype=np.int64)
+    region[servers["id"]] = servers["region"]
+    r = region[sid]
+    joined = r >= 0
+    q0 = by_key(r[joined], ("count", None), ("sum", latency[joined]))
+    # the mirrors join: every mirror row of each status-500 log row's server
+    sel = status == 500
+    order = np.argsort(mirrors["id"], kind="stable")
+    ids, hosts = mirrors["id"][order], mirrors["host"][order]
+    lo = np.searchsorted(ids, sid[sel], "left")
+    n = np.searchsorted(ids, sid[sel], "right") - lo
+    first = np.repeat(lo, n) + np.arange(int(n.sum())) - np.repeat(np.cumsum(n) - n, n)
+    q1 = list(zip(np.repeat(url[sel], n).tolist(), hosts[first].tolist()))
+    url_counts = by_key(url, ("count", None))
+    total = int(logs["bytes"][status == 200].sum(dtype=np.int64))
+    return [
+        q0, q1, url_counts,
+        by_key(status, ("count", None)),
+        by_key(status, ("sum", latency)),
+        [(u,) for u in url[sel].tolist()],
+        (total + 2**31) % 2**32 - 2**31,
+        {"limit": 5, "counts": dict(url_counts)},
+        url_counts, url_counts,
+        by_key(status, ("max", latency)),
+    ]
+
+
+def weblog_agree(got, want, rtol: float = WEBLOG_RTOL) -> bool:
+    """One query's result against ``weblog_oracle``'s: integers exactly,
+    floats within ``rtol``, rows as multisets (sorted by their integer
+    columns); a top-k result holds the k largest counts, each at a url that
+    has it."""
+    if isinstance(want, dict):
+        counts = sorted(want["counts"].values(), reverse=True)[:want["limit"]]
+        return (isinstance(got, list) and sorted((c for _, c in got), reverse=True) == counts
+                and all(want["counts"].get(u) == c for u, c in got))
+    if not isinstance(want, list):
+        return got == want
+    if not isinstance(got, list) or len(got) != len(want):
+        return False
+    if not want:
+        return True
+    floats = np.array([isinstance(b, float) for b in want[0]])
+    g, w = np.asarray(got, dtype=np.float64), np.asarray(want, dtype=np.float64)  # ints < 2^53 stay exact
+    if g.shape != w.shape:
+        return False
+    keys = [g[:, j] for j in reversed(np.flatnonzero(~floats))]
+    g = g[np.lexsort(keys)] if keys else g
+    w = w[np.lexsort([w[:, j] for j in reversed(np.flatnonzero(~floats))])] if keys else w
+    return bool(np.array_equal(g[:, ~floats], w[:, ~floats])
+                and np.all(np.abs(g[:, floats] - w[:, floats]) <= rtol * np.abs(w[:, floats])))
+
+
+def run_example(fails: Failures, label: str, main, argv: list, **kw):
+    """``main(argv, **kw)`` of an example or tool, its printed lines
+    indented under ``label``; None (and a failure) where it raised."""
+    import io
+    import traceback
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    out = None
+    try:
+        with contextlib.redirect_stdout(buf):
+            out = main(argv, **kw)
+    except Exception:  # recorded as the phase's failure; the phase goes on
+        fails.check(False, f"{label} {' '.join(argv)} raised:\n{traceback.format_exc()}")
+    dt = time.perf_counter() - t0
+    print(f"  {label} {' '.join(argv)} ({dt:.1f} s):", flush=True)
+    for line in buf.getvalue().splitlines():
+        print("    " + line, flush=True)
+    return out, dt
+
+
+def examples_path(torch, flash_ops, plain, agreement, fails: Failures, record: dict, out_dir: str) -> dict:
+    """Phase 29: the port's examples and tools, in process, through their
+    ``main(argv)``: the quickstart; the web-log session at EXAMPLE_ROWS,
+    every result against ``weblog_oracle``, the repeated url query and the
+    url MapReduce job plan-cache hits, the scheduler's coverage; gemma2-9b
+    served at published width (EXAMPLE_SERVE) twice, 42 flash launches a
+    prefill, the first run's prefills' first and last layers' calls held
+    against the plain version, the second run unchecked (its prefill and
+    decode times are the ones reported), the greedy tokens of both runs
+    bitwise equal, finite logits; the 75.9M-parameter training run
+    (EXAMPLE_TRAIN) in a temporary directory: the first step's first and
+    last layers' forward calls held against the plain version, and one
+    backward call of the first step (the last layer's) and of the last
+    step (the first layer's) against the plain backward in float64
+    (BackwardProbe), one restore from step EXAMPLE_TRAIN_RESTORE, the end
+    at its last step, a finite and falling loss, the flash backward once a
+    layer and step and the plain backward never, the final checkpoint
+    restored bitwise equal to the state in memory; irlint's demo exit code, a
+    summary of a trace the quickstart's session saved under
+    ``Session.profile()``, and the probe of EXAMPLE_PROBE.  Returns the
+    kernels' launches in the phase."""
+    import gc
+    import tempfile
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.segreduce import ops as segreduce_ops
+    from repro_torch.launch.train import states_equal
+    from repro_torch.train.checkpoint import CheckpointManager
+
+    report: dict = {}
+    seg0 = dict(segreduce_ops.LAUNCHES)
+    fwd0, bwd0, plain0 = flash_ops.LAUNCHES, flash_ops.BWD_LAUNCHES, flash_ops.PLAIN_BWD_CALLS
+    fwd_dim0, bwd_dim0 = dict(flash_ops.LAUNCHES_BY_DIM), dict(flash_ops.BWD_LAUNCHES_BY_DIM)
+
+    # the quickstart, then a trace of its session's query
+    quick = load_file("examples/torch_quickstart.py")
+    qs, dt = run_example(fails, "torch_quickstart", quick.main, [])
+    trace_path = os.path.join(out_dir, "quickstart_trace.json.gz")
+    if qs is not None:
+        fails.check(qs["cache_hit"] and qs["rows"] == qs["mr_rows"] == qs["raw_rows"] == qs["reference_rows"],
+                    "torch_quickstart: SQL, MapReduce, the raw plan and the ReferenceInterpreter disagree")
+        with qs["session"].profile() as qt:
+            qs["session"].sql(quick.QUERY)
+        os.makedirs(out_dir, exist_ok=True)
+        qt.save(trace_path)
+        report["quickstart"] = {"seconds": dt, "agg_methods": qs["agg_methods"], "launches": qs["launches"],
+                                "cache_stats": qs["cache_stats"]}
+    del qs
+
+    # the web-log session at the reference header's size
+    weblog = load_file("examples/torch_bigdata_sql.py")
+    bd, dt = run_example(fails, "torch_bigdata_sql", weblog.main, ["--rows", str(EXAMPLE_ROWS)])
+    if bd is not None:
+        t0 = time.perf_counter()
+        want = weblog_oracle(bd["tables"])
+        rows = []
+        for entry, w in zip(bd["queries"], want):
+            res = next(iter(entry["results"].values()))
+            ok = fails.check(weblog_agree(res, w), f"torch_bigdata_sql: {entry['label']} disagrees with numpy")
+            rows.append({"label": entry["label"], "ok": ok, "plan": entry["plan"], "launches": entry["launches"],
+                         "ms": entry["elapsed_s"] * 1e3, "cache_hit": entry["cache_hit"]})
+        fails.check(len(rows) == len(want), f"torch_bigdata_sql ran {len(rows)} of {len(want)} queries")
+        hits = [r["cache_hit"] for r in rows]
+        fails.check(hits[8:10] == [True, True], f"torch_bigdata_sql: the repeated url query and the url "
+                                                f"MapReduce job are not plan-cache hits ({hits})")
+        fails.check(bd["coverage"], "torch_bigdata_sql: the chunked execution's coverage fails")
+        print(f"  {len(rows)} results against numpy at {EXAMPLE_ROWS} rows in {time.perf_counter() - t0:.1f} s: "
+              f"{sum(r['ok'] for r in rows)} agree; cache hits {hits}", flush=True)
+        report["bigdata_sql"] = {"seconds": dt, "session_ms": bd["session_ms"], "queries": rows,
+                                 "cache_stats": bd["cache_stats"], "distribution": str(bd["distribution"]),
+                                 "schedule": bd["schedule"]}
+    del bd
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # gemma2-9b at published width, twice
+    serve = load_file("examples/torch_serve_lm.py")
+    layers = get_config(SERVE_ARCH).n_layers  # EXAMPLE_SERVE serves it unreduced
+    rec = flash_recorder(flash_ops, plain, agreement, fails)
+    rec.hold = lambda label, n: n % layers in (0, layers - 1)
+    runs = []
+    with rec:
+        for i in range(2):
+            rec.label = f"example run {i}"
+            # run 0 checked; run 1 unchecked, so that its times hold no check
+            with (contextlib.nullcontext() if i == 0 else rec.paused()):
+                out, dt = run_example(fails, "torch_serve_lm", serve.main, EXAMPLE_SERVE)
+            gc.collect()
+            torch.cuda.empty_cache()
+            if out is None:
+                continue
+            out["wall_s"] = dt
+            runs.append(out)
+            fails.check(out["flash_launches"] == {"generate": layers, "prefill": layers},
+                        f"torch_serve_lm: flash launches {out['flash_launches']}, not {layers} a prefill")
+            fails.check(out["prefill_logits_finite"], "torch_serve_lm: non-finite logits")
+    bad = [k for k, st in rec.stats.items() if not st["ok"]]
+    fails.check(not bad and len(rec.stats) > 0, f"torch_serve_lm: flash calls disagreeing with the plain version "
+                                                f"{bad} (held {len(rec.stats)})")
+    if len(runs) == 2:
+        fails.check(bool(torch.equal(runs[0]["tokens"], runs[1]["tokens"])),
+                    "torch_serve_lm: two runs gave different greedy tokens")
+        report["serve_lm"] = {k: runs[1][k] for k in ("n_params", "prefill_ms", "decode_ms_per_token",
+                                                      "cache_bytes", "int8_cache_bytes", "max_abs_err", "k_path")}
+        report["serve_lm"]["seconds"] = [r["wall_s"] for r in runs]
+        report["serve_lm"]["checked_run"] = {k: runs[0][k] for k in ("prefill_ms", "decode_ms_per_token")}
+        report["serve_lm"]["flash_held"] = {str(k): st for k, st in rec.stats.items()}
+
+    # the 75.9M-parameter training run with one failure
+    train = load_file("examples/torch_train_lm.py")
+    bwd_before, plain_before = flash_ops.BWD_LAUNCHES, flash_ops.PLAIN_BWD_CALLS
+    fwd_before = flash_ops.LAUNCHES
+    # the first step's first and last layers' forward calls against the
+    # plain version; one backward call of the first step (the last layer's)
+    # and of the last (the first layer's) against the plain backward in
+    # float64, each judged after its step
+    train_layers: dict = {}
+    trec = flash_recorder(flash_ops, plain, agreement, fails)
+    trec.label = "train"
+    trec.hold = lambda label, n: n in (0, train_layers["n"] - 1)
+    last = EXAMPLE_TRAIN_RUN - 1
+    probe = BackwardProbe(flash_ops, lambda s: {0: 0, last: train_layers["n"] - 1}.get(s, -1), flash_judge)
+    bwd_checks: list = []
+    check_s = [0.0]
+    make_step = train.make_train_step
+
+    def probed_step(model, opt_cfg, spec):
+        step_fn = make_step(model, opt_cfg, spec)
+        train_layers["n"] = model.cfg.n_layers
+
+        def step(*a):
+            out = step_fn(*a)
+            if probe.step in (0, last):
+                t0 = time.perf_counter()
+                bwd_checks.append(dict(probe.check(), step=probe.step - 1))
+                check_s[0] += time.perf_counter() - t0
+            else:
+                probe.skip()
+            return out
+
+        return step
+
+    compare = trec.compare
+
+    def timed_compare(args, kw, out):
+        t0 = time.perf_counter()
+        agree = compare(args, kw, out)
+        check_s[0] += time.perf_counter() - t0
+        return agree
+
+    trec.compare = timed_compare
+    train.make_train_step = probed_step
+    with tempfile.TemporaryDirectory() as tmp:
+        with trec, probe:
+            tr, dt = run_example(fails, "torch_train_lm", train.main, EXAMPLE_TRAIN + ["--ckpt-dir", tmp])
+        if tr is not None:
+            losses = tr["losses"]
+            fails.check(len(losses) == EXAMPLE_TRAIN_RUN, f"torch_train_lm ran {len(losses)} steps, not "
+                                                          f"{EXAMPLE_TRAIN_RUN}")
+            fwd_bad = [k for k, st in trec.stats.items() if not st["ok"]]
+            fails.check(not fwd_bad and sum(st["calls"] for st in trec.stats.values()) == 2,
+                        f"torch_train_lm: forward calls disagreeing with the plain version {fwd_bad} "
+                        f"(held {trec.stats})")
+            fails.check([c["step"] for c in bwd_checks] == [0, last] and all(c["ok"] for c in bwd_checks),
+                        f"torch_train_lm: backward calls against the plain backward in float64: {bwd_checks}")
+            fails.check(tr["restored_from"] == [EXAMPLE_TRAIN_RESTORE] and tr["final_step"] == EXAMPLE_TRAIN_STEPS,
+                        f"torch_train_lm: restored from {tr['restored_from']}, ended at {tr['final_step']}")
+            fails.check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+                        f"torch_train_lm: loss {losses[0]} -> {losses[-1]}")
+            n_layers = tr["n_layers"]
+            fwd, bwd = flash_ops.LAUNCHES - fwd_before, flash_ops.BWD_LAUNCHES - bwd_before
+            fails.check(fwd == bwd == n_layers * len(losses) and flash_ops.PLAIN_BWD_CALLS == plain_before,
+                        f"torch_train_lm: {fwd} flash and {bwd} backward launches over {len(losses)} steps of "
+                        f"{n_layers} layers, {flash_ops.PLAIN_BWD_CALLS - plain_before} plain backward calls")
+            t0 = time.perf_counter()
+            _, final = CheckpointManager(tmp).restore(tr["state"], tr["final_step"])
+            restore_s = time.perf_counter() - t0
+            bitwise = states_equal(tr["state"], final)
+            fails.check(bitwise, "torch_train_lm: the final checkpoint does not restore bitwise")
+            report["train_lm"] = {"seconds": dt, "train_s": tr["seconds"], "steps_run": len(losses),
+                                  "step_ms": tr["seconds"] * 1e3 / len(losses), "check_s": check_s[0],
+                                  "tok_s": tr["tok_s"], "loss": [losses[0], losses[-1]],
+                                  "restored_from": tr["restored_from"], "restore_s": restore_s,
+                                  "restores_bitwise": bitwise, "n_params": tr["n_params"], "flash": fwd,
+                                  "flash_bwd": bwd, "flash_held": {str(k): st for k, st in trec.stats.items()},
+                                  "bwd_check": bwd_checks}
+            print(f"  {len(losses)} steps in {tr['seconds']:.1f} s ({report['train_lm']['step_ms']:.1f} ms a step "
+                  f"with checkpoints and {check_s[0]:.2f} s of checks); {fwd} flash, {bwd} flash backward "
+                  f"launches; forward calls held {[st['worst'] for st in trec.stats.values()]} (worst/limit), "
+                  f"backward calls of steps {[c['step'] for c in bwd_checks]} against float64: worst/limit "
+                  f"{[c['worst'] for c in bwd_checks]}; final checkpoint restored in {restore_s:.2f} s, "
+                  f"bitwise: {bitwise}", flush=True)
+        del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the tools
+    irlint = load_file("scripts/torch_irlint.py")
+    rc, _ = run_example(fails, "torch_irlint", irlint.main, ["--demo"])
+    fails.check(rc == IRLINT_DEMO_RC, f"torch_irlint --demo exited {rc}, not {IRLINT_DEMO_RC}")
+    summary = load_file("scripts/torch_trace_summary.py")
+    rc_ts, _ = run_example(fails, "torch_trace_summary", summary.main, [trace_path, "--dispatch"])
+    fails.check(rc_ts == 0, f"torch_trace_summary exited {rc_ts}")
+    probe = load_file("scripts/torch_probe.py")
+    pr, _ = run_example(fails, "torch_probe", probe.main, EXAMPLE_PROBE)
+    fails.check(pr is not None and pr["memory"]["peak_device_bytes"] > 0, "torch_probe printed no record")
+    report["tools"] = {"irlint_rc": rc, "trace_summary_rc": rc_ts,
+                       "probe": None if pr is None else {"t_trace_s": pr["t_trace_s"], "memory": pr["memory"]}}
+
+    launches = {
+        "segreduce": {k: v - seg0[k] for k, v in segreduce_ops.LAUNCHES.items()},
+        "flash": flash_ops.LAUNCHES - fwd0,
+        "flash_bwd": flash_ops.BWD_LAUNCHES - bwd0,
+        "flash_by_dim": {d: n - fwd_dim0.get(d, 0) for d, n in flash_ops.LAUNCHES_BY_DIM.items()},
+        "flash_bwd_by_dim": {d: n - bwd_dim0.get(d, 0) for d, n in flash_ops.BWD_LAUNCHES_BY_DIM.items()},
+    }
+    fails.check(flash_ops.PLAIN_BWD_CALLS == plain0, "phase 29 called the plain flash backward")
+    report["launches"] = launches
+    record["examples"] = report
+    print(f"  launches in the phase: segreduce {launches['segreduce']}, flash {launches['flash']}, flash backward "
+          f"{launches['flash_bwd']}", flush=True)
+    return launches
+
+
 def nvidia_smi_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -3940,8 +4330,21 @@ def main(argv=None) -> int:
     reckoning_path(torch, fails, record, train, flash_ops, wkv6_ops, args.seed,
                    os.path.join(os.path.dirname(args.out), "reckoning"))
     print(f"  {time.perf_counter() - t0:.0f} s; on {nvidia_smi_line()}", flush=True)
+
+    # 29. the port's examples and command-line tools
+    phase_start[29] = time.perf_counter() - t_start
+    print("the port's examples and tools (examples/torch_*.py, scripts/torch_*.py), in process:", flush=True)
+    t0 = time.perf_counter()
+    example_launches = examples_path(torch, flash_ops, flash_attention_plain, agreement, fails, record,
+                                     os.path.dirname(args.out))
+    for kname in launches:
+        launches[kname] += example_launches["segreduce"][kname]
+    flash_launches += example_launches["flash"]
+    bwd_launches += example_launches["flash_bwd"]
+    print(f"  {time.perf_counter() - t0:.0f} s; on {nvidia_smi_line()}", flush=True)
     trains = (train, moe_train, hubert_train, gemma3_train, zamba2_train)
-    fwd_by_dim, bwd_by_dim = {}, {}
+    fwd_by_dim = dict(example_launches["flash_by_dim"])
+    bwd_by_dim = dict(example_launches["flash_bwd_by_dim"])
     for rep_ in [v for k, v in record.items() if k.startswith("serve_")]:
         for d, n in rep_.get("launches_by_dim", {}).items():
             fwd_by_dim[d] = fwd_by_dim.get(d, 0) + n

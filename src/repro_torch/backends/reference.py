@@ -52,6 +52,7 @@ class ReferenceInterpreter:
         self.scalars: Dict[str, Any] = {}
         self.arrays: Dict[str, Dict[Any, Any]] = {}
         self.results: Dict[str, List[Tuple]] = {}
+        self.value_rows: Dict[Tuple[str, str], Dict[Any, List[int]]] = {}
         env: Dict[str, Any] = dict(self.params)
         for s in program.body:
             self._exec(s, env)
@@ -96,8 +97,7 @@ class ReferenceInterpreter:
             return list(range(len(self.db[ix.table])))
         if isinstance(ix, FieldMatch):
             v = self._eval(ix.value, env)
-            col = self.db[ix.table].field(ix.field)
-            return [i for i in range(len(col)) if _pyval(col[i]) == v]
+            return list(self._rows_by_value(ix.table, ix.field).get(v, ()))
         if isinstance(ix, Distinct):
             col = self.db[ix.table].field(ix.field)
             vals = np.asarray(col)
@@ -117,6 +117,19 @@ class ReferenceInterpreter:
             k = env[ix.part_var]
             return [list(x) for x in np.array_split(base_rows, ix.n_parts)][k]
         raise TypeError(f"cannot iterate {ix!r}")
+
+    def _rows_by_value(self, table: str, field: str) -> Dict[Any, List[int]]:
+        """{value: the rows holding it, in order} of one column, built once
+        a run: a FieldMatch looks its value up here instead of scanning the
+        column (dict lookup matches as ``==`` does, NaN matching nothing)."""
+        index = self.value_rows.get((table, field))
+        if index is None:
+            index = {}
+            # tolist() gives the Python scalars _pyval gives
+            for i, x in enumerate(np.asarray(self.db[table].field(field)).tolist()):
+                index.setdefault(x, []).append(i)
+            self.value_rows[(table, field)] = index
+        return index
 
     # -- statements ----------------------------------------------------------
     def _exec(self, s: Stmt, env: Dict[str, Any]) -> None:

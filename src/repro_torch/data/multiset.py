@@ -36,7 +36,7 @@ class PlainColumn:
     @property
     def nbytes(self) -> int:
         if self.values.dtype == object:
-            return int(sum(len(str(v)) for v in self.values))
+            return int(sum(map(len, map(str, self.values.tolist()))))
         return int(self.values.nbytes)
 
 
@@ -94,7 +94,18 @@ Column = Any  # PlainColumn | CompressedRangeColumn | DictColumn
 
 
 def dict_encode(values: np.ndarray) -> DictColumn:
-    dictionary, codes = np.unique(np.asarray(values), return_inverse=True)
+    values = np.asarray(values)
+    if values.dtype == object:
+        vals = values.tolist()
+        if all(type(v) is str for v in vals):
+            # np.unique sorts an object array one Python comparison at a time
+            # (~5 s for 2M urls); the sorted set of its strings is the same
+            # dictionary, and each string's place in it the same code
+            dictionary = sorted(set(vals))
+            index = {v: i for i, v in enumerate(dictionary)}
+            codes = np.fromiter(map(index.__getitem__, vals), dtype=np.int32, count=len(vals))
+            return DictColumn(codes, np.array(dictionary, dtype=object))
+    dictionary, codes = np.unique(values, return_inverse=True)
     return DictColumn(codes.astype(np.int32), dictionary)
 
 

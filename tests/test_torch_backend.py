@@ -276,3 +276,28 @@ def test_signed_zero_vmap_merge_matches_jax(method):
                     OptimizeOptions(n_parts=4, agg_method=method, parallel_exec="vmap", device="cpu"))
     assert tres.plan.lowering.choices.parallel == "vmap" and tres.plan.lowering.spec.n_parts == 4
     assert _bits(tres.plan.run()["R"]) == _bits(jres.plan.run()["R"])
+
+
+# the reference interpreter's FieldMatch (a join's probe) looks its value
+# up in a per-column index of rows: it matches as the JAX package's scan
+# of the column does, NaN matching nothing and -0.0 matching 0.0
+FIELD_MATCH_KEYS = {
+    "ints": (np.array([3, 1, 3, 7, 1, 3], np.int32), np.array([1, 3, 5], np.int32)),
+    "floats": (np.array([0.5, np.nan, -0.0, 2.0, np.nan, 0.5], np.float32),
+               np.array([np.nan, 0.0, 0.5, 2.0, 0.5], np.float32)),
+    "int_against_float": (np.array([1, 2, 2, 4], np.int64), np.array([1.0, 2.0, 2.5, 4.0], np.float64)),
+}
+
+
+@pytest.mark.parametrize("keys", sorted(FIELD_MATCH_KEYS))
+def test_reference_interpreter_field_match_matches_the_jax_scan(keys):
+    from repro.backends.reference import ReferenceInterpreter as JaxInterpreter
+    from repro_torch.backends import ReferenceInterpreter
+
+    probe, build = FIELD_MATCH_KEYS[keys]
+    tables = {"A": {"b_id": probe, "f": np.arange(len(probe), dtype=np.int32), "w": np.ones(len(probe), np.int32)},
+              "B": {"id": build, "g": np.arange(len(build), dtype=np.int32), "v": 10 * np.arange(len(build))}}
+    sql = "SELECT a.f, b.g FROM A a, B b WHERE a.b_id = b.id"
+    want = JaxInterpreter(_jax_db(tables)).run(jax_sql(sql, JOIN_SCHEMAS))
+    got = ReferenceInterpreter(database_from_columns(tables)).run(sql_to_forelem(sql, JOIN_SCHEMAS))
+    assert got == want and len(got["R"]) > 0

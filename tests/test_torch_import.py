@@ -6,6 +6,8 @@ import re
 import subprocess
 import sys
 
+import pytest
+
 from test_torch_threads import cap_torch_threads, subprocess_env
 
 cap_torch_threads()
@@ -97,3 +99,41 @@ def test_port_sources_name_neither_jax_nor_repro():
                 if _FORBIDDEN.match(line):
                     bad.append(f"{path}:{ln}: {line.strip()}")
     assert bad == []
+
+
+# the port's examples and command-line tools (each runs on the card unless
+# given --device cpu; the trace summary and the probe need no card)
+TOOLS = [
+    "examples/torch_quickstart.py",
+    "examples/torch_bigdata_sql.py",
+    "examples/torch_serve_lm.py",
+    "examples/torch_train_lm.py",
+    "scripts/torch_irlint.py",
+    "scripts/torch_trace_summary.py",
+    "scripts/torch_probe.py",
+]
+
+_LOAD_TOOLS = """
+import importlib.util, json, sys
+for i, path in enumerate(sys.argv[1:]):
+    spec = importlib.util.spec_from_file_location(f"tool{i}", path)
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m == "repro" or m.startswith("repro."))
+print(json.dumps(bad))
+"""
+
+
+@pytest.mark.parametrize("rel", TOOLS)
+def test_tool_sources_name_neither_jax_nor_repro(rel):
+    with open(os.path.join(ROOT, rel)) as fh:
+        bad = [f"{rel}:{ln}: {line.strip()}" for ln, line in enumerate(fh, 1) if _FORBIDDEN.match(line)]
+    assert bad == []
+
+
+def test_loading_the_tools_loads_neither_jax_nor_repro():
+    env = subprocess_env(PYTHONPATH=os.path.join(ROOT, "src"))
+    out = subprocess.run([sys.executable, "-c", _LOAD_TOOLS] + [os.path.join(ROOT, t) for t in TOOLS],
+                         capture_output=True, text=True, env=env, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []

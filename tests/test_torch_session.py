@@ -214,3 +214,31 @@ def test_cost_model_prices_the_kernel_by_device():
     assert CostModel(stats, device="cpu")._kernel_per_elem() == c.c_kernel_fallback
     fitted = calibrate(n_rows=2000, n_keys=16, repeats=1, device="cpu")
     assert fitted.c_dense == c.c_dense and fitted.c_onehot > 0 and fitted.c_sort > 0
+
+
+# dictionary encoding (the reformat pass) takes a sorted set of an object
+# column's strings in place of np.unique's Python comparisons; both give
+# the JAX package's dictionary and codes, and other columns take np.unique
+DICT_COLUMNS = {
+    "urls": np.array([f"http://s{u % 97}.com/p{u}" for u in np.random.default_rng(0).zipf(1.3, 5000) % 3000],
+                     dtype=object),
+    "odd_strings": np.array(["b", "", "é", "a", "b", "Z", "", "ab"], dtype=object),
+    "empty": np.array([], dtype=object),
+    "fixed_width": np.array(["x", "yy", "x", "z"]),
+    "ints_as_objects": np.array([3, 1, 3, 2], dtype=object),
+    "ints": np.array([5, 5, -1, 7], np.int32),
+}
+
+
+@pytest.mark.parametrize("name", sorted(DICT_COLUMNS))
+def test_dict_encode_and_nbytes_match_the_references(name):
+    from repro.data.multiset import PlainColumn as JaxPlain
+    from repro.data.multiset import dict_encode as jax_dict_encode
+    from repro_torch.data.multiset import PlainColumn, dict_encode
+
+    values = DICT_COLUMNS[name]
+    got, want = dict_encode(values), jax_dict_encode(values)
+    assert got.codes.dtype == want.codes.dtype == np.int32
+    assert np.array_equal(got.codes, want.codes)
+    assert got.dictionary.dtype == want.dictionary.dtype and list(got.dictionary) == list(want.dictionary)
+    assert PlainColumn(values).nbytes == JaxPlain(values).nbytes
